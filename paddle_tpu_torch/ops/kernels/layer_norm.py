@@ -1,0 +1,102 @@
+"""Row LayerNorm: the CUDA kernel's wrapper and its plain PyTorch version.
+
+Port of ``paddle_tpu/ops/pallas_kernels.py`` ``fused_layer_norm`` (the Pallas
+forward ``_ln_fwd_kernel``). Statistics are fp32 (two-pass centred
+variance), the output is in x's dtype. The kernel is
+``csrc/layer_norm.cu``; CPU tensors take :func:`_layer_norm_reference`.
+"""
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch.core.enforce import EnforceNotMet
+from paddle_tpu_torch.ops.kernels import _build, registry
+
+__all__ = ["fused_layer_norm"]
+
+NAME = "fused_layer_norm"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: widest row the kernel keeps in registers: 32 lanes x 8 vectors of 16 B
+_MAX_HIDDEN = {torch.float32: 1024, torch.bfloat16: 2048}
+_SIGNATURES = {
+    "pt_layer_norm_fwd": [ctypes.c_void_p] * 6 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p],
+}
+
+
+def fused_layer_norm(x, gamma, beta, eps=1e-12, return_stats=False):
+    """LayerNorm over the last axis of ``x`` [..., H] with fp32 statistics;
+    ``gamma``/``beta`` [H]. Returns y in x's dtype, or (y, mu, rstd) with
+    fp32 mu and rstd of shape x.shape[:-1] when ``return_stats``.
+
+    CPU tensors take the plain PyTorch body; CUDA tensors launch the
+    kernel or raise."""
+    return registry.dispatch(NAME, x, gamma, beta, eps=eps,
+                             return_stats=return_stats)
+
+
+def _layer_norm_reference(x, gamma, beta, eps=1e-12, return_stats=False):
+    """Plain PyTorch LayerNorm with the math of the TPU kernel."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = ((x32 - mu) * rstd * gamma.float() + beta.float()).to(x.dtype)
+    if return_stats:
+        return y, mu[..., 0], rstd[..., 0]
+    return y
+
+
+def _layer_norm_cuda(x, gamma, beta, eps=1e-12, return_stats=False):
+    """Launch ``csrc/layer_norm.cu`` on the current stream (no sync)."""
+    if x.device.type != "cuda":
+        raise EnforceNotMet(f"{NAME}: the kernel takes CUDA tensors, got x "
+                            f"on {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise EnforceNotMet(f"{NAME}: x must be float32 or bfloat16, got "
+                            f"{x.dtype}")
+    if x.dim() < 1 or not x.is_contiguous():
+        raise EnforceNotMet(f"{NAME}: x must be a contiguous tensor of rank "
+                            f">= 1, got shape {tuple(x.shape)} strides "
+                            f"{x.stride()}")
+    h = x.shape[-1]
+    vec = 16 // x.element_size()
+    if h % vec or h > _MAX_HIDDEN[x.dtype]:
+        raise EnforceNotMet(
+            f"{NAME}: the kernel takes a last axis that is a multiple of "
+            f"{vec} and at most {_MAX_HIDDEN[x.dtype]} for {x.dtype}, got "
+            f"{h}")
+    for nm, t in (("gamma", gamma), ("beta", beta)):
+        if t.device != x.device or tuple(t.shape) != (h,):
+            raise EnforceNotMet(
+                f"{NAME}: {nm} must be [{h}] on {x.device}, got "
+                f"{tuple(t.shape)} on {t.device}")
+    _build.require_no_grad(NAME, x, gamma, beta)
+    # the kernel reads fp32 affine parameters
+    gamma = gamma.to(torch.float32).contiguous()
+    beta = beta.to(torch.float32).contiguous()
+    for nm, t in (("x", x), ("gamma", gamma), ("beta", beta)):
+        if t.data_ptr() % 16:
+            raise EnforceNotMet(f"{NAME}: {nm} must be 16-byte aligned for "
+                                "the kernel's vector loads")
+    n = x.numel() // h
+    y = torch.empty_like(x)
+    mu = rstd = None
+    if return_stats:
+        mu = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mu)
+    lib = _build.load("layer_norm", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pt_layer_norm_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            None if mu is None else mu.data_ptr(),
+            None if rstd is None else rstd.data_ptr(),
+            n, h, float(eps), _DTYPE_CODES[x.dtype], stream)
+    _build.check_launch(lib, NAME, err)
+    registry.get_kernel(NAME).count_launch()
+    if return_stats:
+        return y, mu, rstd
+    return y

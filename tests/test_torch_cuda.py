@@ -1,0 +1,150 @@
+"""Card-only tests of the port: the CUDA kernels against their plain
+PyTorch bodies, and the model through the kernels against the CPU.
+
+Every test here is marked ``cuda`` and skips without a card; whether there
+is one is decided inside the ``cuda`` fixture, never at import. The file
+imports neither JAX nor the JAX package, so on the machine with the card
+(which has no JAX) it runs without the suite's conftest:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: the kernel and its plain body both compute in fp32 and round
+once to the output dtype; sums run in another order, which may flip that
+rounding by one unit in the last place (rtol 2^-7 for bf16) or move fp32
+results by ~1e-6 (1e-5).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.core.enforce import EnforceNotMet
+from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.ops import kernels as K
+
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m cuda)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tols(dtype):
+    return (BF16_RTOL, 1e-4) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,hidden,dtype", [
+    (4096, 768, torch.bfloat16), (1000, 768, torch.float32),
+    (640, 768, torch.bfloat16), (37, 1024, torch.bfloat16),
+    (5, 1024, torch.float32), (3, 40, torch.bfloat16)])
+def test_layer_norm_kernel_matches_plain(cuda, rows, hidden, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = (torch.randn(rows, hidden, generator=gen, device=cuda) * 3 + 1
+         ).to(dtype)
+    g = torch.randn(hidden, generator=gen, device=cuda)
+    b = torch.randn(hidden, generator=gen, device=cuda)
+    before = K.get_kernel("fused_layer_norm").launches
+    y, mu, rstd = K.fused_layer_norm(x, g, b, return_stats=True)
+    yr, mur, rstdr = K.get_body("fused_layer_norm", "reference")(
+        x, g, b, return_stats=True)
+    torch.cuda.synchronize()
+    assert K.get_kernel("fused_layer_norm").launches == before + 1
+    rtol, _ = _tols(dtype)
+    torch.testing.assert_close(y.float(), yr.float(), atol=1e-5, rtol=rtol)
+    torch.testing.assert_close(mu, mur, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstdr, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,D,dtype,causal,with_bias", [
+    (2, 12, 2048, 64, torch.bfloat16, False, True),
+    (1, 12, 1024, 64, torch.bfloat16, True, False),
+    (2, 4, 1000, 64, torch.float32, False, True),
+    (2, 4, 200, 16, torch.float32, True, True),
+    (2, 4, 300, 32, torch.bfloat16, False, False),
+    (1, 1, 1, 64, torch.float32, True, False)])
+def test_flash_kernel_matches_plain(cuda, B, H, S, D, dtype, causal,
+                                    with_bias):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(B, H, S, D, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    bias = None
+    if with_bias:
+        bias = torch.zeros(B, S, device=cuda)
+        bias[:, -(S // 10):] = -1e9
+    before = K.get_kernel("flash_attention").launches
+    o, lse = K.flash_attention(q, k, v, bias=bias, causal=causal,
+                               return_lse=True)
+    orf, lser = K.get_body("flash_attention", "reference")(
+        q, k, v, bias=bias, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert K.get_kernel("flash_attention").launches == before + 1
+    rtol, atol = _tols(dtype)
+    torch.testing.assert_close(o.float(), orf.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lser, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_strided_head_views(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, S, N, D = 2, 300, 4, 64
+    qkv = torch.randn(B, S, 3 * N * D, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = (t.reshape(B, S, N, D).transpose(1, 2)
+               for t in qkv.split(N * D, dim=-1))
+    assert not q.is_contiguous()
+    o = K.flash_attention(q, k, v)
+    oc = K.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(o, oc, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    g, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(EnforceNotMet, match="forward-only"):
+        K.fused_layer_norm(x, g, b)
+    with torch.no_grad():
+        K.fused_layer_norm(x, g, b)
+    with pytest.raises(EnforceNotMet, match="float32 or bfloat16"):
+        K.fused_layer_norm(x.detach().half(), g, b)
+    with pytest.raises(EnforceNotMet, match="contiguous"):
+        K.fused_layer_norm(torch.randn(64, 4, device=cuda).T, g, b)
+    with pytest.raises(EnforceNotMet, match="multiple of"):
+        K.fused_layer_norm(torch.randn(4, 66, device=cuda),
+                           torch.ones(66, device=cuda),
+                           torch.zeros(66, device=cuda))
+    q = torch.randn(1, 2, 16, 128, device=cuda)
+    with pytest.raises(EnforceNotMet, match="head_dim"):
+        K.flash_attention(q, q, q)
+    with pytest.raises(EnforceNotMet, match="CUDA device"):
+        K.flash_attention(q[..., :64], q[..., :64].cpu(), q[..., :64])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_bert_on_card_matches_cpu(cuda, impl):
+    cfg = bert.bert_tiny(dtype=torch.float32, attention_impl=impl)
+    params = bert.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    batch = bert.synthetic_batch(cfg, 2, 48, seed=1, max_preds=6)
+    batch["attention_mask"][1, 40:] = 0
+    on_card = {k: [{n: t.to(cuda) for n, t in lp.items()} for lp in v]
+               if isinstance(v, list) else {n: t.to(cuda) for n, t in
+                                            v.items()}
+               for k, v in params.items()}
+    with torch.inference_mode():
+        loss_cpu = float(bert.mlm_loss(params, cfg, batch))
+        K.reset_launch_counts()
+        loss_card = float(bert.mlm_loss(on_card, cfg, batch))
+    counts = K.launch_counts()
+    assert counts["fused_layer_norm"] == 2 * cfg.num_layers + 2
+    assert counts["flash_attention"] == (cfg.num_layers if impl == "flash"
+                                         else 0)
+    assert np.isfinite(loss_card)
+    assert abs(loss_cpu - loss_card) <= 1e-4, (loss_cpu, loss_card)

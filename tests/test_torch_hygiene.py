@@ -1,0 +1,102 @@
+"""The port stands alone: no JAX, nothing of paddle_tpu, no CPU fallback.
+
+``paddle_tpu_torch`` starts with the string ``paddle_tpu``, so every check
+here tells the two packages apart by the full module name.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.models import bert
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "paddle_tpu_torch")
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|paddle_tpu)(?:\.|\s|$)"
+    r"|(?:import_module|__import__)\(\s*['\"](?:jax|jaxlib|paddle_tpu)"
+    r"(?:\.|['\"])", re.M)
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_forbidden_pattern_tells_the_packages_apart():
+    assert _FORBIDDEN.search("import jax\n")
+    assert _FORBIDDEN.search("from paddle_tpu.ops import nn\n")
+    assert _FORBIDDEN.search("import paddle_tpu\n")
+    assert _FORBIDDEN.search("x = importlib.import_module('jax')\n")
+    assert not _FORBIDDEN.search("import paddle_tpu_torch\n")
+    assert not _FORBIDDEN.search("from paddle_tpu_torch.ops import kernels\n")
+
+
+def test_port_sources_import_no_jax_and_no_paddle_tpu():
+    srcs = _port_sources()
+    assert len(srcs) >= 10
+    for path in srcs:
+        with open(path) as f:
+            m = _FORBIDDEN.search(f.read())
+        assert m is None, f"{path}: {m.group(0)!r}"
+
+
+def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch, paddle_tpu_torch.ops.kernels\n"
+        "import paddle_tpu_torch.models.bert\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def _run_chip_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_without_a_card_fails_with_a_message():
+    r = _run_chip_smoke(REPO)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = _run_chip_smoke(str(tmp_path))
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError,
+                       match="no CUDA device"):
+        paddle_tpu_torch.default_device()
+    cfg = bert.bert_tiny()
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        bert.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        bert.params_from_numpy({}, cfg)
+    assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
