@@ -1,17 +1,19 @@
-"""BERT encoder and masked-LM head: the port of paddle_tpu/models/bert.py.
+"""BERT encoder, masked-LM head and pretraining step: the port of
+paddle_tpu/models/bert.py.
 
-This slice is inference: ``forward``, the masked-LM head and its loss, with
-the parameter tree keyed exactly like the JAX package's (``embed.word``,
-``layers[3].qkv_w``, ``mlm.dense_w``, ...) and weights kept ``[in, out]``, so
-JAX parameters cross over by name through :func:`params_from_numpy` with
-nothing transposed. Parameters are fp32 masters; activations run in
-``cfg.dtype`` (bf16 by default), cast per use like the JAX code.
+``forward``, the masked-LM head and its loss, and :func:`make_train_step`
+(Adam through ``paddle_tpu_torch.optimizer``), with the parameter tree keyed
+exactly like the JAX package's (``embed.word``, ``layers[3].qkv_w``,
+``mlm.dense_w``, ...) and weights kept ``[in, out]``, so JAX parameters
+cross over by name through :func:`params_from_numpy` with nothing
+transposed. Parameters are fp32 masters; activations run in ``cfg.dtype``
+(bf16 by default), cast per use like the JAX code.
 
 Every LayerNorm runs the ``fused_layer_norm`` kernel and attention at
 S > 1024 (or under ``attention_impl="flash"``) the ``flash_attention``
-kernel; the plain matrix products stay ``torch.matmul``, as the JAX package
-left them to XLA. The training step, sharding specs and ring attention are
-not ported yet.
+kernel, both with their gradients (the flash backward kernels); the plain
+matrix products stay ``torch.matmul``, as the JAX package left them to
+XLA. Sharding specs, the mesh and ring attention are not ported yet.
 """
 
 import dataclasses
@@ -20,14 +22,17 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.core.enforce import EnforceNotMet
+from paddle_tpu_torch.core.tree import leaves, map_tree
 from paddle_tpu_torch.ops.kernels import flash_attention, fused_layer_norm
 
 __all__ = ["BertConfig", "bert_base", "bert_large", "ernie_base",
            "bert_tiny", "init_params", "params_from_numpy", "forward",
-           "mlm_loss", "synthetic_batch", "flops_per_token"]
+           "mlm_loss", "make_train_step", "synthetic_batch",
+           "flops_per_token"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +46,9 @@ class BertConfig:
     type_vocab: int = 2
     dropout: float = 0.1             # kept for parity; forward applies none
     dtype: torch.dtype = torch.bfloat16   # activation/compute dtype
+    # recompute each block in the backward (torch.utils.checkpoint), as
+    # jax.checkpoint per block: saved activations for FLOPs
+    remat: bool = True
     # "auto": dense for S <= 1024, the flash kernel beyond; "dense";
     # "flash". ("ring" needs a mesh and is not ported yet.)
     attention_impl: str = "auto"
@@ -78,6 +86,7 @@ def bert_tiny(**kw):
     kw.setdefault("num_heads", 4)
     kw.setdefault("intermediate", 128)
     kw.setdefault("max_seq", 64)
+    kw.setdefault("remat", False)
     return BertConfig(**kw)
 
 
@@ -255,8 +264,12 @@ def forward(params, cfg, input_ids, token_type_ids=None,
         am = _index(attention_mask, dev)
         mask_bias = torch.where(am[:, None, None, :] > 0, 0.0,
                                 -1e9).to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x = _block(lp, x, mask_bias, cfg)
+        if remat:
+            x = checkpoint(_block, lp, x, mask_bias, cfg, use_reentrant=False)
+        else:
+            x = _block(lp, x, mask_bias, cfg)
     return x
 
 
@@ -304,6 +317,62 @@ def mlm_loss(params, cfg, batch):
                          batch["masked_weights"])
     logits = _mlm_head(params, cfg, hidden)
     return _mlm_xent(logits, batch["labels"], batch["weights"])
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+def _loss_and_grads(params, cfg, batch):
+    """:func:`mlm_loss` and its grads with respect to every fp32 leaf of
+    params (a tree like params; zeros for a leaf the batch does not reach,
+    as JAX gives)."""
+    live = map_tree(lambda _, t: t.detach().requires_grad_(), params)
+    flat = leaves(live)
+    loss = mlm_loss(live, cfg, batch)
+    grads = iter(torch.autograd.grad(loss, flat, materialize_grads=True))
+    return loss.detach(), map_tree(lambda _, t: next(grads), live)
+
+
+def make_train_step(cfg, optimizer, steps_per_call=1, device=None):
+    """Returns (init_fn, step_fn), as the JAX package's ``make_train_step``
+    on one device (no mesh yet).
+
+    ``init_fn(generator)`` -> (params, opt_state) on ``device`` (the card
+    by default; ``generator`` as for :func:`init_params`).
+    ``step_fn(params, opt_state, batch)`` -> (loss, params, opt_state):
+    the grads of :func:`mlm_loss` over the fp32 leaves, then
+    ``optimizer.apply_gradients``, which updates params and opt_state **in
+    place** (the returned trees are the ones passed in; JAX donates them
+    instead). loss is a 0-d fp32 tensor on the device; reading it syncs.
+
+    ``steps_per_call > 1`` runs that many steps per call in a Python loop
+    and returns the last loss. Batch leaves (numpy arrays or tensors) may
+    carry a leading [steps_per_call] axis, one slice per step (told by 3-D
+    input_ids), or be plain: the same batch reused."""
+    device = resolve_device(device)
+
+    def init_fn(generator):
+        params = init_params(cfg, generator, device=device)
+        return params, optimizer.init(params)
+
+    def step_fn(params, opt_state, batch):
+        stacked = (steps_per_call > 1
+                   and np.ndim(batch["input_ids"]) == 3)
+        if stacked and np.shape(batch["input_ids"])[0] != steps_per_call:
+            raise ValueError(
+                f"stacked batch leading axis "
+                f"{np.shape(batch['input_ids'])[0]} != steps_per_call "
+                f"{steps_per_call}")
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+        for i in range(steps_per_call):
+            step_batch = ({k: v[i] for k, v in batch.items()} if stacked
+                          else batch)
+            loss, grads = _loss_and_grads(params, cfg, step_batch)
+            optimizer.apply_gradients(params, grads, opt_state)
+        return loss, params, opt_state
+
+    return init_fn, step_fn
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,10 @@ from paddle_tpu_torch.ops.kernels.registry import (  # noqa: F401
 )
 from paddle_tpu_torch.ops.kernels import attention as _attention
 from paddle_tpu_torch.ops.kernels import layer_norm as _layer_norm
+from paddle_tpu_torch.ops.kernels import optimizer as _optimizer
 from paddle_tpu_torch.ops.kernels.attention import flash_attention
 from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
+from paddle_tpu_torch.ops.kernels.optimizer import fused_adam
 
 register_kernel(
     _layer_norm.NAME, _layer_norm._layer_norm_reference,
@@ -25,9 +27,25 @@ register_kernel(
     _attention._flash_attention_cuda,
     source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
     replaces="paddle_tpu/ops/pallas_kernels.py:86")
+register_kernel(
+    _attention.DKDV, _attention._flash_bwd_dkdv_reference,
+    _attention._flash_bwd_dkdv_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+    replaces="paddle_tpu/ops/pallas_kernels.py:182")
+register_kernel(
+    _attention.DQ, _attention._flash_bwd_dq_reference,
+    _attention._flash_bwd_dq_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+    replaces="paddle_tpu/ops/pallas_kernels.py:230")
+register_kernel(
+    _optimizer.NAME, _optimizer._fused_adam_reference,
+    _optimizer._fused_adam_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/fused_adam.cu",
+    replaces="paddle_tpu/ops/pallas/optimizer.py:138")
 
 __all__ = [
-    "flash_attention", "fused_layer_norm", "register_kernel", "get_kernel",
+    "flash_attention", "fused_adam", "fused_layer_norm", "register_kernel",
+    "get_kernel",
     "list_kernels", "get_body", "selected_body", "dispatch",
     "launch_counts", "reset_launch_counts",
 ]

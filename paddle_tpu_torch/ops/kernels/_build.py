@@ -20,12 +20,10 @@ import subprocess
 import threading
 import time
 
-import torch
-
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "SOURCES", "NVCC_FLAGS",
-           "build", "load", "require_no_grad", "check_launch",
+           "build", "load", "check_launch",
            "source_path"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -37,6 +35,8 @@ _BUILD_DIR = os.path.join(
 SOURCES = {
     "layer_norm": "layer_norm.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
+    "fused_adam": "fused_adam.cu",
 }
 
 #: ``-Xptxas -v`` makes ptxas report registers, shared memory and spills
@@ -142,16 +142,6 @@ def load(name, signatures):
 
 class KernelLaunchError(EnforceNotMet):
     """CUDA refused a kernel launch."""
-
-
-def require_no_grad(kernel_name, *tensors):
-    """The kernels are forward-only for now: refuse inputs that require
-    grad, so an output without a gradient never passes for one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise EnforceNotMet(
-            f"{kernel_name}: the CUDA kernel is forward-only and has no "
-            "backward yet; call it under torch.no_grad() or "
-            "torch.inference_mode()")
 
 
 def check_launch(lib, kernel_name, err):

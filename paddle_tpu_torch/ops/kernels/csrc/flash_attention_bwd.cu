@@ -1,0 +1,338 @@
+// Flash-attention backward for Hopper (sm_90a): a first, plain SIMT version
+// of the two recompute kernels.
+//
+// Replaces: paddle_tpu/ops/pallas_kernels.py:_flash_bwd_dkdv_kernel (registry
+// name "flash_attention_bwd_dkdv") and :_flash_bwd_dq_kernel (registry name
+// "flash_attention_bwd_dq"), the two Pallas kernels of _flash_attention_bwd.
+//
+// What they compute: for q, k, v, dO [B, H, S, D] (fp32 or bf16, any strides
+// over B, H and S, unit stride over D), the forward's lse [B, H, S], delta =
+// sum_D dO * O [B, H, S] (both fp32), an optional additive key bias [B, S]
+// fp32 and an optional causal mask, with s = q k^T * scale + bias (causal:
+// -1e30 above the diagonal), p = exp(s - lse) and dz = p * (dO v^T - delta):
+//   dkdv: dK = dz^T (q * scale), dV = p^T dO   in k's / v's dtype
+//         dbh = sum over queries of dz        fp32 [B, H, S] (per-head bias grad)
+//   dq:   dQ = (dz k) * scale                 in q's dtype
+// Keys past S are never read and queries past S never contribute, so no
+// padded copies are made; the results equal the TPU wrapper's, which pads S
+// to 128 with a -1e30 key bias and zero dO rows.
+//
+// What bounds it on the H100: operations. Per (query, key) pair dK/dV does
+// four D-long dot products or updates (q.k, dO.v, dV += p dO, dK += dz q) and
+// dQ three (q.k, dO.v, dQ += dz k): at [8, 12, 2048, 64] bf16 that is ~206
+// and ~155 GFLOP, bounds of ~0.21 ms and ~0.16 ms on the tensor cores at
+// 989 TFLOP/s.
+//
+// What the design does about it (first version: right and simple, not fast):
+// both kernels run in fp32 on the SIMT cores (67 TFLOP/s peak), so they sit
+// far above that bound. One 128-thread block per (batch, head, 64-row tile)
+// of the rows it owns: keys for dK/dV, queries for dQ. Two threads own each
+// row, each one half of its D columns, so a thread keeps only half rows in
+// registers (dK/dV: k, v, dK, dV = 2 * D floats; dQ: q, dO, dQ = 1.5 * D)
+// and stays clear of the 255-register limit that one thread per row would
+// spill past at D = 64. The pair joins its two half dot products with one
+// shuffle. The streamed rows (q and dO for dK/dV, k and v for dQ) are staged
+// 64 at a time in shared memory as fp32; every thread of a warp reads the same row there, and the
+// two halves of a pair own alternate 16-byte chunks, so the reads are
+// broadcasts without bank conflicts. The [S, S] scores never exist in
+// memory. Under the causal mask dK/dV starts at the first query tile that can
+// see its keys and dQ stops at the last key tile its queries can see.
+// mma.sync / wgmma, TMA and pipelining are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 64;             // rows a block owns
+constexpr int kThreads = 2 * kRows;   // two threads per row
+constexpr int kTile = 64;             // streamed rows per shared-memory tile
+constexpr float kMaskValue = -1e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+struct Strides {
+  int64_t qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
+};
+
+// A thread owns the 4-wide chunks c = 2 * t + half (t < D / 8) of a row:
+// element 4 * c + e sits at index 4 * t + e of its half row.
+template <typename T, int D>
+__device__ __forceinline__ void load_half(const T* row, int half, float scale, float* out) {
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    const int c = 2 * t + half;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[4 * t + e] = to_f(row[4 * c + e]) * scale;
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_half(T* row, int half, float scale, const float* in) {
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    const int c = 2 * t + half;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) from_f(row + 4 * c + e, in[4 * t + e] * scale);
+  }
+}
+
+// this thread's half of dot(smem row, the full row whose half is r)
+template <int D>
+__device__ __forceinline__ float half_dot(const float* srow, int half, const float* r) {
+  const float4* p = reinterpret_cast<const float4*>(srow);
+  float acc = 0.f;
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    const float4 x = p[2 * t + half];
+    acc = fmaf(r[4 * t], x.x, acc);
+    acc = fmaf(r[4 * t + 1], x.y, acc);
+    acc = fmaf(r[4 * t + 2], x.z, acc);
+    acc = fmaf(r[4 * t + 3], x.w, acc);
+  }
+  return acc;
+}
+
+// acc (this thread's half) += a * smem row
+template <int D>
+__device__ __forceinline__ void half_axpy(const float* srow, int half, float a, float* acc) {
+  const float4* p = reinterpret_cast<const float4*>(srow);
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    const float4 x = p[2 * t + half];
+    acc[4 * t] = fmaf(a, x.x, acc[4 * t]);
+    acc[4 * t + 1] = fmaf(a, x.y, acc[4 * t + 1]);
+    acc[4 * t + 2] = fmaf(a, x.z, acc[4 * t + 2]);
+    acc[4 * t + 3] = fmaf(a, x.w, acc[4 * t + 3]);
+  }
+}
+
+// both threads of a pair sit in one warp (lanes 2r, 2r + 1)
+__device__ __forceinline__ float pair_sum(float x) {
+  return x + __shfl_xor_sync(0xffffffffu, x, 1);
+}
+
+// One block per (batch * head, 64-key tile); loops over query tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ bias, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dbh, int H,
+                      int S, Strides st, float scale, int causal) {
+  __shared__ __align__(16) float qs_t[kTile * D];  // q * scale
+  __shared__ __align__(16) float do_t[kTile * D];
+  __shared__ float lse_t[kTile];
+  __shared__ float dl_t[kTile];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int hh = bh % H;
+  const int k0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int half = tid & 1;
+  const int kj = k0 + (tid >> 1);
+  const bool row_ok = kj < S;
+  // keys past S compute on key S-1 and store nothing
+  const int64_t kr = row_ok ? kj : S - 1;
+
+  float kreg[D / 2], vreg[D / 2], dka[D / 2], dva[D / 2];
+  load_half<T, D>(k + b * st.kb + hh * st.kh + kr * st.ks, half, 1.f, kreg);
+  load_half<T, D>(v + b * st.vb + hh * st.vh + kr * st.vs, half, 1.f, vreg);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float db = 0.f;
+  const float bj = bias == nullptr ? 0.f : bias[static_cast<int64_t>(b) * S + kr];
+
+  const T* qbase = q + b * st.qb + hh * st.qh;
+  const T* obase = dout + b * st.ob + hh * st.oh;
+  const int64_t rows = static_cast<int64_t>(bh) * S;
+  // causal: queries before k0 see none of this block's keys
+  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kTile) {
+    const int nq = min(kTile, S - q0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int idx = tid; idx < nq * D; idx += kThreads) {
+      const int64_t qi = q0 + idx / D;
+      const int c = idx % D;
+      qs_t[idx] = to_f(qbase[qi * st.qs + c]) * scale;
+      do_t[idx] = to_f(obase[qi * st.os + c]);
+    }
+    for (int r = tid; r < nq; r += kThreads) {
+      lse_t[r] = lse[rows + q0 + r];
+      dl_t[r] = delta[rows + q0 + r];
+    }
+    __syncthreads();
+    for (int i = 0; i < nq; ++i) {
+      float s = pair_sum(half_dot<D>(qs_t + i * D, half, kreg)) + bj;
+      if (causal && kj > q0 + i) s = kMaskValue;
+      const float p = expf(s - lse_t[i]);
+      const float dp = pair_sum(half_dot<D>(do_t + i * D, half, vreg));
+      const float dz = p * (dp - dl_t[i]);
+      half_axpy<D>(do_t + i * D, half, p, dva);
+      half_axpy<D>(qs_t + i * D, half, dz, dka);
+      db += dz;
+    }
+  }
+  if (row_ok) {
+    const int64_t row = (rows + kj) * D;
+    store_half<T, D>(dk + row, half, 1.f, dka);
+    store_half<T, D>(dv + row, half, 1.f, dva);
+    if (half == 0) dbh[rows + kj] = db;
+  }
+}
+
+// One block per (batch * head, 64-query tile); loops over key tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ bias, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int H, int S, Strides st, float scale, int causal) {
+  __shared__ __align__(16) float k_t[kTile * D];
+  __shared__ __align__(16) float v_t[kTile * D];
+  __shared__ float b_t[kTile];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int hh = bh % H;
+  const int q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int half = tid & 1;
+  const int qi = q0 + (tid >> 1);
+  const bool row_ok = qi < S;
+  // queries past S compute on query S-1 and store nothing
+  const int64_t qr = row_ok ? qi : S - 1;
+
+  float qreg[D / 2], oreg[D / 2], acc[D / 2];
+  load_half<T, D>(q + b * st.qb + hh * st.qh + qr * st.qs, half, scale, qreg);
+  load_half<T, D>(dout + b * st.ob + hh * st.oh + qr * st.os, half, 1.f, oreg);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int64_t rows = static_cast<int64_t>(bh) * S;
+  const float l = lse[rows + qr];
+  const float dl = delta[rows + qr];
+
+  const T* kbase = k + b * st.kb + hh * st.kh;
+  const T* vbase = v + b * st.vb + hh * st.vh;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<int64_t>(b) * S;
+  // causal: no query of this block sees a key past its last row
+  const int kend = causal ? min(S, q0 + kRows) : S;
+  for (int k0 = 0; k0 < kend; k0 += kTile) {
+    const int nk = min(kTile, kend - k0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int idx = tid; idx < nk * D; idx += kThreads) {
+      const int64_t kk = k0 + idx / D;
+      const int c = idx % D;
+      k_t[idx] = to_f(kbase[kk * st.ks + c]);
+      v_t[idx] = to_f(vbase[kk * st.vs + c]);
+    }
+    for (int r = tid; r < nk; r += kThreads) b_t[r] = brow == nullptr ? 0.f : brow[k0 + r];
+    __syncthreads();
+    for (int j = 0; j < nk; ++j) {
+      float s = pair_sum(half_dot<D>(k_t + j * D, half, qreg)) + b_t[j];
+      if (causal && k0 + j > qi) s = kMaskValue;
+      const float p = expf(s - l);
+      const float dp = pair_sum(half_dot<D>(v_t + j * D, half, oreg));
+      half_axpy<D>(k_t + j * D, half, p * (dp - dl), acc);
+    }
+  }
+  if (row_ok) store_half<T, D>(dq + (rows + qi) * D, half, scale, acc);
+}
+
+template <typename T, int D>
+void launch_dkdv(dim3 grid, const void* q, const void* k, const void* v, const void* bias,
+                 const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                 void* dbh, int H, int S, const Strides& st, float scale, int causal,
+                 cudaStream_t stream) {
+  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<float*>(dbh), H, S, st, scale, causal);
+}
+
+template <typename T, int D>
+void launch_dq(dim3 grid, const void* q, const void* k, const void* v, const void* bias,
+               const void* dout, const void* lse, const void* delta, void* dq, int H, int S,
+               const Strides& st, float scale, int causal, cudaStream_t stream) {
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), H,
+      S, st, scale, causal);
+}
+
+// -1: arguments the kernels do not take; 0: nothing to do; 1: launch
+int check_args(int B, int H, int S, int D, int dtype) {
+  if (B < 0 || H < 0 || S < 0 || static_cast<int64_t>(B) * H > 65535) return -1;
+  if (D != 16 && D != 32 && D != 64) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  return (B == 0 || H == 0 || S == 0) ? 0 : 1;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. D in {16, 32, 64}; q/k/v/dO strides in
+// elements over (B, H, S), unit stride over D; bias [B, S] fp32 contiguous or
+// null; lse, delta, dbh [B, H, S] fp32 and dk, dv [B, H, S, D] contiguous.
+// B * H <= 65535. Returns the cudaError_t of the launch (0 = accepted).
+extern "C" int pt_flash_attention_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* bias, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, void* dbh, int B, int H, int S,
+    int D, int64_t qb, int64_t qh, int64_t qs, int64_t kb, int64_t kh, int64_t ks, int64_t vb,
+    int64_t vh, int64_t vs, int64_t ob, int64_t oh, int64_t os, float scale, int causal,
+    int dtype, void* stream) {
+  const int ok = check_args(B, H, S, D, dtype);
+  if (ok <= 0) return ok == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PT_DKDV(T, DD) \
+  launch_dkdv<T, DD>(grid, q, k, v, bias, dout, lse, delta, dk, dv, dbh, H, S, st, scale, causal, s)
+  if (dtype == 0) {
+    if (D == 16) PT_DKDV(float, 16);
+    else if (D == 32) PT_DKDV(float, 32);
+    else PT_DKDV(float, 64);
+  } else {
+    if (D == 16) PT_DKDV(__nv_bfloat16, 16);
+    else if (D == 32) PT_DKDV(__nv_bfloat16, 32);
+    else PT_DKDV(__nv_bfloat16, 64);
+  }
+#undef PT_DKDV
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same layout as pt_flash_attention_bwd_dkdv; dq [B, H, S, D] contiguous.
+extern "C" int pt_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* bias, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int H, int S, int D, int64_t qb,
+    int64_t qh, int64_t qs, int64_t kb, int64_t kh, int64_t ks, int64_t vb, int64_t vh,
+    int64_t vs, int64_t ob, int64_t oh, int64_t os, float scale, int causal, int dtype,
+    void* stream) {
+  const int ok = check_args(B, H, S, D, dtype);
+  if (ok <= 0) return ok == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PT_DQ(T, DD) \
+  launch_dq<T, DD>(grid, q, k, v, bias, dout, lse, delta, dq, H, S, st, scale, causal, s)
+  if (dtype == 0) {
+    if (D == 16) PT_DQ(float, 16);
+    else if (D == 32) PT_DQ(float, 32);
+    else PT_DQ(float, 64);
+  } else {
+    if (D == 16) PT_DQ(__nv_bfloat16, 16);
+    else if (D == 32) PT_DQ(__nv_bfloat16, 32);
+    else PT_DQ(__nv_bfloat16, 64);
+  }
+#undef PT_DQ
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* pt_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

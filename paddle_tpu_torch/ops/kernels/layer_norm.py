@@ -1,9 +1,14 @@
-"""Row LayerNorm: the CUDA kernel's wrapper and its plain PyTorch version.
+"""Row LayerNorm: the CUDA kernel's wrapper, its plain PyTorch version and
+its gradient.
 
 Port of ``paddle_tpu/ops/pallas_kernels.py`` ``fused_layer_norm`` (the Pallas
-forward ``_ln_fwd_kernel``). Statistics are fp32 (two-pass centred
-variance), the output is in x's dtype. The kernel is
-``csrc/layer_norm.cu``; CPU tensors take :func:`_layer_norm_reference`.
+forward ``_ln_fwd_kernel`` under the ``jax.custom_vjp`` whose backward is
+``_fused_ln_bwd``). Statistics are fp32 (two-pass centred variance), the
+output is in x's dtype. The kernel is ``csrc/layer_norm.cu``; CPU tensors
+take :func:`_layer_norm_reference`. When an input requires grad the call
+goes through :class:`_LayerNormFunction`, whose forward dispatches the same
+body and whose backward is the plain PyTorch port of ``_fused_ln_bwd`` on
+either device (the JAX package has no kernel for it either).
 """
 
 import ctypes
@@ -32,9 +37,44 @@ def fused_layer_norm(x, gamma, beta, eps=1e-12, return_stats=False):
     fp32 mu and rstd of shape x.shape[:-1] when ``return_stats``.
 
     CPU tensors take the plain PyTorch body; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise. Differentiable in x, gamma and beta."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, gamma, beta)):
+        y, mu, rstd = _LayerNormFunction.apply(x, gamma, beta, eps)
+        return (y, mu, rstd) if return_stats else y
     return registry.dispatch(NAME, x, gamma, beta, eps=eps,
                              return_stats=return_stats)
+
+
+class _LayerNormFunction(torch.autograd.Function):
+    """Forward: the registered body with its statistics saved. Backward:
+    ``_fused_ln_bwd`` (pallas_kernels.py:496-508) in fp32, cast back to the
+    dtypes of x and gamma."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mu, rstd = registry.dispatch(NAME, x, gamma, beta, eps=eps,
+                                        return_stats=True)
+        ctx.save_for_backward(x, gamma, mu, rstd)
+        ctx.mark_non_differentiable(mu, rstd)
+        return y, mu, rstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _drstd):
+        x, gamma, mu, rstd = ctx.saved_tensors
+        h = x.shape[-1]
+        x32 = x.reshape(-1, h).float()
+        dy32 = dy.reshape(-1, h).float()
+        mu, rstd = mu.reshape(-1, 1), rstd.reshape(-1, 1)
+        xhat = (x32 - mu) * rstd
+        dg = (dy32 * xhat).sum(0)
+        db = dy32.sum(0)
+        wdy = dy32 * gamma.float()
+        c1 = wdy.mean(-1, keepdim=True)
+        c2 = (wdy * xhat).mean(-1, keepdim=True)
+        dx = (wdy - c1 - xhat * c2) * rstd
+        return (dx.reshape(x.shape).to(x.dtype), dg.to(gamma.dtype),
+                db.to(gamma.dtype), None)
 
 
 def _layer_norm_reference(x, gamma, beta, eps=1e-12, return_stats=False):
@@ -73,7 +113,6 @@ def _layer_norm_cuda(x, gamma, beta, eps=1e-12, return_stats=False):
             raise EnforceNotMet(
                 f"{NAME}: {nm} must be [{h}] on {x.device}, got "
                 f"{tuple(t.shape)} on {t.device}")
-    _build.require_no_grad(NAME, x, gamma, beta)
     # the kernel reads fp32 affine parameters
     gamma = gamma.to(torch.float32).contiguous()
     beta = beta.to(torch.float32).contiguous()

@@ -151,13 +151,37 @@ def test_synthetic_batch_and_flops_match_jax():
 
 
 def test_presets_match_jax():
+    # both configs' fields: a field the port lacks fails here too
+    names = ({f.name for f in dataclasses.fields(jbert.BertConfig)}
+             | {f.name for f in dataclasses.fields(tbert.BertConfig)})
     for name in ("bert_base", "bert_large", "ernie_base", "bert_tiny"):
         jc, tc = getattr(jbert, name)(), getattr(tbert, name)()
-        for f in dataclasses.fields(tc):
-            if f.name != "dtype":
-                assert getattr(tc, f.name) == getattr(jc, f.name), \
-                    (name, f.name)
+        for f in sorted(names - {"dtype"}):
+            assert getattr(tc, f) == getattr(jc, f), (name, f)
         assert tc.dtype == torch.bfloat16 and tc.head_dim == jc.head_dim
+    # the bench trainers build their configs so
+    assert tbert.bert_base(remat=False).remat is False
+    assert tbert.bert_tiny().remat is False and tbert.bert_base().remat
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_remat_gives_the_same_loss_and_grads(impl):
+    cfg = tbert.bert_tiny(dtype=torch.float32, attention_impl=impl)
+    params = tbert.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    batch = tbert.synthetic_batch(cfg, 2, 48, seed=1, max_preds=6)
+    out = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        live = jax.tree.map(lambda t: t.clone().requires_grad_(), params)
+        loss = tbert.mlm_loss(live, c, batch)
+        grads = torch.autograd.grad(loss, jax.tree.leaves(live))
+        out.append((loss, grads))
+    (l0, g0), (l1, g1) = out
+    # the recompute repeats the same ops on the same inputs: bit-identical
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
 
 
 def test_auto_attention_takes_flash_beyond_1024(monkeypatch):

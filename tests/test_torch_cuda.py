@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-PyTorch bodies, and the model through the kernels against the CPU.
+PyTorch bodies, and the model (forward and training step) through the
+kernels against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card; whether there
 is one is decided inside the ``cuda`` fixture, never at import. The file
@@ -11,7 +12,8 @@ imports neither JAX nor the JAX package, so on the machine with the card
 Tolerances: the kernel and its plain body both compute in fp32 and round
 once to the output dtype; sums run in another order, which may flip that
 rounding by one unit in the last place (rtol 2^-7 for bf16) or move fp32
-results by ~1e-6 (1e-5).
+results by ~1e-6 (1e-5). The backward kernels sum over up to S terms, so
+fp32 grads are held to 1e-4 absolute beside 1e-5 relative.
 """
 
 import numpy as np
@@ -104,15 +106,103 @@ def test_flash_kernel_takes_strided_head_views(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,D,dtype,causal,with_bias", [
+    (2, 12, 512, 64, torch.bfloat16, False, True),
+    (2, 4, 1000, 64, torch.bfloat16, False, True),
+    (1, 4, 1000, 64, torch.float32, True, False),
+    (2, 4, 200, 16, torch.float32, True, True),
+    (2, 4, 300, 32, torch.bfloat16, False, False),
+    (1, 1, 1, 64, torch.float32, True, False)])
+def test_flash_backward_kernels_match_plain(cuda, B, H, S, D, dtype, causal,
+                                            with_bias):
+    gen = torch.Generator(device=cuda).manual_seed(S + 1)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    bias = None
+    if with_bias:
+        bias = torch.zeros(B, S, device=cuda)
+        bias[:, -(S // 10):] = -1e9
+    o, lse = K.get_body("flash_attention", "reference")(
+        q, k, v, bias=bias, causal=causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, do, lse, delta)
+    before = K.launch_counts()
+    dk, dv, dbh = K.dispatch("flash_attention_bwd_dkdv", *args,
+                             causal=causal)
+    dq = K.dispatch("flash_attention_bwd_dq", *args, causal=causal)
+    ref_dk, ref_dv, ref_dbh = K.get_body("flash_attention_bwd_dkdv",
+                                         "reference")(*args, causal=causal)
+    ref_dq = K.get_body("flash_attention_bwd_dq", "reference")(
+        *args, causal=causal)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert after[name] == before[name] + 1
+    rtol, atol = _tols(dtype)
+    atol = max(atol, 1e-4)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    torch.testing.assert_close(dbh, ref_dbh, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_take_strided_views(cuda):
+    # autograd hands the backward a transposed view of dO and the saved
+    # head views of the fused projection
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, S, N, D = 2, 300, 4, 64
+    qkv, dctx = (torch.randn(B, S, n * N * D, generator=gen, device=cuda)
+                 .to(torch.bfloat16) for n in (3, 1))
+    q, k, v = (t.reshape(B, S, N, D).transpose(1, 2)
+               for t in qkv.split(N * D, dim=-1))
+    do = dctx.reshape(B, S, N, D).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    o, lse = K.flash_attention(q, k, v, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        got = K.dispatch(name, q, k, v, None, do, lse, delta)
+        want = K.dispatch(name, q.contiguous(), k.contiguous(),
+                          v.contiguous(), None, do.contiguous(), lse, delta)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 1000])
+def test_fused_adam_kernel_matches_plain(cuda, t):
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    # sizes off the vector width and off the 16K chunk, an empty one, one
+    # spanning chunks, and views one element in (not 16-byte aligned: the
+    # scalar path)
+    shapes = [(3,), (1,), (0,), (33, 70), (16384 * 2 + 5,), (768, 768),
+              (1001,)]
+    state = [[torch.randn(s, generator=gen, device=cuda) for s in shapes]
+             for _ in range(4)]
+    state[3] = [m.abs() for m in state[3]]
+    for xs in state:
+        xs[-1] = xs[-1][1:]
+    ref = [[x.clone() for x in xs] for xs in state]
+    step = torch.tensor(t, dtype=torch.int32, device=cuda)
+    before = K.get_kernel("fused_adam").launches
+    K.fused_adam(*state, 1e-3, step)
+    K.get_body("fused_adam", "reference")(*ref, 1e-3, step)
+    torch.cuda.synchronize()
+    assert K.get_kernel("fused_adam").launches == before + 1
+    # the same fp32 ops in the same order; only powf may differ by an ulp
+    for xs, rs in zip(state, ref):
+        for x, r in zip(xs, rs):
+            torch.testing.assert_close(x, r, atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    x = torch.randn(4, 64, device=cuda)
     g, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
-    with pytest.raises(EnforceNotMet, match="forward-only"):
-        K.fused_layer_norm(x, g, b)
-    with torch.no_grad():
-        K.fused_layer_norm(x, g, b)
     with pytest.raises(EnforceNotMet, match="float32 or bfloat16"):
-        K.fused_layer_norm(x.detach().half(), g, b)
+        K.fused_layer_norm(x.half(), g, b)
     with pytest.raises(EnforceNotMet, match="contiguous"):
         K.fused_layer_norm(torch.randn(64, 4, device=cuda).T, g, b)
     with pytest.raises(EnforceNotMet, match="multiple of"):
@@ -124,6 +214,43 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         K.flash_attention(q, q, q)
     with pytest.raises(EnforceNotMet, match="CUDA device"):
         K.flash_attention(q[..., :64], q[..., :64].cpu(), q[..., :64])
+    p = [torch.zeros(4, device=cuda)]
+    one = torch.tensor(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(EnforceNotMet, match="float32 tensor"):
+        K.fused_adam(p, [torch.zeros(4, device=cuda).half()], p, p, 0.1, one)
+    with pytest.raises(EnforceNotMet, match="0-d int32"):
+        K.fused_adam(p, p, p, p, 0.1, one.long())
+
+
+@pytest.mark.cuda
+def test_grads_flow_through_both_functions_and_match_cpu(cuda):
+    gen = torch.Generator().manual_seed(5)
+    B, H, S, D = 2, 4, 300, 64
+    x = torch.randn(B, S, H * D, generator=gen)
+    g, b = torch.randn(H * D, generator=gen), torch.randn(H * D, generator=gen)
+    bias = torch.zeros(B, S)
+    bias[1, -30:] = -1e9
+    dy = torch.randn(B, S, H * D, generator=gen)
+
+    def run(dev):
+        leaves = [t.to(dev).requires_grad_() for t in (x, g, b)]
+        h = K.fused_layer_norm(*leaves)
+        q = h.reshape(B, S, H, D).transpose(1, 2)
+        o = K.flash_attention(q, q * 0.5, q * 2.0, bias=bias.to(dev),
+                              causal=True)
+        o.transpose(1, 2).reshape(B, S, H * D).backward(dy.to(dev))
+        return [t.grad.cpu() for t in leaves]
+
+    K.reset_launch_counts()
+    on_card = run(cuda)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["fused_layer_norm"] == 1 and counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd_dkdv"] == 1
+    assert counts["flash_attention_bwd_dq"] == 1
+    # fp32 throughout: summation order only
+    for a, c in zip(on_card, run("cpu")):
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -148,3 +275,40 @@ def test_bert_on_card_matches_cpu(cuda, impl):
                                          else 0)
     assert np.isfinite(loss_card)
     assert abs(loss_cpu - loss_card) <= 1e-4, (loss_cpu, loss_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_bert_train_step_on_card_matches_cpu(cuda, impl):
+    from paddle_tpu_torch import optimizer
+
+    cfg = bert.bert_tiny(dtype=torch.float32, attention_impl=impl)
+    batch = bert.synthetic_batch(cfg, 2, 48, seed=1, max_preds=6)
+    batch["attention_mask"][1, 40:] = 0
+    losses = {}
+    final = {}
+    for dev in ("cpu", cuda):
+        opt = optimizer.Adam(learning_rate=1e-3)
+        init_fn, step_fn = bert.make_train_step(cfg, opt, steps_per_call=3,
+                                                device=dev)
+        params, state = init_fn(torch.Generator().manual_seed(0))
+        K.reset_launch_counts()
+        loss, params, state = step_fn(params, state, batch)
+        losses[str(dev)] = float(loss)
+        final[str(dev)] = params
+        if dev != "cpu":
+            counts = K.launch_counts()
+            assert counts["fused_adam"] == 3
+            assert counts["fused_layer_norm"] == 3 * (2 * cfg.num_layers + 2)
+            n_flash = 3 * cfg.num_layers if impl == "flash" else 0
+            for name in ("flash_attention", "flash_attention_bwd_dkdv",
+                         "flash_attention_bwd_dq"):
+                assert counts[name] == n_flash, (name, counts)
+    # fp32 on both; Adam's sign-like early updates turn summation-order
+    # differences of near-zero grads into update differences (see
+    # tests/test_torch_train.py): loss 1e-4, parameters 1e-4
+    assert abs(losses["cpu"] - losses[str(cuda)]) <= 1e-4, losses
+    for a, c in zip(final["cpu"]["layers"], final[str(cuda)]["layers"]):
+        for name in a:
+            torch.testing.assert_close(c[name].cpu(), a[name], atol=1e-4,
+                                       rtol=0)

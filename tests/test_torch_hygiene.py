@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.models import bert
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,7 +55,7 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
     code = (
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.ops.kernels\n"
-        "import paddle_tpu_torch.models.bert\n"
+        "import paddle_tpu_torch.models.bert, paddle_tpu_torch.optimizer\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -99,4 +100,10 @@ def test_default_device_raises_without_a_card(monkeypatch):
         bert.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
         bert.params_from_numpy({}, cfg)
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        bert.make_train_step(cfg, optimizer.Adam())
     assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    init_fn, _ = bert.make_train_step(cfg, optimizer.Adam(), device="cpu")
+    params, state = init_fn(torch.Generator().manual_seed(0))
+    assert state["step"].device == params["embed"]["word"].device == \
+        torch.device("cpu")
