@@ -14,7 +14,14 @@ Phases; any failure raises and the script exits non-zero:
    tolerance, and time kernel, plain version and one PyTorch library call
    (a yardstick only; the port never calls it) beside the kernel's bound:
    LayerNorm, the flash-attention forward and its two backward kernels,
-   and the multi-tensor Adam over BERT-base's parameter list.
+   the multi-tensor Adam over BERT-base's parameter list; and the static
+   path's kernels: the embedding gather (word2vec's table with 100 and
+   8192 ids, BERT-base's word table with 64x512 ids), the fused matmul
+   (each activation at both word2vec fc shapes, those at 8192 rows, and
+   BERT's FFN [4096,768]x[768,3072] relu in fp32 and bf16), and SGD and
+   momentum (plain and nesterov) over word2vec's parameters, one launch
+   per parameter as the static path makes them and one over the list, and
+   over BERT-base's 154 tensors.
 3. Serve BERT-base masked-LM requests at S=512: 4 batches of 8x512 tokens
    with 80 masked positions each (loss and fill-mask top-1), exactly 26
    LayerNorm launches per batch; one 2x512 batch is held against the port
@@ -35,16 +42,25 @@ Phases; any failure raises and the script exits non-zero:
    bf16 on the card against the port on the CPU in fp32 from the same
    weights; (b) at S=2048, batch 1, every parameter gradient of one step
    with the flash kernels against dense attention, by relative norm error.
-8. Print one JSON line of every ported kernel (launches on the main paths,
+8. The Fluid static path (static-w2v): the word2vec book model (vocabulary
+   2073, embedding 32, hidden 256) built with ``paddle_tpu_torch.layers``,
+   minimized by SGD(0.001) and run through ``Executor.run`` on the card:
+   3 calls of 10 steps at batch 100 and 3 steps at batch 8192, exactly 4
+   gather, 2 fused matmul and 5 SGD launches per step; the loss falls. The
+   card against the port on the CPU, and the pass pipeline off against on,
+   over 3 steps from the same weights; then Momentum(0.001, 0.9), 5
+   momentum launches per step.
+9. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device times per launch from CUDA events around a CUDA
 graph of back-to-back launches (no host overhead; LayerNorm's inputs are
 cycled through copies larger than the L2, so it reads from HBM), except
-the Adam kernel's, timed by CUDA events around a loop of calls queued
-behind a spin kernel that outlasts their issue (checked; the Adam wrapper
-copies a pointer table from pinned memory, which a graph does not replay).
+the Adam, SGD and momentum kernels', timed by CUDA events around a loop of
+calls queued behind a spin kernel that outlasts their issue (checked; their
+wrappers copy a pointer table from pinned memory, which a graph does not
+replay).
 Request and step latencies are host wall-clock around work that ends in a
 synchronize. The device time of the same work captured in a CUDA graph
 over its host latency gives the device's busy share, and a
@@ -60,6 +76,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -490,6 +507,158 @@ def check_adam(K, bert, t, gen):
     return rec
 
 
+def check_embedding(K, h, d, dtype, n, gen, edge_ids=True):
+    """The gather kernel against its plain body on a [h, d] table and n
+    ids; with ``edge_ids``, the ids include negative ones (wrap once) and
+    ones outside [-h, h) (NaN rows). Timed on n valid ids, the main path's
+    kind, beside ``F.embedding`` on the same table and ids."""
+    table = torch.randn(h, d, generator=gen, device="cuda").to(dtype)
+    ids = torch.randint(0, h, (n,), generator=gen, device="cuda")
+    kern = K.get_body("embedding_gather", "kernel")
+    plain = K.get_body("embedding_gather", "reference")
+    test_ids = ids.clone()
+    if edge_ids:
+        test_ids[:4] = torch.tensor([-1, -h, h, -h - 1], device="cuda")
+    out, ref = kern(table, test_ids), plain(table, test_ids)
+    torch.cuda.synchronize()
+    # a copy: bit-identical, NaN rows included
+    ok = bool((out == ref).logical_or(out.isnan() & ref.isnan()).all())
+    err = max_err(torch.nan_to_num(out), torch.nan_to_num(ref))
+    check(ok, f"embedding_gather [{h},{d}] {dtype} n={n}: kernel disagrees "
+              f"with plain: {err}")
+    row = d * table.element_size()
+    b_ms, b_by = bound(n * 8 + 2 * n * row, 0, torch.float32)
+    ms = device_ms(lambda: kern(table, ids), 50)
+    plain_ms = device_ms(lambda: plain(table, ids), 20)
+    lib_ms = device_ms(lambda: torch.nn.functional.embedding(ids, table), 50)
+    rec = dict(table=[h, d], dtype=str(dtype), ids=n, max_abs_err=err,
+               tol="exact (NaN rows where the plain body has them)", ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               library="torch.nn.functional.embedding", bound_ms=b_ms,
+               bound_by=b_by, host_ms_per_call=host_ms(
+                   lambda: kern(table, ids), 200))
+    log("check embedding_gather " + json.dumps(rec))
+    return rec
+
+
+def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True):
+    """The fused matmul kernel (+ gelu outside it) against its plain body,
+    fp32 out; library yardstick ``torch.addmm`` (no act) or
+    ``torch._addmm_activation`` (relu), else none."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+         ).to(dtype)
+    b = torch.randn(n, generator=gen, device="cuda") if with_bias else None
+    kern = K.get_body("fused_matmul", "kernel")
+    plain = K.get_body("fused_matmul", "reference")
+    kact = None if act == "gelu" else act
+
+    def run_kernel():
+        z = kern(x, w, b, kact)
+        return torch.nn.functional.gelu(z) if act == "gelu" else z
+
+    def run_plain():
+        z = plain(x, w, b, kact)
+        return torch.nn.functional.gelu(z) if act == "gelu" else z
+
+    out, ref = run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    # fp32 sums of K products (bf16 inputs: exact fp32 products) in another
+    # order than cuBLAS's (no TF32): atol 1e-4, rtol 1e-4 at outputs O(1)
+    err = max_err(out, ref)
+    check(within(out, ref, 1e-4, 1e-4),
+          f"fused_matmul [{m},{k}]x[{k},{n}] {act} {dtype}: kernel "
+          f"disagrees with plain: {err}")
+    e = x.element_size()
+    nbytes = (m * k + k * n) * e + (n * 4 if b is not None else 0) \
+        + m * n * 4
+    b_ms, b_by = bound(nbytes, 2 * m * n * k, dtype)
+    ms = device_ms(run_kernel, 20)
+    plain_ms = device_ms(run_plain, 20)
+    lib_ms, lib = None, None
+    if act is None:
+        lib = "torch.addmm" if b is not None else "torch.mm"
+        lib_ms = device_ms((lambda: torch.addmm(b.to(dtype), x, w))
+                           if b is not None else (lambda: torch.mm(x, w)), 20)
+    elif act == "relu" and b is not None:
+        lib = "torch._addmm_activation (one cuBLASLt call, relu epilogue)"
+        lib_ms = device_ms(lambda: torch._addmm_activation(b.to(dtype), x, w),
+                           20)
+    rec = dict(shape=[m, k, n], act=act, dtype=str(dtype), bias=b is not None,
+               max_abs_err=err, tol="atol 1e-4 rtol 1e-4 (fp32 out)", ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, library=lib,
+               bound_ms=b_ms, bound_by=b_by,
+               tflops=2 * m * n * k / (ms * 1e-3) / 1e12)
+    log("check fused_matmul " + json.dumps(rec))
+    return rec
+
+
+def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
+    """The SGD or momentum kernel against its plain body over fp32 tensors
+    of ``shapes`` (bit-identical: every product and sum rounds singly in
+    the plain order), timed behind a spin as Adam is. ``per_tensor``: one
+    launch per tensor, as the static path's ``apply_optimizer`` ops make
+    them; else one launch over the list, as ``apply_gradients`` does.
+    Library yardsticks over the list: ``torch._fused_sgd_`` (dampening 0,
+    the same rule) and, for SGD, ``torch._foreach_add_(p, g, alpha=-lr)``."""
+    name = "fused_sgd" if rule == "sgd" else "fused_momentum"
+    nest = rule == "nesterov"
+    lr, mu = 1e-3, 0.9
+    p, g, v = ([torch.randn(sh, generator=gen, device="cuda")
+                for sh in shapes] for _ in range(3))
+    ref_p, ref_v = [t.clone() for t in p], [t.clone() for t in v]
+    kern = K.get_body(name, "kernel")
+    plain = K.get_body(name, "reference")
+    lists, ref_lists, scalars = (
+        ((p, g), (ref_p, g), (lr,)) if rule == "sgd"
+        else ((p, g, v), (ref_p, g, ref_v), (lr, mu, nest)))
+    groups = ([[i] for i in range(len(shapes))] if per_tensor
+              else [range(len(shapes))])
+
+    def run_kernel():
+        for idx in groups:
+            kern(*([xs[i] for i in idx] for xs in lists), *scalars)
+
+    def run_plain():
+        plain(*ref_lists, *scalars)
+
+    run_kernel()
+    run_plain()
+    torch.cuda.synchronize()
+    outs = list(zip(p, ref_p)) + ([] if rule == "sgd" else list(zip(v, ref_v)))
+    err = max(max_err(a, r) for a, r in outs)
+    check(all(torch.equal(a, r) for a, r in outs),
+          f"{name} ({rule}, {label}): kernel disagrees with plain: {err}")
+    n = sum(math.prod(sh) for sh in shapes)
+    per_elem = 12 if rule == "sgd" else 20
+    b_ms, b_by = bound(per_elem * n, (2 if rule == "sgd" else 5) * n,
+                       torch.float32)
+    ms, issue_ms, spin_ms = events_ms(run_kernel, 20)
+    plain_ms = device_ms(run_plain, 5)
+    lib_p = [t.clone() for t in p]
+    lib_v = [t.clone() for t in v]
+
+    def fused_sgd_lib():
+        torch._fused_sgd_(lib_p, g, [] if rule == "sgd" else lib_v,
+                          weight_decay=0.0, momentum=0.0 if rule == "sgd"
+                          else mu, lr=lr, dampening=0.0, nesterov=nest,
+                          maximize=False, is_first_step=False)
+
+    lib_ms = device_ms(fused_sgd_lib, 20)
+    rec = dict(rule=rule, label=label, tensors=len(shapes), elements=n,
+               launches_per_update=len(shapes) if per_tensor else 1,
+               max_abs_err=err, tol="bit-identical", ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               library="torch._fused_sgd_ (dampening 0: the same rule)",
+               bound_ms=b_ms, bound_by=b_by, host_issue_ms_per_call=issue_ms,
+               spin_ms=spin_ms)
+    if rule == "sgd":
+        rec["foreach_add_ms"] = device_ms(
+            lambda: torch._foreach_add_(lib_p, g, alpha=-lr), 20)
+    log(f"check {name} " + json.dumps(rec))
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the model
 # ---------------------------------------------------------------------------
@@ -578,6 +747,10 @@ KERNEL_GROUPS = (
     ("flash_attention_bwd_dq", r"flash_bwd_dq_kernel"),
     ("fused_layer_norm", r"layer_norm_fwd_kernel"),
     ("fused_adam", r"fused_adam_kernel"),
+    ("embedding_gather", r"::gather_kernel<"),
+    ("fused_matmul", r"fused_matmul_kernel"),
+    ("fused_sgd", r"fused_sgd_kernel"),
+    ("fused_momentum", r"fused_momentum_kernel"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet|sm90_"),
     ("softmax", r"softmax"),
     ("reduction", r"reduce"),
@@ -587,21 +760,26 @@ KERNEL_GROUPS = (
 )
 
 
-def op_breakdown(fn, top=10):
+def op_breakdown(fn, top=10, host_top=0):
     """Device time by CUDA kernel over one call of ``fn`` (after one
     warm-up call), from ``torch.profiler``: ms per group of KERNEL_GROUPS
     ("other" for the rest) and the ``top`` kernels by time, names cut to
-    100 characters. Empty when the profiler recorded no device time."""
+    100 characters; with ``host_top``, also the host's total time in the
+    call and its ``host_top`` operators by self CPU time. Empty when the
+    profiler recorded no device time."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    stats = prof.key_averages()
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
+               for e in stats
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     if not kernels:
@@ -613,10 +791,18 @@ def op_breakdown(fn, top=10):
         groups[g] = groups.get(g, 0.0) + ms
     total = sum(groups.values())
     kernels.sort(key=lambda r: -r[1])
-    return dict(
+    out = dict(
         kernel_ms=total,
         groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         top=[[name[:100], ms, n] for name, ms, n in kernels[:top]])
+    if host_top:
+        cpu = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                      for e in stats
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda r: -r[1])
+        out.update(host_ms_profiled=host_ms,
+                   host_top=[[n[:80], ms, c] for n, ms, c in cpu[:host_top]])
+    return out
 
 
 def device_split(fn, batch, host_latency_ms, kernels):
@@ -884,6 +1070,196 @@ def phase_train_checks(bert, optimizer, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the Fluid static-graph path (static-w2v)
+# ---------------------------------------------------------------------------
+W2V_VOCAB, W2V_EMBED, W2V_HIDDEN = 2073, 32, 256
+
+
+def build_word2vec(pt, opt):
+    """The reference's book test (test_word2vec.py): an N-gram model over
+    four context words sharing one embedding table, fc(256, sigmoid),
+    fc(2073, softmax), cross_entropy, mean, minimized by ``opt``."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        words = [pt.data(f"w{i}", [1], "int64") for i in range(4)]
+        nxt = pt.data("next", [1], "int64")
+        embs = [pt.layers.embedding(w, size=[W2V_VOCAB, W2V_EMBED],
+                                    param_attr="shared_w") for w in words]
+        concat = pt.layers.concat(embs, axis=1)
+        hidden = pt.layers.fc(concat, W2V_HIDDEN, act="sigmoid")
+        pred = pt.layers.fc(hidden, W2V_VOCAB, act="softmax")
+        loss = pt.layers.mean(pt.layers.cross_entropy(pred, nxt))
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def w2v_feed(batch, seed):
+    import numpy as np
+    ids = np.random.RandomState(seed).randint(0, W2V_VOCAB, (batch, 5))
+    feed = {f"w{i}": ids[:, i:i + 1] for i in range(4)}
+    feed["next"] = ids[:, 4:5]
+    return feed
+
+
+W2V_PARAMS = ("shared_w", "fc_w", "fc_b", "fc_w_1", "fc_b_1")
+
+
+def static_steps(K, exe, main, loss, feed, scope, steps, want, label, card):
+    """``steps`` runs of ``main`` through ``Executor.run`` (each fetching
+    the loss as numpy, as a fluid script does, which waits for the step),
+    launch counts set to 0 just before and read just after, held to
+    ``want`` per step. Returns (losses, ms of each step, counts)."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    for name, n in want.items():
+        check(counts[name] == n * steps,
+              f"{label}: {counts[name]} {name} launches in {steps} steps, "
+              f"expected {n} per step")
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    log(f"{label}: {steps} steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+        f"{sum(step_ms) / steps:.3f} ms/step (median "
+        f"{statistics.median(step_ms):.3f}) [{card}]")
+    return losses, step_ms, counts
+
+
+def phase_static_w2v(K, pt, card):
+    """The word2vec book model through the Fluid static path on the card:
+    Program, layers, append_backward (minimize), the pass pipeline and
+    Executor.run, with exact launch counts per step."""
+    per_step = {"embedding_gather": 4, "fused_matmul": 2, "fused_sgd": 5,
+                "fused_momentum": 0, "fused_adam": 0, "fused_layer_norm": 0,
+                **{n: 0 for n in FLASH_NAMES}}
+    main, startup, loss = build_word2vec(
+        pt, pt.optimizer.SGDOptimizer(learning_rate=0.001))
+    exe = pt.Executor()                   # the card, by default
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    # the weights every comparison below starts from
+    snap = {n: scope.find_var(n).cpu().numpy().copy()
+            for n in (*W2V_PARAMS, "@opt@SGDOptimizer@step")}
+    feed = w2v_feed(100, 0)
+    rec = dict(vocab=W2V_VOCAB, embed=W2V_EMBED, hidden=W2V_HIDDEN,
+               optimizer="SGD 0.001", launches_per_step=per_step)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    calls, call_ms = [], []
+    for i in range(3):
+        losses, ms, counts = static_steps(
+            K, exe, main, loss, feed, scope, 10, per_step,
+            f"static-w2v SGD batch 100 call {i}", card)
+        calls.append(losses)
+        call_ms.append(ms)
+        add(counts)
+    check(calls[-1][-1] < calls[0][0], f"static-w2v: loss {calls[-1][-1]} "
+                                       f"after 30 steps, {calls[0][0]} first")
+    # steady state: calls 2-3 (the first pays first-use costs)
+    steady = call_ms[1] + call_ms[2]
+    rec.update(batch100_losses=[c[0] for c in calls] + [calls[-1][-1]],
+               batch100_ms_per_step=[sum(c) / len(c) for c in call_ms],
+               batch100_steady_ms_per_step=statistics.median(steady),
+               batch100_steady_ms_quartiles=statistics.quantiles(steady,
+                                                                 n=4))
+    # where a step's time goes: the profile of one more step, its kernel
+    # time over the step's host latency (the steps above sync on the
+    # fetched loss), and the host time of 10 steps that fetch no numpy
+    prof = op_breakdown(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), host_top=12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    rec.update(profile=prof, device_busy_share=prof.get("kernel_ms", 0.0)
+               / rec["batch100_steady_ms_per_step"],
+               async_ms_per_step=(time.perf_counter() - t0) * 1e2)
+
+    big = w2v_feed(8192, 1)
+    losses, ms, counts = static_steps(K, exe, main, loss, big, scope, 3,
+                                      per_step, "static-w2v SGD batch 8192",
+                                      card)
+    add(counts)
+    prof8k = op_breakdown(lambda: exe.run(main, feed=big, fetch_list=[loss],
+                                          scope=scope), host_top=12)
+    # steady state: steps 2-3 (the first allocates the new shapes' memory)
+    rec.update(batch8192_losses=losses, batch8192_step_ms=ms,
+               batch8192_steady_ms_per_step=sum(ms[1:]) / 2,
+               batch8192_profile=prof8k,
+               batch8192_device_busy_share=prof8k.get("kernel_ms", 0.0)
+               / (sum(ms[1:]) / 2))
+
+    # the card against the port on the CPU, 3 steps from the same weights;
+    # and the pass pipeline off against on, on the card
+    def from_snap(device, passes=True, steps=3):
+        s = pt.Scope.from_numpy(snap, device, startup)
+        e = pt.Executor(pt.CPUPlace() if device == "cpu" else None)
+        pt.set_flags({"apply_ir_passes": passes})
+        try:
+            K.reset_launch_counts()
+            out = [float(e.run(main, feed=feed, fetch_list=[loss],
+                               scope=s)[0]) for _ in range(steps)]
+            counts = K.launch_counts()
+        finally:
+            pt.set_flags({"apply_ir_passes": True})
+        return out, {n: s.find_var(n).cpu() for n in W2V_PARAMS}, counts
+
+    card_l, card_p, _ = from_snap("cuda")
+    cpu_l, cpu_p, _ = from_snap("cpu")
+    off_l, off_p, off_counts = from_snap("cuda", passes=False)
+    dl = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+    dp = max(max_err(card_p[n], cpu_p[n]) for n in W2V_PARAMS)
+    # fp32 on both; the card's kernels and cuBLAS sum in other orders than
+    # the CPU's (the port on the CPU matches the JAX package within 1e-6,
+    # tests/test_torch_static.py): losses 1e-4, parameters 1e-5
+    check(dl < 1e-4 and dp < 1e-5, f"static-w2v card vs CPU: losses "
+                                   f"{card_l} vs {cpu_l}, params diff {dp}")
+    d_off = max(abs(a - b) for a, b in zip(card_l, off_l))
+    dp_off = max(max_err(card_p[n], off_p[n]) for n in W2V_PARAMS)
+    # the fused op against the composition it replaced, both on the card
+    # (the composition's matmuls are cuBLAS's): losses 1e-4, params 1e-5
+    check(d_off < 1e-4 and dp_off < 1e-5,
+          f"static-w2v passes off vs on: losses {off_l} vs {card_l}, params "
+          f"diff {dp_off}")
+    check(off_counts["fused_matmul"] == 0
+          and off_counts["embedding_gather"] == 12
+          and off_counts["fused_sgd"] == 15,
+          f"static-w2v passes off: launches {off_counts}")
+    rec.update(card_losses=card_l, cpu_losses=cpu_l, card_cpu_loss_diff=dl,
+               card_cpu_param_diff=dp, passes_off_losses=off_l,
+               passes_off_loss_diff=d_off, passes_off_param_diff=dp_off,
+               passes_off_launches={k: v for k, v in off_counts.items() if v},
+               tol="card vs CPU and passes off vs on: losses 1e-4, "
+                   "parameters 1e-5")
+
+    # Momentum: one fused_momentum launch per parameter per step
+    main_m, startup_m, loss_m = build_word2vec(
+        pt, pt.optimizer.MomentumOptimizer(0.001, momentum=0.9))
+    scope_m = pt.Scope()
+    exe.run(startup_m, scope=scope_m)
+    losses, ms, counts = static_steps(
+        K, exe, main_m, loss_m, feed, scope_m, 10,
+        {**per_step, "fused_sgd": 0, "fused_momentum": 5},
+        "static-w2v Momentum batch 100", card)
+    add(counts)
+    check(losses[-1] < losses[0], f"static-w2v Momentum: losses {losses}")
+    rec.update(momentum_losses=losses,
+               momentum_ms_per_step=statistics.median(ms), launches=total)
+    log("static_w2v " + json.dumps(rec))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -891,6 +1267,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import kernels as K
@@ -939,6 +1316,41 @@ def main():
     check_flash_bwd(K, 2, 4, 300, 32, torch.bfloat16, True, 30, gen)
     adam_main = check_adam(K, bert, 1, gen)
     check_adam(K, bert, 1000, gen)
+    # the static path's kernels: the word2vec step's shapes at batch 100
+    # (the main path) and 8192, and BERT-base's shapes beside them
+    with torch.inference_mode():
+        emb_main = check_embedding(K, W2V_VOCAB, W2V_EMBED, torch.float32,
+                                   100, gen)
+        check_embedding(K, W2V_VOCAB, W2V_EMBED, torch.float32, 8192, gen)
+        check_embedding(K, 30528, 768, torch.bfloat16, 64 * 512, gen)
+        fmm = {}
+        for act in (None, "relu", "sigmoid", "tanh", "gelu"):
+            for m, k, n in ((100, 4 * W2V_EMBED, W2V_HIDDEN),
+                            (100, W2V_HIDDEN, W2V_VOCAB)):
+                fmm[(m, k, n, act)] = check_fused_matmul(
+                    K, m, k, n, act, torch.float32, gen)
+        check_fused_matmul(K, 8192, 4 * W2V_EMBED, W2V_HIDDEN, "sigmoid",
+                           torch.float32, gen)
+        check_fused_matmul(K, 8192, W2V_HIDDEN, W2V_VOCAB, None,
+                           torch.float32, gen)
+        check_fused_matmul(K, 33, 70, 130, "tanh", torch.float32, gen,
+                           with_bias=False)
+        # the static BERT trunk's FFN (bench.py:485)
+        for dt in (torch.float32, torch.bfloat16):
+            check_fused_matmul(K, 4096, 768, 3072, "relu", dt, gen)
+        from paddle_tpu_torch.core.tree import leaves
+        bert_shapes = [t.shape for t in leaves(bert.init_params(
+            bert.bert_base(), gen))]
+        w2v_shapes = [(W2V_VOCAB, W2V_EMBED), (4 * W2V_EMBED, W2V_HIDDEN),
+                      (W2V_HIDDEN,), (W2V_HIDDEN, W2V_VOCAB), (W2V_VOCAB,)]
+        opt_main = {}
+        for rule in ("sgd", "momentum", "nesterov"):
+            opt_main[rule] = check_sgd(K, w2v_shapes, rule, gen,
+                                       "word2vec, one launch per parameter",
+                                       per_tensor=True)
+            check_sgd(K, w2v_shapes, rule, gen, "word2vec, one launch")
+            check_sgd(K, bert_shapes, rule, gen,
+                      "BERT-base's 154 tensors, one launch")
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     log_card("after phase 2")
 
@@ -962,7 +1374,9 @@ def main():
                                   adam_main["ms"], ln_2048["ms"])
     log("phase 7: training correctness on the card")
     phase_train_checks(bert, optimizer, card)
-    log(f"phases 0-7 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 8: the Fluid static path, word2vec (static-w2v)")
+    static = phase_static_w2v(K, pt, card)
+    log(f"phases 0-8 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -972,6 +1386,7 @@ def main():
         "longctx-2048": {"flash_attention": longc["flash_launches"]},
         "pretrain-512": pre512["launches"],
         "pretrain-2048": pre2048["flash"]["launches"],
+        "static-w2v": static["launches"],
     }
     kernels = []
     for name, main_rec in (
@@ -979,7 +1394,10 @@ def main():
             ("flash_attention_bwd_dkdv",
              bwd_main["flash_attention_bwd_dkdv"]),
             ("flash_attention_bwd_dq", bwd_main["flash_attention_bwd_dq"]),
-            ("fused_adam", adam_main)):
+            ("fused_adam", adam_main), ("embedding_gather", emb_main),
+            ("fused_matmul", fmm[(100, W2V_HIDDEN, W2V_VOCAB, None)]),
+            ("fused_sgd", opt_main["sgd"]),
+            ("fused_momentum", opt_main["momentum"])):
         phases = {ph: c[name] for ph, c in by_phase.items()
                   if c.get(name, 0) > 0}
         launches = sum(phases.values())

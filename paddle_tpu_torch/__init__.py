@@ -7,8 +7,13 @@ under ``ops/kernels/`` (built with ``nvcc`` on first use), with a plain
 PyTorch version beside it that CPU tensors take.
 
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``); on a machine without a card, asking for the default
-device raises :class:`NoCudaDeviceError` rather than falling back.
+(``device="cpu"``, or ``CPUPlace()`` for an Executor); on a machine without
+a card, asking for the default device raises :class:`NoCudaDeviceError`
+rather than falling back.
+
+The package root carries the Fluid surface of the static path (``Program``,
+``program_guard``, ``data``, ``layers``, ``optimizer``, ``Executor``, ...),
+so a fluid script runs with ``import paddle_tpu_torch as pt``.
 """
 
 import torch
@@ -18,7 +23,13 @@ from paddle_tpu_torch.core.enforce import EnforceNotMet
 __version__ = "0.1.0"
 
 __all__ = ["__version__", "NoCudaDeviceError", "default_device",
-           "resolve_device"]
+           "resolve_device", "layers", "optimizer", "initializer", "static",
+           "Program", "program_guard", "default_main_program",
+           "default_startup_program", "enable_static", "disable_static",
+           "data", "Executor", "Scope", "global_scope", "scope_guard",
+           "CPUPlace", "CUDAPlace", "ParamAttr", "unique_name",
+           "CompiledProgram", "BuildStrategy", "get_flag", "set_flags",
+           "append_backward"]
 
 
 class NoCudaDeviceError(EnforceNotMet):
@@ -42,3 +53,15 @@ def default_device():
 def resolve_device(device=None):
     """``device`` as a ``torch.device``; None means :func:`default_device`."""
     return default_device() if device is None else torch.device(device)
+
+
+# the Fluid surface (after the definitions above, which its modules import)
+from paddle_tpu_torch import initializer, layers, optimizer, static  # noqa: E402,F401,I001
+from paddle_tpu_torch.core.flags import get_flag, set_flags  # noqa: E402
+from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: E402
+from paddle_tpu_torch.framework import ParamAttr, unique_name  # noqa: E402
+from paddle_tpu_torch.static import (  # noqa: E402
+    BuildStrategy, CompiledProgram, Executor, Program, Scope,
+    append_backward, data, default_main_program, default_startup_program,
+    disable_static, enable_static, global_scope, program_guard, scope_guard,
+)

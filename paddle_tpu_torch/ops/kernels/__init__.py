@@ -11,11 +11,17 @@ from paddle_tpu_torch.ops.kernels.registry import (  # noqa: F401
     register_kernel, reset_launch_counts, selected_body,
 )
 from paddle_tpu_torch.ops.kernels import attention as _attention
+from paddle_tpu_torch.ops.kernels import embedding as _embedding
 from paddle_tpu_torch.ops.kernels import layer_norm as _layer_norm
+from paddle_tpu_torch.ops.kernels import matmul as _matmul
 from paddle_tpu_torch.ops.kernels import optimizer as _optimizer
 from paddle_tpu_torch.ops.kernels.attention import flash_attention
+from paddle_tpu_torch.ops.kernels.embedding import embedding_gather
 from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
-from paddle_tpu_torch.ops.kernels.optimizer import fused_adam
+from paddle_tpu_torch.ops.kernels.matmul import fused_matmul, try_fused_matmul
+from paddle_tpu_torch.ops.kernels.optimizer import (
+    fused_adam, fused_momentum, fused_sgd,
+)
 
 register_kernel(
     _layer_norm.NAME, _layer_norm._layer_norm_reference,
@@ -42,9 +48,31 @@ register_kernel(
     _optimizer._fused_adam_cuda,
     source="paddle_tpu_torch/ops/kernels/csrc/fused_adam.cu",
     replaces="paddle_tpu/ops/pallas/optimizer.py:138")
+register_kernel(
+    _embedding.NAME, _embedding._embedding_gather_reference,
+    _embedding._embedding_gather_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
+    replaces="paddle_tpu/ops/pallas/embedding.py:47")
+register_kernel(
+    _matmul.NAME, _matmul._fused_matmul_reference,
+    _matmul._fused_matmul_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/fused_matmul.cu",
+    replaces="paddle_tpu/ops/pallas/matmul.py:62")
+register_kernel(
+    _optimizer.SGD, _optimizer._fused_sgd_reference,
+    _optimizer._fused_sgd_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/fused_sgd.cu",
+    replaces="paddle_tpu/ops/pallas/optimizer.py:83")
+register_kernel(
+    _optimizer.MOMENTUM, _optimizer._fused_momentum_reference,
+    _optimizer._fused_momentum_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/fused_sgd.cu",
+    replaces="paddle_tpu/ops/pallas/optimizer.py:105")
 
 __all__ = [
-    "flash_attention", "fused_adam", "fused_layer_norm", "register_kernel",
+    "embedding_gather", "flash_attention", "fused_adam", "fused_layer_norm",
+    "fused_matmul", "fused_momentum", "fused_sgd", "try_fused_matmul",
+    "register_kernel",
     "get_kernel",
     "list_kernels", "get_body", "selected_body", "dispatch",
     "launch_counts", "reset_launch_counts",

@@ -37,6 +37,9 @@ SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "fused_adam": "fused_adam.cu",
+    "embedding": "embedding.cu",
+    "fused_matmul": "fused_matmul.cu",
+    "fused_sgd": "fused_sgd.cu",
 }
 
 #: ``-Xptxas -v`` makes ptxas report registers, shared memory and spills

@@ -1,0 +1,18 @@
+"""The static-graph (Program) path of the port: Program IR, layers' ops,
+append_backward, the pass pipeline and the Executor (see the modules)."""
+
+from paddle_tpu_torch.static.program import (  # noqa: F401
+    OP_REGISTRY, Block, Operator, Parameter, Program, Variable, data,
+    default_main_program, default_startup_program, disable_static,
+    enable_static, in_static_mode, program_guard, register_op,
+)
+# registers the fused_matmul compute: an optimized program must run
+# without the pass pipeline having run in this process
+import paddle_tpu_torch.static.opt_passes  # noqa: F401,E402
+from paddle_tpu_torch.static.backward import append_backward  # noqa: E402
+from paddle_tpu_torch.static.executor import (  # noqa: E402
+    Executor, Scope, global_scope, scope_guard,
+)
+from paddle_tpu_torch.compiler import (  # noqa: E402,F401
+    BuildStrategy, CompiledProgram,
+)

@@ -312,3 +312,129 @@ def test_bert_train_step_on_card_matches_cpu(cuda, impl):
         for name in a:
             torch.testing.assert_close(c[name].cpu(), a[name], atol=1e-4,
                                        rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,d,dtype,n,ids_dtype", [
+    (2073, 32, torch.float32, 100, torch.int64),      # word2vec's table
+    (30528, 768, torch.bfloat16, 64 * 512, torch.int64),   # BERT-base words
+    (7, 3, torch.float32, 50, torch.int32),           # 12-byte rows
+    (9, 5, torch.bfloat16, 33, torch.int64),          # 10-byte rows
+    (4, 6, torch.float16, 9, torch.int32)])
+def test_embedding_gather_kernel_matches_plain(cuda, h, d, dtype, n,
+                                               ids_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    table = torch.randn(h, d, generator=gen, device=cuda).to(dtype)
+    # valid, negative (wrap once) and out-of-range (NaN rows) ids
+    ids = torch.randint(-h - 3, h + 3, (n,), generator=gen, device=cuda,
+                        dtype=torch.int64).to(ids_dtype)
+    ids[:3] = torch.tensor([0, -1, h], device=cuda)
+    before = K.get_kernel("embedding_gather").launches
+    out = K.embedding_gather(table, ids.reshape(1, n))
+    ref = K.get_body("embedding_gather", "reference")(table, ids)
+    torch.cuda.synchronize()
+    assert K.get_kernel("embedding_gather").launches == before + 1
+    assert out.shape == (1, n, d) and out.dtype == dtype
+    # a copy: bit-identical, NaN rows where the plain body has them
+    torch.testing.assert_close(out[0], ref, atol=0, rtol=0, equal_nan=True)
+    assert torch.isnan(out[0, 2]).all() and not torch.isnan(out[0, 1]).any()
+
+
+@pytest.mark.cuda
+def test_embedding_gather_grad_on_card_matches_cpu(cuda):
+    gen = torch.Generator().manual_seed(3)
+    table = torch.randn(50, 16, generator=gen)
+    ids = torch.tensor([[0, 3, 3, -1], [49, 50, -51, 7]])
+    dy = torch.randn(2, 4, 16, generator=gen)
+
+    def run(dev):
+        t = table.to(dev).requires_grad_()
+        K.embedding_gather(t, ids.to(dev)).backward(dy.to(dev))
+        return t.grad.cpu()
+
+    # fp32 index_add in another order on the card (atomics): 1e-6
+    torch.testing.assert_close(run(cuda), run("cpu"), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,act,dtype,with_bias", [
+    (100, 128, 256, "sigmoid", torch.float32, True),   # word2vec's fc 1
+    (100, 256, 2073, None, torch.float32, True),       # word2vec's fc 2
+    (8192, 256, 2073, None, torch.float32, True),
+    (4096, 768, 3072, "relu", torch.bfloat16, True),   # BERT's FFN
+    (33, 70, 130, "tanh", torch.float32, False),
+    (1, 1, 1, "relu", torch.float32, True),
+    (65, 17, 63, "gelu", torch.bfloat16, True)])
+def test_fused_matmul_kernel_matches_plain(cuda, m, k, n, act, dtype,
+                                           with_bias):
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5).to(dtype)
+    b = torch.randn(n, generator=gen, device=cuda) if with_bias else None
+    K.reset_launch_counts()
+    out = K.fused_matmul(x, w, b, act)
+    ref = K.get_body("fused_matmul", "reference")(
+        x, w, b, None if act == "gelu" else act)
+    if act == "gelu":
+        ref = torch.nn.functional.gelu(ref)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_matmul"] == 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    # fp32 sums of K products in another order: 1e-4 (bf16 inputs: exact
+    # fp32 products, the same sums), then one rounding to the output dtype
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.to(dtype).float(),
+                               atol=1e-4, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", "sigmoid", "tanh", "gelu"])
+def test_fused_matmul_grads_on_card_match_cpu(cuda, act):
+    gen = torch.Generator().manual_seed(7)
+    x, w = torch.randn(37, 20, generator=gen), torch.randn(20, 131,
+                                                           generator=gen)
+    b, dy = torch.randn(131, generator=gen), torch.randn(37, 131,
+                                                         generator=gen)
+
+    def run(dev):
+        leaves = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        K.fused_matmul(*leaves, act=act).backward(dy.to(dev))
+        return [t.grad.cpu() for t in leaves]
+
+    K.reset_launch_counts()
+    on_card = run(cuda)
+    assert K.launch_counts()["fused_matmul"] == 1
+    for a, c in zip(on_card, run("cpu")):
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "nesterov"])
+def test_fused_sgd_and_momentum_kernels_match_plain(cuda, rule):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    # word2vec's five tensors, one past a chunk, an empty one, and views
+    # one element in (not 16-byte aligned: the scalar loop)
+    shapes = [(2073, 32), (128, 256), (256,), (256, 2073), (2073,),
+              (16385,), (0,), (5,)]
+    base = [torch.randn(2 + int(np.prod(s)), generator=gen, device=cuda)
+            for s in shapes]
+    p = [t[1:1 + int(np.prod(s))].view(s) if i >= 6 else t[:int(np.prod(s))]
+         .view(s) for i, (t, s) in enumerate(zip(base, shapes))]
+    g = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    v = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    ref_p, ref_v = [t.clone() for t in p], [t.clone() for t in v]
+    name = "fused_sgd" if rule == "sgd" else "fused_momentum"
+    before = K.get_kernel(name).launches
+    if rule == "sgd":
+        K.fused_sgd(p, g, 1e-3)
+        K.get_body(name, "reference")(ref_p, g, 1e-3)
+    else:
+        nest = rule == "nesterov"
+        K.fused_momentum(p, g, v, 1e-3, 0.9, nest)
+        K.get_body(name, "reference")(ref_p, g, ref_v, 1e-3, 0.9, nest)
+    torch.cuda.synchronize()
+    assert K.get_kernel(name).launches == before + 1
+    # each product and sum rounded on its own in the plain order: exact
+    for a, r in zip(p + (v if rule != "sgd" else []),
+                    ref_p + (ref_v if rule != "sgd" else [])):
+        torch.testing.assert_close(a, r, atol=0, rtol=0)

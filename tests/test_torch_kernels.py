@@ -315,8 +315,9 @@ def test_fused_adam_reference_matches_pallas(shape, t):
 # ---------------------------------------------------------------------------
 # registry: selection follows the device, counters count kernel launches
 # ---------------------------------------------------------------------------
-_NAMES = ["flash_attention", "flash_attention_bwd_dkdv",
-          "flash_attention_bwd_dq", "fused_adam", "fused_layer_norm"]
+_NAMES = ["embedding_gather", "flash_attention", "flash_attention_bwd_dkdv",
+          "flash_attention_bwd_dq", "fused_adam", "fused_layer_norm",
+          "fused_matmul", "fused_momentum", "fused_sgd"]
 
 
 def test_cpu_dispatch_takes_reference_and_counts_nothing():
@@ -329,6 +330,13 @@ def test_cpu_dispatch_takes_reference_and_counts_nothing():
     K.fused_adam([p], [torch.ones(5)], [torch.zeros(5)], [torch.zeros(5)],
                  0.1, torch.tensor(1, dtype=torch.int32))
     assert q.grad is not None and x.grad is not None and p.abs().sum() > 0
+    t = torch.randn(6, 4, requires_grad=True)
+    K.embedding_gather(t, torch.tensor([1, 5])).sum().backward()
+    w = torch.randn(4, 3, requires_grad=True)
+    K.fused_matmul(t, w, None, "relu").sum().backward()
+    K.fused_sgd([p], [torch.ones(5)], 0.1)
+    K.fused_momentum([p], [torch.ones(5)], [torch.zeros(5)], 0.1)
+    assert t.grad is not None and w.grad is not None
     assert K.launch_counts() == {n: 0 for n in _NAMES}
     for name in _NAMES:
         assert K.selected_body(name, "cpu") == "reference"
@@ -368,6 +376,10 @@ def test_kernel_body_refuses_cpu_tensors(name):
         "flash_attention_bwd_dq": (x, x, x, None, x, rows, rows),
         "fused_adam": ([x], [x], [x], [x], 0.1,
                        torch.tensor(1, dtype=torch.int32)),
+        "embedding_gather": (x[0, 0], torch.tensor([0, 1])),
+        "fused_matmul": (x[0, 0], x[0, 0].T, None, "relu"),
+        "fused_sgd": ([x], [x], 0.1),
+        "fused_momentum": ([x], [x], [x], 0.1),
     }[name]
     before = x.clone()
     with pytest.raises(EnforceNotMet):

@@ -214,8 +214,9 @@ def test_optimizer_refuses_what_is_not_ported():
                {"regularization": object()}, {"grad_clip": object()}):
         with pytest.raises(EnforceNotMet, match="ROADMAP"):
             topt.Adam(**kw)
-    for cls in (topt.SGD, topt.Momentum):
-        with pytest.raises(EnforceNotMet, match="queue 2 row 10"):
-            cls(learning_rate=0.1)
+        for cls in (topt.SGD, topt.Momentum):
+            with pytest.raises(EnforceNotMet, match="ROADMAP"):
+                cls(**{"learning_rate": 0.1, **kw})
+    # outside a Program, minimize() is refused
     with pytest.raises(EnforceNotMet, match="static-graph"):
         topt.Adam().minimize(None)
