@@ -18,7 +18,11 @@ Phases; any failure raises and the script exits non-zero:
    path's kernels: the embedding gather (word2vec's table with 100 and
    8192 ids, BERT-base's word table with 64x512 ids), the fused matmul
    (each activation at both word2vec fc shapes, those at 8192 rows, and
-   BERT's FFN [4096,768]x[768,3072] relu in fp32 and bf16), and SGD and
+   BERT's FFN [4096,768]x[768,3072] relu in fp32 and bf16), the int8
+   fused matmul (the serving MLP's [1|8,256]x[256,256] relu and
+   [8,256]x[256,10], word2vec's two fcs at 64 rows, BERT's FFN shape and a
+   ragged [33,70,130] tanh without bias; ``addmm`` on the weight dequantized
+   beforehand is timed beside it as a yardstick of other work), and SGD and
    momentum (plain and nesterov) over word2vec's parameters, one launch
    per parameter as the static path makes them and one over the list, and
    over BERT-base's 154 tensors.
@@ -50,7 +54,23 @@ Phases; any failure raises and the script exits non-zero:
    card against the port on the CPU, and the pass pipeline off against on,
    over 3 steps from the same weights; then Momentum(0.001, 0.9), 5
    momentum launches per step.
-9. Print one JSON line of every ported kernel (launches on the main paths,
+9. Fluid inference and weight-only int8 serving (serve-int8): the serving
+   MLP of ``bench.py`` (``_freeze_serving_mlp``'s widths) and the word2vec
+   model phase 8 trained, each saved with ``save_inference_model`` as an
+   fp32 directory and exported with ``export_aot(quantize="int8")``; an
+   ``InferenceServer`` on the card for each of the four (``max_batch`` 8,
+   ``max_wait_ms`` 2, one replica: bench.py's defaults) takes 400 one-row
+   requests, open loop, on one Poisson schedule per model at 3x its fp32
+   server's service rate. Exact launch counts per formed micro-batch (MLP:
+   3 fused matmul, or 3 int8 fused matmul and no fp32 one; word2vec: 4
+   gather and 2 of either), QPS, p50/p99, resident param bytes and, over
+   a profiled window of 100 more requests, the device's busy share and its
+   kernels by share. Checks: int8/fp32 resident bytes <= 0.55, int8 vs
+   fp32 outputs within 0.02 of the output range on a 16-row fixture, the
+   int8 server on the card vs the port's plain path on the CPU from the
+   same directory, and the ``Predictor`` on the card vs the fp32 server,
+   within 1e-5.
+10. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -593,6 +613,53 @@ def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True):
     return rec
 
 
+def check_fused_matmul_int8(K, m, k, n, act, gen, with_bias=True):
+    """The int8 fused matmul kernel (scale in the epilogue) against its
+    plain body (the whole weight dequantized first), fp32 x and out, the
+    weight quantized from a random fp32 one as export_aot(quantize="int8")
+    does. No single PyTorch call computes this function (library_ms null);
+    ``torch.addmm`` on the weight already dequantized to fp32 is timed
+    beside it as a yardstick of other work (no dequant, no activation)."""
+    from paddle_tpu_torch.static.opt_passes import quantize_weight_values
+    wf = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+    q = quantize_weight_values({"w": wf}, ["w"], "int8")
+    w, scale = q["w"].cuda(), q["w@quant_scale"].cuda()
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    b = torch.randn(n, generator=gen, device="cuda") if with_bias else None
+    kern = K.get_body("fused_matmul_int8", "kernel")
+    plain = K.get_body("fused_matmul_int8", "reference")
+    out, ref = kern(x, w, scale, b, act), plain(x, w, scale, b, act)
+    torch.cuda.synchronize()
+    # fp32 sums of K products in another order than cuBLAS's, the scale
+    # applied once to each column's sum where the plain body scales every
+    # weight: atol 1e-4, rtol 1e-4 at outputs O(1)
+    err = max_err(out, ref)
+    check(within(out, ref, 1e-4, 1e-4),
+          f"fused_matmul_int8 [{m},{k}]x[{k},{n}] {act}: kernel disagrees "
+          f"with plain: {err}")
+    nbytes = m * k * 4 + k * n + n * 4 + (n * 4 if with_bias else 0) \
+        + m * n * 4
+    b_ms, b_by = bound(nbytes, 2 * m * n * k, torch.float32)
+    ms = device_ms(lambda: kern(x, w, scale, b, act), 20)
+    plain_ms = device_ms(lambda: plain(x, w, scale, b, act), 20)
+    wd = w.float() * (scale / 127.0)
+    yard_ms = device_ms((lambda: torch.addmm(b, x, wd)) if with_bias
+                        else (lambda: torch.mm(x, wd)), 20)
+    rec = dict(shape=[m, k, n], act=act, bias=with_bias, max_abs_err=err,
+               tol="atol 1e-4 rtol 1e-4 (fp32 out)", ms=ms,
+               plain_ms=plain_ms, library_ms=None, library="none",
+               addmm_dequantized_ms=yard_ms,
+               yardstick="torch.addmm on the fp32 weight dequantized "
+                         "beforehand (other work: no dequant, no "
+                         "activation)",
+               bound_ms=b_ms, bound_by=b_by,
+               tflops=2 * m * n * k / (ms * 1e-3) / 1e12,
+               host_ms_per_call=host_ms(lambda: kern(x, w, scale, b, act),
+                                        200))
+    log("check fused_matmul_int8 " + json.dumps(rec))
+    return rec
+
+
 def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
     """The SGD or momentum kernel against its plain body over fp32 tensors
     of ``shapes`` (bit-identical: every product and sum rounds singly in
@@ -748,6 +815,7 @@ KERNEL_GROUPS = (
     ("fused_layer_norm", r"layer_norm_fwd_kernel"),
     ("fused_adam", r"fused_adam_kernel"),
     ("embedding_gather", r"::gather_kernel<"),
+    ("fused_matmul_int8", r"fused_matmul_kernel<\w+, signed char"),
     ("fused_matmul", r"fused_matmul_kernel"),
     ("fused_sgd", r"fused_sgd_kernel"),
     ("fused_momentum", r"fused_momentum_kernel"),
@@ -1091,7 +1159,7 @@ def build_word2vec(pt, opt):
         pred = pt.layers.fc(hidden, W2V_VOCAB, act="softmax")
         loss = pt.layers.mean(pt.layers.cross_entropy(pred, nxt))
         opt.minimize(loss)
-    return main, startup, loss
+    return main, startup, loss, pred
 
 
 def w2v_feed(batch, seed):
@@ -1137,7 +1205,7 @@ def phase_static_w2v(K, pt, card):
     per_step = {"embedding_gather": 4, "fused_matmul": 2, "fused_sgd": 5,
                 "fused_momentum": 0, "fused_adam": 0, "fused_layer_norm": 0,
                 **{n: 0 for n in FLASH_NAMES}}
-    main, startup, loss = build_word2vec(
+    main, startup, loss, pred = build_word2vec(
         pt, pt.optimizer.SGDOptimizer(learning_rate=0.001))
     exe = pt.Executor()                   # the card, by default
     scope = pt.Scope()
@@ -1244,7 +1312,7 @@ def phase_static_w2v(K, pt, card):
                    "parameters 1e-5")
 
     # Momentum: one fused_momentum launch per parameter per step
-    main_m, startup_m, loss_m = build_word2vec(
+    main_m, startup_m, loss_m, _ = build_word2vec(
         pt, pt.optimizer.MomentumOptimizer(0.001, momentum=0.9))
     scope_m = pt.Scope()
     exe.run(startup_m, scope=scope_m)
@@ -1257,7 +1325,234 @@ def phase_static_w2v(K, pt, card):
     rec.update(momentum_losses=losses,
                momentum_ms_per_step=statistics.median(ms), launches=total)
     log("static_w2v " + json.dumps(rec))
-    return rec
+    # the SGD-trained model, for phase 9 to deploy
+    return rec, (main, scope, pred, exe)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Fluid inference and weight-only int8 serving (serve-int8)
+# ---------------------------------------------------------------------------
+#: bench.py:1101-1104's defaults
+SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS, SERVE_REQUESTS, SERVE_RATE_X = \
+    8, 2.0, 400, 3.0
+W2V_FEEDS = tuple(f"w{i}" for i in range(4))
+
+
+def freeze_serving_mlp(pt, d_fp, d_q):
+    """bench.py:629-665's serving model with the port: x[256] -> fc 256
+    relu -> fc 256 relu -> fc 10, random weights from the startup
+    program's seed on the card, saved twice (fp32; and the same weights
+    exported with quantize="int8")."""
+    from paddle_tpu_torch import inference
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.data("x", [256], "float32")
+        h = pt.layers.fc(x, 256, act="relu")
+        h = pt.layers.fc(h, 256, act="relu")
+        out = pt.layers.fc(h, 10)
+    scope = pt.Scope()
+    exe = pt.Executor()
+    exe.run(startup, scope=scope)
+    with pt.scope_guard(scope):
+        for d in (d_fp, d_q):
+            pt.io.save_inference_model(d, ["x"], [out], exe,
+                                       main_program=main)
+    inference.export_aot(d_q, main, ["x"], [out.name], scope,
+                         [{"x": ((1, 256), "float32")}], quantize="int8")
+
+
+def export_word2vec(pt, trained, d_fp, d_q):
+    """The word2vec model phase 8 trained, deployed: save_inference_model
+    with fetch = the softmax, then the int8 export of the saved program."""
+    from paddle_tpu_torch import inference
+    main, scope, pred, exe = trained
+    with pt.scope_guard(scope):
+        for d in (d_fp, d_q):
+            pt.io.save_inference_model(d, list(W2V_FEEDS), [pred], exe,
+                                       main_program=main)
+    prog, feeds, fetches = pt.io.load_inference_model(d_q, exe,
+                                                      scope=pt.Scope())
+    inference.export_aot(d_q, prog, feeds, fetches, scope,
+                         [{n: ((1, 1), "int64") for n in W2V_FEEDS}],
+                         quantize="int8")
+
+
+def serve_fixture(srv, feeds):
+    """Outputs of a 16-row fixture through ``srv``, in top-bucket
+    requests."""
+    import numpy as np
+    rows = len(next(iter(feeds.values())))
+    return np.concatenate([
+        srv.infer({n: a[i:i + SERVE_MAX_BATCH] for n, a in feeds.items()},
+                  timeout=120)[0]
+        for i in range(0, rows, SERVE_MAX_BATCH)])
+
+
+def open_loop(srv, feed, sched):
+    """One request of ``feed`` per arrival time of ``sched`` (seconds from
+    now), submitted without waiting for answers; returns (latencies in ms
+    sorted, QPS, window s)."""
+    import numpy as np
+    pend, arrived = [], []
+    t_origin = time.perf_counter()
+    for t in sched:
+        dly = t_origin + t - time.perf_counter()
+        if dly > 0:
+            time.sleep(dly)
+        arrived.append(t_origin + t)
+        pend.append(srv.submit(feed))
+    for p in pend:
+        p.result(timeout=600)
+    done = [p.t_done for p in pend]
+    lat = np.sort((np.asarray(done) - np.asarray(arrived)) * 1e3)
+    return lat, len(sched) / (max(done) - t_origin), max(done) - t_origin
+
+
+def serve_cell(K, label, d, fixture, one_row, want, sched, card):
+    """Boot an InferenceServer on the card from ``d`` (bench.py's serving
+    defaults), run the fixture, measure the service time of 20 sequential
+    one-row requests, then the counted open-loop run of ``sched`` (launch
+    counts set to 0 just before and read just after, held to ``want`` per
+    formed micro-batch), and a profiled window of 100 more requests on
+    the same schedule (device busy share, kernels by share)."""
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    t0 = time.perf_counter()
+    srv = InferenceServer(d, ServingConfig(
+        max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_MAX_WAIT_MS,
+        max_queue=SERVE_REQUESTS + 64, replicas=1))
+    boot_s = time.perf_counter() - t0
+    try:
+        fix = serve_fixture(srv, fixture)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            srv.infer(one_row, timeout=60)
+        svc_s = (time.perf_counter() - t0) / 20
+        if sched is None:
+            import numpy as np
+            sched = np.cumsum(np.random.RandomState(42).exponential(
+                svc_s / SERVE_RATE_X, size=SERVE_REQUESTS))
+        batches0 = sum(r.batches_run for r in srv.pool.replicas)
+        K.reset_launch_counts()
+        lat, qps, window_s = open_loop(srv, one_row, sched)
+        counts = K.launch_counts()
+        batches = sum(r.batches_run for r in srv.pool.replicas) - batches0
+        for name, n in counts.items():
+            check(n == want.get(name, 0) * batches,
+                  f"{label}: {n} {name} launches over {batches} micro-"
+                  f"batches, expected {want.get(name, 0)} per batch")
+        prof = op_breakdown(lambda: open_loop(srv, one_row, sched[:100]),
+                            host_top=8)
+        kernel_ms = prof.get("kernel_ms", 0.0)
+        rec = dict(
+            cell=label, boot_s=boot_s, service_ms=svc_s * 1e3,
+            offered_qps=len(sched) / sched[-1], n_requests=len(sched),
+            qps=qps, window_s=window_s,
+            p50_ms=float(lat[len(lat) // 2]),
+            p99_ms=float(lat[min(len(lat) - 1, int(0.99 * len(lat)))]),
+            micro_batches=batches, rows_per_batch=len(sched) / batches,
+            launches={k: v for k, v in counts.items() if v},
+            param_bytes=srv.pool.resident_param_bytes(),
+            model_version=srv.model_version,
+            device_busy_share=kernel_ms / prof["host_ms_profiled"]
+            if prof else None,
+            kernel_share={g: ms / kernel_ms
+                          for g, ms in prof.get("groups_ms", {}).items()},
+            profile=prof)
+        log(f"serve-int8 {label}: {rec['qps']:.1f} QPS (offered "
+            f"{rec['offered_qps']:.1f}), p50 {rec['p50_ms']:.3f} ms, p99 "
+            f"{rec['p99_ms']:.3f} ms, {batches} micro-batches, "
+            f"{rec['param_bytes']} resident param bytes [{card}]")
+    finally:
+        check(srv.close(timeout=120), f"{label}: server did not close")
+    return rec, fix, sched, counts
+
+
+def phase_serve_int8(K, pt, card, trained):
+    """Deploy the serving MLP and the word2vec model phase 8 trained as
+    fp32 and int8 directories, serve each on the card at bench.py's
+    defaults under one open-loop Poisson schedule per model at 3x its fp32
+    server's service rate, and hold int8 against fp32, the card against
+    the CPU and the Predictor against the server."""
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    per_batch = {
+        ("mlp", "fp32"): {"fused_matmul": 3},
+        ("mlp", "int8"): {"fused_matmul_int8": 3},
+        ("w2v", "fp32"): {"embedding_gather": 4, "fused_matmul": 2},
+        ("w2v", "int8"): {"embedding_gather": 4, "fused_matmul_int8": 2},
+    }
+    rng = np.random.RandomState(0)
+    inputs = {
+        "mlp": ({"x": rng.rand(16, 256).astype(np.float32)},
+                {"x": rng.rand(1, 256).astype(np.float32)}),
+        "w2v": ({n: rng.randint(0, W2V_VOCAB, (16, 1)) for n in W2V_FEEDS},
+                {n: rng.randint(0, W2V_VOCAB, (1, 1)) for n in W2V_FEEDS}),
+    }
+    out = {"cells": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {(m, q): os.path.join(root, f"{m}_{q}")
+                for m in ("mlp", "w2v") for q in ("fp32", "int8")}
+        t0 = time.perf_counter()
+        freeze_serving_mlp(pt, dirs["mlp", "fp32"], dirs["mlp", "int8"])
+        export_word2vec(pt, trained, dirs["w2v", "fp32"],
+                        dirs["w2v", "int8"])
+        out["export_s"] = time.perf_counter() - t0
+        for model in ("mlp", "w2v"):
+            fixture, one_row = inputs[model]
+            sched, fix = None, {}
+            for q in ("fp32", "int8"):
+                label = f"{model}-{q}"
+                rec, fix[q], sched, counts = serve_cell(
+                    K, label, dirs[model, q], fixture, one_row,
+                    per_batch[model, q], sched, card)
+                out["cells"][label] = rec
+                for k, v in counts.items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+            fp, i8 = out["cells"][f"{model}-fp32"], \
+                out["cells"][f"{model}-int8"]
+            ratio = i8["param_bytes"] / fp["param_bytes"]
+            span = float(np.abs(fix["fp32"]).max())
+            delta = float(np.abs(fix["int8"] - fix["fp32"]).max()) / span
+            # the CPU's plain path from the same int8 directory
+            with InferenceServer(dirs[model, "int8"], ServingConfig(
+                    max_batch=SERVE_MAX_BATCH,
+                    devices=[torch.device("cpu")])) as cpu_srv:
+                cpu_fix = serve_fixture(cpu_srv, fixture)
+            card_cpu = float(np.abs(fix["int8"] - cpu_fix).max())
+            cfg = inference.Config(dirs[model, "fp32"])
+            pred = inference.create_predictor(cfg).run(fixture)[0]
+            pred_diff = float(np.abs(pred - fix["fp32"]).max())
+            # acceptance of bench.py's BENCH_SERVING_QUANT A/B: resident
+            # bytes <= 0.55x; int8 against fp32 set before the first card
+            # run from the JAX package on the CPU (0.0041 and 0.0030 of the
+            # output range): within 0.02. The card against the CPU, and the
+            # Predictor against the server: fp32 sums in another order,
+            # within 1e-5
+            check(ratio <= 0.55, f"{model}: int8/fp32 resident bytes "
+                                 f"{ratio}")
+            check(delta <= 0.02, f"{model}: int8 vs fp32 outputs {delta} "
+                                 f"of the output range")
+            check(card_cpu <= 1e-5, f"{model}: int8 card vs CPU {card_cpu}")
+            check(pred_diff <= 1e-5, f"{model}: Predictor vs server "
+                                     f"{pred_diff}")
+            check(all(np.isfinite(v).all() for v in
+                      (*fix.values(), cpu_fix, pred)), f"{model}: not finite")
+            out[model] = dict(
+                resident_bytes_ratio=ratio, int8_vs_fp32_of_range=delta,
+                fp32_output_range=span, int8_card_vs_cpu=card_cpu,
+                predictor_vs_server=pred_diff,
+                qps_ratio=i8["qps"] / fp["qps"],
+                tol="bytes ratio <= 0.55; int8 vs fp32 <= 0.02 of the "
+                    "range; card vs CPU and Predictor vs server <= 1e-5")
+            log(f"serve-int8 {model}: resident bytes int8/fp32 {ratio:.4f}, "
+                f"int8 vs fp32 {delta:.6f} of the range, card vs CPU "
+                f"{card_cpu:.3g}, Predictor vs server {pred_diff:.3g}")
+    log("serve_int8 " + json.dumps(out))
+    return out
 
 
 def main():
@@ -1338,6 +1633,19 @@ def main():
         # the static BERT trunk's FFN (bench.py:485)
         for dt in (torch.float32, torch.bfloat16):
             check_fused_matmul(K, 4096, 768, 3072, "relu", dt, gen)
+        # the int8 kernel at the served micro-batches' shapes: the MLP's
+        # buckets 1 and 8, word2vec's two fcs at 64 rows, BERT's FFN (where
+        # the fp32 kernel is timed) and the ragged case
+        fmm8 = {}
+        for m, k, n, act, bias in (
+                (1, 256, 256, "relu", True), (8, 256, 256, "relu", True),
+                (8, 256, 10, None, True),
+                (64, 4 * W2V_EMBED, W2V_HIDDEN, "sigmoid", True),
+                (64, W2V_HIDDEN, W2V_VOCAB, None, True),
+                (4096, 768, 3072, "relu", True),
+                (33, 70, 130, "tanh", False)):
+            fmm8[(m, k, n)] = check_fused_matmul_int8(K, m, k, n, act, gen,
+                                                      with_bias=bias)
         from paddle_tpu_torch.core.tree import leaves
         bert_shapes = [t.shape for t in leaves(bert.init_params(
             bert.bert_base(), gen))]
@@ -1375,8 +1683,11 @@ def main():
     log("phase 7: training correctness on the card")
     phase_train_checks(bert, optimizer, card)
     log("phase 8: the Fluid static path, word2vec (static-w2v)")
-    static = phase_static_w2v(K, pt, card)
+    static, trained = phase_static_w2v(K, pt, card)
     log(f"phases 0-8 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 9: Fluid inference and int8 serving (serve-int8)")
+    served = phase_serve_int8(K, pt, card, trained)
+    log(f"phases 0-9 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -1387,6 +1698,7 @@ def main():
         "pretrain-512": pre512["launches"],
         "pretrain-2048": pre2048["flash"]["launches"],
         "static-w2v": static["launches"],
+        "serve-int8": served["launches"],
     }
     kernels = []
     for name, main_rec in (
@@ -1396,6 +1708,7 @@ def main():
             ("flash_attention_bwd_dq", bwd_main["flash_attention_bwd_dq"]),
             ("fused_adam", adam_main), ("embedding_gather", emb_main),
             ("fused_matmul", fmm[(100, W2V_HIDDEN, W2V_VOCAB, None)]),
+            ("fused_matmul_int8", fmm8[(8, 256, 256)]),
             ("fused_sgd", opt_main["sgd"]),
             ("fused_momentum", opt_main["momentum"])):
         phases = {ph: c[name] for ph, c in by_phase.items()

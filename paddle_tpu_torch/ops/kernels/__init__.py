@@ -18,7 +18,9 @@ from paddle_tpu_torch.ops.kernels import optimizer as _optimizer
 from paddle_tpu_torch.ops.kernels.attention import flash_attention
 from paddle_tpu_torch.ops.kernels.embedding import embedding_gather
 from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
-from paddle_tpu_torch.ops.kernels.matmul import fused_matmul, try_fused_matmul
+from paddle_tpu_torch.ops.kernels.matmul import (
+    fused_matmul, fused_matmul_int8, try_fused_matmul,
+)
 from paddle_tpu_torch.ops.kernels.optimizer import (
     fused_adam, fused_momentum, fused_sgd,
 )
@@ -59,6 +61,11 @@ register_kernel(
     source="paddle_tpu_torch/ops/kernels/csrc/fused_matmul.cu",
     replaces="paddle_tpu/ops/pallas/matmul.py:62")
 register_kernel(
+    _matmul.INT8, _matmul._fused_matmul_int8_reference,
+    _matmul._fused_matmul_int8_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/fused_matmul.cu",
+    replaces="paddle_tpu/ops/pallas/matmul.py:62")
+register_kernel(
     _optimizer.SGD, _optimizer._fused_sgd_reference,
     _optimizer._fused_sgd_cuda,
     source="paddle_tpu_torch/ops/kernels/csrc/fused_sgd.cu",
@@ -71,7 +78,8 @@ register_kernel(
 
 __all__ = [
     "embedding_gather", "flash_attention", "fused_adam", "fused_layer_norm",
-    "fused_matmul", "fused_momentum", "fused_sgd", "try_fused_matmul",
+    "fused_matmul", "fused_matmul_int8", "fused_momentum", "fused_sgd",
+    "try_fused_matmul",
     "register_kernel",
     "get_kernel",
     "list_kernels", "get_body", "selected_body", "dispatch",

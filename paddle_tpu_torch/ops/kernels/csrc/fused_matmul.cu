@@ -1,31 +1,45 @@
-// Fused matmul + bias + activation for Hopper (sm_90a): out = act(x @ w + bias).
+// Fused matmul + bias + activation for Hopper (sm_90a): out = act(x @ w + bias), and its
+// weight-only int8 form out = act(x @ (w_int8 * scale / 127) + bias).
 //
-// Replaces: paddle_tpu/ops/pallas/matmul.py:_fmm_kernel with dequant=False (via _fmm_call),
-// registry name "fused_matmul". The static graph's fuse_matmul_bias_act pass folds
-// layers.fc's mul + elementwise_add + act into one fused_matmul op, whose compute lands here.
+// Replaces: paddle_tpu/ops/pallas/matmul.py:_fmm_kernel (via _fmm_call), registry names
+// "fused_matmul" (dequant=False) and "fused_matmul_int8" (dequant=True, the dequant at
+// :80-82). The static graph's fuse_matmul_bias_act pass folds layers.fc's mul + elementwise_add
+// + act into one fused_matmul op, whose compute lands here; a program rewritten by the
+// weight-only PTQ pass (apply_weight_quant, the int8 serving path) carries quant="int8" on that
+// op and lands in the int8 entry.
 //
-// What it computes: x [M, K] (fp32 or bf16, row-major) times w [K, N] (fp32 or bf16,
+// What it computes: x [M, K] (fp32 or bf16, row-major) times w [K, N] (fp32, bf16 or int8,
 // row-major), summed in fp32, plus an fp32 bias [N] when given, then relu, sigmoid, tanh or
 // nothing, written as fp32 [M, N]. Like the TPU kernel, the epilogue runs on the fp32 sum;
 // gelu and the cast to the caller's dtype stay outside (the wrapper). No TF32: fp32 inputs
-// stay fp32 products.
+// stay fp32 products. With an int8 w, each column's sum is multiplied by scale[n] / 127 in the
+// epilogue, before the bias: the scale is per output column, so applying it once to the sum
+// equals applying it to every weight up to rounding (one multiply per output, not per
+// multiply-add), and the fp32 weight never exists in device memory.
 //
 // What bounds it on the H100: operations. word2vec's [100,256]x[256,2073] is 106 MFLOP over
 // 2.3 MB (bound 1.6 us in fp32 SIMT at 67 TFLOP/s); BERT's FFN [4096,768]x[768,3072] is
-// 19.3 GFLOP (0.29 ms in fp32 SIMT, 0.02 ms on the bf16 tensor cores).
+// 19.3 GFLOP (0.29 ms in fp32 SIMT, 0.02 ms on the bf16 tensor cores). The int8 weight moves a
+// quarter of the fp32 weight's bytes, which matters only where the bytes bound the call: the
+// serving MLP's [8,256]x[256,256] moves 84 KB and does 1 MFLOP (bounds 0.025 and 0.016 us), so
+// a launch there is bound by latency: the serial walk over K in 16-deep steps.
 //
 // What the design does about it: a first, simple version on the SIMT cores. Each block of
 // 256 threads owns a 64x64 output tile and walks K in steps of 16: it stages a 64x16 slice
-// of x (transposed, as fp32) and a 16x64 slice of w (as fp32) in shared memory, and each
-// thread accumulates a 4x4 sub-tile in registers with fused multiply-adds, reading x as
-// warp broadcasts and w at consecutive addresses. Edge tiles are masked on load (zeros) and
-// on store, so no shape needs padding (word2vec's N = 2073 is a multiple of no tile). The
-// bias and activation run on the registers before the one store. Tensor cores (wgmma) come
-// in a later version.
+// of x (transposed, as fp32) and a 16x64 slice of w (converted to fp32 on load: an int8
+// weight is read with byte loads and converted sign-correctly, so rows of any width, aligned
+// or not, need no padding) in shared memory, and each thread accumulates a 4x4 sub-tile in
+// registers with fused multiply-adds, reading x as warp broadcasts and w at consecutive
+// addresses. Edge tiles are masked on load (zeros) and on store, so no shape needs padding
+// (word2vec's N = 2073 and the MLP's N = 10 are multiples of no tile). The scale (each thread
+// reads its four columns' entries once), bias and activation run on the registers before the
+// one store. Tensor cores (wgmma, or int8/fp8 arithmetic) come in a later version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -35,6 +49,9 @@ enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kTanh = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+
+constexpr float kQuantBins = 127.f;  // int8 per-channel abs-max: w = q * scale / 127
 
 template <int ACT>
 __device__ __forceinline__ float activate(float v) {
@@ -47,8 +64,8 @@ __device__ __forceinline__ float activate(float v) {
 template <typename TX, typename TW, int ACT>
 __global__ void __launch_bounds__(kThreads)
 fused_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out, int64_t M,
-                    int64_t N, int64_t K) {
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    float* __restrict__ out, int64_t M, int64_t N, int64_t K) {
   __shared__ float xs[kBK][kBM + 1];  // x slice, transposed: xs[k][m]
   __shared__ float ws[kBK][kBN];
   const int tid = threadIdx.x;
@@ -91,6 +108,13 @@ fused_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     __syncthreads();
   }
 
+  constexpr bool kDequant = std::is_same<TW, int8_t>::value;
+  float col_scale[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t gn = n0 + tx + 16 * j;
+    col_scale[j] = (kDequant && gn < N) ? scale[gn] / kQuantBins : 1.f;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t gm = m0 + ty + 16 * i;
@@ -100,6 +124,7 @@ fused_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
       const int64_t gn = n0 + tx + 16 * j;
       if (gn >= N) continue;
       float v = acc[i][j];
+      if (kDequant) v *= col_scale[j];
       if (bias != nullptr) v += bias[gn];
       out[gm * N + gn] = activate<ACT>(v);
     }
@@ -107,8 +132,8 @@ fused_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
 }
 
 template <typename TX, typename TW>
-int launch_act(const void* x, const void* w, const float* bias, float* out, int64_t M, int64_t N,
-               int64_t K, int act, cudaStream_t s) {
+int launch_act(const void* x, const void* w, const float* scale, const float* bias, float* out,
+               int64_t M, int64_t N, int64_t K, int act, cudaStream_t s) {
   const int64_t gy = (M + kBM - 1) / kBM, gx = (N + kBN - 1) / kBN;
   if (gy > 65535 || gx > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
@@ -116,17 +141,20 @@ int launch_act(const void* x, const void* w, const float* bias, float* out, int6
   const TW* wp = static_cast<const TW*>(w);
   switch (act) {
     case kNone:
-      fused_matmul_kernel<TX, TW, kNone><<<grid, kThreads, 0, s>>>(xp, wp, bias, out, M, N, K);
+      fused_matmul_kernel<TX, TW, kNone>
+          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
       break;
     case kRelu:
-      fused_matmul_kernel<TX, TW, kRelu><<<grid, kThreads, 0, s>>>(xp, wp, bias, out, M, N, K);
+      fused_matmul_kernel<TX, TW, kRelu>
+          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
       break;
     case kSigmoid:
-      fused_matmul_kernel<TX, TW, kSigmoid><<<grid, kThreads, 0, s>>>(xp, wp, bias, out, M, N,
-                                                                      K);
+      fused_matmul_kernel<TX, TW, kSigmoid>
+          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
       break;
     case kTanh:
-      fused_matmul_kernel<TX, TW, kTanh><<<grid, kThreads, 0, s>>>(xp, wp, bias, out, M, N, K);
+      fused_matmul_kernel<TX, TW, kTanh>
+          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -147,10 +175,28 @@ extern "C" int pt_fused_matmul(const void* x, int x_bf16, const void* w, int w_b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
-  if (!x_bf16 && !w_bf16) return launch_act<float, float>(x, w, b, o, M, N, K, act, s);
-  if (!x_bf16 && w_bf16) return launch_act<float, __nv_bfloat16>(x, w, b, o, M, N, K, act, s);
-  if (x_bf16 && !w_bf16) return launch_act<__nv_bfloat16, float>(x, w, b, o, M, N, K, act, s);
-  return launch_act<__nv_bfloat16, __nv_bfloat16>(x, w, b, o, M, N, K, act, s);
+  if (!x_bf16 && !w_bf16) return launch_act<float, float>(x, w, nullptr, b, o, M, N, K, act, s);
+  if (!x_bf16 && w_bf16)
+    return launch_act<float, __nv_bfloat16>(x, w, nullptr, b, o, M, N, K, act, s);
+  if (x_bf16 && !w_bf16)
+    return launch_act<__nv_bfloat16, float>(x, w, nullptr, b, o, M, N, K, act, s);
+  return launch_act<__nv_bfloat16, __nv_bfloat16>(x, w, nullptr, b, o, M, N, K, act, s);
+}
+
+// The weight-only int8 form: x as above; w: int8 [K, N] row-major; scale: fp32 [N], the
+// per-column abs-max of the fp32 weight; bias: fp32 [N] or null; out: fp32 [M, N] =
+// act(x @ w * scale / 127 + bias). Returns the cudaError_t of the launch (0 = accepted).
+extern "C" int pt_fused_matmul_int8(const void* x, int x_bf16, const void* w, const void* scale,
+                                    const void* bias, void* out, int64_t M, int64_t N, int64_t K,
+                                    int act, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  if (M < 0 || N < 0 || K < 0 || scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  if (!x_bf16) return launch_act<float, int8_t>(x, w, sc, b, o, M, N, K, act, s);
+  return launch_act<__nv_bfloat16, int8_t>(x, w, sc, b, o, M, N, K, act, s);
 }
 
 extern "C" const char* pt_cuda_error_string(int err) {

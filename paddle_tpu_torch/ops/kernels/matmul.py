@@ -14,8 +14,14 @@ matmul.py:173-197) is plain PyTorch on either device: the activation's
 derivative from the saved residual, then two matmuls, as the JAX package
 leaves them to two stock dots.
 
-The int8 half (row 9: ``dequant=True``, PTQ serving) is not ported yet; an
-op that carries ``quant`` raises.
+The int8 half (``dequant=True``, ``fused_matmul_int8_pallas``,
+matmul.py:232-245) is :func:`fused_matmul_int8`, forward only (serving never
+differentiates a quantized program): act(x @ (w_int8 * scale / 127) + bias)
+on the same kernel source, whose int8 entry converts the weight tile on load
+and applies the per-column scale to the fp32 sum in the epilogue, so the fp32
+weight never exists in device memory. CPU tensors take
+:func:`_fused_matmul_int8_reference`, which dequantizes the whole weight
+first, as the JAX package's stock body does.
 """
 
 import ctypes
@@ -26,9 +32,12 @@ import torch
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.ops.kernels import _build, registry
 
-__all__ = ["fused_matmul", "try_fused_matmul"]
+__all__ = ["fused_matmul", "fused_matmul_int8", "try_fused_matmul"]
 
 NAME = "fused_matmul"
+INT8 = "fused_matmul_int8"
+#: int8 per-channel abs-max bins: w = q * scale / 127 (opt_passes.QUANT_BINS)
+_QUANT_BINS = 127.0
 #: activations the kernel applies in its epilogue
 _KERNEL_ACTS = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3}
 _ACTS = ("relu", "sigmoid", "tanh", "gelu")
@@ -38,6 +47,10 @@ _SIGNATURES = {
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                         ctypes.c_int, ctypes.c_void_p],
+    "pt_fused_matmul_int8": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -167,17 +180,101 @@ def _fused_matmul_cuda(x2, w, bias=None, act=None):
     return out
 
 
+def fused_matmul_int8(x, w, scale, bias=None, act=None):
+    """act(x @ (w * scale / 127) + bias) for x [..., K] (float), w int8
+    [K, N], scale fp32 [N] (each column's abs-max), bias [N] or None, act as
+    :func:`fused_matmul`; summed in fp32 and returned as [..., N] in
+    ``promote(x.dtype, float32)``. Forward only. CPU tensors take the plain
+    body; CUDA tensors launch the kernel or raise."""
+    if act not in _KERNEL_ACTS and act != "gelu":
+        raise EnforceNotMet(f"{INT8}: act must be one of {_ACTS} or None, "
+                            f"got {act!r}")
+    lead = x.shape[:-1]
+    z = registry.dispatch(INT8, x.reshape(-1, x.shape[-1]), w, scale, bias,
+                          None if act == "gelu" else act)
+    if act == "gelu":
+        z = _activate(z, "gelu")
+    return z.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+        *lead, w.shape[1])
+
+
+def _fused_matmul_int8_reference(x2, w, scale, bias=None, act=None):
+    """The stock composition (``fused_matmul_int8_reference``,
+    matmul.py:248-259): the whole fp32 weight first, then the matmul chain;
+    fp32 [M, N]."""
+    z = x2.float() @ (w.float() * (scale.float() / _QUANT_BINS))
+    if bias is not None:
+        z = z + bias.float()
+    return _activate(z, act)
+
+
+def _fused_matmul_int8_cuda(x2, w, scale, bias=None, act=None):
+    """Launch the int8 entry of ``csrc/fused_matmul.cu`` on the current
+    stream (no sync)."""
+    dev = x2.device
+    if dev.type != "cuda":
+        raise EnforceNotMet(f"{INT8}: the kernel takes CUDA tensors, got x "
+                            f"on {dev}")
+    if act not in _KERNEL_ACTS:
+        raise EnforceNotMet(f"{INT8}: the kernel applies relu, sigmoid, "
+                            f"tanh or nothing, got {act!r}")
+    if x2.dtype not in _BF16 or x2.dim() != 2:
+        raise EnforceNotMet(f"{INT8}: x must be a 2-D float32 or bfloat16 "
+                            f"tensor, got {x2.dtype} {tuple(x2.shape)}")
+    m, k = x2.shape
+    if w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != k \
+            or w.device != dev:
+        raise EnforceNotMet(
+            f"{INT8}: w must be an int8 [{k}, N] tensor on {dev}, got "
+            f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    n = w.shape[1]
+    if scale is None:
+        raise EnforceNotMet(f"{INT8}: the kernel needs a scale table")
+    for nm, t in (("scale", scale), ("bias", bias)):
+        if t is not None and (t.device != dev or tuple(t.shape) != (n,)):
+            raise EnforceNotMet(f"{INT8}: {nm} must be [{n}] on {dev}, got "
+                                f"{tuple(t.shape)} on {t.device}")
+    # the kernel reads an fp32 scale and bias
+    scale = scale.to(torch.float32).contiguous()
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    x2, w = x2.contiguous(), w.contiguous()
+    out = torch.empty(m, n, dtype=torch.float32, device=dev)
+    lib = _build.load("fused_matmul", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pt_fused_matmul_int8(
+            x2.data_ptr(), _BF16[x2.dtype], w.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            m, n, k, _KERNEL_ACTS[act], stream)
+    _build.check_launch(lib, INT8, err)
+    registry.get_kernel(INT8).count_launch()
+    return out
+
+
 def try_fused_matmul(ins, attrs):
-    """The kernel's path for the static ``fused_matmul`` op, with the
-    contract checks of matmul.py:273-340: the output, or None when the
+    """The kernels' path for the static ``fused_matmul`` op (``quant``
+    None, "bf16" or "int8"), with the contract checks of
+    matmul.py:273-340: the output, or None when the
     operands fall outside the kernel's contract (then the caller runs the
     plain composition, as the JAX package does). Inside the contract a CUDA
     tensor always launches the kernel or raises."""
     xs = list(ins["X"])
     x, w = xs[0], xs[1]
+    quant = attrs.get("quant")
+    i = 2
+    scale = None
+    if quant == "int8":
+        scale = xs[i]
+        i += 1
+        if w.dtype != torch.int8:
+            return None
+    elif quant not in (None, "bf16"):
+        return None
     if w.dim() != 2 or x.dim() < 2 or x.shape[-1] != w.shape[0]:
         return None
-    if not x.is_floating_point() or not w.is_floating_point():
+    if not x.is_floating_point() or (quant != "int8"
+                                     and not w.is_floating_point()):
         return None
     mm_attrs = attrs.get("mm_attrs", {})
     if attrs["mm_type"] == "matmul":
@@ -198,7 +295,7 @@ def try_fused_matmul(ins, attrs):
         return None
     bias = None
     if attrs.get("has_bias"):
-        b = xs[2]
+        b = xs[i]
         axis = attrs.get("bias_axis", -1)
         if b.dim() != 1 or b.shape[0] != w.shape[1] \
                 or axis not in (-1, len(out_shape) - 1):
@@ -207,4 +304,11 @@ def try_fused_matmul(ins, attrs):
     act = attrs.get("act")
     if act is not None and act not in _ACTS:
         return None
-    return fused_matmul(x_eff, w, bias=bias, act=act).reshape(out_shape)
+    if quant == "int8":
+        out = fused_matmul_int8(x_eff, w, scale, bias=bias, act=act)
+    else:
+        # bf16 storage: the stock path casts the weight to fp32 first, so
+        # the result is fp32 whatever the weight's dtype
+        out = fused_matmul(x_eff, w, bias=bias, act=act, out_dtype=(
+            torch.promote_types(x.dtype, torch.float32) if quant else None))
+    return out.reshape(out_shape)

@@ -58,6 +58,10 @@ class Optimizer:
                 "regularization and grad_clip are not ported yet (ROADMAP "
                 "queue 1 item 7: regularizer.py, clip.py)")
         self.learning_rate = float(learning_rate)
+        # kept (None) so a saved program's optimizer state has the JAX
+        # package's fields
+        self.regularization = regularization
+        self.grad_clip = grad_clip
         self.name = name
 
     def init(self, params):
@@ -152,6 +156,7 @@ class Optimizer:
                         "Slots": slot_names, "Step": [step_name]},
                 outputs={"ParamOut": [p.name], "SlotOuts": slot_names},
                 attrs={"opt": self, "slot_names": list(self._slot_defaults),
+                       "regularizer": p.regularizer,
                        "param_lr": p.optimize_attr.get("learning_rate",
                                                        1.0)}))
         return ops, p_g

@@ -1,0 +1,344 @@
+"""InferenceServer: the serving front-end, the port of
+``paddle_tpu/serving/server.py``.
+
+``InferenceServer(model_dir, ServingConfig(...))`` loads a
+``save_inference_model`` directory, verifies its AOT integrity manifest (a
+torn export fails at boot, naming the first bad file), runs the pass
+pipeline, applies the weight-only quant sidecar when the directory carries
+one (the dequant folded into each served matmul, which then launches the
+``fused_matmul_int8`` kernel on the card), warm-boots every (replica device,
+bucket), and only then accepts requests:
+
+    server = InferenceServer(model_dir, ServingConfig(replicas=1))
+    outs = server.infer({"x": batch})          # blocking convenience
+    pending = server.submit({"x": batch})      # pipelined
+    outs = pending.result(timeout=5)
+    server.close()                             # drains, then stops
+
+Request contract: every feed carries a leading batch dim (1..max_batch
+rows); outputs come back in fetch order, sliced to the request's rows, as
+numpy arrays. Devices: ``ServingConfig.devices`` (default: the card).
+
+Not ported yet (ROADMAP queue 1 item 8): the hot model swap
+(``swap``, ``watch_dir``, which raise) and the HTTP front door.
+"""
+
+import numpy as np
+
+from paddle_tpu_torch.core.enforce import EnforceNotMet, enforce
+from paddle_tpu_torch.serving import swap as _swap
+from paddle_tpu_torch.serving.replica import ReplicaPool, zero_pool_gauges
+from paddle_tpu_torch.serving.resilience import ShedController, _log
+from paddle_tpu_torch.serving.scheduler import (
+    MicroBatchScheduler, bucket_ladder,
+)
+
+__all__ = ["ServingConfig", "InferenceServer"]
+
+
+class ServingConfig:
+    """Knobs for one server.
+
+    - ``max_batch``: top of the power-of-two bucket ladder (every rung is
+      warmed on every replica device at boot).
+    - ``max_wait_ms``: batching deadline, the most latency a lone request
+      trades for fill.
+    - ``max_queue``: admission bound; beyond it ``submit`` raises
+      ``QueueFullError``.
+    - ``replicas``: worker count, assigned round-robin over ``devices``
+      (default: ``[default_device()]``, the card; pass
+      ``[torch.device("cpu")]`` to serve on the CPU).
+    - ``feed_specs``: optional {feed name: (sample_shape, dtype)} override
+      when the program declares dynamic non-batch dims.
+    - ``verify_aot``: verify the AOT integrity manifest at boot.
+    - ``default_deadline_ms``: the deadline of every request that passes
+      none; None = no deadline.
+    - ``replica_stall_ms`` / ``max_consecutive_stalls`` /
+      ``respawn_backoff_ms`` / ``supervise``: the replica supervisor (see
+      ``ReplicaPool``).
+    - ``shed_mode``: ``"off"`` (default) or ``"adaptive"`` (brownout
+      shedding with ``OverloadedError``; requires ``default_deadline_ms``),
+      with ``shed_enter_frac`` / ``shed_exit_frac`` as its hysteresis.
+    - ``shed_hbm_frac``: the adaptive controller's HBM-pressure input; it
+      reads the memory monitor, which is not ported yet: anything but None
+      raises at boot.
+    """
+
+    def __init__(self, max_batch=8, max_wait_ms=5.0, max_queue=256,
+                 replicas=1, devices=None, feed_specs=None,
+                 verify_aot=True, default_deadline_ms=None,
+                 replica_stall_ms=30_000.0, max_consecutive_stalls=3,
+                 respawn_backoff_ms=100.0, supervise=True,
+                 shed_mode="off", shed_enter_frac=0.5,
+                 shed_exit_frac=0.25, shed_hbm_frac=None):
+        self.max_batch = max_batch
+        self.max_wait_ms = max_wait_ms
+        self.max_queue = max_queue
+        self.replicas = replicas
+        self.devices = devices
+        self.feed_specs = feed_specs
+        self.verify_aot = verify_aot
+        self.default_deadline_ms = default_deadline_ms
+        self.replica_stall_ms = replica_stall_ms
+        self.max_consecutive_stalls = max_consecutive_stalls
+        self.respawn_backoff_ms = respawn_backoff_ms
+        self.supervise = supervise
+        self.shed_mode = shed_mode
+        self.shed_enter_frac = shed_enter_frac
+        self.shed_exit_frac = shed_exit_frac
+        self.shed_hbm_frac = shed_hbm_frac
+
+
+def _infer_sample_specs(program, feed_names, overrides):
+    """{feed name: (sample shape, numpy dtype)} from the program's feed var
+    declarations: dim 0 is the batch dim the scheduler owns; every other dim
+    must be static (or overridden), since each bucket is one fixed shape."""
+    from paddle_tpu_torch.core.dtypes import dtype_name
+
+    blk = program.global_block()
+    out = {}
+    for n in feed_names:
+        if overrides and n in overrides:
+            shape, dtype = overrides[n]
+            out[n] = (tuple(int(d) for d in shape), np.dtype(dtype))
+            continue
+        v = blk.vars.get(n)
+        enforce(v is not None, f"feed {n!r} not declared in program")
+        sample = list(v.shape)[1:]
+        enforce(all(d >= 0 for d in sample),
+                f"feed {n!r} has dynamic non-batch dims {list(v.shape)}; "
+                f"serving warms fixed-shape buckets: pass "
+                f"ServingConfig(feed_specs={{{n!r}: (shape, dtype)}})")
+        out[n] = (tuple(int(d) for d in sample), np.dtype(dtype_name(v.dtype)))
+    return out
+
+
+class _ModelBundle:
+    """Everything one model version needs to serve, loaded but not yet on
+    a device: the served program, its feed/fetch contract, the pure fn and
+    its params (CPU tensors), and the manifest's ``model_version``."""
+
+    __slots__ = ("model_dir", "program", "feed_names", "fetch_names",
+                 "sample_specs", "pure_fn", "params", "version",
+                 "quantized")
+
+    def __init__(self, model_dir, program, feed_names, fetch_names,
+                 sample_specs, pure_fn, params, version, quantized=None):
+        self.model_dir = model_dir
+        self.program = program
+        self.feed_names = feed_names
+        self.fetch_names = fetch_names
+        self.sample_specs = sample_specs
+        self.pure_fn = pure_fn
+        self.params = params
+        self.version = version
+        #: "int8"/"bf16" when the directory's quantized export was loaded
+        self.quantized = quantized
+
+
+def _load_bundle(model_dir, feed_specs=None, verify=True):
+    """Load, verify (optionally), optimize and quantize one model version
+    into a :class:`_ModelBundle`, in the JAX package's order. Commits no
+    device memory: the pool's warm boot does that."""
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch.core.flags import get_flag
+    from paddle_tpu_torch.core.place import CPUPlace
+    from paddle_tpu_torch.static import io as static_io
+    from paddle_tpu_torch.static import opt_passes as _opt
+    from paddle_tpu_torch.static.executor import Executor, Scope
+
+    scope = Scope()
+    prog, feed_names, fetch_names = static_io.load_inference_model(
+        model_dir, Executor(CPUPlace()), scope=scope)
+    version = (inf.verify_aot_dir(model_dir).model_version if verify
+               else inf.read_aot_version(model_dir))
+    feed_names = list(feed_names)
+    fetch_names = list(fetch_names)
+    sample_specs = _infer_sample_specs(prog, feed_names, feed_specs)
+    if bool(get_flag("apply_ir_passes")):
+        prog = _opt.optimize_inference(prog, fetch_names)
+    # the quantized arrays become the resident params: int8 weights are
+    # ~4x smaller than fp32
+    quant = inf.load_quantized_params(model_dir)
+    if quant is not None:
+        prog = _opt.apply_weight_quant(prog, quant["weights"], quant["mode"])
+        for n, v in quant["values"].items():
+            scope.set_var(n, v)
+        _log(f"loaded {quant['mode']} weight-quantized params for "
+             f"{len(quant['weights'])} weight(s) from {model_dir}")
+    pure_fn, state_names = inf._build_pure_fn(prog, feed_names, fetch_names)
+    params = [scope.find_var(n) for n in state_names]
+    missing = [n for n, v in zip(state_names, params) if v is None]
+    enforce(not missing,
+            f"scope missing persistables for serving: {missing[:5]}")
+    return _ModelBundle(model_dir, prog, feed_names, fetch_names,
+                        sample_specs, pure_fn, params, version,
+                        quantized=quant["mode"] if quant else None)
+
+
+def _check_fetch_contract(bundle, pool):
+    """Micro-batched serving requires every fetch to be per-row (leading
+    dim = batch). The warm boot ran the top bucket; its output shapes
+    decide, so a batch-reduced fetch fails at boot, naming the fetch."""
+    top = pool.ladder[-1]
+    for name, shape in zip(bundle.fetch_names, pool.warm_shapes[top]):
+        enforce(len(shape) >= 1 and int(shape[0]) == top,
+                f"fetch {name!r} has output shape {shape} for a batch of "
+                f"{top}: not per-row, so micro-batched results cannot be "
+                f"sliced back to requests: move the reduction out of the "
+                f"served graph or use the single-request Predictor")
+
+
+def _boot_pool(bundle, config):
+    """Warm-boot a replica pool for one model bundle: params onto each
+    device, every bucket run once."""
+    return ReplicaPool(
+        bundle.pure_fn, bundle.params, bundle.feed_names,
+        bundle.sample_specs, ladder=bucket_ladder(config.max_batch),
+        n_replicas=config.replicas, devices=config.devices,
+        replica_stall_ms=config.replica_stall_ms,
+        max_consecutive_stalls=config.max_consecutive_stalls,
+        respawn_backoff_ms=config.respawn_backoff_ms,
+        supervise=config.supervise)
+
+
+class InferenceServer:
+    """Continuous micro-batching server over a frozen inference model.
+
+    Construction performs the full warm boot (load, verify, warm every
+    bucket on every replica device, start the workers); when ``__init__``
+    returns the server is serving."""
+
+    def __init__(self, model_dir, config=None):
+        self.config = config = config or ServingConfig()
+        enforce(config.shed_mode in ("off", "adaptive"),
+                f"shed_mode must be 'off' or 'adaptive', got "
+                f"{config.shed_mode!r}")
+        shed = None
+        if config.shed_mode == "adaptive":
+            enforce(config.default_deadline_ms is not None,
+                    "shed_mode='adaptive' requires default_deadline_ms: the "
+                    "controller sheds against deadline headroom, and "
+                    "without a deadline there is none")
+            shed = ShedController(
+                deadline_ms=config.default_deadline_ms,
+                enter_frac=config.shed_enter_frac,
+                exit_frac=config.shed_exit_frac,
+                hbm_high_frac=config.shed_hbm_frac)
+        bundle = _load_bundle(model_dir, config.feed_specs,
+                              verify=config.verify_aot)
+        self._bundle = bundle
+        self.model_dir = bundle.model_dir
+        self._program = bundle.program
+        self._feed_names = bundle.feed_names
+        self._fetch_names = bundle.fetch_names
+        self._sample_specs = bundle.sample_specs
+        # the scheduler validates its knobs before the warm boot, so a bad
+        # knob fails in microseconds
+        self.scheduler = MicroBatchScheduler(
+            dispatch=self._dispatch_batch,
+            feed_names=self._feed_names,
+            max_batch=config.max_batch,
+            max_wait_ms=config.max_wait_ms,
+            max_queue=config.max_queue,
+            sample_specs=self._sample_specs,
+            default_deadline_ms=config.default_deadline_ms,
+            shed=shed)
+        self.pool = _boot_pool(bundle, config)
+        try:
+            _check_fetch_contract(bundle, self.pool)
+        except EnforceNotMet:
+            self.pool.close()
+            raise
+        _swap.publish_model_version(self.model_version)
+        _log(f"serving model version "
+             f"{self.model_version or 'unversioned'} from {model_dir} "
+             f"(boot)")
+        self.scheduler.start()
+
+    def _dispatch_batch(self, mb):
+        self.pool.dispatch(mb)
+
+    # -- introspection -----------------------------------------------------
+    def get_input_names(self):
+        return list(self._feed_names)
+
+    def get_output_names(self):
+        return list(self._fetch_names)
+
+    @property
+    def ladder(self):
+        return self.pool.ladder
+
+    @property
+    def model_version(self):
+        """The manifest ``model_version`` this server serves (None for an
+        unversioned export)."""
+        return self._bundle.version
+
+    # -- serving -----------------------------------------------------------
+    def submit(self, feeds, deadline_ms=None, trace_attrs=None):
+        """Admit one request; returns a ``PendingResult``. ``deadline_ms``
+        bounds it end to end (None = the config's ``default_deadline_ms``);
+        ``trace_attrs`` (optional dict) rides its kept trace's root span."""
+        return self.scheduler.submit(feeds, deadline_ms=deadline_ms,
+                                     trace_attrs=trace_attrs)
+
+    def infer(self, feeds, timeout=None, deadline_ms=None):
+        """Blocking convenience: submit + result."""
+        return self.submit(feeds, deadline_ms=deadline_ms).result(timeout)
+
+    # -- graceful drain ----------------------------------------------------
+    @property
+    def draining(self):
+        """True between ``begin_drain()`` and ``close()``."""
+        return self.scheduler.draining
+
+    def begin_drain(self):
+        """Admission refuses with the retryable ``ServerDrainingError``
+        while accepted requests complete; ``close()`` is the terminal half.
+        Idempotent; returns whether this call flipped the state."""
+        flipped = self.scheduler.begin_drain()
+        if flipped:
+            _log(f"drain begun: model version "
+                 f"{self.model_version or 'unversioned'} refusing new "
+                 f"admissions (ServerDrainingError, retryable); accepted "
+                 f"requests completing")
+        return flipped
+
+    # -- hot model swap ----------------------------------------------------
+    def swap(self, model_dir, **kwargs):
+        """Not ported yet: raises."""
+        raise EnforceNotMet("InferenceServer.swap (the hot model swap) is "
+                            "not ported yet (ROADMAP queue 1 item 8)")
+
+    def watch_dir(self, model_dir=None, poll_ms=1000.0, **swap_kwargs):
+        """Not ported yet: raises."""
+        raise EnforceNotMet("InferenceServer.watch_dir (continuous deploy "
+                            "by hot swap) is not ported yet (ROADMAP queue "
+                            "1 item 8)")
+
+    def close(self, timeout=None):
+        """Graceful shutdown: stop admission, drain every accepted request
+        through the replicas, stop the workers. Returns True when fully
+        stopped; with a ``timeout`` that expires mid-drain, False (the
+        drain keeps running; call close() again). Idempotent."""
+        # the scheduler drains its request queue into the batch queue
+        # first, THEN the pool's per-replica sentinels land behind every
+        # formed batch
+        if not self.scheduler.close(timeout):
+            return False
+        if not self.pool.close(timeout):
+            return False
+        if self.scheduler._shed is not None:
+            self.scheduler._shed.shutdown()
+        zero_pool_gauges()
+        _swap.clear_model_version(self.model_version)
+        return True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

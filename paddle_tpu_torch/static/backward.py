@@ -32,5 +32,6 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
         type="autodiff",
         inputs={"Loss": [loss.name]},
         outputs={"Grads": [g.name for g in grad_vars]},
-        attrs={"loss": loss.name, "params": [p.name for p in params]})
+        attrs={"loss": loss.name, "params": [p.name for p in params],
+               "checkpoint": False})
     return list(zip(params, grad_vars))

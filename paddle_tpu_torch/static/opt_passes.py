@@ -10,15 +10,26 @@ never mutated. A rewrite fires only when the matched vars are written once,
 the intermediates have one consumer and are neither fetched, persistable nor
 fed, and the chain stays inside one autodiff region.
 
-The ``fused_matmul`` op's compute calls ``try_fused_matmul``, the kernel's
-path (``ops/kernels/matmul.py``): inside the kernel's contract it runs the
+The ``fused_matmul`` op's compute calls ``try_fused_matmul``, the kernels'
+path (``ops/kernels/matmul.py``): inside the kernels' contract it runs the
 kernel (CUDA) or its plain body (CPU); outside it, the composition of the
 ops it replaced.
+
+The weight-only PTQ half (``plan_weight_quant`` / ``apply_weight_quant`` /
+``quantize_weight_values``, opt_passes.py:790-948) serves
+``export_aot(quantize=)`` and the serving warm boot: per-channel abs-max
+int8 (or bf16 storage), the dequant folded into the consuming matmul as one
+``fused_matmul`` op with ``quant`` set, which the ``fused_matmul_int8``
+kernel (int8) or the ``fused_matmul`` kernel (bf16) computes. The int8
+arrays and scale tables are bit-identical to the JAX package's for the same
+fp32 weights (round half to even, clip to [-128, 127]).
 """
 
 import time
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet
+import torch
+
+from paddle_tpu_torch.core.enforce import EnforceNotMet, enforce
 from paddle_tpu_torch.ops import activation as _act
 from paddle_tpu_torch.ops import math as _m
 from paddle_tpu_torch.ops.kernels import try_fused_matmul
@@ -27,10 +38,17 @@ from paddle_tpu_torch.static.program import Operator, register_op
 
 __all__ = ["FUSED_MATMUL", "FuseMatmulBiasActPass", "DeadOpEliminationPass",
            "default_pipeline", "optimize_program", "optimize_for_execution",
-           "PipelineReport"]
+           "optimize_inference", "PipelineReport", "QUANT_SCALE_SUFFIX",
+           "QUANT_BINS", "plan_weight_quant", "apply_weight_quant",
+           "quantize_weight_values"]
 
-#: the fused matmul (+bias) (+act) op the fusion pass emits
+#: the fused matmul(+dequant)(+bias)(+act) op the fusion and quant passes
+#: emit
 FUSED_MATMUL = "fused_matmul"
+#: per-channel scale table var name: ``<weight>@quant_scale``
+QUANT_SCALE_SUFFIX = "@quant_scale"
+#: int8 bins: q = round(w / scale * 127)
+QUANT_BINS = 127
 
 #: activations the matmul fusion absorbs (attr-free unary ops)
 _FUSABLE_ACTS = frozenset({"relu", "sigmoid", "tanh", "gelu"})
@@ -38,20 +56,24 @@ _MATMUL_TYPES = ("mul", "matmul")
 
 
 def _fused_matmul_compute(ins, attrs):
-    """x @ w (+ bias) (+ act): the kernel inside its contract, else the
-    composition of the ops the pass replaced (matmul.py:90-134)."""
-    if attrs.get("quant"):
-        raise EnforceNotMet(
-            "a quantized fused_matmul (weight-only PTQ, the int8 kernel) is "
-            "not ported yet (ROADMAP queue 1 item 8, queue 2 row 9)")
+    """x @ dequant(w) (+ bias) (+ act): a kernel inside its contract, else
+    the composition of the ops the passes replaced (opt_passes.py:90-134),
+    the int8 weight dequantized per output channel first."""
     fast = try_fused_matmul(ins, attrs)
     if fast is not None:
         return {"Out": [fast]}
     xs = list(ins["X"])
-    out = getattr(_m, attrs["mm_type"])(xs[0], xs[1],
-                                        **attrs.get("mm_attrs", {}))
+    x, w = xs[0], xs[1]
+    i = 2
+    quant = attrs.get("quant")
+    if quant == "int8":
+        w = w.float() * (xs[i] / float(QUANT_BINS))
+        i += 1
+    elif quant == "bf16":
+        w = w.float()
+    out = getattr(_m, attrs["mm_type"])(x, w, **attrs.get("mm_attrs", {}))
     if attrs.get("has_bias"):
-        out = _m.elementwise_add(out, xs[2], axis=attrs.get("bias_axis", -1))
+        out = _m.elementwise_add(out, xs[i], axis=attrs.get("bias_axis", -1))
     act = attrs.get("act")
     if act:
         out = getattr(_act, act)(out)
@@ -315,3 +337,148 @@ def optimize_program(program, targets=(), pipeline=None):
 def optimize_for_execution(program, fetch_names):
     """The Executor's entry: optimize against the step's fetch list."""
     return optimize_program(program, targets=tuple(fetch_names))[0]
+
+
+def optimize_inference(program, fetch_names):
+    """The export/serving entry: the same pipeline, under its own name as
+    in the JAX package."""
+    return optimize_program(program, targets=tuple(fetch_names))[0]
+
+
+# ---------------------------------------------------------------------------
+# weight-only post-training quantization (export_aot, the serving boot)
+# ---------------------------------------------------------------------------
+def _mm_weight_slot(op):
+    """The weight var name if ``op`` consumes its RHS in a quantizable way
+    ([in, out] layout, no transpose), else None."""
+    xs = op.inputs.get("X", [])
+    if op.type in _MATMUL_TYPES:
+        if len(xs) != 2 or xs[0] == xs[1]:
+            return None
+        if op.type == "matmul" and op.attrs.get("transpose_y"):
+            return None
+        if op.type == "mul" and op.attrs.get("y_num_col_dims", 1) != 1:
+            return None
+        return xs[1]
+    if op.type == FUSED_MATMUL:
+        # a self-product: only the RHS is dequantized, so quantizing the
+        # shared operand would feed the LHS raw int8
+        if len(xs) < 2 or xs[0] == xs[1] or op.attrs.get("quant"):
+            return None
+        mm_attrs = op.attrs.get("mm_attrs", {})
+        if op.attrs.get("mm_type") == "matmul" \
+                and mm_attrs.get("transpose_y"):
+            return None
+        if op.attrs.get("mm_type") == "mul" \
+                and mm_attrs.get("y_num_col_dims", 1) != 1:
+            return None
+        return xs[1]
+    return None
+
+
+def _check_mode(mode):
+    enforce(mode in ("int8", "bf16"),
+            f"quantize mode must be 'int8' or 'bf16', got {mode!r}")
+
+
+def plan_weight_quant(program, values, mode):
+    """Names of the weights eligible for weight-only PTQ: persistable 2-D
+    float32 vars written by no op and read only as the RHS of
+    matmul/mul/fused_matmul ops in [in, out] layout. ``values`` maps names
+    to their trained tensors or arrays. Returns a sorted name list."""
+    _check_mode(mode)
+    blk = program.global_block()
+    written = {n for op in blk.ops for n in op.output_names()}
+    cons = _consumer_map(blk)
+    eligible = []
+    for name, var in blk.vars.items():
+        if not var.persistable or name in written:
+            continue
+        v = values.get(name)
+        if v is None:
+            continue
+        v = torch.as_tensor(v)
+        if v.dim() != 2 or v.dtype != torch.float32 or not v.numel():
+            continue
+        readers = [op for _, op in cons.get(name, ())]
+        if readers and all(_mm_weight_slot(op) == name for op in readers):
+            eligible.append(name)
+    return sorted(eligible)
+
+
+def apply_weight_quant(program, weights, mode):
+    """Clone ``program`` with each weight in ``weights`` retyped to its
+    quantized storage dtype and every consuming matmul rewritten to a
+    ``fused_matmul`` carrying the dequant (int8: plus a per-channel
+    ``<w>@quant_scale`` persistable input). The serving boot applies the
+    list the AOT manifest recorded and never re-derives eligibility, so a
+    program/manifest mismatch raises here."""
+    _check_mode(mode)
+    prog = program.clone()
+    blk = prog.global_block()
+    wset = set(weights)
+    missing = sorted(n for n in wset if n not in blk.vars)
+    enforce(not missing,
+            f"quantized weight(s) {missing[:3]} not in program: the quant "
+            f"manifest does not match this model; re-export")
+    for w in sorted(wset):
+        var = blk.vars[w]
+        enforce(var.shape is not None and len(var.shape) == 2,
+                f"quantized weight {w!r} is not 2-D in this program")
+        var.dtype = torch.int8 if mode == "int8" else torch.bfloat16
+        if mode == "int8":
+            sv = blk.create_var(name=w + QUANT_SCALE_SUFFIX,
+                                shape=[int(var.shape[1])], dtype="float32")
+            sv.persistable = True
+    rewritten = 0
+    for op in blk.ops:
+        target = _mm_weight_slot(op)
+        if target is None or target not in wset:
+            bad = sorted(set(op.input_names()) & wset)
+            if bad:
+                raise EnforceNotMet(
+                    f"op {op.type!r} reads quantized weight {bad[0]!r} in a "
+                    f"non-dequantizable position: the quant manifest does "
+                    f"not match this model; re-export")
+            continue
+        xs = list(op.inputs["X"])
+        new_xs, tail = xs[:2], xs[2:]
+        if op.type in _MATMUL_TYPES:
+            mm_attrs = {k: v for k, v in op.attrs.items()
+                        if k != "name" and v is not None}
+            op.attrs = {"mm_type": op.type, "mm_attrs": mm_attrs,
+                        "has_bias": False, "quant": mode}
+            op.type = FUSED_MATMUL
+        else:                       # already fused_matmul
+            op.attrs = dict(op.attrs)
+            op.attrs["quant"] = mode
+        if mode == "int8":
+            new_xs.append(target + QUANT_SCALE_SUFFIX)
+        new_xs.extend(tail)         # bias rides after the scale
+        op.inputs["X"] = new_xs
+        rewritten += 1
+    enforce(rewritten > 0 or not wset,
+            "quant rewrite matched no consuming matmul op")
+    prog._bump()
+    return prog
+
+
+def quantize_weight_values(values, weights, mode):
+    """{name: quantized CPU tensor} (plus ``<name>@quant_scale`` float32
+    tables for int8): per-output-channel abs-max over the [in, out]
+    weight's columns (``fake_channel_wise_quantize_abs_max`` at
+    quant_axis=1), q = round_half_even(w / scale * 127) clipped to
+    [-128, 127]; bf16 rounds to nearest even."""
+    _check_mode(mode)
+    out = {}
+    for w in weights:
+        v = torch.as_tensor(values[w]).detach().to("cpu", torch.float32)
+        if mode == "bf16":
+            out[w] = v.to(torch.bfloat16)
+            continue
+        scale = v.abs().amax(dim=0)                     # [out] channels
+        safe = scale.clamp_min(1e-12)
+        out[w] = torch.round(v / safe[None, :] * QUANT_BINS).clamp(
+            -QUANT_BINS - 1, QUANT_BINS).to(torch.int8)
+        out[w + QUANT_SCALE_SUFFIX] = scale
+    return out

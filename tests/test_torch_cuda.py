@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-PyTorch bodies, and the model (forward and training step) through the
-kernels against the CPU.
+PyTorch bodies, and the model (forward and training step) and the int8
+server through the kernels against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card; whether there
 is one is decided inside the ``cuda`` fixture, never at import. The file
@@ -438,3 +438,85 @@ def test_fused_sgd_and_momentum_kernels_match_plain(cuda, rule):
     for a, r in zip(p + (v if rule != "sgd" else []),
                     ref_p + (ref_v if rule != "sgd" else [])):
         torch.testing.assert_close(a, r, atol=0, rtol=0)
+
+
+def _int8_weight(gen, k, n, device):
+    """An int8 weight and its scale table, quantized from a random fp32
+    weight as export_aot(quantize="int8") does (outputs of order 1)."""
+    from paddle_tpu_torch.static.opt_passes import quantize_weight_values
+    w = torch.randn(k, n, generator=gen) / k ** 0.5
+    q = quantize_weight_values({"w": w}, ["w"], "int8")
+    return q["w"].to(device), q["w@quant_scale"].to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,act,dtype,with_bias", [
+    (1, 256, 256, "relu", torch.float32, True),        # the serving MLP
+    (8, 256, 256, "relu", torch.float32, True),
+    (8, 256, 10, None, torch.float32, True),
+    (64, 128, 256, "sigmoid", torch.float32, True),    # word2vec
+    (64, 256, 2073, None, torch.float32, True),
+    (4096, 768, 3072, "relu", torch.float32, True),    # BERT's FFN
+    (33, 70, 130, "tanh", torch.float32, False),
+    (65, 17, 63, "gelu", torch.bfloat16, True),
+    (1, 1, 1, "relu", torch.float32, True)])
+def test_fused_matmul_int8_kernel_matches_plain(cuda, m, k, n, act, dtype,
+                                                with_bias):
+    gen = torch.Generator().manual_seed(m + n)
+    w, scale = _int8_weight(gen, k, n, cuda)
+    x = torch.randn(m, k, generator=gen).to(cuda, dtype)
+    b = torch.randn(n, generator=gen).to(cuda) if with_bias else None
+    K.reset_launch_counts()
+    out = K.fused_matmul_int8(x, w, scale, b, act)
+    ref = K.get_body("fused_matmul_int8", "reference")(
+        x, w, scale, b, None if act == "gelu" else act)
+    if act == "gelu":
+        ref = torch.nn.functional.gelu(ref)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_matmul_int8"] == 1
+    assert K.launch_counts()["fused_matmul"] == 0
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    # fp32 sums of K products in another order, the scale applied once to
+    # the sum (the plain body scales every weight): 1e-4 at outputs O(1)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kernel,param_bytes", [
+    ("int8", "fused_matmul_int8", 137_808),
+    ("bf16", "fused_matmul", 269_352)])
+def test_quantized_server_on_card_matches_cpu(cuda, tmp_path, mode, kernel,
+                                              param_bytes):
+    """The serving MLP exported with quantize="int8" (or "bf16") and served
+    on the card (3 launches of the int8 kernel, or of the fp kernel on bf16
+    weights, per micro-batch; no fp32 weight) gives the port's outputs on
+    the CPU from the same directory."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.data("x", [256], "float32")
+        h = pt.layers.fc(pt.layers.fc(x, 256, act="relu"), 256, act="relu")
+        out = pt.layers.fc(h, 10)
+    scope = pt.Scope()
+    d = str(tmp_path / "mlp_int8")
+    exe = pt.Executor(pt.CPUPlace())
+    exe.run(startup, scope=scope)
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(d, ["x"], [out], exe, main_program=main)
+    inference.export_aot(d, main, ["x"], [out.name], scope,
+                         [{"x": ((1, 256), "float32")}], quantize=mode)
+    feed = {"x": np.random.RandomState(0).rand(8, 256).astype(np.float32)}
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        with InferenceServer(d, ServingConfig(max_batch=8,
+                                              devices=[dev])) as srv:
+            K.reset_launch_counts()
+            outs[dev.type] = srv.infer(feed, timeout=60)[0]
+            counts = K.launch_counts()
+            assert srv.pool.resident_param_bytes() == param_bytes
+        if dev.type == "cuda":
+            assert counts[kernel] == 3
+            assert sum(counts.values()) == 3
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-5, rtol=0)

@@ -45,6 +45,10 @@ def test_forbidden_pattern_tells_the_packages_apart():
 def test_port_sources_import_no_jax_and_no_paddle_tpu():
     srcs = _port_sources()
     assert len(srcs) >= 10
+    # the subpackages with copies of jax-free JAX-package modules are
+    # scanned too
+    for sub in ("serving", "monitor", "static"):
+        assert any(f"{os.sep}{sub}{os.sep}" in p for p in srcs), sub
     for path in srcs:
         with open(path) as f:
             m = _FORBIDDEN.search(f.read())
@@ -56,6 +60,8 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.ops.kernels\n"
         "import paddle_tpu_torch.models.bert, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.inference, paddle_tpu_torch.serving\n"
+        "import paddle_tpu_torch.monitor.trace, paddle_tpu_torch.io\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -317,7 +317,7 @@ def test_fused_adam_reference_matches_pallas(shape, t):
 # ---------------------------------------------------------------------------
 _NAMES = ["embedding_gather", "flash_attention", "flash_attention_bwd_dkdv",
           "flash_attention_bwd_dq", "fused_adam", "fused_layer_norm",
-          "fused_matmul", "fused_momentum", "fused_sgd"]
+          "fused_matmul", "fused_matmul_int8", "fused_momentum", "fused_sgd"]
 
 
 def test_cpu_dispatch_takes_reference_and_counts_nothing():
@@ -334,6 +334,8 @@ def test_cpu_dispatch_takes_reference_and_counts_nothing():
     K.embedding_gather(t, torch.tensor([1, 5])).sum().backward()
     w = torch.randn(4, 3, requires_grad=True)
     K.fused_matmul(t, w, None, "relu").sum().backward()
+    K.fused_matmul_int8(t.detach(), torch.ones(4, 3, dtype=torch.int8),
+                        torch.ones(3), None, "tanh")
     K.fused_sgd([p], [torch.ones(5)], 0.1)
     K.fused_momentum([p], [torch.ones(5)], [torch.zeros(5)], 0.1)
     assert t.grad is not None and w.grad is not None
@@ -378,6 +380,8 @@ def test_kernel_body_refuses_cpu_tensors(name):
                        torch.tensor(1, dtype=torch.int32)),
         "embedding_gather": (x[0, 0], torch.tensor([0, 1])),
         "fused_matmul": (x[0, 0], x[0, 0].T, None, "relu"),
+        "fused_matmul_int8": (x[0, 0], x[0, 0].T.to(torch.int8),
+                              torch.ones(8), None, "relu"),
         "fused_sgd": ([x], [x], 0.1),
         "fused_momentum": ([x], [x], [x], 0.1),
     }[name]
