@@ -25,7 +25,16 @@ Phases; any failure raises and the script exits non-zero:
    beforehand is timed beside it as a yardstick of other work), and SGD and
    momentum (plain and nesterov) over word2vec's parameters, one launch
    per parameter as the static path makes them and one over the list, and
-   over BERT-base's 154 tensors.
+   over BERT-base's 154 tensors; the scatter-add (bench.py's CTR point
+   [65536,256] with 4096 ids, BERT-base's word, position and token-type
+   gradients with pretrain-512's 32768 ids into zeros, the merge's
+   inverse ids into [32768,768], phase 10's DeepFM-width CTR table
+   [2600000,8] densified from one batch's ids and updated by its merged
+   rows (uniform and skewed), a bf16 table and edge ids; two launches
+   bitwise equal, and bitwise equal to the plain body on the CPU) and the
+   softmax cross-entropy (pretrain-512's gathered MLM head [5120,30528] in
+   bf16 and fp32, bench.py's [512,32000], word2vec's ragged V 2073 and
+   edge labels).
 3. Serve BERT-base masked-LM requests at S=512: 4 batches of 8x512 tokens
    with 80 masked positions each (loss and fill-mask top-1), exactly 26
    LayerNorm launches per batch; one 2x512 batch is held against the port
@@ -70,7 +79,22 @@ Phases; any failure raises and the script exits non-zero:
    int8 server on the card vs the port's plain path on the CPU from the
    same directory, and the ``Predictor`` on the card vs the fp32 server,
    within 1e-5.
-10. Print one JSON line of every ported kernel (launches on the main paths,
+10. Sparse rows and the fused loss at BERT-base width (sparse-xent), on
+   pretrain-512's batch and BERT-base weights from the seed: the gathered
+   MLM head's logits [5120,30528] (fp32, then bf16) through
+   ``softmax_cross_entropy``, whose weighted mean must equal ``mlm_loss``
+   and whose gradient must equal the plain body's autograd gradient; the
+   word gradient as a ``SelectedRows`` of 32768 ids into [30528,768]:
+   densify (against ``index_add_``), merge, densify the merged rows
+   (bitwise), ``sparse_sgd_update`` (against the dense update); then a
+   DeepFM-width CTR table (26 slots x 100,000 ids x 8, 83 MB) through 3
+   steps of 2048x26 ids drawn uniform as ``synthetic_ctr_batch`` draws
+   them, then 3 Zipf-skewed ones, each checked as the word gradient is
+   (densify against ``index_add_``, merged rows densified bitwise, sparse
+   SGD against the dense update). Exactly 1 cross-entropy
+   launch per forward and none in the backward, 1 scatter-add per merge,
+   densify and sparse SGD.
+11. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -726,6 +750,113 @@ def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
     return rec
 
 
+def scatter_atol(ids, h, upd):
+    """Tolerance of the scatter-add against its plain body on the card,
+    which sums with atomics in another order: each of a row's c adds may
+    round by 2^-24 of the partial sum, so 1e-6 * c_max * max|update|."""
+    wrapped = torch.where(ids < 0, ids + h, ids).long()
+    valid = (ids >= -h) & (ids < h)
+    c_max = torch.bincount(wrapped[valid], minlength=1).max().item()
+    return 1e-6 * c_max * upd.float().abs().max().item() + 1e-6
+
+
+def check_scatter_add(K, label, dst, ids, upd, edge=False):
+    """The scatter-add kernel against its plain body on ``dst`` [h, d],
+    ``ids`` [n] and ``upd`` [n, d] on the card: two launches bitwise
+    equal (no atomics), bitwise equal to the plain body on the CPU (whose
+    index_add_ sums in ascending j, as the kernel), and within
+    :func:`scatter_atol` of the plain body on the card. With ``edge``, the
+    checked ids include -1 and -h (wrap once), h and -h-1 (dropped). Timed
+    on the valid ids beside ``dst.index_add(0, ids, upd)``, the same
+    function with atomic order; one more call profiled (the keys, sort,
+    memset, marking and summing kernels by time)."""
+    h, d = dst.shape
+    n = ids.numel()
+    kern = K.get_body("embedding_scatter_add", "kernel")
+    plain = K.get_body("embedding_scatter_add", "reference")
+    test_ids = ids.clone()
+    if edge:
+        test_ids[:4] = torch.tensor([-1, -h, h, -h - 1], device="cuda")
+    out, again = kern(dst, test_ids, upd), kern(dst, test_ids, upd)
+    ref = plain(dst, test_ids, upd)
+    cpu = plain(dst.cpu(), test_ids.cpu(), upd.cpu())
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"embedding_scatter_add {label}: two "
+                                   "launches differ")
+    check(torch.equal(out.cpu(), cpu), f"embedding_scatter_add {label}: "
+          f"kernel differs from the plain body on the CPU: "
+          f"{max_err(out.cpu(), cpu)}")
+    atol = scatter_atol(test_ids, h, upd)
+    rtol = 2.0 ** -7 if dst.dtype == torch.bfloat16 else 1e-6
+    err = max_err(out, ref)
+    check(within(out, ref, atol, rtol), f"embedding_scatter_add {label}: "
+          f"kernel disagrees with plain on the card: {err}")
+    nbytes = (2 * dst.numel() * dst.element_size()
+              + upd.numel() * upd.element_size() + n * ids.element_size())
+    b_ms, b_by = bound(nbytes, (n + h) * d, torch.float32)
+    ms = device_ms(lambda: kern(dst, ids, upd), 20)
+    plain_ms = device_ms(lambda: plain(dst, ids, upd), 5)
+    lib_ms = device_ms(lambda: dst.index_add(0, ids, upd), 20)
+    rec = dict(label=label, dst=[h, d], dtype=str(dst.dtype),
+               updates_dtype=str(upd.dtype), ids=n, ids_dtype=str(ids.dtype),
+               edge_ids=edge, max_abs_err=err,
+               tol=f"bitwise on repeat and against the plain body on the "
+                   f"CPU; card plain: atol {atol:.3g}, rtol {rtol:.3g}",
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library="Tensor.index_add", bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, host_ms_per_call=host_ms(
+                   lambda: kern(dst, ids, upd), 50),
+               profile=op_breakdown(lambda: kern(dst, ids, upd), top=8))
+    log("check embedding_scatter_add " + json.dumps(rec))
+    return rec
+
+
+def check_xent(K, label, n, v, dtype, gen, edge=False):
+    """The softmax cross-entropy kernel against its plain body on logits
+    [n, v] (N(0, 4)) and labels in [0, v); with ``edge`` the checked labels
+    include -1 (the last column) and v (NaN). Timed on the valid labels
+    beside ``F.cross_entropy(x.float(), labels, reduction="none")``."""
+    x = (torch.randn(n, v, generator=gen, device="cuda") * 2).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    test_labels = labels.clone()
+    if edge:
+        test_labels[:2] = torch.tensor([-1, v], device="cuda")
+    kern = K.get_body("softmax_cross_entropy", "kernel")
+    plain = K.get_body("softmax_cross_entropy", "reference")
+    (loss, lse), (loss_r, lse_r) = kern(x, test_labels), plain(x,
+                                                               test_labels)
+    torch.cuda.synchronize()
+    # fp32 sums of v exps in another order (online per thread, then merged)
+    # and logs of them: lse within 1e-5 relative, loss = lse - picked
+    # within 1e-4 absolute (losses ~ log v); NaN exactly where plain has it
+    nan_same = bool((loss.isnan() == loss_r.isnan()).all())
+    err = max(max_err(torch.nan_to_num(loss), torch.nan_to_num(loss_r)),
+              max_err(lse, lse_r))
+    check(nan_same and within(torch.nan_to_num(loss),
+                              torch.nan_to_num(loss_r), 1e-4, 1e-5)
+          and within(lse, lse_r, 1e-5, 1e-5),
+          f"softmax_cross_entropy {label}: kernel disagrees with plain: "
+          f"{err}")
+    if edge:
+        check(bool(loss[1].isnan()) and bool(loss[0].isfinite()),
+              f"softmax_cross_entropy {label}: edge labels")
+    nbytes = n * v * x.element_size() + n * labels.element_size() + 8 * n
+    b_ms, b_by = bound(nbytes, 4 * n * v, torch.float32)
+    ms = device_ms(lambda: kern(x, labels), 20)
+    plain_ms = device_ms(lambda: plain(x, labels), 5)
+    lib_ms = device_ms(lambda: torch.nn.functional.cross_entropy(
+        x.float(), labels, reduction="none"), 20)
+    rec = dict(label=label, logits=[n, v], dtype=str(dtype), edge=edge,
+               max_abs_err=err, tol="lse atol 1e-5 rtol 1e-5; loss atol "
+               "1e-4 rtol 1e-5; NaN where plain", ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms,
+               library="F.cross_entropy(x.float(), reduction='none')",
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               host_ms_per_call=host_ms(lambda: kern(x, labels), 50))
+    log("check softmax_cross_entropy " + json.dumps(rec))
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the model
 # ---------------------------------------------------------------------------
@@ -778,8 +909,9 @@ def phase_serving(K, bert, card, ln_ms):
                    steady_latency_ms=1e3 * sum(steady) / len(steady),
                    steady_tokens_per_s=B * S * len(steady) / sum(steady),
                    ln_launches=ln_launches)
+    dev_batch = on_card(batch)
     serving.update(device_split(
-        lambda b: serve(bert, params, cfg, b), batch,
+        lambda: serve(bert, params, cfg, dev_batch),
         serving["steady_latency_ms"], {"fused_layer_norm": (26, ln_ms)}))
 
     # the same weights through the port on the CPU in fp32
@@ -819,6 +951,8 @@ KERNEL_GROUPS = (
     ("fused_matmul", r"fused_matmul_kernel"),
     ("fused_sgd", r"fused_sgd_kernel"),
     ("fused_momentum", r"fused_momentum_kernel"),
+    ("embedding_scatter_add", r"scatter_(keys|mark|add|add_long)_kernel"),
+    ("softmax_cross_entropy", r"xent_kernel"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet|sm90_"),
     ("softmax", r"softmax"),
     ("reduction", r"reduce"),
@@ -873,20 +1007,23 @@ def op_breakdown(fn, top=10, host_top=0):
     return out
 
 
-def device_split(fn, batch, host_latency_ms, kernels):
-    """Where a request's time goes: ``fn(batch)`` captured in a CUDA graph
-    gives the device time of the work without the host's launch overhead;
-    its ratio to the host latency is the device's busy share, and each
-    kernel's share is launches x its device time at the main shape (from
-    phase 2) over it.
+def on_card(batch):
+    """A feed dict of host arrays as CUDA tensors."""
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def device_split(fn, host_latency_ms, kernels=None, top=10):
+    """Where a call's time goes: ``fn()`` captured in a CUDA graph gives the
+    device time of the work without the host's launch overhead; its ratio
+    to the host latency of the same call is the device's busy share, and
+    each kernel's share is launches x its device time at the main shape
+    (from phase 2) over it.
     Runs after the counted runs; its launches are not counted."""
-    dev_batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in batch.items()}
-    dev_ms = device_ms(lambda: fn(dev_batch), 3)
+    dev_ms = device_ms(fn, 3)
     out = dict(device_ms=dev_ms, device_busy_share=dev_ms / host_latency_ms)
-    for name, (launches, ms) in kernels.items():
+    for name, (launches, ms) in (kernels or {}).items():
         out[f"{name}_device_share"] = launches * ms / dev_ms
-    out["profile"] = op_breakdown(lambda: fn(dev_batch))
+    out["profile"] = op_breakdown(fn, top=top)
     return out
 
 
@@ -935,8 +1072,9 @@ def phase_long_context(K, bert, card, flash_ms, ln_ms):
                loss_flash=loss_flash, loss_dense=loss_dense, loss_diff=dl,
                tol="loss 0.005", dense_first_call_ms=dense_s * 1e3,
                flash_launches=flash_launches)
+    dev_batch = on_card(batch)
     rec.update(device_split(
-        lambda b: bert.mlm_loss(params, cfg, b), batch,
+        lambda: bert.mlm_loss(params, cfg, dev_batch),
         rec["steady_latency_ms"],
         {"flash_attention": (12, flash_ms), "fused_layer_norm": (26, ln_ms)}))
     log("long_context " + json.dumps(rec))
@@ -1555,6 +1693,242 @@ def phase_serve_int8(K, pt, card, trained):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: sparse-row updates and the fused loss (sparse-xent)
+# ---------------------------------------------------------------------------
+XENT, SCATTER = "softmax_cross_entropy", "embedding_scatter_add"
+CTR_SLOTS, CTR_VOCAB, CTR_DIM, CTR_BATCH = 26, 100_000, 8, 2048  # deepfm.py
+#: the exponent of the skewed CTR traffic: chosen, from no published
+#: source; it stresses the merge's padding (few unique ids, long pad runs)
+CTR_ZIPF_A = 1.2
+
+
+def ctr_ids(rng, zipf_a=None):
+    """One CTR batch's ids [2048 * 26] into the DeepFM table (one table,
+    slot s's ids offset by s * 100,000) on the card: uniform over each
+    slot's ids, as ``synthetic_ctr_batch`` (models/deepfm.py:242-250) draws
+    them, or with ``zipf_a`` Zipf-skewed (rank r with weight r^-a, folded
+    into the slot's ids)."""
+    import numpy as np
+    if zipf_a is None:
+        z = rng.randint(0, CTR_VOCAB, (CTR_BATCH, CTR_SLOTS))
+    else:
+        z = (rng.zipf(zipf_a, (CTR_BATCH, CTR_SLOTS)) - 1) % CTR_VOCAB
+    ids = (z + np.arange(CTR_SLOTS) * CTR_VOCAB).reshape(-1)
+    return torch.as_tensor(ids, device="cuda")
+
+
+def counted(K, label, fn, want, card):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after (a synchronize ends it): checks that exactly ``want`` kernels
+    launched ({name: launches}, every other name 0). Returns (result, host
+    ms, counts)."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = K.launch_counts()
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"{label}: {n} {name} launches, "
+                                      f"expected {want.get(name, 0)}")
+    log(f"sparse-xent {label}: {ms:.3f} ms, launches {want} [{card}]")
+    return out, ms, counts
+
+
+def phase_sparse_xent(K, bert, ops, card):
+    """The functional surface for sparse-row gradients and losses at
+    BERT-base width: pretrain-512's batch and BERT-base weights from the
+    seed. (1) The gathered MLM head's logits [5120, 30528] through
+    ``softmax_cross_entropy``: its weighted mean against ``mlm_loss``, its
+    gradient against the plain body's autograd gradient. (2) The word
+    embedding's gradient as a row set, 32768 ids into [30528, 768]:
+    densify, merge, sparse SGD. (3) A DeepFM-width CTR table, 2.6 M rows x
+    8, three steps of 53248 ids drawn as ``synthetic_ctr_batch`` draws
+    them (uniform), then three Zipf-skewed: each densified against
+    ``index_add_``, merged, its merged rows densified (bitwise equal) and
+    applied by sparse SGD. Every call counts its launches exactly."""
+    import numpy as np
+
+    out, launches = {}, {}
+
+    def run(label, fn, want):
+        res, ms, counts = counted(K, label, fn, want, card)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return res, ms
+
+    cfg = bert.bert_base(attention_impl="dense", remat=False,
+                         softmax_dtype="bf16")
+    B, S, P = 64, 512, 80
+    V, H = cfg.vocab_size, cfg.hidden
+    params = bert.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(2))
+    batch = bert.synthetic_batch(cfg, B, S, max_preds=P)
+    with torch.no_grad():
+        want_loss = bert.mlm_loss(params, cfg, batch).item()
+        hidden = bert.forward(params, cfg, batch["input_ids"],
+                              batch["token_type_ids"],
+                              batch["attention_mask"])
+        logits32 = bert._mlm_head(params, cfg, hidden,
+                                  batch["masked_positions"]).reshape(-1, V)
+    del hidden
+    labels = torch.as_tensor(batch["masked_labels"],
+                             device="cuda").reshape(-1).long()
+    w = torch.as_tensor(batch["masked_weights"], device="cuda").reshape(-1)
+    denom = torch.clamp(w.sum(), min=1.0)
+
+    # (1) the loss, fp32 logits (the head's own) and bf16
+    loss32, ms32 = run("xent fp32 forward", lambda: (
+        (K.softmax_cross_entropy(logits32, labels) * w).sum() / denom
+    ).item(), {XENT: 1})
+    logits = logits32.to(torch.bfloat16).requires_grad_()
+    del logits32
+    mean, fwd_ms = run("xent bf16 forward", lambda: (
+        K.softmax_cross_entropy(logits, labels) * w).sum() / denom,
+        {XENT: 1})
+    _, bwd_ms = run("xent bf16 backward", lambda: mean.backward(), {})
+    rel32 = abs(loss32 - want_loss) / abs(want_loss)
+    rel16 = abs(mean.item() - want_loss) / abs(want_loss)
+    # fp32: the same logits, sums of 30528 exps in another order: 1e-5
+    # relative. bf16: each logit rounded once (~2^-9 of |x| ~ 0.5), which
+    # moves the mean of 5120 losses by ~1e-6 relative (the CPU estimate):
+    # 1e-4
+    check(rel32 <= 1e-5, f"xent fp32 mean {loss32} vs mlm_loss "
+                         f"{want_loss}: {rel32}")
+    check(rel16 <= 1e-4, f"xent bf16 mean {mean.item()} vs mlm_loss "
+                         f"{want_loss}: {rel16}")
+    plain_lg = logits.detach().clone().requires_grad_()
+    plain = K.get_body(XENT, "reference")(plain_lg, labels)[0]
+    ((plain * w).sum() / denom).backward()
+    g_err = max_err(logits.grad, plain_lg.grad)
+    # the same fp32 softmax minus one-hot (lse summed in another order),
+    # rounded once to bf16: one unit in the last place (rtol 2^-7)
+    check(within(logits.grad, plain_lg.grad, 1e-10, 2.0 ** -7),
+          f"xent bf16 grad vs plain autograd: {g_err}")
+    out["xent"] = dict(
+        logits=[B * P, V], mlm_loss=want_loss, mean_fp32=loss32,
+        mean_bf16=mean.item(), rel_err_fp32=rel32, rel_err_bf16=rel16,
+        grad_max_abs_err=g_err, fwd_fp32_ms=ms32, fwd_bf16_ms=fwd_ms,
+        bwd_bf16_ms=bwd_ms,
+        tol="mean vs mlm_loss: fp32 1e-5, bf16 1e-4 relative; grad rtol "
+            "2^-7 atol 1e-10",
+        # busy: the bf16 forward's own work (its saved lse aside) over its
+        # host latency
+        busy_bf16_forward=device_split(
+            lambda: (K.softmax_cross_entropy(logits.detach(), labels) * w
+                     ).sum() / denom, fwd_ms, top=6))
+    del logits, plain_lg, plain, mean
+
+    # (2) the word embedding's gradient as a row set
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = torch.as_tensor(batch["input_ids"], device="cuda").reshape(-1)
+    rows = rows.long()
+    vals = torch.randn(rows.numel(), H, generator=gen, device="cuda")
+    sr = ops.SelectedRows(rows, vals, V)
+    dense, dense_ms = run("densify 32768 rows",
+                          lambda: ops.get_tensor_from_selected_rows(sr),
+                          {SCATTER: 1})
+    lib = torch.zeros(V, H, device="cuda").index_add_(0, rows, vals)
+    d_err = max_err(dense, lib)
+    check(within(dense, lib, scatter_atol(rows, V, vals), 1e-6),
+          f"densify vs index_add_: {d_err}")
+    (merged, valid), merge_ms = run(
+        "merge 32768 rows", lambda: ops.merge_selected_rows(sr),
+        {SCATTER: 1})
+    n_unique = int(valid.sum())
+    dense2, dense2_ms = run("densify merged",
+                            lambda: ops.get_tensor_from_selected_rows(merged),
+                            {SCATTER: 1})
+    check(torch.equal(dense2, dense), "merge then densify differs from "
+                                      f"densify: {max_err(dense2, dense)}")
+    table = torch.randn(V, H, generator=gen, device="cuda")
+    lr = 0.01
+    new, sgd_ms = run("sparse SGD [30528,768]",
+                      lambda: ops.sparse_sgd_update(table, merged, lr),
+                      {SCATTER: 1})
+    want = table - lr * dense
+    s_err = max_err(new, want)
+    check(within(new, want, 1e-7, 1e-6), f"sparse SGD vs table - lr * "
+                                         f"dense: {s_err}")
+    out["rows"] = dict(
+        ids=rows.numel(), unique_rows=n_unique, table=[V, H],
+        densify_vs_index_add=d_err, merged_densify_bitwise=True,
+        sgd_vs_dense=s_err, sgd_bitwise=bool(torch.equal(new, want)),
+        densify_ms=dense_ms, merge_ms=merge_ms, densify_merged_ms=dense2_ms,
+        sgd_ms=sgd_ms,
+        tol="densify vs index_add_: scatter_atol; merged densify: "
+            "bitwise; SGD: atol 1e-7 rtol 1e-6",
+        busy_sgd=device_split(
+            lambda: ops.sparse_sgd_update(table, merged, lr), sgd_ms, top=6))
+    del dense, dense2, lib, table, new, want, merged, vals, sr
+
+    # (3) a DeepFM-width CTR table: 26 slots x 100,000 ids, 8 dims; three
+    # steps of uniform ids, then three of skewed ones
+    h_ctr = CTR_SLOTS * CTR_VOCAB
+    table = torch.randn(h_ctr, CTR_DIM, generator=gen, device="cuda") * 0.01
+    rng = np.random.RandomState(4)
+    out["ctr"] = dict(table=[h_ctr, CTR_DIM],
+                      table_mb=table.numel() * 4 / 1e6, batch=CTR_BATCH,
+                      slots=CTR_SLOTS)
+    for traffic, zipf_a in (("uniform", None), ("zipf", CTR_ZIPF_A)):
+        steps = []
+        for step in range(3):
+            label = f"CTR {traffic} step {step}"
+            ids = ctr_ids(rng, zipf_a)
+            grads = torch.randn(ids.numel(), CTR_DIM, generator=gen,
+                                device="cuda")
+            sr = ops.SelectedRows(ids, grads, h_ctr)
+            t0 = time.perf_counter()
+            (merged, valid), m_ms = run(f"{label} merge",
+                                        lambda: ops.merge_selected_rows(sr),
+                                        {SCATTER: 1})
+            new, s_ms = run(f"{label} sparse SGD",
+                            lambda: ops.sparse_sgd_update(table, merged,
+                                                          0.05),
+                            {SCATTER: 1})
+            step_ms = (time.perf_counter() - t0) * 1e3
+            dense, d_ms = run(f"{label} densify",
+                              lambda: ops.get_tensor_from_selected_rows(sr),
+                              {SCATTER: 1})
+            dense2, d2_ms = run(
+                f"{label} densify merged",
+                lambda: ops.get_tensor_from_selected_rows(merged),
+                {SCATTER: 1})
+            lib = torch.zeros(h_ctr, CTR_DIM, device="cuda").index_add_(
+                0, ids, grads)
+            d_err = max_err(dense, lib)
+            check(within(dense, lib, scatter_atol(ids, h_ctr, grads), 1e-6),
+                  f"{label}: densify vs index_add_: {d_err}")
+            check(torch.equal(dense2, dense), f"{label}: merge then densify "
+                  f"differs from densify: {max_err(dense2, dense)}")
+            want = table - 0.05 * dense
+            err = max_err(new, want)
+            check(within(new, want, 1e-7, 1e-6), f"{label}: sparse SGD vs "
+                                                 f"dense: {err}")
+            top = int(torch.unique(ids, return_counts=True)[1].max())
+            steps.append(dict(step=step, ids=ids.numel(),
+                              unique_rows=int(valid.sum()), top_row_ids=top,
+                              merge_ms=m_ms, sgd_ms=s_ms,
+                              merge_sgd_ms=step_ms, densify_ms=d_ms,
+                              densify_merged_ms=d2_ms,
+                              densify_vs_index_add=d_err, sgd_vs_dense=err))
+            table = new
+        out["ctr"][traffic] = dict(
+            zipf_a=zipf_a, steps=steps,
+            busy_sgd=device_split(
+                lambda: ops.sparse_sgd_update(table, merged, 0.05),
+                statistics.mean(st["sgd_ms"] for st in steps[1:]), top=6))
+    check(bool(table.isfinite().all()), "CTR table not finite")
+    out["ctr"]["tol"] = ("densify vs index_add_: scatter_atol; merged "
+                         "densify: bitwise; sparse SGD vs table - lr * "
+                         "dense: atol 1e-7 rtol 1e-6")
+    out["launches"] = launches
+    log("sparse_xent " + json.dumps(out))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1563,7 +1937,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch import optimizer
+    import numpy as np
+
+    from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
@@ -1659,6 +2035,69 @@ def main():
             check_sgd(K, w2v_shapes, rule, gen, "word2vec, one launch")
             check_sgd(K, bert_shapes, rule, gen,
                       "BERT-base's 154 tensors, one launch")
+        # the scatter-add: bench.py's CTR point; BERT-base's three
+        # embedding gradients with pretrain-512's ids into zeros (phase
+        # 10's word shape is the main one); the merge's inverse ids; bf16;
+        # edge ids
+        ids_512 = torch.as_tensor(bert.synthetic_batch(
+            bert.bert_base(), 64, 512, max_preds=80)["input_ids"],
+            device="cuda").reshape(-1).long()
+        dy = torch.randn(ids_512.numel(), 768, generator=gen, device="cuda")
+        check_scatter_add(
+            K, "CTR [65536,256], 4096 ids",
+            torch.randn(65536, 256, generator=gen, device="cuda"),
+            torch.randint(0, 65536, (4096,), generator=gen, device="cuda"),
+            torch.randn(4096, 256, generator=gen, device="cuda"))
+        sc = {}
+        for name, h, ids in (
+                ("word", 30528, ids_512),
+                ("position", 512, torch.arange(512, device="cuda").repeat(64)),
+                ("token-type", 2, torch.zeros_like(ids_512))):
+            sc[name] = check_scatter_add(
+                K, f"BERT {name} [{h},768], 32768 ids",
+                torch.zeros(h, 768, device="cuda"), ids, dy)
+        inv = torch.unique(ids_512, return_inverse=True)[1]
+        check_scatter_add(K, "merge [32768,768], inverse ids",
+                          torch.zeros(32768, 768, device="cuda"), inv, dy)
+        check_scatter_add(
+            K, "bf16 word [30528,768], 32768 ids",
+            torch.randn(30528, 768, generator=gen, device="cuda").bfloat16(),
+            ids_512, dy.bfloat16())
+        # the CTR table of phase 10 at DeepFM's width (d = 8): one batch's
+        # ids densified into zeros, then its merged rows (row 0 takes the
+        # padding: one long run) as sparse SGD applies them; uniform ids,
+        # then skewed ones (the longer pad run)
+        rng = np.random.RandomState(5)
+        for traffic, zipf_a in (("uniform", None), ("zipf", CTR_ZIPF_A)):
+            ids = ctr_ids(rng, zipf_a)
+            sr = ops.SelectedRows(ids, torch.randn(
+                ids.numel(), CTR_DIM, generator=gen, device="cuda"),
+                CTR_SLOTS * CTR_VOCAB)
+            if zipf_a is None:
+                check_scatter_add(
+                    K, f"CTR densify [2600000,8], {ids.numel()} {traffic} "
+                       "ids", torch.zeros(sr.height, CTR_DIM, device="cuda"),
+                    ids, sr.values)
+            merged = ops.merge_selected_rows(sr)[0]
+            check_scatter_add(
+                K, f"CTR sparse SGD [2600000,8], merged {traffic} rows",
+                torch.randn(sr.height, CTR_DIM, generator=gen,
+                            device="cuda"), merged.rows, merged.values)
+        check_scatter_add(
+            K, "edge ids [1000,100]",
+            torch.randn(1000, 100, generator=gen, device="cuda"),
+            torch.randint(0, 8, (300,), generator=gen, device="cuda"),
+            torch.randn(300, 100, generator=gen, device="cuda"), edge=True)
+        del dy
+        # the cross-entropy: pretrain-512's gathered MLM head (the main
+        # shape), in fp32, bench.py's point, word2vec's ragged V, edges
+        xent_main = check_xent(K, "MLM head", 5120, 30528, torch.bfloat16,
+                               gen)
+        check_xent(K, "MLM head fp32", 5120, 30528, torch.float32, gen)
+        check_xent(K, "bench.py", 512, 32000, torch.float32, gen)
+        check_xent(K, "word2vec", 100, W2V_VOCAB, torch.float32, gen)
+        check_xent(K, "edge labels", 64, 1000, torch.bfloat16, gen,
+                   edge=True)
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     log_card("after phase 2")
 
@@ -1688,6 +2127,10 @@ def main():
     log("phase 9: Fluid inference and int8 serving (serve-int8)")
     served = phase_serve_int8(K, pt, card, trained)
     log(f"phases 0-9 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 10: sparse rows and the fused loss at BERT-base width "
+        "(sparse-xent)")
+    sparse = phase_sparse_xent(K, bert, ops, card)
+    log(f"phases 0-10 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -1699,6 +2142,7 @@ def main():
         "pretrain-2048": pre2048["flash"]["launches"],
         "static-w2v": static["launches"],
         "serve-int8": served["launches"],
+        "sparse-xent": sparse["launches"],
     }
     kernels = []
     for name, main_rec in (
@@ -1710,7 +2154,9 @@ def main():
             ("fused_matmul", fmm[(100, W2V_HIDDEN, W2V_VOCAB, None)]),
             ("fused_matmul_int8", fmm8[(8, 256, 256)]),
             ("fused_sgd", opt_main["sgd"]),
-            ("fused_momentum", opt_main["momentum"])):
+            ("fused_momentum", opt_main["momentum"]),
+            ("embedding_scatter_add", sc["word"]),
+            ("softmax_cross_entropy", xent_main)):
         phases = {ph: c[name] for ph, c in by_phase.items()
                   if c.get(name, 0) > 0}
         launches = sum(phases.values())
@@ -1724,6 +2170,8 @@ def main():
             plain_ms=main_rec["plain_ms"], bound_ms=main_rec["bound_ms"],
             bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"]))
+    check(sorted(k["name"] for k in kernels) == K.list_kernels(),
+          "the kernels line must list every registered kernel")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,16 @@ from paddle_tpu_torch.ops.kernels.registry import (  # noqa: F401
     register_kernel, reset_launch_counts, selected_body,
 )
 from paddle_tpu_torch.ops.kernels import attention as _attention
+from paddle_tpu_torch.ops.kernels import cross_entropy as _cross_entropy
 from paddle_tpu_torch.ops.kernels import embedding as _embedding
 from paddle_tpu_torch.ops.kernels import layer_norm as _layer_norm
 from paddle_tpu_torch.ops.kernels import matmul as _matmul
 from paddle_tpu_torch.ops.kernels import optimizer as _optimizer
 from paddle_tpu_torch.ops.kernels.attention import flash_attention
-from paddle_tpu_torch.ops.kernels.embedding import embedding_gather
+from paddle_tpu_torch.ops.kernels.cross_entropy import softmax_cross_entropy
+from paddle_tpu_torch.ops.kernels.embedding import (
+    embedding_gather, embedding_scatter_add,
+)
 from paddle_tpu_torch.ops.kernels.layer_norm import fused_layer_norm
 from paddle_tpu_torch.ops.kernels.matmul import (
     fused_matmul, fused_matmul_int8, try_fused_matmul,
@@ -75,10 +79,21 @@ register_kernel(
     _optimizer._fused_momentum_cuda,
     source="paddle_tpu_torch/ops/kernels/csrc/fused_sgd.cu",
     replaces="paddle_tpu/ops/pallas/optimizer.py:105")
+register_kernel(
+    _embedding.SCATTER, _embedding._embedding_scatter_add_reference,
+    _embedding._embedding_scatter_add_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
+    replaces="paddle_tpu/ops/pallas/embedding.py:122")
+register_kernel(
+    _cross_entropy.NAME, _cross_entropy._xent_reference,
+    _cross_entropy._softmax_xent_cuda,
+    source="paddle_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
+    replaces="paddle_tpu/ops/pallas_kernels.py:567")
 
 __all__ = [
-    "embedding_gather", "flash_attention", "fused_adam", "fused_layer_norm",
-    "fused_matmul", "fused_matmul_int8", "fused_momentum", "fused_sgd",
+    "embedding_gather", "embedding_scatter_add", "flash_attention",
+    "fused_adam", "fused_layer_norm", "fused_matmul", "fused_matmul_int8",
+    "fused_momentum", "fused_sgd", "softmax_cross_entropy",
     "try_fused_matmul",
     "register_kernel",
     "get_kernel",

@@ -40,6 +40,7 @@ SOURCES = {
     "embedding": "embedding.cu",
     "fused_matmul": "fused_matmul.cu",
     "fused_sgd": "fused_sgd.cu",
+    "softmax_xent": "softmax_xent.cu",
 }
 
 #: ``-Xptxas -v`` makes ptxas report registers, shared memory and spills

@@ -1,17 +1,23 @@
-"""Embedding row gather: the CUDA kernel's wrapper, its plain PyTorch
-version and its gradient.
+"""Embedding row gather and scatter-add: the CUDA kernels' wrappers, their
+plain PyTorch versions and their gradients.
 
-Port of ``embedding_gather`` in ``paddle_tpu/ops/pallas/embedding.py`` (the
-Pallas ``_gather_kernel`` under the ``jax.custom_vjp`` whose backward is
-``_gather_bwd``). Both bodies give the meaning of the JAX package's stock
-body, ``jnp.take(table, ids, axis=0)``: an id in ``[-h, h)`` selects its row
-(a negative id wraps once) and any other id gives a NaN row. (The Pallas body
-turns negative ids into NaN rows instead; the port follows the stock one,
-which every CPU run of the reference uses.) The kernel is
-``csrc/embedding.cu``; CPU tensors take :func:`_embedding_gather_reference`.
-When the table requires grad the call goes through :class:`_GatherFunction`,
+Port of ``embedding_gather`` and ``embedding_scatter_add`` in
+``paddle_tpu/ops/pallas/embedding.py`` (the Pallas ``_gather_kernel`` and
+``_scatter_kernel``, each under a ``jax.custom_vjp``: ``_gather_bwd`` and
+``_scatter_bwd``). Both bodies of each give the meaning of the JAX package's
+stock body: an id in ``[-h, h)`` names its row (a negative id wraps once);
+any other id gives a NaN row in the gather (``jnp.take``) and adds nothing
+in the scatter-add (``.at[].add``). (The Pallas bodies turn negative ids
+into NaN rows, or drop them, instead; the port follows the stock ones,
+which every CPU run of the reference uses.) The kernels are
+``csrc/embedding.cu``; CPU tensors take :func:`_embedding_gather_reference`
+and :func:`_embedding_scatter_add_reference`.
+
+When the table requires grad the gather goes through :class:`_GatherFunction`,
 whose backward is the plain PyTorch port of ``_gather_bwd`` on either device
 (an fp32 zero table with ``dy`` index-added; plain jnp in the JAX package).
+When dst or the updates require grad the scatter-add goes through
+:class:`_ScatterAddFunction`, whose backward follows ``_scatter_bwd``.
 """
 
 import ctypes
@@ -21,9 +27,10 @@ import torch
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.ops.kernels import _build, registry
 
-__all__ = ["embedding_gather"]
+__all__ = ["embedding_gather", "embedding_scatter_add"]
 
 NAME = "embedding_gather"
+SCATTER = "embedding_scatter_add"
 #: the NaN of each table dtype, repeated over 32 bits
 _NAN_WORDS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC07FC0,
               torch.float16: 0x7E007E00}
@@ -33,7 +40,19 @@ _SIGNATURES = {
                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                             ctypes.c_int64, ctypes.c_int, ctypes.c_uint32,
                             ctypes.c_void_p],
+    "pt_embedding_scatter_keys": [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_int64,
+                                  ctypes.c_int64, ctypes.c_void_p],
+    "pt_embedding_scatter_add": [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+#: the longest run of one row's ids that a thread of the scatter-add sums
+#: itself (``kLongRun`` in ``csrc/embedding.cu``); longer runs get a block
+#: each, and the scratch listing them is sized from it
+_LONG_RUN = 64
+#: dst and update dtypes of the scatter-add kernel
+_SCATTER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def embedding_gather(table, ids):
@@ -120,3 +139,113 @@ def _embedding_gather_cuda(table, ids):
     _build.check_launch(lib, NAME, err)
     registry.get_kernel(NAME).count_launch()
     return out.reshape(*ids.shape, d)
+
+
+# ---------------------------------------------------------------------------
+# scatter-add
+# ---------------------------------------------------------------------------
+def embedding_scatter_add(dst, ids, updates):
+    """``dst`` [h, d] with ``updates[j]`` added into row ``ids[j]``, out of
+    place: returns a new tensor in dst's dtype and leaves dst as it is.
+    ``ids`` holds n integers (any shape), ``updates`` is [n, d]. An id in
+    ``[-h, -1]`` wraps once; any other id outside ``[0, h)`` adds nothing.
+    Each row's updates are summed in fp32 in ascending j and added to dst
+    once, then rounded to dst's dtype: the result is deterministic.
+
+    CPU tensors take the plain PyTorch body; CUDA tensors launch the
+    kernel or raise. Differentiable in dst and the updates."""
+    if torch.is_grad_enabled() and (dst.requires_grad
+                                    or updates.requires_grad):
+        return _ScatterAddFunction.apply(dst, ids, updates)
+    return registry.dispatch(SCATTER, dst, ids, updates)
+
+
+class _ScatterAddFunction(torch.autograd.Function):
+    """Forward: the registered body. Backward: ``_scatter_bwd``
+    (embedding.py:173-175): dy to dst, and dy's rows at the ids to the
+    updates, with the stock gather's meaning (a negative id wraps once, an
+    id outside ``[-h, h)`` gives a NaN row)."""
+
+    @staticmethod
+    def forward(ctx, dst, ids, updates):
+        ctx.save_for_backward(ids)
+        ctx.updates_dtype = updates.dtype
+        return registry.dispatch(SCATTER, dst, ids, updates)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        d_upd = _embedding_gather_reference(dy, ids.reshape(-1))
+        return dy, None, d_upd.to(ctx.updates_dtype)
+
+
+def _embedding_scatter_add_reference(dst, ids, updates):
+    """Plain PyTorch scatter-add with the stock ``.at[].add`` meaning,
+    summed in fp32 (``index_add_`` on the CPU adds in ascending j) and added
+    to dst once."""
+    h, d = dst.shape
+    idx, valid = _valid_rows(ids, h)
+    rows = torch.where(valid[:, None], updates.reshape(-1, d).float(), 0.0)
+    acc = torch.zeros(h, d, dtype=torch.float32, device=dst.device)
+    acc.index_add_(0, idx, rows)
+    return (dst.float() + acc).to(dst.dtype)
+
+
+def _embedding_scatter_add_cuda(dst, ids, updates):
+    """Launch ``csrc/embedding.cu``'s scatter-add on the current stream (no
+    sync): the keys kernel, a stable ``torch.sort`` of the keys (index
+    preparation), then the run-marking and summing kernels (rows with long
+    runs summed by a block each)."""
+    dev = dst.device
+    if dev.type != "cuda":
+        raise EnforceNotMet(f"{SCATTER}: the kernel takes CUDA tensors, got "
+                            f"dst on {dev}")
+    for nm, t in (("dst", dst), ("updates", updates)):
+        if t.dtype not in _SCATTER_DTYPES or t.dim() != 2 \
+                or not t.is_contiguous() or t.device != dev:
+            raise EnforceNotMet(
+                f"{SCATTER}: {nm} must be a contiguous 2-D float32 or "
+                f"bfloat16 tensor on {dev}, got {t.dtype} shape "
+                f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
+    h, d = dst.shape
+    n = ids.numel()
+    if ids.dtype not in _IDS or ids.device != dev \
+            or tuple(updates.shape) != (n, d):
+        raise EnforceNotMet(
+            f"{SCATTER}: ids must be int32 or int64 on {dev} and updates "
+            f"[n, {d}] for its n ids, got {ids.dtype} ids of shape "
+            f"{tuple(ids.shape)} on {ids.device} and updates "
+            f"{tuple(updates.shape)}")
+    if h >= 2 ** 31 - 1 or n >= 2 ** 31:
+        raise EnforceNotMet(f"{SCATTER}: the kernel takes fewer than 2^31 "
+                            f"rows and ids, got h={h}, n={n}")
+    if n == 0:
+        return dst.clone()
+    out = torch.empty_like(dst)
+    widest = max(dst.element_size(), updates.element_size())
+    vec = next(v for v in (8, 4, 2, 1) if v * widest <= 16 and d % v == 0
+               and all(t.data_ptr() % (v * t.element_size()) == 0
+                       for t in (dst, updates, out)))
+    ids_c = ids.reshape(-1).contiguous()
+    lib = _build.load("embedding", _SIGNATURES)
+    keys = torch.empty(n, dtype=torch.int32, device=dev)
+    runs = torch.empty(h, 2, dtype=torch.int32, device=dev)
+    # rows with runs too long for one thread: a count, then their ids
+    most_long = n // (_LONG_RUN + 1)
+    long_rows = torch.empty(1 + most_long, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pt_embedding_scatter_keys(
+            ids_c.data_ptr(), int(ids_c.dtype == torch.int64),
+            keys.data_ptr(), n, h, stream)
+        _build.check_launch(lib, SCATTER, err)
+        sorted_keys, perm = torch.sort(keys, stable=True)
+        err = lib.pt_embedding_scatter_add(
+            dst.data_ptr(), updates.data_ptr(), sorted_keys.data_ptr(),
+            perm.data_ptr(), runs.data_ptr(), long_rows.data_ptr(),
+            out.data_ptr(), n, h, d,
+            _SCATTER_DTYPES[dst.dtype], _SCATTER_DTYPES[updates.dtype], vec,
+            stream)
+    _build.check_launch(lib, SCATTER, err)
+    registry.get_kernel(SCATTER).count_launch()
+    return out

@@ -520,3 +520,193 @@ def test_quantized_server_on_card_matches_cpu(cuda, tmp_path, mode, kernel,
             assert counts[kernel] == 3
             assert sum(counts.values()) == 3
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,d,n,dtype,upd_dtype,ids_dtype", [
+    (65536, 256, 4096, torch.float32, torch.float32, torch.int64),  # CTR
+    (30528, 768, 32768, torch.float32, torch.float32, torch.int32),  # BERT
+    (512, 768, 32768, torch.float32, torch.float32, torch.int64),
+    (2, 768, 32768, torch.float32, torch.float32, torch.int64),
+    (30528, 768, 4096, torch.bfloat16, torch.bfloat16, torch.int64),
+    (33, 130, 400, torch.bfloat16, torch.float32, torch.int32),
+    (7, 3, 50, torch.float32, torch.bfloat16, torch.int64),   # 12-byte rows
+    (9, 5, 33, torch.bfloat16, torch.bfloat16, torch.int32),
+    # runs longer than one thread takes: column tiles with a ragged edge
+    (3, 100, 5000, torch.bfloat16, torch.bfloat16, torch.int64),
+    (5, 8, 20000, torch.float32, torch.bfloat16, torch.int32)])
+def test_embedding_scatter_add_kernel_matches_plain(cuda, h, d, n, dtype,
+                                                    upd_dtype, ids_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(h + n)
+    dst = torch.randn(h, d, generator=gen, device=cuda).to(dtype)
+    upd = torch.randn(n, d, generator=gen, device=cuda).to(upd_dtype)
+    # valid ids with duplicates, negative ones (wrap once) and ones
+    # outside [-h, h) (dropped)
+    ids = torch.randint(-h - 3, h + 3, (n,), generator=gen, device=cuda,
+                        dtype=torch.int64).to(ids_dtype)
+    ids[:4] = torch.tensor([-1, -h, h, -h - 1], device=cuda)
+    before = K.get_kernel("embedding_scatter_add").launches
+    out = K.embedding_scatter_add(dst, ids, upd)
+    again = K.embedding_scatter_add(dst, ids, upd)
+    torch.cuda.synchronize()
+    assert K.get_kernel("embedding_scatter_add").launches == before + 2
+    assert out.dtype == dtype and out.shape == (h, d)
+    # no atomics: the same bits on every launch, and the bits of the plain
+    # body on the CPU, whose index_add_ adds in ascending j as the kernel
+    assert torch.equal(out, again)
+    cpu = K.get_body("embedding_scatter_add", "reference")(
+        dst.cpu(), ids.cpu(), upd.cpu())
+    torch.testing.assert_close(out.cpu(), cpu, atol=0, rtol=0)
+    # the plain body on the card sums with atomics in another order: each
+    # of a row's c adds may round by 2^-24 of the partial sum, so atol
+    # 1e-6 * c_max * max|update| (fp32); bf16 adds one unit in the last
+    # place of the result
+    ref = K.get_body("embedding_scatter_add", "reference")(dst, ids, upd)
+    wrapped = torch.where(ids < 0, ids + h, ids).long()
+    c_max = torch.bincount(wrapped[(ids >= -h) & (ids < h)]).max().item()
+    atol = 1e-6 * c_max * upd.abs().max().item() + 1e-6
+    torch.testing.assert_close(
+        out.float(), ref.float(), atol=atol,
+        rtol=BF16_RTOL if dtype == torch.bfloat16 else 1e-6)
+
+
+@pytest.mark.cuda
+def test_embedding_scatter_add_zero_ids_and_refusals(cuda):
+    dst = torch.randn(4, 8, device=cuda)
+    before = K.get_kernel("embedding_scatter_add").launches
+    out = K.embedding_scatter_add(dst, torch.zeros(0, dtype=torch.int64,
+                                                   device=cuda),
+                                  torch.zeros(0, 8, device=cuda))
+    assert torch.equal(out, dst) and out.data_ptr() != dst.data_ptr()
+    assert K.get_kernel("embedding_scatter_add").launches == before
+    ids = torch.tensor([0, 1], device=cuda)
+    with pytest.raises(EnforceNotMet, match="float32 or bfloat16"):
+        K.embedding_scatter_add(dst.half(), ids, torch.zeros(2, 8,
+                                                             device=cuda))
+    with pytest.raises(EnforceNotMet, match="updates"):
+        K.embedding_scatter_add(dst, ids, torch.zeros(3, 8, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [100_000, 2_000])
+def test_sparse_sgd_on_merged_ctr_rows_matches_plain(cuda, vocab):
+    # DeepFM's width (26 slots, 8 dims) at batch 2048: the merge pads its
+    # unique rows to n with row 0, one long run whose length grows as the
+    # ids repeat (vocab 2,000 leaves ~17,000 pads)
+    from paddle_tpu_torch import ops
+    rng = np.random.RandomState(vocab)
+    ids = (rng.randint(0, vocab, (2048, 26))
+           + np.arange(26) * vocab).reshape(-1)
+    h = 26 * vocab
+    gen = torch.Generator().manual_seed(1)
+    table = torch.randn(h, 8, generator=gen)
+    sr = ops.SelectedRows(torch.as_tensor(ids),
+                          torch.randn(ids.size, 8, generator=gen), h)
+    on_card = ops.SelectedRows(sr.rows.to(cuda), sr.values.to(cuda), h)
+    merged, valid = ops.merge_selected_rows(on_card)
+    merged_cpu, valid_cpu = ops.merge_selected_rows(sr)
+    assert torch.equal(valid.cpu(), valid_cpu)
+    assert torch.equal(merged.rows.cpu(), merged_cpu.rows)
+    # the kernel sums each row in ascending j, as the CPU's index_add_
+    torch.testing.assert_close(merged.values.cpu(), merged_cpu.values,
+                               atol=0, rtol=0)
+    new = ops.sparse_sgd_update(table.to(cuda), merged, 0.05)
+    torch.testing.assert_close(
+        new.cpu(), ops.sparse_sgd_update(table, merged_cpu, 0.05),
+        atol=0, rtol=0)
+    dense = ops.get_tensor_from_selected_rows(on_card)
+    assert torch.equal(ops.get_tensor_from_selected_rows(merged), dense)
+
+
+@pytest.mark.cuda
+def test_embedding_scatter_add_grads_on_card_match_cpu(cuda):
+    gen = torch.Generator().manual_seed(4)
+    dst = torch.randn(50, 16, generator=gen)
+    upd = torch.randn(6, 16, generator=gen)
+    ids = torch.tensor([0, 3, 3, -1, 49, 50])
+    dy = torch.randn(50, 16, generator=gen)
+
+    def run(dev):
+        a = dst.to(dev).requires_grad_()
+        u = upd.to(dev).requires_grad_()
+        K.embedding_scatter_add(a, ids.to(dev), u).backward(dy.to(dev))
+        return a.grad.cpu(), u.grad.cpu()
+
+    # copies of dy (NaN at the dropped id 50): exact
+    for c, r in zip(run(cuda), run("cpu")):
+        torch.testing.assert_close(c, r, atol=0, rtol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,dtype,labels_dtype", [
+    (5120, 30528, torch.bfloat16, torch.int64),   # BERT-base's MLM head
+    (512, 30528, torch.float32, torch.int32),
+    (512, 32000, torch.float32, torch.int64),
+    (100, 2073, torch.float32, torch.int64),      # word2vec, ragged V
+    (33, 2073, torch.bfloat16, torch.int32),
+    (7, 77, torch.bfloat16, torch.int64),
+    (3, 1, torch.float32, torch.int64)])
+def test_softmax_xent_kernel_matches_plain(cuda, n, v, dtype, labels_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + v)
+    x = (torch.randn(n, v, generator=gen, device=cuda) * 2).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=gen, device=cuda).to(
+        labels_dtype)
+    lab[:2] = torch.tensor([-1, v], device=cuda)[:min(2, n)]
+    before = K.get_kernel("softmax_cross_entropy").launches
+    loss, lse = K.get_body("softmax_cross_entropy", "kernel")(x, lab)
+    loss_r, lse_r = K.get_body("softmax_cross_entropy", "reference")(x, lab)
+    torch.cuda.synchronize()
+    assert K.get_kernel("softmax_cross_entropy").launches == before + 1
+    assert loss.dtype == lse.dtype == torch.float32
+    # fp32 sums of V exps in another order: lse to 1e-5 relative; the label
+    # -1 picks the last column, the label V gives NaN
+    torch.testing.assert_close(lse, lse_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(loss, loss_r, atol=1e-4, rtol=1e-5,
+                               equal_nan=True)
+    assert torch.isnan(loss[1]) == (n > 1)
+
+
+@pytest.mark.cuda
+def test_softmax_xent_kernel_rows_with_inf_and_nan(cuda):
+    x = torch.zeros(5, 40, device=cuda)
+    x[0] = float("-inf")
+    x[1, 3] = float("-inf")
+    x[2, 7] = float("inf")
+    x[3, 9] = float("nan")
+    x[4] = torch.arange(40, device=cuda) * 3.0
+    lab = torch.tensor([0, 1, 1, 0, 39], device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        loss, lse = K.get_body("softmax_cross_entropy", "kernel")(
+            x.to(dtype), lab)
+        loss_r, lse_r = K.get_body("softmax_cross_entropy", "reference")(
+            x.to(dtype), lab)
+        torch.testing.assert_close(lse, lse_r, atol=1e-5, rtol=1e-5,
+                                   equal_nan=True)
+        torch.testing.assert_close(loss, loss_r, atol=1e-5, rtol=1e-5,
+                                   equal_nan=True)
+        assert torch.isnan(lse[[0, 2, 3]]).all() and torch.isfinite(lse[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_xent_grads_on_card_match_cpu(cuda, dtype):
+    gen = torch.Generator().manual_seed(6)
+    x = (torch.randn(4, 9, 300, generator=gen) * 2).to(dtype)
+    lab = torch.randint(-300, 300, (4, 9), generator=gen)
+    w = torch.rand(4, 9, generator=gen)
+
+    def run(dev):
+        a = x.to(dev).requires_grad_()
+        loss = K.softmax_cross_entropy(a, lab.to(dev))
+        (loss * w.to(dev)).sum().backward()
+        return loss.detach().cpu(), a.grad.cpu()
+
+    K.reset_launch_counts()
+    card = run(cuda)
+    assert K.launch_counts()["softmax_cross_entropy"] == 1
+    # fp32 sums in another order (1e-5); bf16 grads round the same fp32
+    # values once (one unit in the last place)
+    for c, r in zip(card, run("cpu")):
+        torch.testing.assert_close(c.float(), r.float(), atol=1e-5,
+                                   rtol=BF16_RTOL if dtype == torch.bfloat16
+                                   else 1e-5)

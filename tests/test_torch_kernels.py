@@ -315,9 +315,10 @@ def test_fused_adam_reference_matches_pallas(shape, t):
 # ---------------------------------------------------------------------------
 # registry: selection follows the device, counters count kernel launches
 # ---------------------------------------------------------------------------
-_NAMES = ["embedding_gather", "flash_attention", "flash_attention_bwd_dkdv",
-          "flash_attention_bwd_dq", "fused_adam", "fused_layer_norm",
-          "fused_matmul", "fused_matmul_int8", "fused_momentum", "fused_sgd"]
+_NAMES = ["embedding_gather", "embedding_scatter_add", "flash_attention",
+          "flash_attention_bwd_dkdv", "flash_attention_bwd_dq", "fused_adam",
+          "fused_layer_norm", "fused_matmul", "fused_matmul_int8",
+          "fused_momentum", "fused_sgd", "softmax_cross_entropy"]
 
 
 def test_cpu_dispatch_takes_reference_and_counts_nothing():
@@ -338,7 +339,11 @@ def test_cpu_dispatch_takes_reference_and_counts_nothing():
                         torch.ones(3), None, "tanh")
     K.fused_sgd([p], [torch.ones(5)], 0.1)
     K.fused_momentum([p], [torch.ones(5)], [torch.zeros(5)], 0.1)
-    assert t.grad is not None and w.grad is not None
+    u = torch.randn(2, 4, requires_grad=True)
+    K.embedding_scatter_add(t, torch.tensor([1, 5]), u).sum().backward()
+    K.softmax_cross_entropy(t, torch.tensor([0, 1, 2, 3, 0, 1])
+                            ).sum().backward()
+    assert t.grad is not None and w.grad is not None and u.grad is not None
     assert K.launch_counts() == {n: 0 for n in _NAMES}
     for name in _NAMES:
         assert K.selected_body(name, "cpu") == "reference"
@@ -384,6 +389,9 @@ def test_kernel_body_refuses_cpu_tensors(name):
                               torch.ones(8), None, "relu"),
         "fused_sgd": ([x], [x], 0.1),
         "fused_momentum": ([x], [x], [x], 0.1),
+        "embedding_scatter_add": (x[0, 0], torch.tensor([0, 1]),
+                                  x[0, 0, :2]),
+        "softmax_cross_entropy": (x[0, 0], torch.tensor([0] * 8)),
     }[name]
     before = x.clone()
     with pytest.raises(EnforceNotMet):
