@@ -8,12 +8,19 @@ Phases; any failure raises and the script exits non-zero:
 0. Require a CUDA device (no CPU fallback); print the card's name and
    power limit.
 1. Build every kernel of the path from ``paddle_tpu_torch/ops/kernels/csrc``
-   with nvcc (one process per source, all at once).
+   with nvcc (one process per source, all at once); for the flash kernels,
+   print each kernel's ptxas registers and spills and, where the toolkit
+   has ``cuobjdump``, its count of tensor-core instructions (HGMMA, HMMA)
+   in the SASS; fail if a wgmma kernel spills or issues no HGMMA.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and a few edge cases, each with its stated
    tolerance, and time kernel, plain version and one PyTorch library call
    (a yardstick only; the port never calls it) beside the kernel's bound:
-   LayerNorm, the flash-attention forward and its two backward kernels,
+   LayerNorm, the flash-attention forward and its two backward kernels
+   (the bf16 forward and dK/dV on the tensor cores also at each head size,
+   S = 300, 1000 and 2048, causal and masked keys, rows that see no key,
+   the fused QKV projection's head views and views the wrapper copies, and
+   the fp32 SIMT instantiation at the same edges),
    the multi-tensor Adam over BERT-base's parameter list; and the static
    path's kernels: the embedding gather (word2vec's table with 100 and
    8192 ids, BERT-base's word table with 64x512 ids), the fused matmul
@@ -288,6 +295,99 @@ def bound(nbytes, ops, dtype):
 
 
 # ---------------------------------------------------------------------------
+# phase 1: what the compiler made of the tensor-core kernels
+# ---------------------------------------------------------------------------
+def kernel_label(mangled):
+    """``flash_fwd_wgmma_kernel<64>`` or ``flash_bwd_dq_kernel<bf16,64>``
+    from a mangled kernel name."""
+    import re
+    m = re.search(r"\d+(flash\w*?_kernel)I", mangled)
+    if m is None:
+        return mangled[:80]
+    dtype = ("bf16," if "bfloat16" in mangled
+             else "f32," if "_kernelIfLi" in mangled else "")
+    d = re.search(r"Li(\d+)E", mangled[m.end() - 1:])
+    return f"{m.group(1)}<{dtype}{d.group(1) if d else ''}>"
+
+
+def ptxas_report(log):
+    """{kernel label: {registers, spill_stores, spill_loads}} from the
+    ``-Xptxas -v`` build log, and the compiler's remarks on the wgmma
+    pipeline (C75xx: waits it inserted or products it serialized)."""
+    import re
+    out, cur, remarks = {}, None, []
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = kernel_label(m.group(1))
+            out[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+        if re.search(r"\(C75\d\d\)", line):
+            remarks.append(line.strip()[:200])
+    return out, remarks
+
+
+def sass_census(so_path):
+    """{kernel label: {"HGMMA": n, "HMMA": n}} over the library's SASS
+    (cuobjdump), or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    r = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                       text=True, timeout=300, check=True)
+    out, cur = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            cur = kernel_label(line.split("Function :", 1)[1].strip())
+            out[cur] = {"HGMMA": 0, "HMMA": 0}
+        elif cur:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    out[cur][op] += 1
+    return out
+
+
+TENSOR_CORE_LIBS = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def tensor_core_report(built):
+    """Phase 1's lines for the tensor-core kernels: ptxas registers and
+    spills, the tensor-core instructions in their SASS; fails if a wgmma
+    kernel spills or issues none."""
+    recs = {}
+    for lib in TENSOR_CORE_LIBS:
+        regs, remarks = ptxas_report(built[lib]["log"])
+        census = sass_census(built[lib]["path"])
+        for label in sorted(regs):
+            rec = dict(regs[label])
+            if census is not None:
+                rec.update(census.get(label, {}))
+            recs[label] = rec
+            log(f"  {label}: " + json.dumps(rec))
+            if "wgmma" in label:
+                check(rec.get("spill_stores", 1) == 0
+                      and rec.get("spill_loads", 1) == 0,
+                      f"{label} spills registers: {rec}")
+                check(census is None or rec.get("HGMMA", 0) > 0,
+                      f"{label} issues no HGMMA instruction: {rec}")
+        for r in remarks:
+            log(f"  {lib} ptxas remark: {r}")
+    check(any("wgmma" in label for label in recs),
+          f"no wgmma kernel in {TENSOR_CORE_LIBS}: {sorted(recs)}")
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_layer_norm(K, rows, hidden, dtype, gen):
@@ -338,14 +438,43 @@ def check_layer_norm(K, rows, hidden, dtype, gen):
     return rec
 
 
-def check_flash(K, B, H, S, D, dtype, causal, masked_keys, gen):
+def flash_inputs(n, B, H, S, D, dtype, gen, layout="contiguous"):
+    """n [B, H, S, D] operands: contiguous; "qkv", head views of one fused
+    [B, S, n*H*D] projection as bert.py makes them (the TMA loads take
+    them as they are); or "unaligned", views 2 bytes off a 16-byte
+    boundary (the wrapper copies them for the same kernel)."""
     dev = "cuda"
-    q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
-               for _ in range(3))
-    bias = None
-    if masked_keys:
-        bias = torch.zeros(B, S, device=dev)
+    if layout == "qkv":
+        fused = torch.randn(B, S, n * H * D, generator=gen, device=dev)
+        return [t.reshape(B, S, H, D).transpose(1, 2)
+                for t in fused.to(dtype).split(H * D, dim=-1)]
+    if layout == "unaligned":
+        size = B * H * S * D
+        return [torch.randn(size + 1, generator=gen, device=dev).to(dtype)
+                [1:].view(B, H, S, D) for _ in range(n)]
+    return [torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
+            for _ in range(n)]
+
+
+def key_bias(B, S, masked_keys):
+    """The key bias: -1e9 on the last ``masked_keys`` keys of every row,
+    or with "all", on every key of batch 0 (rows that see no key) and the
+    last tenth of the others; None for 0."""
+    if not masked_keys:
+        return None
+    bias = torch.zeros(B, S, device="cuda")
+    if masked_keys == "all":
+        bias[0] = -1e9
+        bias[:, -(S // 10):] = -1e9
+    else:
         bias[:, -masked_keys:] = -1e9
+    return bias
+
+
+def check_flash(K, B, H, S, D, dtype, causal, masked_keys, gen,
+                layout="contiguous", timed=True):
+    q, k, v = flash_inputs(3, B, H, S, D, dtype, gen, layout)
+    bias = key_bias(B, S, masked_keys)
     kern = K.get_body("flash_attention", "kernel")
     plain = K.get_body("flash_attention", "reference")
     o, lse = kern(q, k, v, bias=bias, causal=causal, return_lse=True)
@@ -359,9 +488,16 @@ def check_flash(K, B, H, S, D, dtype, causal, masked_keys, gen):
     atol_o = 1e-4 if dtype == torch.bfloat16 else 1e-5
     ok = within(o, orf, atol_o, rtol_o) and within(lse, lser, 1e-4, 0.0)
     err = max_err(o, orf)
-    check(ok, f"flash_attention {[B, H, S, D]} {dtype} causal={causal}: "
-              f"kernel disagrees with plain: o {err}, lse "
-              f"{max_err(lse, lser)}")
+    check(ok, f"flash_attention {[B, H, S, D]} {dtype} causal={causal} "
+              f"masked={masked_keys} {layout}: kernel disagrees with plain: "
+              f"o {err}, lse {max_err(lse, lser)}")
+    if not timed:
+        rec = dict(shape=[B, H, S, D], dtype=str(dtype), causal=causal,
+                   masked_keys=masked_keys, layout=layout, max_abs_err=err,
+                   lse_err=max_err(lse, lser),
+                   tol=f"o atol {atol_o:g} rtol {rtol_o:g}; lse atol 1e-4")
+        log("check flash_attention " + json.dumps(rec))
+        return rec
     pairs = S * (S + 1) / 2 if causal else S * S
     ops = 4 * B * H * D * pairs
     nbytes = (4 * B * H * S * D * q.element_size() + B * H * S * 4
@@ -378,24 +514,22 @@ def check_flash(K, B, H, S, D, dtype, causal, masked_keys, gen):
                lse_err=max_err(lse, lser),
                tol=f"o atol {atol_o:g} rtol {rtol_o:g}; lse atol 1e-4",
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, tflops=ops / (ms * 1e-3) / 1e12)
+               bound_by=b_by, tflops=ops / (ms * 1e-3) / 1e12,
+               card=nvidia_smi_line())
     log("check flash_attention " + json.dumps(rec))
     return rec
 
 
 def check_flash_bwd(K, B, H, S, D, dtype, causal, masked_keys, gen,
-                    library=False):
+                    library=False, layout="contiguous", timed=True):
     """Both backward kernels against their plain bodies on the residuals of
     the plain forward; returns the dK/dV and dQ records. With ``library``
     (the main shape; non-causal with a key bias), also times the library's
-    attention backward alone on the same inputs."""
-    dev = "cuda"
-    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev)
-                   .to(dtype) for _ in range(4))
-    bias = None
-    if masked_keys:
-        bias = torch.zeros(B, S, device=dev)
-        bias[:, -masked_keys:] = -1e9
+    attention backward alone on the same inputs. ``layout`` as in
+    ``flash_inputs`` (dO is a view of its own [B, S, H*D] gradient)."""
+    q, k, v = flash_inputs(3, B, H, S, D, dtype, gen, layout)
+    do = flash_inputs(1, B, H, S, D, dtype, gen, layout)[0]
+    bias = key_bias(B, S, masked_keys)
     o, lse = K.get_body("flash_attention", "reference")(
         q, k, v, bias=bias, causal=causal, return_lse=True)
     delta = (do.float() * o.float()).sum(-1)
@@ -418,8 +552,14 @@ def check_flash_bwd(K, B, H, S, D, dtype, causal, masked_keys, gen,
           and within(dv, rdv, 1e-4, rtol) and within(dbh, rdbh, 1e-4, 1e-5))
     errs = dict(dq=max_err(dq, rdq), dk=max_err(dk, rdk),
                 dv=max_err(dv, rdv), dbh=max_err(dbh, rdbh))
-    check(ok, f"flash backward {[B, H, S, D]} {dtype} causal={causal}: "
-              f"kernels disagree with plain: {errs}")
+    check(ok, f"flash backward {[B, H, S, D]} {dtype} causal={causal} "
+              f"masked={masked_keys} {layout}: kernels disagree with plain: "
+              f"{errs}")
+    if not timed:
+        rec = dict(shape=[B, H, S, D], dtype=str(dtype), causal=causal,
+                   masked_keys=masked_keys, layout=layout, errs=errs)
+        log("check flash backward " + json.dumps(rec))
+        return rec
     pairs = S * (S + 1) / 2 if causal else S * S
     e = q.element_size()
     n_in = (4 * B * H * S * D * e + 2 * B * H * S * 4
@@ -438,7 +578,8 @@ def check_flash_bwd(K, B, H, S, D, dtype, causal, masked_keys, gen,
             masked_keys=masked_keys, max_abs_err=err, errs=errs,
             tol=f"dq/dk/dv atol 1e-4 rtol {rtol:g}; dbh atol 1e-4 rtol 1e-5",
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            tflops=2 * n_products * B * H * D * pairs / (ms * 1e-3) / 1e12)
+            tflops=2 * n_products * B * H * D * pairs / (ms * 1e-3) / 1e12,
+            card=nvidia_smi_line())
 
     lib = dict(library_ms=None, library="timed at the main shape only")
     if library:
@@ -941,8 +1082,8 @@ def phase_serving(K, bert, card, ln_ms):
 #: (group, pattern of the CUDA kernel's name), the first match wins: the
 #: port's own kernels, then the library kernels of the plain ops
 KERNEL_GROUPS = (
-    ("flash_attention", r"flash_fwd_kernel"),
-    ("flash_attention_bwd_dkdv", r"flash_bwd_dkdv_kernel"),
+    ("flash_attention", r"flash_fwd_(wgmma_)?kernel"),
+    ("flash_attention_bwd_dkdv", r"flash_bwd_dkdv_(wgmma_)?kernel"),
     ("flash_attention_bwd_dq", r"flash_bwd_dq_kernel"),
     ("fused_layer_norm", r"layer_norm_fwd_kernel"),
     ("fused_adam", r"fused_adam_kernel"),
@@ -1960,6 +2101,9 @@ def main():
         regs = [ln.strip() for ln in r["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"  {name}: {r['seconds']:.1f} s; " + " | ".join(regs))
+    log("phase 1: the tensor-core kernels (ptxas registers and spills, "
+        "tensor-core instructions in the SASS)")
+    tensor_core_report(built)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     log("phase 2: kernels against their plain versions")
@@ -1985,6 +2129,35 @@ def main():
     check_flash_bwd(K, 2, 12, 1000, 64, torch.bfloat16, False, 100, gen)
     check_flash_bwd(K, 1, 4, 1000, 64, torch.float32, True, 0, gen)
     check_flash_bwd(K, 2, 4, 300, 32, torch.bfloat16, True, 30, gen)
+    # the tensor-core kernels' edges: bf16 at each head size, S = 300, 1000
+    # and 2048 (not all multiples of the 128-row tiles), causal and masked
+    # keys, rows that see no key (batch 0's keys all masked), the fused QKV
+    # projection's head views (taken as they are) and views 2 bytes off a
+    # 16-byte boundary (copied by the wrapper for the same kernel); then the
+    # fp32 SIMT instantiation at the same edges. Rows that see no key are
+    # held in the forward only: there lse rounds to the -1e9 bias, so the
+    # backward's p is 1 on every key and it sums S unnormalized terms whose
+    # cancellation leaves both the redesigned dK and the unchanged SIMT dQ
+    # up to 2 bf16 units from the plain body (on an H100 80GB HBM3: 0.125
+    # and 0.0625 at [2,4,300,64], 0.5 and 0.5 at [2,4,2048,32]; PERF.md);
+    # their backward runs with the last tenth of the keys masked instead
+    bf = torch.bfloat16
+    edges = [(300, 16, True, 30, "contiguous"),
+             (1000, 32, False, 100, "contiguous"),
+             (2048, 16, True, 0, "contiguous"),
+             (2048, 32, False, "all", "contiguous"),
+             (300, 64, False, "all", "qkv"),
+             (1000, 64, True, 100, "qkv"),
+             (300, 32, False, 30, "unaligned"),
+             (1000, 64, True, "all", "unaligned")]
+    for S, D, causal, masked, layout in edges:
+        for dt in (bf, torch.float32):
+            with torch.inference_mode():
+                check_flash(K, 2, 4, S, D, dt, causal, masked, gen,
+                            layout=layout, timed=False)
+            check_flash_bwd(K, 2, 4, S, D, dt, causal,
+                            S // 10 if masked == "all" else masked, gen,
+                            layout=layout, timed=False)
     adam_main = check_adam(K, bert, 1, gen)
     check_adam(K, bert, 1000, gen)
     # the static path's kernels: the word2vec step's shapes at batch 100

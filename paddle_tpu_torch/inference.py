@@ -291,7 +291,8 @@ def read_aot_version(model_dir):
 
 
 def export_aot(dirname, program, feed_names, fetch_names, scope,
-               shape_buckets, quantize=None, apply_passes=None):
+               shape_buckets, platforms=("cpu", "tpu"), quantize=None,
+               apply_passes=None):
     """Write the AOT index of a frozen program under ``<dirname>/__aot__``:
     one entry per shape bucket (``sig``, ``key``, ``program_hash``,
     ``model_version``, ``state_names``, ``torch_version``, ``quant``,
@@ -301,7 +302,9 @@ def export_aot(dirname, program, feed_names, fetch_names, scope,
 
     ``shape_buckets``: list of {feed name: (shape, dtype)} (or example
     arrays). ``apply_passes`` (default ``FLAGS_apply_ir_passes``) runs the
-    pass pipeline on a clone first.
+    pass pipeline on a clone first. ``platforms`` is accepted for the JAX
+    signature and ignored: it names the platforms the JAX package lowers its
+    StableHLO export for, and the port writes no such export.
 
     ``quantize="int8"|"bf16"``: weight-only post-training quantization.
     Every eligible matmul weight is stored quantized (int8: per-output-

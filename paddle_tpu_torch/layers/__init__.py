@@ -187,13 +187,21 @@ relu = _dual("relu", _act.relu)
 sigmoid = _dual("sigmoid", _act.sigmoid)
 tanh = _dual("tanh", _act.tanh)
 gelu = _dual("gelu", _act.gelu)
-softmax = _dual("softmax", _act.softmax)
 cross_entropy = _dual("cross_entropy", _loss.cross_entropy)
 square_error_cost = _dual("square_error_cost", _loss.square_error_cost)
 mean = _dual("mean", _reduce.mean)
 concat = _dual("concat", _tensor.concat)
 reshape = _dual("reshape", _tensor.reshape)
 _register("embedding", _nn.embedding)
+_register("softmax", _act.softmax)
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    """fluid.layers.softmax, with the JAX layer's signature (``use_cudnn``
+    is advisory there too); a static program records ``{'axis': axis}``."""
+    if in_static_mode() and _has_variable([input]):
+        return _append_static("softmax", [input], {"axis": axis}, False)
+    return _act.softmax(input, axis=axis)
 
 
 # ---------------------------------------------------------------------------

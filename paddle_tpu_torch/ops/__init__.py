@@ -1,14 +1,20 @@
 """Operators of the port. ``ops.kernels`` holds the hand-written CUDA kernels.
 
-The SelectedRows functions (``ops/selected_rows.py``) are exported here, as
-the JAX package's ``paddle_tpu.ops`` exports them."""
+The ported op modules are star-exported here, as the JAX package's
+``paddle_tpu.ops`` star-imports its own, so reference code's
+``ops.huber_loss`` or ``ops.merge_selected_rows`` resolves. The kernels
+stay under ``ops.kernels``."""
 
-from paddle_tpu_torch.ops.selected_rows import (  # noqa: F401
-    SelectedRows, get_tensor_from_selected_rows, lookup_sparse_table,
-    merge_selected_rows, sparse_sgd_update, split_selected_rows,
+from paddle_tpu_torch.ops.activation import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.loss import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.math import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.nn import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.reduce import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.selected_rows import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.tensor_ops import *  # noqa: F401,F403
+from paddle_tpu_torch.ops import (  # noqa: F401
+    activation, loss, math, nn, reduce, selected_rows, tensor_ops,
 )
 
-__all__ = [
-    "SelectedRows", "merge_selected_rows", "get_tensor_from_selected_rows",
-    "split_selected_rows", "sparse_sgd_update", "lookup_sparse_table",
-]
+__all__ = (activation.__all__ + loss.__all__ + math.__all__ + nn.__all__
+           + reduce.__all__ + selected_rows.__all__ + tensor_ops.__all__)

@@ -4,8 +4,8 @@ and check their launches.
 Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers, so a
 build takes seconds, not minutes). It is compiled for ``sm_90a`` into its
 own shared library under ``paddle_tpu_torch/_build/``, named by a
-fingerprint of its source and the compiler flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
+fingerprint of its source, the headers beside it (``csrc/*.cuh``) and the
+compiler flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
 ``nvcc`` for each missing library, all at once, and waits for them.
 
 A missing ``nvcc`` or a failed build raises :class:`KernelBuildError` with
@@ -77,8 +77,10 @@ def _nvcc():
 
 def _lib_path(name):
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

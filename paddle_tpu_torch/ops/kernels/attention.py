@@ -216,6 +216,36 @@ def _rows_arg(name, nm, t, b, h, s, device):
     return t
 
 
+def _tma_ready(t):
+    """Whether the bf16 kernels' TMA loads take the [B, H, S, D] view ``t``
+    as it is: a 16-byte aligned base, and strides over B, H and S (of the
+    axes longer than 1) that are nonzero multiples of 16 bytes. The fused
+    QKV projection's head views (bert.py: row stride 3 * N * D, heads D
+    apart) are."""
+    e = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st > 0 and st * e % 16 == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _operands(ts):
+    """The [B, H, S, D] operands as the kernel takes them: bf16 views the
+    TMA loads cannot take become contiguous copies (fresh, so aligned) for
+    the same kernel; fp32 runs the SIMT kernel, which takes any strides."""
+    return [t.clone(memory_format=torch.contiguous_format)
+            if t.dtype == torch.bfloat16 and not _tma_ready(t) else t
+            for t in ts]
+
+
+def _strides(t):
+    """Strides over (B, H, S) in elements; an axis of length 1 gets the
+    view's span (rounded up to 16 bytes) in place of whatever stride it has,
+    which the kernels never step along but the tensor map must accept."""
+    span = -(-max(n * s for n, s in zip(t.shape, t.stride())) // 8) * 8
+    return tuple(s if n > 1 else span
+                 for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
 def _launch(lib, fn, name, device, *args):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -230,6 +260,7 @@ def _flash_attention_cuda(q, k, v, bias=None, causal=False, sm_scale=None,
     sync). q/k/v may be strided views (e.g. heads split out of a fused
     [B, S, 3*N*D] projection) as long as the last axis is unit-stride."""
     b, h, s, d = _check_heads(NAME, q, {"q": q, "k": k, "v": v})
+    q, k, v = _operands((q, k, v))
     bias = _bias_arg(NAME, bias, b, s, q.device)
     o = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -238,7 +269,7 @@ def _flash_attention_cuda(q, k, v, bias=None, causal=False, sm_scale=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, h, s, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *_strides(q), *_strides(k), *_strides(v),
             float(_scale(q, sm_scale)), int(bool(causal)),
             _DTYPE_CODES[q.dtype])
     if return_lse:
@@ -247,16 +278,22 @@ def _flash_attention_cuda(q, k, v, bias=None, causal=False, sm_scale=None,
 
 
 def _bwd_args(name, q, k, v, bias, do, lse, delta):
+    """(B, H, S, D), the operands as the kernel reads them, and their
+    strides. The caller holds the operands until the launch: a copy made
+    here (a bias cast, a view the TMA loads cannot take) must outlive it,
+    or its memory goes back to the allocator under the kernel's reads."""
     b, h, s, d = _check_heads(name, q, {"q": q, "k": k, "v": v, "do": do})
+    if name == DKDV:
+        q, k, v, do = _operands((q, k, v, do))
     bias = _bias_arg(name, bias, b, s, q.device)
     lse = _rows_arg(name, "lse", lse, b, h, s, q.device)
     delta = _rows_arg(name, "delta", delta, b, h, s, q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *do.stride()[:3])
-    return (b, h, s, d), ptrs, strides
+    strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(do))
+    return (b, h, s, d), (q, k, v, bias, do, lse, delta), strides
+
+
+def _ptrs(ts):
+    return [None if t is None else t.data_ptr() for t in ts]
 
 
 def _flash_bwd_dkdv_cuda(q, k, v, bias, do, lse, delta, causal=False,
@@ -264,16 +301,16 @@ def _flash_bwd_dkdv_cuda(q, k, v, bias, do, lse, delta, causal=False,
     """Launch the dK/dV kernel of ``csrc/flash_attention_bwd.cu`` on the
     current stream (no sync). Returns dk, dv (contiguous, in k's dtype)
     and dbh [B, H, S] fp32. q/k/v/do may be strided views."""
-    (b, h, s, d), ptrs, strides = _bwd_args(DKDV, q, k, v, bias, do, lse,
-                                            delta)
+    (b, h, s, d), operands, strides = _bwd_args(DKDV, q, k, v, bias, do,
+                                                lse, delta)
     dk = torch.empty((b, h, s, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     dbh = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     _launch(lib, "pt_flash_attention_bwd_dkdv", DKDV, q.device,
-            *ptrs, dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(), b, h, s, d,
-            *strides, float(_scale(q, sm_scale)), int(bool(causal)),
-            _DTYPE_CODES[q.dtype])
+            *_ptrs(operands), dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(),
+            b, h, s, d, *strides, float(_scale(q, sm_scale)),
+            int(bool(causal)), _DTYPE_CODES[q.dtype])
     return dk, dv, dbh
 
 
@@ -281,12 +318,12 @@ def _flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, causal=False,
                        sm_scale=None):
     """Launch the dQ kernel of ``csrc/flash_attention_bwd.cu`` on the
     current stream (no sync). Returns dq, contiguous, in q's dtype."""
-    (b, h, s, d), ptrs, strides = _bwd_args(DQ, q, k, v, bias, do, lse,
-                                            delta)
+    (b, h, s, d), operands, strides = _bwd_args(DQ, q, k, v, bias, do, lse,
+                                                delta)
     dq = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     _launch(lib, "pt_flash_attention_bwd_dq", DQ, q.device,
-            *ptrs, dq.data_ptr(), b, h, s, d, *strides,
+            *_ptrs(operands), dq.data_ptr(), b, h, s, d, *strides,
             float(_scale(q, sm_scale)), int(bool(causal)),
             _DTYPE_CODES[q.dtype])
     return dq

@@ -1,5 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a): a first, plain SIMT version
-// of the two recompute kernels.
+// Flash-attention backward for Hopper (sm_90a): the two recompute kernels.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py:_flash_bwd_dkdv_kernel (registry
 // name "flash_attention_bwd_dkdv") and :_flash_bwd_dq_kernel (registry name
@@ -23,25 +22,46 @@
 // and ~155 GFLOP, bounds of ~0.21 ms and ~0.16 ms on the tensor cores at
 // 989 TFLOP/s.
 //
-// What the design does about it (first version: right and simple, not fast):
-// both kernels run in fp32 on the SIMT cores (67 TFLOP/s peak), so they sit
-// far above that bound. One 128-thread block per (batch, head, 64-row tile)
-// of the rows it owns: keys for dK/dV, queries for dQ. Two threads own each
-// row, each one half of its D columns, so a thread keeps only half rows in
-// registers (dK/dV: k, v, dK, dV = 2 * D floats; dQ: q, dO, dQ = 1.5 * D)
-// and stays clear of the 255-register limit that one thread per row would
-// spill past at D = 64. The pair joins its two half dot products with one
+// dK/dV in bf16 (flash_bwd_dkdv_wgmma_kernel) runs on the tensor cores: one
+// block of three warpgroups per (batch, head, 128 keys). Warpgroup 2 is the
+// producer: one of its warps loads K and V once and then tiles of 64 queries
+// of Q and dO by TMA (one box per 8 columns, wgmma's no-swizzle core-matrix
+// layout; rows past S read as zeros) into a ring of two shared-memory stages
+// with full/empty mbarriers, and stages each tile's lse and delta beside them.
+// Warpgroups 0 and 1 each own 64 keys and compute the transposed products
+// S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 (bf16 in, fp32
+// accumulate, all operands K-major), so that P^T and dS^T sit in registers in
+// the accumulator layout, which is the A-fragment layout of the next
+// products: dV += P^T dO and dK += dS^T Q by wgmma m64n{D}k16 with dO and Q
+// read as MN-major operands (the transpose bit). In the transposed layout the
+// key bias is per row, lse and delta are per column, and dbh is a row sum
+// kept in registers across the query loop. P^T and dS^T keep fp32 accuracy:
+// each is split into bf16 hi and lo parts (hi = bf16(x), lo = bf16(x - hi))
+// whose two products go into one fp32 accumulator (~2^-17 relative), at 1.5x
+// the tensor work of bf16 operands. The scale of dK applies in the epilogue.
+// Under the causal mask a block starts at the first query tile that sees its
+// keys. The TMA loads need 16-byte aligned bases and row strides; the wrapper
+// makes contiguous copies of views that are not.
+//
+// fp32 dK/dV and the dQ kernel (both dtypes) are the first, plain SIMT
+// versions: fp32 runs on no main path, and dQ is the next kernel to redesign.
+// One 128-thread block per (batch, head, 64-row tile) of the rows it owns:
+// keys for dK/dV, queries for dQ. Two threads own each row, each one half of
+// its D columns, so a thread keeps only half rows in registers (dK/dV: k, v,
+// dK, dV = 2 * D floats; dQ: q, dO, dQ = 1.5 * D) and stays clear of the
+// 255-register limit; the pair joins its two half dot products with one
 // shuffle. The streamed rows (q and dO for dK/dV, k and v for dQ) are staged
-// 64 at a time in shared memory as fp32; every thread of a warp reads the same row there, and the
-// two halves of a pair own alternate 16-byte chunks, so the reads are
-// broadcasts without bank conflicts. The [S, S] scores never exist in
-// memory. Under the causal mask dK/dV starts at the first query tile that can
-// see its keys and dQ stops at the last key tile its queries can see.
-// mma.sync / wgmma, TMA and pipelining are later work.
+// 64 at a time in shared memory as fp32; every thread of a warp reads the
+// same row there, and the two halves of a pair own alternate 16-byte chunks,
+// so the reads are broadcasts without bank conflicts. The [S, S] scores never
+// exist in memory. Under the causal mask dK/dV starts at the first query tile
+// that can see its keys and dQ stops at the last key tile its queries can see.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -266,6 +286,246 @@ void launch_dq(dim3 grid, const void* q, const void* k, const void* v, const voi
       S, st, scale, causal);
 }
 
+// ------------------------------------------------- bf16 dK/dV: tensor cores
+constexpr int kTcKeys = 128;     // keys per block: two consumer warpgroups x 64
+constexpr int kTcQ = 64;         // queries per streamed tile
+constexpr int kTcStages = 2;     // Q/dO tiles in flight
+constexpr int kTcThreads = 384;  // warpgroups 0, 1: consumers; 2: producer
+
+template <int D>
+struct DkdvSmem {
+  __nv_bfloat16 k[kTcKeys * D];             // D/8 slices of [128 keys][8]
+  __nv_bfloat16 v[kTcKeys * D];
+  __nv_bfloat16 q[kTcStages][kTcQ * D];     // D/8 slices of [64 queries][8]
+  __nv_bfloat16 dout[kTcStages][kTcQ * D];
+  float lse[kTcStages][kTcQ];
+  float delta[kTcStages][kTcQ];
+  uint64_t full[kTcStages];
+  uint64_t empty[kTcStages];
+  uint64_t kvbar;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ bias, const float* __restrict__ lse,
+                            const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, float* __restrict__ dbh, int H,
+                            int S, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DkdvSmem<D>& sm = *reinterpret_cast<DkdvSmem<D>*>(smem_raw);
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int hh = bh % H;
+  const int k0 = blockIdx.x * kTcKeys;
+  // causal: queries before k0 see none of this block's keys
+  const int t0 = causal ? k0 / kTcQ : 0;
+  const int ntiles = (S + kTcQ - 1) / kTcQ - t0;
+  const int64_t rows = static_cast<int64_t>(bh) * S;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
+  const int wg = tid >> 7;
+
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      tc::mbar_init(&sm.full[s], 32);  // the producer warp's lanes
+      tc::mbar_init(&sm.empty[s], 8);  // one lane of each consumer warp
+    }
+    tc::mbar_init(&sm.kvbar, 1);
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: K and V once, then Q, dO, lse and delta tiles
+    tc::setmaxnreg_dec<40>();
+    if (warp == 0) {
+      if (lane == 0) {
+        tc::mbar_arrive_expect_tx(&sm.kvbar, 2 * kTcKeys * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          tc::tma_load_4d(sm.k + c * kTcKeys * 8, &tk, &sm.kvbar, 8 * c, k0, hh, b);
+          tc::tma_load_4d(sm.v + c * kTcKeys * 8, &tv, &sm.kvbar, 8 * c, k0, hh, b);
+        }
+      }
+      for (int u = 0; u < ntiles; ++u) {
+        const int s = u % kTcStages;
+        tc::mbar_wait(&sm.empty[s], ((u / kTcStages) & 1) ^ 1);
+        const int q0 = (t0 + u) * kTcQ;
+#pragma unroll
+        for (int i = 0; i < kTcQ / 32; ++i) {
+          const int j = lane + 32 * i;
+          const bool ok = q0 + j < S;
+          sm.lse[s][j] = ok ? lse[rows + q0 + j] : 0.f;
+          sm.delta[s][j] = ok ? delta[rows + q0 + j] : 0.f;
+        }
+        if (lane == 0) {
+          tc::mbar_arrive_expect_tx(&sm.full[s], 2 * kTcQ * D * 2);
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c) {
+            tc::tma_load_4d(sm.q[s] + c * kTcQ * 8, &tq, &sm.full[s], 8 * c, q0, hh, b);
+            tc::tma_load_4d(sm.dout[s] + c * kTcQ * 8, &tdo, &sm.full[s], 8 * c, q0, hh, b);
+          }
+        } else {
+          tc::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63, as rows of
+    // the transposed products S^T = K Q^T and dP^T = V dO^T
+    tc::setmaxnreg_inc<232>();
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int key_a = k0 + 64 * wg + 16 * warp + g;  // elements 4j+0,1; key_a + 8: 4j+2,3
+    float bk[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = key_a + 8 * r;
+      bk[r] = (bias != nullptr && kj < S) ? bias[static_cast<int64_t>(b) * S + kj] : 0.f;
+    }
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    float db[2] = {0.f, 0.f};
+    const float kLog2e = 1.4426950408889634f;
+    const uint32_t kaddr = tc::smem_u32(sm.k) + 64 * wg * 16;
+    const uint32_t vaddr = tc::smem_u32(sm.v) + 64 * wg * 16;
+    tc::mbar_wait(&sm.kvbar, 0);
+
+    for (int u = 0; u < ntiles; ++u) {
+      const int s = u % kTcStages;
+      tc::mbar_wait(&sm.full[s], (u / kTcStages) & 1);
+      const uint32_t qaddr = tc::smem_u32(sm.q[s]);
+      const uint32_t oaddr = tc::smem_u32(sm.dout[s]);
+
+      // S^T = K Q^T and dP^T = V dO^T: k16 steps over D, both operands K-major
+      float st[kTcQ / 2], dpt[kTcQ / 2];
+#pragma unroll
+      for (int i = 0; i < kTcQ / 2; ++i) st[i] = dpt[i] = 0.f;
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint64_t dkk = tc::make_desc(kaddr + kd * 2 * kTcKeys * 16, kTcKeys * 16, 128);
+        const uint64_t dq = tc::make_desc(qaddr + kd * 2 * kTcQ * 16, kTcQ * 16, 128);
+        tc::wgmma_ss(st, dkk, dq, kd > 0);
+      }
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint64_t dvv = tc::make_desc(vaddr + kd * 2 * kTcKeys * 16, kTcKeys * 16, 128);
+        const uint64_t ddo = tc::make_desc(oaddr + kd * 2 * kTcQ * 16, kTcQ * 16, 128);
+        tc::wgmma_ss(dpt, dvv, ddo, kd > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(st);
+      tc::fence_regs(dpt);
+
+      // P^T = exp(s - lse) and dS^T = P^T * (dP^T - delta): the key bias per
+      // row, lse and delta per column
+      const int q0 = (t0 + u) * kTcQ;
+#pragma unroll
+      for (int j = 0; j < kTcQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          const int qi = q0 + col;
+          const int r = e >> 1;
+          float sv = st[4 * j + e] * scale + bk[r];
+          if (causal && key_a + 8 * r > qi) sv = kMaskValue;
+          const float p = qi < S ? exp2f((sv - sm.lse[s][col]) * kLog2e) : 0.f;
+          const float ds = p * (dpt[4 * j + e] - sm.delta[s][col]);
+          st[4 * j + e] = p;
+          dpt[4 * j + e] = ds;
+          db[r] += ds;
+        }
+      }
+      uint32_t phi[kTcQ / 16][4], plo[kTcQ / 16][4], shi[kTcQ / 16][4], slo[kTcQ / 16][4];
+#pragma unroll
+      for (int c = 0; c < kTcQ / 16; ++c)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          tc::split_bf16(st[8 * c + 2 * x], st[8 * c + 2 * x + 1], phi[c][x], plo[c][x]);
+          tc::split_bf16(dpt[8 * c + 2 * x], dpt[8 * c + 2 * x + 1], shi[c][x], slo[c][x]);
+        }
+
+      // dV += P^T dO and dK += dS^T Q: k16 steps over the tile's queries;
+      // dO and Q read MN-major
+      tc::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kTcQ / 16; ++c) {
+        const uint64_t ddo = tc::make_desc(oaddr + c * 16 * 16, 128, kTcQ * 16);
+        tc::wgmma_rs(dva, phi[c], ddo);
+        tc::wgmma_rs(dva, plo[c], ddo);
+      }
+#pragma unroll
+      for (int c = 0; c < kTcQ / 16; ++c) {
+        const uint64_t dq = tc::make_desc(qaddr + c * 16 * 16, 128, kTcQ * 16);
+        tc::wgmma_rs(dka, shi[c], dq);
+        tc::wgmma_rs(dka, slo[c], dq);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(dva);
+      tc::fence_regs(dka);
+      tc::fence_regs(phi);
+      tc::fence_regs(plo);
+      tc::fence_regs(shi);
+      tc::fence_regs(slo);
+      if (lane == 0) tc::mbar_arrive(&sm.empty[s]);
+    }
+
+    // epilogue: dK = (dS^T Q) * scale and dV in bf16, dbh = the row sums
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+      db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = key_a + 8 * r;
+      if (kj >= S) continue;
+      const int64_t row = rows + kj;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int64_t at = row * D + 8 * j + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+            dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+      if (t4 == 0) dbh[row] = db[r];
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkdv_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                              const void* dout, const void* lse, const void* delta, void* dk,
+                              void* dv, void* dbh, int B, int H, int S, const Strides& st,
+                              float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tc_host::encode_heads(&tq, q, B, H, S, D, st.qb, st.qh, st.qs, kTcQ) ||
+      !tc_host::encode_heads(&tk, k, B, H, S, D, st.kb, st.kh, st.ks, kTcKeys) ||
+      !tc_host::encode_heads(&tv, v, B, H, S, D, st.vb, st.vh, st.vs, kTcKeys) ||
+      !tc_host::encode_heads(&tdo, dout, B, H, S, D, st.ob, st.oh, st.os, kTcQ))
+    return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(sizeof(DkdvSmem<D>));
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kTcKeys - 1) / kTcKeys, B * H);
+  flash_bwd_dkdv_wgmma_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(bias), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), static_cast<float*>(dbh), H, S, scale, causal);
+  return cudaGetLastError();
+}
+
 // -1: arguments the kernels do not take; 0: nothing to do; 1: launch
 int check_args(int B, int H, int S, int D, int dtype) {
   if (B < 0 || H < 0 || S < 0 || static_cast<int64_t>(B) * H > 65535) return -1;
@@ -279,7 +539,9 @@ int check_args(int B, int H, int S, int D, int dtype) {
 // dtype: 0 = float32, 1 = bfloat16. D in {16, 32, 64}; q/k/v/dO strides in
 // elements over (B, H, S), unit stride over D; bias [B, S] fp32 contiguous or
 // null; lse, delta, dbh [B, H, S] fp32 and dk, dv [B, H, S, D] contiguous.
-// B * H <= 65535. Returns the cudaError_t of the launch (0 = accepted).
+// B * H <= 65535. bf16 (TMA): base pointers and the strides over B, H and S
+// in multiples of 16 bytes. Returns the cudaError_t of the launch (0 =
+// accepted).
 extern "C" int pt_flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* bias, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, void* dbh, int B, int H, int S,
@@ -289,19 +551,21 @@ extern "C" int pt_flash_attention_bwd_dkdv(
   const int ok = check_args(B, H, S, D, dtype);
   if (ok <= 0) return ok == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-  const dim3 grid((S + kRows - 1) / kRows, B * H);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PT_DKDV(T, DD) \
-  launch_dkdv<T, DD>(grid, q, k, v, bias, dout, lse, delta, dk, dv, dbh, H, S, st, scale, causal, s)
-  if (dtype == 0) {
-    if (D == 16) PT_DKDV(float, 16);
-    else if (D == 32) PT_DKDV(float, 32);
-    else PT_DKDV(float, 64);
-  } else {
-    if (D == 16) PT_DKDV(__nv_bfloat16, 16);
-    else if (D == 32) PT_DKDV(__nv_bfloat16, 32);
-    else PT_DKDV(__nv_bfloat16, 64);
+  if (dtype == 1) {
+#define PT_DKDV(DD)                                                                          \
+  launch_dkdv_wgmma<DD>(q, k, v, bias, dout, lse, delta, dk, dv, dbh, B, H, S, st, scale, \
+                        causal, s)
+    const cudaError_t err = D == 16 ? PT_DKDV(16) : D == 32 ? PT_DKDV(32) : PT_DKDV(64);
+#undef PT_DKDV
+    return static_cast<int>(err);
   }
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+#define PT_DKDV(DD) \
+  launch_dkdv<float, DD>(grid, q, k, v, bias, dout, lse, delta, dk, dv, dbh, H, S, st, scale, causal, s)
+  if (D == 16) PT_DKDV(16);
+  else if (D == 32) PT_DKDV(32);
+  else PT_DKDV(64);
 #undef PT_DKDV
   return static_cast<int>(cudaGetLastError());
 }

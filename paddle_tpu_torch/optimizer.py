@@ -77,11 +77,13 @@ class Optimizer:
                 self._slot_defaults.items()}, params),
         }
 
-    def apply_gradients(self, params, grads, state):
+    def apply_gradients(self, params, grads, state, param_meta=None):
         """One update, **in place**: params, the slots of ``state`` and its
         step counter are overwritten, and ``(params, state)`` (the same
         objects) are returned. ``grads`` is a tree like params; the trees
-        are matched by key, not by order."""
+        are matched by key, not by order. ``param_meta`` is accepted and
+        ignored, as in the JAX package (its decoupled-weight-decay
+        extension passes it)."""
         rows = leaves(map_tree(
             lambda path, p, g, s: (p, _grad(path, p, g), s),
             params, grads, state["slots"]))

@@ -62,6 +62,9 @@ class ServingConfig:
     - ``shed_hbm_frac``: the adaptive controller's HBM-pressure input; it
       reads the memory monitor, which is not ported yet: anything but None
       raises at boot.
+    - ``hbm_limit_bytes``: the HBM capacity the hot swap's memory-aware
+      admission projects against; the swap is not ported yet (ROADMAP
+      queue 1 item 8): anything but None raises here.
     """
 
     def __init__(self, max_batch=8, max_wait_ms=5.0, max_queue=256,
@@ -70,7 +73,13 @@ class ServingConfig:
                  replica_stall_ms=30_000.0, max_consecutive_stalls=3,
                  respawn_backoff_ms=100.0, supervise=True,
                  shed_mode="off", shed_enter_frac=0.5,
-                 shed_exit_frac=0.25, shed_hbm_frac=None):
+                 shed_exit_frac=0.25, hbm_limit_bytes=None,
+                 shed_hbm_frac=None):
+        if hbm_limit_bytes is not None:
+            raise EnforceNotMet(
+                "ServingConfig(hbm_limit_bytes=...): the hot swap's "
+                "memory-aware admission is not ported yet (ROADMAP queue 1 "
+                "item 8)")
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.max_queue = max_queue
@@ -86,6 +95,7 @@ class ServingConfig:
         self.shed_mode = shed_mode
         self.shed_enter_frac = shed_enter_frac
         self.shed_exit_frac = shed_exit_frac
+        self.hbm_limit_bytes = hbm_limit_bytes
         self.shed_hbm_frac = shed_hbm_frac
 
 

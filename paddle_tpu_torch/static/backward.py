@@ -6,6 +6,7 @@ output vars. The Executor runs it as ``torch.autograd.grad`` of the summed
 loss over the interpreted prefix.
 """
 
+from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.static.program import Parameter
 
 __all__ = ["GRAD_SUFFIX", "append_backward"]
@@ -13,9 +14,15 @@ __all__ = ["GRAD_SUFFIX", "append_backward"]
 GRAD_SUFFIX = "@GRAD"
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None):
     """Append the autodiff marker and the grad vars; returns
-    ``[(param, grad_var)]``."""
+    ``[(param, grad_var)]``. ``callbacks`` is ignored, as in the JAX
+    package; recompute ``checkpoints`` are not ported yet."""
+    if checkpoints:
+        raise EnforceNotMet(
+            "append_backward(checkpoints=...): recompute segments in the "
+            "static executor are not ported yet (ROADMAP queue 1 item 5)")
     blk = loss.block.program.global_block()
     params = [p for p in blk.all_parameters()
               if isinstance(p, Parameter) and p.trainable]

@@ -306,10 +306,21 @@ def default_pipeline(targets=()):
                         DeadOpEliminationPass(targets)])
 
 
-def optimize_program(program, targets=(), pipeline=None):
+def optimize_program(program, targets=(), pipeline=None, record=True,
+                     cost_probe=None):
     """Clone ``program``, run the pass pipeline against ``targets`` (the
     step's fetch names) and return ``(optimized_program, report)``. The
-    input program is never mutated."""
+    input program is never mutated.
+
+    ``record`` is accepted and has nothing to do: the JAX package publishes
+    per-pass evidence to its cost monitor, which is not ported (ROADMAP
+    queue 1 item 10), so nothing is published either way. ``cost_probe``
+    (the analytical cost of each pass) is not ported yet (ROADMAP queue 1
+    item 6): anything but None raises."""
+    if cost_probe is not None:
+        raise EnforceNotMet(
+            "optimize_program(cost_probe=...): the per-pass cost probe is "
+            "not ported yet (ROADMAP queue 1 item 6)")
     prog = program.clone()
     pm = pipeline or default_pipeline(targets)
     report = PipelineReport()
@@ -334,9 +345,10 @@ def optimize_program(program, targets=(), pipeline=None):
     return prog, report
 
 
-def optimize_for_execution(program, fetch_names):
+def optimize_for_execution(program, fetch_names, cost_probe=None):
     """The Executor's entry: optimize against the step's fetch list."""
-    return optimize_program(program, targets=tuple(fetch_names))[0]
+    return optimize_program(program, targets=tuple(fetch_names),
+                            cost_probe=cost_probe)[0]
 
 
 def optimize_inference(program, fetch_names):

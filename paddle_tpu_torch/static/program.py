@@ -106,9 +106,10 @@ class Operator:
 class Block:
     """BlockDesc parity: ordered ops and a var table."""
 
-    def __init__(self, program, idx=0):
+    def __init__(self, program, idx=0, parent_idx=-1):
         self.program = program
         self.idx = idx
+        self.parent_idx = parent_idx
         self.vars = {}
         self.ops = []
 

@@ -69,7 +69,15 @@ def test_layer_norm_kernel_matches_plain(cuda, rows, hidden, dtype):
     (2, 4, 1000, 64, torch.float32, False, True),
     (2, 4, 200, 16, torch.float32, True, True),
     (2, 4, 300, 32, torch.bfloat16, False, False),
-    (1, 1, 1, 64, torch.float32, True, False)])
+    (1, 1, 1, 64, torch.float32, True, False),
+    # the tensor-core kernel at each head size, S not a multiple of its
+    # 128-row tiles, causal and masked keys
+    (2, 4, 300, 16, torch.bfloat16, True, True),
+    (2, 4, 1000, 32, torch.bfloat16, False, True),
+    (1, 4, 2048, 64, torch.bfloat16, True, True),
+    (2, 4, 2048, 16, torch.bfloat16, False, False),
+    (2, 4, 1000, 64, torch.bfloat16, True, False),
+    (1, 2, 1, 32, torch.bfloat16, False, False)])
 def test_flash_kernel_matches_plain(cuda, B, H, S, D, dtype, causal,
                                     with_bias):
     gen = torch.Generator(device=cuda).manual_seed(S)
@@ -112,7 +120,12 @@ def test_flash_kernel_takes_strided_head_views(cuda):
     (1, 4, 1000, 64, torch.float32, True, False),
     (2, 4, 200, 16, torch.float32, True, True),
     (2, 4, 300, 32, torch.bfloat16, False, False),
-    (1, 1, 1, 64, torch.float32, True, False)])
+    (1, 1, 1, 64, torch.float32, True, False),
+    (2, 4, 300, 16, torch.bfloat16, True, True),
+    (2, 4, 1000, 32, torch.bfloat16, False, True),
+    (1, 4, 2048, 64, torch.bfloat16, True, True),
+    (2, 4, 2048, 16, torch.bfloat16, False, False),
+    (1, 2, 1, 32, torch.bfloat16, True, False)])
 def test_flash_backward_kernels_match_plain(cuda, B, H, S, D, dtype, causal,
                                             with_bias):
     gen = torch.Generator(device=cuda).manual_seed(S + 1)
@@ -168,6 +181,91 @@ def test_flash_backward_kernels_take_strided_views(cuda):
         for a, b in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def _flash_all(q, k, v, do, bias=None, causal=False):
+    """Forward (o, lse) and the two backward kernels on its residuals."""
+    o, lse = K.flash_attention(q, k, v, bias=bias, causal=causal,
+                               return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, do, lse, delta)
+    dk, dv, dbh = K.dispatch("flash_attention_bwd_dkdv", *args,
+                             causal=causal)
+    dq = K.dispatch("flash_attention_bwd_dq", *args, causal=causal)
+    return o, lse, dk, dv, dbh, dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_flash_kernels_take_fused_qkv_views_at_every_head_size(cuda, D):
+    # the TMA loads take these views as they are: bitwise the results of
+    # contiguous copies
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    B, S, N = 2, 300, 4
+    qkv, dctx = (torch.randn(B, S, n * N * D, generator=gen, device=cuda)
+                 .to(torch.bfloat16) for n in (3, 1))
+    q, k, v = (t.reshape(B, S, N, D).transpose(1, 2)
+               for t in qkv.split(N * D, dim=-1))
+    do = dctx.reshape(B, S, N, D).transpose(1, 2)
+    got = _flash_all(q, k, v, do, causal=True)
+    want = _flash_all(*(t.contiguous() for t in (q, k, v, do)), causal=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_take_unaligned_views(cuda, dtype):
+    # bases 2 (bf16) or 4 (fp32) bytes off a 16-byte boundary: the bf16
+    # wrapper copies them for the same kernel, the fp32 kernel reads them
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    B, H, S, D = 2, 3, 200, 32
+    n = B * H * S * D
+    q, k, v, do = (torch.randn(n + 1, generator=gen, device=cuda).to(dtype)
+                   [1:].view(B, H, S, D) for _ in range(4))
+    assert q.data_ptr() % 16 != 0
+    bias = torch.zeros(B, S, device=cuda)
+    bias[:, -20:] = -1e9
+    got = _flash_all(q, k, v, do, bias=bias)
+    want = _flash_all(*(t.clone() for t in (q, k, v, do)), bias=bias)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_rows_that_see_no_key(cuda, dtype, causal):
+    # batch 0's keys all carry the -1e9 bias: its rows average v as the
+    # plain body's softmax does. Its backward is not held: lse rounds to
+    # the bias there, so p = 1 on every key and the grads are sums of S
+    # unnormalized terms whose cancellation puts the new dK and the SIMT dQ
+    # alike up to 2 bf16 units from the plain body (chip_smoke.py phase 2
+    # notes the measured cases); batch 1's rows, which see keys, are held
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    B, H, S, D = 2, 4, 300, 64
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    bias = torch.zeros(B, S, device=cuda)
+    bias[0] = -1e9
+    bias[1, -30:] = -1e9
+    o, lse, dk, dv, dbh, dq = _flash_all(q, k, v, do, bias=bias,
+                                         causal=causal)
+    ro, rlse = K.get_body("flash_attention", "reference")(
+        q, k, v, bias=bias, causal=causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, do, lse, delta)
+    rdk, rdv, rdbh = K.get_body("flash_attention_bwd_dkdv", "reference")(
+        *args, causal=causal)
+    rdq = K.get_body("flash_attention_bwd_dq", "reference")(
+        *args, causal=causal)
+    rtol, atol = _tols(dtype)
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got[1].float(), want[1].float(),
+                                   atol=max(atol, 1e-4), rtol=rtol)
+    torch.testing.assert_close(dbh[1], rdbh[1], atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda

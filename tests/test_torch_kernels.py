@@ -20,6 +20,7 @@ rtol 2^-7 plus a small atol. Each gradient test states its own.
 
 import os
 import re
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -415,3 +416,71 @@ def test_sources_ship_with_the_package():
             head = f.read(2000)
         assert "Replaces: paddle_tpu/ops/pallas" in head
         assert "What bounds it on the H100" in head
+
+
+def test_flash_wrappers_copy_only_views_tma_cannot_take(monkeypatch):
+    """The bf16 flash kernels load q, k, v (and dO) by TMA, which needs a
+    16-byte aligned base and strides over B, H, S in 16-byte multiples. The
+    wrappers pass such views as they are (the fused QKV projection's head
+    views among them), copy the others to contiguous tensors for the same
+    kernel, never copy fp32 views (the SIMT kernel takes any strides), and
+    give axes of length 1 a stride the tensor map accepts. Pinned on the
+    CPU with the launch captured in place of the card's."""
+    from paddle_tpu_torch.ops.kernels import attention as A
+    B, S, N, D = 2, 40, 4, 64
+    qkv = torch.randn(B, S, 3 * N * D).bfloat16()
+    heads = [t.reshape(B, S, N, D).transpose(1, 2)
+             for t in qkv.split(N * D, dim=-1)]
+    assert all(A._tma_ready(t) and not t.is_contiguous() for t in heads)
+    flat = torch.randn(B * N * S * D + 1).bfloat16()
+    shifted = flat[1:].view(B, N, S, D)               # base 2 bytes off
+    odd_rows = torch.randn(B, N, S, 100).bfloat16()[..., :D]   # 200 B rows
+    assert not A._tma_ready(shifted) and not A._tma_ready(odd_rows)
+    assert A._tma_ready(torch.randn(1, N, S, D).bfloat16().contiguous())
+    odd32 = torch.randn(B, N, S, 100)[..., :D]
+    got = A._operands([heads[0], shifted, odd_rows, odd32])
+    assert got[0] is heads[0] and got[3] is odd32
+    assert got[1].is_contiguous() and got[2].is_contiguous()
+    assert torch.equal(got[1], shifted) and torch.equal(got[2], odd_rows)
+    assert A._strides(torch.empty(1, N, 1, D)) == (
+        N * D, D, N * D) and A._strides(heads[1]) == heads[1].stride()[:3]
+
+    with pytest.raises(EnforceNotMet, match=r"\[B, H, S, D\]"):
+        K.get_body("flash_attention", "kernel")(heads[0][0], heads[1][0],
+                                                heads[2][0])
+
+    # the copies live until the launch has read their pointers (a copy
+    # freed before it hands its memory to the outputs allocated next)
+    launched, copies = [], []
+    real_operands = A._operands
+
+    def operands(ts):
+        out = real_operands(ts)
+        copies.extend(weakref.ref(t) for t, u in zip(out, ts) if t is not u)
+        return out
+
+    def launch(lib, fn, name, dev, *args):
+        assert all(c() is not None for c in copies), fn
+        launched.append((fn, args, len(copies)))
+        copies.clear()
+
+    monkeypatch.setattr(A, "_operands", operands)
+    monkeypatch.setattr(A, "_check_heads", lambda name, q, named: q.shape)
+    monkeypatch.setattr(A._build, "load", lambda *a: None)
+    monkeypatch.setattr(A, "_launch", launch)
+    q, k, v = heads[0], shifted, heads[2]
+    A._flash_attention_cuda(q, k, v)
+    A._flash_bwd_dkdv_cuda(q, k, v, None, odd_rows, torch.zeros(B, N, S),
+                           torch.zeros(B, N, S))
+    A._flash_bwd_dq_cuda(q, k, v, None, odd_rows, torch.zeros(B, N, S),
+                         torch.zeros(B, N, S))
+    (_, fwd, n_fwd), (_, dkdv, n_dkdv), (_, dq, n_dq) = launched
+    assert (n_fwd, n_dkdv, n_dq) == (1, 2, 0)     # k; k and dO; none
+    # forward: q and v as they are, k copied; strides follow the pointers
+    assert fwd[0] == q.data_ptr() and fwd[2] == v.data_ptr()
+    assert fwd[1] != k.data_ptr()
+    assert fwd[10:13] == q.stride()[:3] and fwd[13:16] == (N * S * D, S * D, D)
+    # dK/dV: dO (odd rows) copied too; dQ (the SIMT kernel) copies nothing
+    assert dkdv[0] == q.data_ptr() and dkdv[1] != k.data_ptr()
+    assert dkdv[4] != odd_rows.data_ptr()
+    assert dq[1] == k.data_ptr() and dq[4] == odd_rows.data_ptr()

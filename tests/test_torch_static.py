@@ -316,6 +316,29 @@ def test_gelu_keeps_its_op_as_in_jax():
         ["fused_matmul", "gelu", "fused_matmul"]
 
 
+def test_softmax_layer_takes_the_jax_signature():
+    """``layers.softmax(input, use_cudnn=False, name=None, axis=-1)``, as the
+    JAX layer: a positional ``use_cudnn`` and the keywords record the same
+    ops and attrs in both packages, and the eager call agrees."""
+    def build(pt, unique_name):
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), unique_name.guard():
+            x = pt.data("x", [6])
+            pt.layers.softmax(x, False)
+            pt.layers.softmax(input=x, use_cudnn=True, axis=0)
+        return main
+
+    def ops(m):
+        return [(op.type, dict(op.attrs)) for op in m.global_block().ops]
+
+    assert ops(build(tpt, tpt.unique_name)) == ops(build(jpt, junique)) == [
+        ("softmax", {"axis": -1}), ("softmax", {"axis": 0})]
+    x = np.random.RandomState(0).randn(3, 6).astype(np.float32)
+    np.testing.assert_allclose(
+        tpt.layers.softmax(torch.from_numpy(x), False).numpy(),
+        np.asarray(jpt.layers.softmax(jnp.asarray(x), False)), atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # training through Executor.run
 # ---------------------------------------------------------------------------
