@@ -8,10 +8,11 @@ Phases; any failure raises and the script exits non-zero:
 0. Require a CUDA device (no CPU fallback); print the card's name and
    power limit.
 1. Build every kernel of the path from ``paddle_tpu_torch/ops/kernels/csrc``
-   with nvcc (one process per source, all at once); for the flash kernels,
-   print each kernel's ptxas registers and spills and, where the toolkit
-   has ``cuobjdump``, its count of tensor-core instructions (HGMMA, HMMA)
-   in the SASS; fail if a wgmma kernel spills or issues no HGMMA.
+   with nvcc (one process per source, all at once); for the flash and
+   fused-matmul kernels, print each kernel's ptxas registers and spills
+   and, where the toolkit has ``cuobjdump``, its count of tensor-core
+   instructions (HGMMA, HMMA) in the SASS; fail if a wgmma kernel spills or
+   issues no HGMMA.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and a few edge cases, each with its stated
    tolerance, and time kernel, plain version and one PyTorch library call
@@ -24,8 +25,12 @@ Phases; any failure raises and the script exits non-zero:
    the multi-tensor Adam over BERT-base's parameter list; and the static
    path's kernels: the embedding gather (word2vec's table with 100 and
    8192 ids, BERT-base's word table with 64x512 ids), the fused matmul
-   (each activation at both word2vec fc shapes, those at 8192 rows, and
-   BERT's FFN [4096,768]x[768,3072] relu in fp32 and bf16), the int8
+   (each activation at both word2vec fc shapes, those at 8192 rows, the
+   serving MLP's fp32 buckets [1|8,256]x[256,256] relu and [1|8,256]x
+   [256,10], word2vec's fc 2 with a bf16 weight, inf, -inf and NaN in x
+   and w through each activation, and BERT's FFN [4096,768]x[768,3072]
+   relu in fp32 and bf16; the fp32 operations bound is three TF32 passes
+   at 495 TFLOP/s, the least time an fp32-accurate product takes), the int8
    fused matmul (the serving MLP's [1|8,256]x[256,256] relu and
    [8,256]x[256,10], word2vec's two fcs at 64 rows, BERT's FFN shape and a
    ragged [33,70,130] tanh without bias; ``addmm`` on the weight dequantized
@@ -138,8 +143,12 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 L2_BYTES = 50 * 2 ** 20
 PEAK_OPS_PER_S = {                    # dense, NVIDIA data sheet (700 W)
     torch.bfloat16: 989e12,           # tensor cores
-    torch.float32: 67e12,             # SIMT fp32 (no TF32 on the path)
+    # fp32-accurate products: the least the card takes is three TF32 passes
+    # (hi*hi + hi*lo + lo*hi) on the tensor cores at 495 TFLOP/s, so 165
+    # (above the 67 of SIMT fp32; one TF32 pass is not fp32-accurate)
+    torch.float32: 495e12 / 3,
 }
+TF32_OPS_PER_S = 495e12
 
 
 def log(*a):
@@ -297,17 +306,38 @@ def bound(nbytes, ops, dtype):
 # ---------------------------------------------------------------------------
 # phase 1: what the compiler made of the tensor-core kernels
 # ---------------------------------------------------------------------------
+_MANGLED_ARGS = (("f", "f32"), ("13__nv_bfloat16", "bf16"), ("a", "i8"))
+
+
 def kernel_label(mangled):
-    """``flash_fwd_wgmma_kernel<64>`` or ``flash_bwd_dq_kernel<bf16,64>``
-    from a mangled kernel name."""
+    """``flash_fwd_wgmma_kernel<64>``, ``flash_bwd_dq_kernel<f32,64>`` or
+    ``fused_matmul_wgmma_kernel<f32,bf16,1,64>`` from a mangled kernel
+    name: the template's types and integers in order."""
     import re
-    m = re.search(r"\d+(flash\w*?_kernel)I", mangled)
+    m = re.search(r"\d+((?:flash|fused_matmul)\w*?_kernel)I", mangled)
     if m is None:
         return mangled[:80]
-    dtype = ("bf16," if "bfloat16" in mangled
-             else "f32," if "_kernelIfLi" in mangled else "")
-    d = re.search(r"Li(\d+)E", mangled[m.end() - 1:])
-    return f"{m.group(1)}<{dtype}{d.group(1) if d else ''}>"
+    rest, args = mangled[m.end():], []
+    while rest and rest[0] != "E":
+        num = re.match(r"Li(-?\d+)E", rest)
+        if num:
+            args.append(num.group(1))
+            rest = rest[num.end():]
+            continue
+        # a repeated class type is mangled as a back-reference (S_, S0_,
+        # ...); bf16 is the only class type among these kernels' arguments
+        ref = re.match(r"S\d*_", rest)
+        if ref:
+            args.append("bf16")
+            rest = rest[ref.end():]
+            continue
+        code = next(((c, lab) for c, lab in _MANGLED_ARGS
+                     if rest.startswith(c)), None)
+        if code is None:
+            break
+        args.append(code[1])
+        rest = rest[len(code[0]):]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def ptxas_report(log):
@@ -357,7 +387,8 @@ def sass_census(so_path):
     return out
 
 
-TENSOR_CORE_LIBS = ("flash_attention_fwd", "flash_attention_bwd")
+TENSOR_CORE_LIBS = ("flash_attention_fwd", "flash_attention_bwd",
+                    "fused_matmul")
 
 
 def tensor_core_report(built):
@@ -726,13 +757,27 @@ def check_embedding(K, h, d, dtype, n, gen, edge_ids=True):
     return rec
 
 
-def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True):
+def fmm_peak(x_dtype, w_dtype):
+    """The least time's rate for the fused matmul's products: bf16 x bf16
+    on the bf16 tensor cores (exact products); fp32 x bf16 in two TF32
+    passes (the bf16 side has no lo part); fp32 x fp32 in three."""
+    if x_dtype == w_dtype == torch.bfloat16:
+        return PEAK_OPS_PER_S[torch.bfloat16]
+    if torch.bfloat16 in (x_dtype, w_dtype):
+        return TF32_OPS_PER_S / 2
+    return PEAK_OPS_PER_S[torch.float32]
+
+
+def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True,
+                       w_dtype=None):
     """The fused matmul kernel (+ gelu outside it) against its plain body,
-    fp32 out; library yardstick ``torch.addmm`` (no act) or
-    ``torch._addmm_activation`` (relu), else none."""
+    fp32 out; x in ``dtype``, w in ``w_dtype`` (default ``dtype``). Library
+    yardstick ``torch.addmm`` (no act) or ``torch._addmm_activation``
+    (relu) where x and w share a dtype, else none."""
+    w_dtype = dtype if w_dtype is None else w_dtype
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
-         ).to(dtype)
+         ).to(w_dtype)
     b = torch.randn(n, generator=gen, device="cuda") if with_bias else None
     kern = K.get_body("fused_matmul", "kernel")
     plain = K.get_body("fused_matmul", "reference")
@@ -748,34 +793,77 @@ def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True):
 
     out, ref = run_kernel(), run_plain()
     torch.cuda.synchronize()
-    # fp32 sums of K products (bf16 inputs: exact fp32 products) in another
-    # order than cuBLAS's (no TF32): atol 1e-4, rtol 1e-4 at outputs O(1)
+    # the kernel's TF32 passes carry each product to ~2^-22 relative (bf16
+    # operands: exactly), summed in fp32 in another order than cuBLAS's fp32
+    # product (no TF32): atol 1e-4, rtol 1e-4 at outputs O(1)
     err = max_err(out, ref)
+    label = (f"fused_matmul [{m},{k}]x[{k},{n}] {act} {dtype}"
+             + ("" if w_dtype == dtype else f" x {w_dtype}"))
     check(within(out, ref, 1e-4, 1e-4),
-          f"fused_matmul [{m},{k}]x[{k},{n}] {act} {dtype}: kernel "
-          f"disagrees with plain: {err}")
-    e = x.element_size()
-    nbytes = (m * k + k * n) * e + (n * 4 if b is not None else 0) \
-        + m * n * 4
-    b_ms, b_by = bound(nbytes, 2 * m * n * k, dtype)
+          f"{label}: kernel disagrees with plain: {err}")
+    nbytes = (m * k * x.element_size() + k * n * w.element_size()
+              + (n * 4 if b is not None else 0) + m * n * 4)
+    ops = 2 * m * n * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / fmm_peak(dtype, w_dtype) * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
     ms = device_ms(run_kernel, 20)
     plain_ms = device_ms(run_plain, 20)
     lib_ms, lib = None, None
-    if act is None:
+    one_dtype = w_dtype == dtype
+    if one_dtype and act is None:
         lib = "torch.addmm" if b is not None else "torch.mm"
         lib_ms = device_ms((lambda: torch.addmm(b.to(dtype), x, w))
                            if b is not None else (lambda: torch.mm(x, w)), 20)
-    elif act == "relu" and b is not None:
+    elif one_dtype and act == "relu" and b is not None:
         lib = "torch._addmm_activation (one cuBLASLt call, relu epilogue)"
         lib_ms = device_ms(lambda: torch._addmm_activation(b.to(dtype), x, w),
                            20)
-    rec = dict(shape=[m, k, n], act=act, dtype=str(dtype), bias=b is not None,
+    rec = dict(shape=[m, k, n], act=act, dtype=str(dtype),
+               w_dtype=str(w_dtype), bias=b is not None,
                max_abs_err=err, tol="atol 1e-4 rtol 1e-4 (fp32 out)", ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, library=lib,
                bound_ms=b_ms, bound_by=b_by,
-               tflops=2 * m * n * k / (ms * 1e-3) / 1e12)
+               tflops=ops / (ms * 1e-3) / 1e12,
+               host_ms_per_call=host_ms(run_kernel, 200))
     log("check fused_matmul " + json.dumps(rec))
     return rec
+
+
+def check_fused_matmul_special(K, gen):
+    """inf and NaN in x and in w through each activation: the kernel
+    against the plain body, with the non-finite outputs where the plain
+    body has them (the same signs of inf) and the finite ones within atol
+    1e-4, rtol 1e-4."""
+    m, k, n = 33, 70, 130
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        x[0, 3], x[1, 5], x[2, 7] = math.inf, -math.inf, math.nan
+        w[9, 4], w[11, 6], w[13, 8] = math.inf, -math.inf, math.nan
+        # under x's inf: an exact TF32 value (lo = 0, where inf * lo would
+        # be NaN) and values whose lo is positive and negative (where it
+        # would be inf of either sign)
+        w[3, 0], w[3, 1], w[3, 2] = 0.99999, 1.0, 1.0001
+        x, w = x.to(dtype), w.to(dtype)
+        b = torch.randn(n, generator=gen, device="cuda")
+        for act in (None, "relu", "sigmoid", "tanh"):
+            out = K.get_body("fused_matmul", "kernel")(x, w, b, act)
+            ref = K.get_body("fused_matmul", "reference")(x, w, b, act)
+            torch.cuda.synchronize()
+            same_nan = torch.equal(out.isnan(), ref.isnan())
+            fin = ref.isfinite()
+            same_inf = torch.equal(out[~fin & ~ref.isnan()],
+                                   ref[~fin & ~ref.isnan()])
+            both = fin & out.isfinite()
+            check(same_nan and same_inf and torch.equal(out.isfinite(), fin)
+                  and within(out[fin], ref[fin], 1e-4, 1e-4),
+                  f"fused_matmul inf/NaN {dtype} {act}: kernel disagrees "
+                  f"with plain: NaN {same_nan}, inf {same_inf}, finite "
+                  f"err {max_err(out[both], ref[both])}")
+    log("check fused_matmul inf/NaN: x and w with inf, -inf and NaN, "
+        "fp32 and bf16, each activation: as the plain body")
 
 
 def check_fused_matmul_int8(K, m, k, n, act, gen, with_bias=True):
@@ -1084,12 +1172,12 @@ def phase_serving(K, bert, card, ln_ms):
 KERNEL_GROUPS = (
     ("flash_attention", r"flash_fwd_(wgmma_)?kernel"),
     ("flash_attention_bwd_dkdv", r"flash_bwd_dkdv_(wgmma_)?kernel"),
-    ("flash_attention_bwd_dq", r"flash_bwd_dq_kernel"),
+    ("flash_attention_bwd_dq", r"flash_bwd_dq_(wgmma_)?kernel"),
     ("fused_layer_norm", r"layer_norm_fwd_kernel"),
     ("fused_adam", r"fused_adam_kernel"),
     ("embedding_gather", r"::gather_kernel<"),
     ("fused_matmul_int8", r"fused_matmul_kernel<\w+, signed char"),
-    ("fused_matmul", r"fused_matmul_kernel"),
+    ("fused_matmul", r"fused_matmul_(wgmma_)?kernel"),
     ("fused_sgd", r"fused_sgd_kernel"),
     ("fused_momentum", r"fused_momentum_kernel"),
     ("embedding_scatter_add", r"scatter_(keys|mark|add|add_long)_kernel"),
@@ -2137,10 +2225,10 @@ def main():
     # fp32 SIMT instantiation at the same edges. Rows that see no key are
     # held in the forward only: there lse rounds to the -1e9 bias, so the
     # backward's p is 1 on every key and it sums S unnormalized terms whose
-    # cancellation leaves both the redesigned dK and the unchanged SIMT dQ
-    # up to 2 bf16 units from the plain body (on an H100 80GB HBM3: 0.125
-    # and 0.0625 at [2,4,300,64], 0.5 and 0.5 at [2,4,2048,32]; PERF.md);
-    # their backward runs with the last tenth of the keys masked instead
+    # cancellation left the tensor-core dK and the SIMT dQ alike up to 2
+    # bf16 units from the plain body (on an H100 80GB HBM3: 0.125 and
+    # 0.0625 at [2,4,300,64], 0.5 and 0.5 at [2,4,2048,32]; PERF.md); their
+    # backward runs with the last tenth of the keys masked instead
     bf = torch.bfloat16
     edges = [(300, 16, True, 30, "contiguous"),
              (1000, 32, False, 100, "contiguous"),
@@ -2179,6 +2267,15 @@ def main():
                            torch.float32, gen)
         check_fused_matmul(K, 33, 70, 130, "tanh", torch.float32, gen,
                            with_bias=False)
+        # the serving MLP's fp32 buckets 1 and 8 (bench.py:629-665), and
+        # word2vec's fc with a bf16 weight (export_aot(quantize="bf16"))
+        for m in (1, 8):
+            fmm[(m, 256, 256, "relu")] = check_fused_matmul(
+                K, m, 256, 256, "relu", torch.float32, gen)
+            check_fused_matmul(K, m, 256, 10, None, torch.float32, gen)
+        check_fused_matmul(K, 100, W2V_HIDDEN, W2V_VOCAB, None,
+                           torch.float32, gen, w_dtype=torch.bfloat16)
+        check_fused_matmul_special(K, gen)
         # the static BERT trunk's FFN (bench.py:485)
         for dt in (torch.float32, torch.bfloat16):
             check_fused_matmul(K, 4096, 768, 3072, "relu", dt, gen)

@@ -231,7 +231,7 @@ def _tma_ready(t):
 def _operands(ts):
     """The [B, H, S, D] operands as the kernel takes them: bf16 views the
     TMA loads cannot take become contiguous copies (fresh, so aligned) for
-    the same kernel; fp32 runs the SIMT kernel, which takes any strides."""
+    the same kernel; fp32 runs the SIMT kernels, which take any strides."""
     return [t.clone(memory_format=torch.contiguous_format)
             if t.dtype == torch.bfloat16 and not _tma_ready(t) else t
             for t in ts]
@@ -283,8 +283,7 @@ def _bwd_args(name, q, k, v, bias, do, lse, delta):
     here (a bias cast, a view the TMA loads cannot take) must outlive it,
     or its memory goes back to the allocator under the kernel's reads."""
     b, h, s, d = _check_heads(name, q, {"q": q, "k": k, "v": v, "do": do})
-    if name == DKDV:
-        q, k, v, do = _operands((q, k, v, do))
+    q, k, v, do = _operands((q, k, v, do))
     bias = _bias_arg(name, bias, b, s, q.device)
     lse = _rows_arg(name, "lse", lse, b, h, s, q.device)
     delta = _rows_arg(name, "delta", delta, b, h, s, q.device)

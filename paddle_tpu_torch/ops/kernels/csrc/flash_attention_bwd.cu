@@ -22,40 +22,54 @@
 // and ~155 GFLOP, bounds of ~0.21 ms and ~0.16 ms on the tensor cores at
 // 989 TFLOP/s.
 //
-// dK/dV in bf16 (flash_bwd_dkdv_wgmma_kernel) runs on the tensor cores: one
-// block of three warpgroups per (batch, head, 128 keys). Warpgroup 2 is the
-// producer: one of its warps loads K and V once and then tiles of 64 queries
-// of Q and dO by TMA (one box per 8 columns, wgmma's no-swizzle core-matrix
-// layout; rows past S read as zeros) into a ring of two shared-memory stages
-// with full/empty mbarriers, and stages each tile's lse and delta beside them.
-// Warpgroups 0 and 1 each own 64 keys and compute the transposed products
-// S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 (bf16 in, fp32
-// accumulate, all operands K-major), so that P^T and dS^T sit in registers in
-// the accumulator layout, which is the A-fragment layout of the next
-// products: dV += P^T dO and dK += dS^T Q by wgmma m64n{D}k16 with dO and Q
-// read as MN-major operands (the transpose bit). In the transposed layout the
-// key bias is per row, lse and delta are per column, and dbh is a row sum
-// kept in registers across the query loop. P^T and dS^T keep fp32 accuracy:
-// each is split into bf16 hi and lo parts (hi = bf16(x), lo = bf16(x - hi))
-// whose two products go into one fp32 accumulator (~2^-17 relative), at 1.5x
-// the tensor work of bf16 operands. The scale of dK applies in the epilogue.
-// Under the causal mask a block starts at the first query tile that sees its
-// keys. The TMA loads need 16-byte aligned bases and row strides; the wrapper
-// makes contiguous copies of views that are not.
+// Both run on the tensor cores in bf16 (flash_bwd_dkdv_wgmma_kernel and
+// flash_bwd_dq_wgmma_kernel), with one shape. A block has three warpgroups;
+// warpgroup 2 is the producer: one of its warps loads the block's own rows
+// once and then streams tiles of the other side's rows by TMA (one box per
+// 8 columns, wgmma's no-swizzle core-matrix layout; rows past S read as
+// zeros) into a ring of two shared-memory stages with full/empty mbarriers,
+// staging each tile's per-row values beside them. Warpgroups 0 and 1 each
+// own 64 of the block's rows and compute two products by wgmma m64n64k16
+// (bf16 in, fp32 accumulate, all operands K-major), so that the 64 x 64
+// probabilities and their gradient sit in registers in the accumulator
+// layout, which is the A-fragment layout of the next products (wgmma
+// m64n{D}k16 with the streamed tile read as an MN-major operand, the
+// transpose bit). P and dS keep fp32 accuracy: each is split into bf16 hi
+// and lo parts (hi = bf16(x), lo = bf16(x - hi)) whose two products go into
+// one fp32 accumulator (~2^-17 relative), at 1.5x (dK/dV) or 2x (dQ, whose
+// only register operand is dS) the tensor work of bf16 operands. The scale
+// applies in the epilogue.
+//   dK/dV: one block per (batch, head, 128 keys); the producer loads K and V
+//   once and streams 64-query tiles of Q and dO with their lse and delta.
+//   The consumers compute the transposed products S^T = K Q^T and
+//   dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q. The key bias is per
+//   row, lse and delta per column, and dbh is a row sum kept in registers
+//   across the query loop. Under the causal mask a block starts at the
+//   first query tile that sees its keys.
+//   dQ: the mirror image, one block per (batch, head, 128 queries); the
+//   producer loads Q and dO once and streams 64-key tiles of K and V with
+//   their key bias. The consumers compute S = Q K^T and dP = dO V^T, keep
+//   lse and delta per row in registers, and take dQ += dS K. Under the
+//   causal mask a block stops at the last key tile its queries can see.
+// The TMA loads need 16-byte aligned bases and row strides; the wrapper
+// makes contiguous copies of views that are not. Per 64 x 64 tile pair a
+// dK/dV warpgroup issues six products of D-deep or 64-deep bf16 work (two,
+// then two split pairs) and a dQ warpgroup four (two, then one split pair),
+// so dQ's tensor work is 2/3 of dK/dV's.
 //
-// fp32 dK/dV and the dQ kernel (both dtypes) are the first, plain SIMT
-// versions: fp32 runs on no main path, and dQ is the next kernel to redesign.
-// One 128-thread block per (batch, head, 64-row tile) of the rows it owns:
-// keys for dK/dV, queries for dQ. Two threads own each row, each one half of
-// its D columns, so a thread keeps only half rows in registers (dK/dV: k, v,
-// dK, dV = 2 * D floats; dQ: q, dO, dQ = 1.5 * D) and stays clear of the
-// 255-register limit; the pair joins its two half dot products with one
-// shuffle. The streamed rows (q and dO for dK/dV, k and v for dQ) are staged
-// 64 at a time in shared memory as fp32; every thread of a warp reads the
-// same row there, and the two halves of a pair own alternate 16-byte chunks,
-// so the reads are broadcasts without bank conflicts. The [S, S] scores never
-// exist in memory. Under the causal mask dK/dV starts at the first query tile
-// that can see its keys and dQ stops at the last key tile its queries can see.
+// fp32 (both kernels) keeps the first, plain SIMT versions: fp32 runs on no
+// main path. One 128-thread block per (batch, head, 64-row tile) of the rows
+// it owns: keys for dK/dV, queries for dQ. Two threads own each row, each
+// one half of its D columns, so a thread keeps only half rows in registers
+// (dK/dV: k, v, dK, dV = 2 * D floats; dQ: q, dO, dQ = 1.5 * D) and stays
+// clear of the 255-register limit; the pair joins its two half dot products
+// with one shuffle. The streamed rows (q and dO for dK/dV, k and v for dQ)
+// are staged 64 at a time in shared memory as fp32; every thread of a warp
+// reads the same row there, and the two halves of a pair own alternate
+// 16-byte chunks, so the reads are broadcasts without bank conflicts. The
+// [S, S] scores never exist in memory. Under the causal mask dK/dV starts
+// at the first query tile that can see its keys and dQ stops at the last key
+// tile its queries can see.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,9 +85,7 @@ constexpr int kTile = 64;             // streamed rows per shared-memory tile
 constexpr float kMaskValue = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 struct Strides {
   int64_t qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -526,6 +538,217 @@ cudaError_t launch_dkdv_wgmma(const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
+// --------------------------------------------------- bf16 dQ: tensor cores
+constexpr int kTcQRows = 128;    // queries per block: two consumer warpgroups x 64
+constexpr int kTcK = 64;         // keys per streamed tile
+
+template <int D>
+struct DqSmem {
+  __nv_bfloat16 q[kTcQRows * D];            // D/8 slices of [128 queries][8]
+  __nv_bfloat16 dout[kTcQRows * D];
+  __nv_bfloat16 k[kTcStages][kTcK * D];     // D/8 slices of [64 keys][8]
+  __nv_bfloat16 v[kTcStages][kTcK * D];
+  float bias[kTcStages][kTcK];
+  uint64_t full[kTcStages];
+  uint64_t empty[kTcStages];
+  uint64_t qbar;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ bias, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                          int H, int S, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int hh = bh % H;
+  const int q0 = blockIdx.x * kTcQRows;
+  // causal: no query of this block sees a key past its last row
+  const int kend = causal ? min(S, q0 + kTcQRows) : S;
+  const int ntiles = (kend + kTcK - 1) / kTcK;
+  const int64_t rows = static_cast<int64_t>(bh) * S;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
+  const int wg = tid >> 7;
+
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      tc::mbar_init(&sm.full[s], 32);  // the producer warp's lanes
+      tc::mbar_init(&sm.empty[s], 8);  // one lane of each consumer warp
+    }
+    tc::mbar_init(&sm.qbar, 1);
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: Q and dO once, then K, V and key-bias tiles
+    tc::setmaxnreg_dec<40>();
+    if (warp == 0) {
+      if (lane == 0) {
+        tc::mbar_arrive_expect_tx(&sm.qbar, 2 * kTcQRows * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          tc::tma_load_4d(sm.q + c * kTcQRows * 8, &tq, &sm.qbar, 8 * c, q0, hh, b);
+          tc::tma_load_4d(sm.dout + c * kTcQRows * 8, &tdo, &sm.qbar, 8 * c, q0, hh, b);
+        }
+      }
+      for (int u = 0; u < ntiles; ++u) {
+        const int s = u % kTcStages;
+        tc::mbar_wait(&sm.empty[s], ((u / kTcStages) & 1) ^ 1);
+        const int k0 = u * kTcK;
+#pragma unroll
+        for (int i = 0; i < kTcK / 32; ++i) {
+          const int j = lane + 32 * i;
+          sm.bias[s][j] = (bias != nullptr && k0 + j < S)
+                              ? bias[static_cast<int64_t>(b) * S + k0 + j]
+                              : 0.f;
+        }
+        if (lane == 0) {
+          tc::mbar_arrive_expect_tx(&sm.full[s], 2 * kTcK * D * 2);
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c) {
+            tc::tma_load_4d(sm.k[s] + c * kTcK * 8, &tk, &sm.full[s], 8 * c, k0, hh, b);
+            tc::tma_load_4d(sm.v[s] + c * kTcK * 8, &tv, &sm.full[s], 8 * c, k0, hh, b);
+          }
+        } else {
+          tc::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns queries q0 + 64 wg .. + 63, as rows
+    // of S = Q K^T and dP = dO V^T
+    tc::setmaxnreg_inc<232>();
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int q_a = q0 + 64 * wg + 16 * warp + g;  // elements 4j+0,1; q_a + 8: 4j+2,3
+    float lr[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q_a + 8 * r;
+      lr[r] = qi < S ? lse[rows + qi] : 0.f;
+      dl[r] = qi < S ? delta[rows + qi] : 0.f;
+    }
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    const float kLog2e = 1.4426950408889634f;
+    const uint32_t qaddr = tc::smem_u32(sm.q) + 64 * wg * 16;
+    const uint32_t oaddr = tc::smem_u32(sm.dout) + 64 * wg * 16;
+    tc::mbar_wait(&sm.qbar, 0);
+
+    for (int u = 0; u < ntiles; ++u) {
+      const int s = u % kTcStages;
+      tc::mbar_wait(&sm.full[s], (u / kTcStages) & 1);
+      const uint32_t kaddr = tc::smem_u32(sm.k[s]);
+      const uint32_t vaddr = tc::smem_u32(sm.v[s]);
+
+      // S = Q K^T and dP = dO V^T: k16 steps over D, both operands K-major
+      float sc[kTcK / 2], dp[kTcK / 2];
+#pragma unroll
+      for (int i = 0; i < kTcK / 2; ++i) sc[i] = dp[i] = 0.f;
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint64_t da = tc::make_desc(qaddr + kd * 2 * kTcQRows * 16, kTcQRows * 16, 128);
+        const uint64_t db = tc::make_desc(kaddr + kd * 2 * kTcK * 16, kTcK * 16, 128);
+        tc::wgmma_ss(sc, da, db, kd > 0);
+      }
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint64_t da = tc::make_desc(oaddr + kd * 2 * kTcQRows * 16, kTcQRows * 16, 128);
+        const uint64_t db = tc::make_desc(vaddr + kd * 2 * kTcK * 16, kTcK * 16, 128);
+        tc::wgmma_ss(dp, da, db, kd > 0);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(sc);
+      tc::fence_regs(dp);
+
+      // P = exp(s - lse) and dS = P * (dP - delta): the key bias per column,
+      // lse and delta per row
+      const int k0 = u * kTcK;
+#pragma unroll
+      for (int j = 0; j < kTcK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          const int kj = k0 + col;
+          const int r = e >> 1;
+          float sv = sc[4 * j + e] * scale + sm.bias[s][col];
+          if (causal && kj > q_a + 8 * r) sv = kMaskValue;
+          const float p = kj < S ? exp2f((sv - lr[r]) * kLog2e) : 0.f;
+          dp[4 * j + e] = p * (dp[4 * j + e] - dl[r]);
+        }
+      }
+      uint32_t shi[kTcK / 16][4], slo[kTcK / 16][4];
+#pragma unroll
+      for (int c = 0; c < kTcK / 16; ++c)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          tc::split_bf16(dp[8 * c + 2 * x], dp[8 * c + 2 * x + 1], shi[c][x], slo[c][x]);
+
+      // dQ += dS K: k16 steps over the tile's keys; K read MN-major
+      tc::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kTcK / 16; ++c) {
+        const uint64_t dk = tc::make_desc(kaddr + c * 16 * 16, 128, kTcK * 16);
+        tc::wgmma_rs(dqa, shi[c], dk);
+        tc::wgmma_rs(dqa, slo[c], dk);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(dqa);
+      tc::fence_regs(shi);
+      tc::fence_regs(slo);
+      if (lane == 0) tc::mbar_arrive(&sm.empty[s]);
+    }
+
+    // epilogue: dQ = (dS K) * scale in bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q_a + 8 * r;
+      if (qi >= S) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int64_t at = (rows + qi) * D + 8 * j + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(dq + at) = __floats2bfloat162_rn(
+            dqa[4 * j + 2 * r] * scale, dqa[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                            const void* dout, const void* lse, const void* delta, void* dq,
+                            int B, int H, int S, const Strides& st, float scale, int causal,
+                            cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tc_host::encode_heads(&tq, q, B, H, S, D, st.qb, st.qh, st.qs, kTcQRows) ||
+      !tc_host::encode_heads(&tk, k, B, H, S, D, st.kb, st.kh, st.ks, kTcK) ||
+      !tc_host::encode_heads(&tv, v, B, H, S, D, st.vb, st.vh, st.vs, kTcK) ||
+      !tc_host::encode_heads(&tdo, dout, B, H, S, D, st.ob, st.oh, st.os, kTcQRows))
+    return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(sizeof(DqSmem<D>));
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kTcQRows - 1) / kTcQRows, B * H);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(bias), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H, S, scale, causal);
+  return cudaGetLastError();
+}
+
 // -1: arguments the kernels do not take; 0: nothing to do; 1: launch
 int check_args(int B, int H, int S, int D, int dtype) {
   if (B < 0 || H < 0 || S < 0 || static_cast<int64_t>(B) * H > 65535) return -1;
@@ -580,19 +803,20 @@ extern "C" int pt_flash_attention_bwd_dq(
   const int ok = check_args(B, H, S, D, dtype);
   if (ok <= 0) return ok == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-  const dim3 grid((S + kRows - 1) / kRows, B * H);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PT_DQ(T, DD) \
-  launch_dq<T, DD>(grid, q, k, v, bias, dout, lse, delta, dq, H, S, st, scale, causal, s)
-  if (dtype == 0) {
-    if (D == 16) PT_DQ(float, 16);
-    else if (D == 32) PT_DQ(float, 32);
-    else PT_DQ(float, 64);
-  } else {
-    if (D == 16) PT_DQ(__nv_bfloat16, 16);
-    else if (D == 32) PT_DQ(__nv_bfloat16, 32);
-    else PT_DQ(__nv_bfloat16, 64);
+  if (dtype == 1) {
+#define PT_DQ(DD) \
+  launch_dq_wgmma<DD>(q, k, v, bias, dout, lse, delta, dq, B, H, S, st, scale, causal, s)
+    const cudaError_t err = D == 16 ? PT_DQ(16) : D == 32 ? PT_DQ(32) : PT_DQ(64);
+#undef PT_DQ
+    return static_cast<int>(err);
   }
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+#define PT_DQ(DD) \
+  launch_dq<float, DD>(grid, q, k, v, bias, dout, lse, delta, dq, H, S, st, scale, causal, s)
+  if (D == 16) PT_DQ(16);
+  else if (D == 32) PT_DQ(32);
+  else PT_DQ(64);
 #undef PT_DQ
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,9 @@ Port of the fp half of ``paddle_tpu/ops/pallas/matmul.py``: the Pallas
 ``_fmm_kernel`` (dequant=False) under the ``jax.custom_vjp`` ``_fmm_fp``, and
 ``try_fused_matmul``, which the static graph's ``fused_matmul`` op calls. The
 kernel is ``csrc/fused_matmul.cu``: act(x @ w + bias) with fp32 accumulation
-and an fp32 result, for act in {None, relu, sigmoid, tanh}; gelu (exact erf)
+and an fp32 result, for act in {None, relu, sigmoid, tanh}, on the tensor
+cores in TF32 with each fp32 operand split into hi and lo parts, so that
+the products keep fp32 accuracy (the source's header); gelu (exact erf)
 runs outside it on the fp32 result, so the backward keeps the
 pre-activation, as matmul.py:151-159 does. CPU tensors take
 :func:`_fused_matmul_reference`, the same arithmetic in plain PyTorch. The
@@ -17,7 +19,8 @@ leaves them to two stock dots.
 The int8 half (``dequant=True``, ``fused_matmul_int8_pallas``,
 matmul.py:232-245) is :func:`fused_matmul_int8`, forward only (serving never
 differentiates a quantized program): act(x @ (w_int8 * scale / 127) + bias)
-on the same kernel source, whose int8 entry converts the weight tile on load
+on the same kernel source, whose int8 entry (SIMT) converts the weight tile
+on load
 and applies the per-column scale to the fp32 sum in the epilogue, so the fp32
 weight never exists in device memory. CPU tensors take
 :func:`_fused_matmul_int8_reference`, which dequantizes the whole weight
@@ -42,6 +45,8 @@ _QUANT_BINS = 127.0
 _KERNEL_ACTS = {None: 0, "relu": 1, "sigmoid": 2, "tanh": 3}
 _ACTS = ("relu", "sigmoid", "tanh", "gelu")
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
+#: rows both entries take: 65535 blocks of 64 rows (CUDA's grid y limit)
+_MAX_ROWS = 65535 * 64
 _SIGNATURES = {
     "pt_fused_matmul": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -144,9 +149,7 @@ def _fused_matmul_reference(x2, w, bias=None, act=None):
 def _fused_matmul_cuda(x2, w, bias=None, act=None):
     """Launch ``csrc/fused_matmul.cu`` on the current stream (no sync)."""
     dev = x2.device
-    if dev.type != "cuda":
-        raise EnforceNotMet(f"{NAME}: the kernel takes CUDA tensors, got x "
-                            f"on {dev}")
+    _require_cuda(NAME, x2)
     if act not in _KERNEL_ACTS:
         raise EnforceNotMet(f"{NAME}: the kernel applies relu, sigmoid, "
                             f"tanh or nothing, got {act!r}")
@@ -166,18 +169,39 @@ def _fused_matmul_cuda(x2, w, bias=None, act=None):
                                 f"{tuple(bias.shape)} on {bias.device}")
         # the kernel reads an fp32 bias
         bias = bias.to(torch.float32).contiguous()
+    _check_rows(NAME, m)
+    # contiguous tensors go as they are: the kernel masks every edge, so no
+    # shape (word2vec's N = 2073, the MLP's N = 10, K = 70) is padded
     x2, w = x2.contiguous(), w.contiguous()
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     lib = _build.load("fused_matmul", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_fused_matmul(
+    _launch(lib, "pt_fused_matmul", NAME, dev,
             x2.data_ptr(), _BF16[x2.dtype], w.data_ptr(), _BF16[w.dtype],
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            m, n, k, _KERNEL_ACTS[act], stream)
-    _build.check_launch(lib, NAME, err)
-    registry.get_kernel(NAME).count_launch()
+            m, n, k, _KERNEL_ACTS[act])
     return out
+
+
+def _require_cuda(name, x2):
+    if x2.device.type != "cuda":
+        raise EnforceNotMet(f"{name}: the kernel takes CUDA tensors, got x "
+                            f"on {x2.device}")
+
+
+def _check_rows(name, m):
+    if m > _MAX_ROWS:
+        raise EnforceNotMet(f"{name}: the kernel takes at most {_MAX_ROWS} "
+                            f"rows of x, got {m}")
+
+
+def _launch(lib, fn, name, device, *args):
+    """Call ``fn`` of ``lib`` with ``args`` and the current stream of
+    ``device``; raise unless CUDA accepted the launch, then count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    _build.check_launch(lib, name, err)
+    registry.get_kernel(name).count_launch()
 
 
 def fused_matmul_int8(x, w, scale, bias=None, act=None):
@@ -212,9 +236,7 @@ def _fused_matmul_int8_cuda(x2, w, scale, bias=None, act=None):
     """Launch the int8 entry of ``csrc/fused_matmul.cu`` on the current
     stream (no sync)."""
     dev = x2.device
-    if dev.type != "cuda":
-        raise EnforceNotMet(f"{INT8}: the kernel takes CUDA tensors, got x "
-                            f"on {dev}")
+    _require_cuda(INT8, x2)
     if act not in _KERNEL_ACTS:
         raise EnforceNotMet(f"{INT8}: the kernel applies relu, sigmoid, "
                             f"tanh or nothing, got {act!r}")
@@ -238,17 +260,14 @@ def _fused_matmul_int8_cuda(x2, w, scale, bias=None, act=None):
     scale = scale.to(torch.float32).contiguous()
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
+    _check_rows(INT8, m)
     x2, w = x2.contiguous(), w.contiguous()
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     lib = _build.load("fused_matmul", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_fused_matmul_int8(
+    _launch(lib, "pt_fused_matmul_int8", INT8, dev,
             x2.data_ptr(), _BF16[x2.dtype], w.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            m, n, k, _KERNEL_ACTS[act], stream)
-    _build.check_launch(lib, INT8, err)
-    registry.get_kernel(INT8).count_launch()
+            m, n, k, _KERNEL_ACTS[act])
     return out
 
 

@@ -239,9 +239,9 @@ def test_flash_kernels_rows_that_see_no_key(cuda, dtype, causal):
     # batch 0's keys all carry the -1e9 bias: its rows average v as the
     # plain body's softmax does. Its backward is not held: lse rounds to
     # the bias there, so p = 1 on every key and the grads are sums of S
-    # unnormalized terms whose cancellation puts the new dK and the SIMT dQ
-    # alike up to 2 bf16 units from the plain body (chip_smoke.py phase 2
-    # notes the measured cases); batch 1's rows, which see keys, are held
+    # unnormalized terms whose cancellation put dK and dQ alike up to 2
+    # bf16 units from the plain body (chip_smoke.py phase 2 notes the
+    # measured cases); batch 1's rows, which see keys, are held
     gen = torch.Generator(device=cuda).manual_seed(23)
     B, H, S, D = 2, 4, 300, 64
     q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=cuda)
@@ -318,6 +318,25 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         K.fused_adam(p, [torch.zeros(4, device=cuda).half()], p, p, 0.1, one)
     with pytest.raises(EnforceNotMet, match="0-d int32"):
         K.fused_adam(p, p, p, p, 0.1, one.long())
+    # the fused matmul: float32 or bfloat16 operands, the kernel's
+    # activations, at most 65535 * 64 rows (both entries)
+    w = torch.randn(64, 10, device=cuda)
+    kern = K.get_body("fused_matmul", "kernel")
+    with pytest.raises(EnforceNotMet, match="float32 or bfloat16"):
+        kern(x.half(), w)
+    with pytest.raises(EnforceNotMet, match="relu, sigmoid"):
+        kern(x, w, None, "gelu")
+    with pytest.raises(EnforceNotMet, match="do not chain"):
+        kern(x, w[:32])
+    with pytest.raises(EnforceNotMet, match="bias"):
+        kern(x, w, torch.zeros(9, device=cuda))
+    rows = torch.zeros(65535 * 64 + 1, 1, device=cuda)
+    with pytest.raises(EnforceNotMet, match="rows"):
+        kern(rows, torch.zeros(1, 1, device=cuda))
+    with pytest.raises(EnforceNotMet, match="rows"):
+        K.get_body("fused_matmul_int8", "kernel")(
+            rows, torch.zeros(1, 1, dtype=torch.int8, device=cuda),
+            torch.ones(1, device=cuda))
 
 
 @pytest.mark.cuda
@@ -454,20 +473,32 @@ def test_embedding_gather_grad_on_card_matches_cpu(cuda):
     torch.testing.assert_close(run(cuda), run("cpu"), atol=1e-6, rtol=1e-6)
 
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+_DTYPE_PAIRS = [(_F32, _F32), (_F32, _BF16), (_BF16, _F32), (_BF16, _BF16)]
+_ACTS = [None, "relu", "sigmoid", "tanh", "gelu"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,act,dtype,with_bias", [
-    (100, 128, 256, "sigmoid", torch.float32, True),   # word2vec's fc 1
-    (100, 256, 2073, None, torch.float32, True),       # word2vec's fc 2
-    (8192, 256, 2073, None, torch.float32, True),
-    (4096, 768, 3072, "relu", torch.bfloat16, True),   # BERT's FFN
-    (33, 70, 130, "tanh", torch.float32, False),
-    (1, 1, 1, "relu", torch.float32, True),
-    (65, 17, 63, "gelu", torch.bfloat16, True)])
+@pytest.mark.parametrize("m,k,n,act,dtype,w_dtype,with_bias", [
+    (100, 128, 256, "sigmoid", _F32, _F32, True),   # word2vec's fc 1
+    (100, 256, 2073, None, _F32, _F32, True),       # word2vec's fc 2
+    (8192, 256, 2073, None, _F32, _F32, True),
+    (4096, 768, 3072, "relu", _BF16, _BF16, True),  # BERT's FFN
+    (33, 70, 130, "tanh", _F32, _F32, False),
+    (1, 1, 1, "relu", _F32, _F32, True),
+    (65, 17, 63, "gelu", _BF16, _BF16, True)] + [
+    # every tile width the kernel picks (M 1 .. 4096), N off the 64-row
+    # tile, the four (x, w) dtype pairs, each activation in turn
+    (m, 256, n, _ACTS[i % 5], xd, wd, i % 3 > 0)
+    for i, (m, n, (xd, wd)) in enumerate(
+        (m, n, p) for m in (1, 8, 33, 100, 4096) for n in (10, 130, 2073)
+        for p in _DTYPE_PAIRS)])
 def test_fused_matmul_kernel_matches_plain(cuda, m, k, n, act, dtype,
-                                           with_bias):
+                                           w_dtype, with_bias):
     gen = torch.Generator(device=cuda).manual_seed(m + n)
     x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
-    w = (torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5).to(
+        w_dtype)
     b = torch.randn(n, generator=gen, device=cuda) if with_bias else None
     K.reset_launch_counts()
     out = K.fused_matmul(x, w, b, act)
@@ -477,12 +508,57 @@ def test_fused_matmul_kernel_matches_plain(cuda, m, k, n, act, dtype,
         ref = torch.nn.functional.gelu(ref)
     torch.cuda.synchronize()
     assert K.launch_counts()["fused_matmul"] == 1
-    assert out.dtype == dtype and out.shape == (m, n)
-    # fp32 sums of K products in another order: 1e-4 (bf16 inputs: exact
-    # fp32 products, the same sums), then one rounding to the output dtype
-    rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(out.float(), ref.to(dtype).float(),
+    out_dtype = torch.promote_types(dtype, w_dtype)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    # the kernel's TF32 passes carry each product to ~2^-22 relative (bf16
+    # operands: exactly), summed in fp32 in another order: 1e-4, then one
+    # rounding to the output dtype
+    rtol = BF16_RTOL if out_dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.to(out_dtype).float(),
                                atol=1e-4, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", _ACTS)
+@pytest.mark.parametrize("dtype,w_dtype", _DTYPE_PAIRS)
+def test_fused_matmul_kernel_keeps_inf_and_nan(cuda, dtype, w_dtype, act):
+    # inf, -inf and NaN in x and in w: the kernel's TF32 split keeps them in
+    # its first pass only, so every output is NaN, inf of a sign, or finite
+    # where the fp32 product is; under x's inf sit weights whose TF32 lo is
+    # 0, positive and negative
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    m, k, n = 33, 70, 130
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    w = torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5
+    x[0, 3], x[1, 5], x[2, 7] = float("inf"), float("-inf"), float("nan")
+    w[9, 4], w[11, 6], w[13, 8] = float("inf"), float("-inf"), float("nan")
+    w[3, 0], w[3, 1], w[3, 2] = 0.99999, 1.0, 1.0001
+    x, w = x.to(dtype), w.to(w_dtype)
+    b = torch.randn(n, generator=gen, device=cuda)
+    out = K.fused_matmul(x, w, b, act)
+    ref = K.get_body("fused_matmul", "reference")(
+        x, w, b, None if act == "gelu" else act)
+    if act == "gelu":
+        ref = torch.nn.functional.gelu(ref)
+    torch.cuda.synchronize()
+    assert out[2].isnan().all() and not out[3:].isfinite().all()
+    rtol = BF16_RTOL if out.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.to(out.dtype).float(),
+                               atol=1e-4, rtol=rtol, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_fused_matmul_kernel_is_fp32_accurate_at_bert_ffn(cuda):
+    # BERT's FFN in fp32 against the fp64 product: the three TF32 passes
+    # keep the tolerance that holds the kernel to the fp32 product
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn(4096, 768, generator=gen, device=cuda)
+    w = torch.randn(768, 3072, generator=gen, device=cuda) / 768 ** 0.5
+    b = torch.randn(3072, generator=gen, device=cuda)
+    out = K.fused_matmul(x, w, b, "relu")
+    exact = torch.relu(x.double() @ w.double() + b.double())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.double(), exact, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

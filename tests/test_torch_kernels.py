@@ -475,12 +475,48 @@ def test_flash_wrappers_copy_only_views_tma_cannot_take(monkeypatch):
     A._flash_bwd_dq_cuda(q, k, v, None, odd_rows, torch.zeros(B, N, S),
                          torch.zeros(B, N, S))
     (_, fwd, n_fwd), (_, dkdv, n_dkdv), (_, dq, n_dq) = launched
-    assert (n_fwd, n_dkdv, n_dq) == (1, 2, 0)     # k; k and dO; none
+    assert (n_fwd, n_dkdv, n_dq) == (1, 2, 2)     # k; k and dO; k and dO
     # forward: q and v as they are, k copied; strides follow the pointers
     assert fwd[0] == q.data_ptr() and fwd[2] == v.data_ptr()
     assert fwd[1] != k.data_ptr()
     assert fwd[10:13] == q.stride()[:3] and fwd[13:16] == (N * S * D, S * D, D)
-    # dK/dV: dO (odd rows) copied too; dQ (the SIMT kernel) copies nothing
-    assert dkdv[0] == q.data_ptr() and dkdv[1] != k.data_ptr()
-    assert dkdv[4] != odd_rows.data_ptr()
-    assert dq[1] == k.data_ptr() and dq[4] == odd_rows.data_ptr()
+    # dK/dV and dQ (both TMA kernels): dO (odd rows) copied too, q and v
+    # go as they are
+    for bwd in (dkdv, dq):
+        assert bwd[0] == q.data_ptr() and bwd[2] == v.data_ptr()
+        assert bwd[1] != k.data_ptr() and bwd[4] != odd_rows.data_ptr()
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype,w_dtype", [
+    (100, 256, 2073, torch.float32, torch.float32),    # word2vec's fc 2
+    (8, 256, 10, torch.float32, torch.float32),        # the serving MLP
+    (33, 70, 130, torch.float32, torch.float32),       # the ragged case
+    (100, 256, 2073, torch.float32, torch.bfloat16)])  # a bf16 weight
+def test_fused_matmul_wrapper_hands_ragged_shapes_to_the_kernel(
+        monkeypatch, m, k, n, x_dtype, w_dtype):
+    """The fused matmul kernel masks every edge itself (rows of w and x
+    aligned to no 16 bytes, N and K multiples of no tile), so the wrapper
+    passes x and w as they are, with their own shapes: no padded copy.
+    Pinned on the CPU with the launch captured in place of the card's."""
+    from paddle_tpu_torch.ops.kernels import matmul as MM
+    x = torch.randn(m, k).to(x_dtype)
+    w = torch.randn(k, n).to(w_dtype)
+    b = torch.randn(n)
+    launched = []
+
+    def launch(lib, fn, name, dev, *args):
+        launched.append((fn, name, args))
+
+    monkeypatch.setattr(MM._build, "load", lambda *a: None)
+    monkeypatch.setattr(MM, "_launch", launch)
+    monkeypatch.setattr(MM, "_require_cuda", lambda name, t: None)
+    out = MM._fused_matmul_cuda(x, w, b, "relu")
+    ((fn, name, args),) = launched
+    assert (fn, name) == ("pt_fused_matmul", "fused_matmul")
+    assert args[0] == x.data_ptr() and args[2] == w.data_ptr()
+    assert args[1:4:2] == (int(x_dtype == torch.bfloat16),
+                           int(w_dtype == torch.bfloat16))
+    assert args[4] == b.data_ptr() and args[5] == out.data_ptr()
+    assert args[6:9] == (m, n, k) and args[9] == 1    # M, N, K; relu
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    assert K.launch_counts()["fused_matmul"] == 0
