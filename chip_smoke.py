@@ -31,10 +31,14 @@ Phases; any failure raises and the script exits non-zero:
    and w through each activation, and BERT's FFN [4096,768]x[768,3072]
    relu in fp32 and bf16; the fp32 operations bound is three TF32 passes
    at 495 TFLOP/s, the least time an fp32-accurate product takes), the int8
-   fused matmul (the serving MLP's [1|8,256]x[256,256] relu and
-   [8,256]x[256,10], word2vec's two fcs at 64 rows, BERT's FFN shape and a
-   ragged [33,70,130] tanh without bias; ``addmm`` on the weight dequantized
-   beforehand is timed beside it as a yardstick of other work), and SGD and
+   fused matmul on the same tensor-core kernel (the serving MLP's
+   [1|8,256]x[256,256] relu and [8,256]x[256,10], word2vec's two fcs at 64
+   rows, with bf16 x too at the wider, BERT's FFN shape, also held against
+   an fp64 product of the dequantized weight, and a ragged [33,70,130] tanh
+   without bias; its bound is three bf16 passes for fp32 x, one for bf16
+   x, the int8 weight being exact in bf16;
+   ``addmm`` on the weight dequantized beforehand is timed beside it as a
+   yardstick of other work), and SGD and
    momentum (plain and nesterov) over word2vec's parameters, one launch
    per parameter as the static path makes them and one over the list, and
    over BERT-base's 154 tensors; the scatter-add (bench.py's CTR point
@@ -43,7 +47,9 @@ Phases; any failure raises and the script exits non-zero:
    inverse ids into [32768,768], phase 10's DeepFM-width CTR table
    [2600000,8] densified from one batch's ids and updated by its merged
    rows (uniform and skewed), a bf16 table and edge ids; two launches
-   bitwise equal, and bitwise equal to the plain body on the CPU) and the
+   bitwise equal, bitwise equal to the emulation of the kernel's two-level
+   summation order on the CPU, and within ``scatter_atol`` of the plain
+   body (ascending j) on the CPU and on the card) and the
    softmax cross-entropy (pretrain-512's gathered MLM head [5120,30528] in
    bf16 and fp32, bench.py's [512,32000], word2vec's ragged V 2073 and
    edge labels).
@@ -145,10 +151,14 @@ PEAK_OPS_PER_S = {                    # dense, NVIDIA data sheet (700 W)
     torch.bfloat16: 989e12,           # tensor cores
     # fp32-accurate products: the least the card takes is three TF32 passes
     # (hi*hi + hi*lo + lo*hi) on the tensor cores at 495 TFLOP/s, so 165
-    # (above the 67 of SIMT fp32; one TF32 pass is not fp32-accurate)
+    # (above the 67 of SIMT fp32; one TF32 pass is not fp32-accurate; six
+    # bf16 passes at 989 are no faster). With one side exact in bf16 (bf16,
+    # or an int8 weight, |q| <= 127) the bf16 tensor cores are faster: fp32
+    # x splits exactly into three bf16 pieces, so 989 / 3 (BERT's FFN with
+    # an int8 w is bound at 58.63 us), and bf16 x takes one pass (989);
+    # fmm_peak picks the rate
     torch.float32: 495e12 / 3,
 }
-TF32_OPS_PER_S = 495e12
 
 
 def log(*a):
@@ -297,9 +307,11 @@ def within(a, b, atol, rtol):
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
 
 
-def bound(nbytes, ops, dtype):
+def bound(nbytes, ops, dtype, ops_per_s=None):
+    """(the larger of the bytes' and the operations' least times in ms, which
+    of them); the operations at dtype's peak unless ``ops_per_s`` is given."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops / (ops_per_s or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -758,14 +770,16 @@ def check_embedding(K, h, d, dtype, n, gen, edge_ids=True):
 
 
 def fmm_peak(x_dtype, w_dtype):
-    """The least time's rate for the fused matmul's products: bf16 x bf16
-    on the bf16 tensor cores (exact products); fp32 x bf16 in two TF32
-    passes (the bf16 side has no lo part); fp32 x fp32 in three."""
-    if x_dtype == w_dtype == torch.bfloat16:
-        return PEAK_OPS_PER_S[torch.bfloat16]
-    if torch.bfloat16 in (x_dtype, w_dtype):
-        return TF32_OPS_PER_S / 2
-    return PEAK_OPS_PER_S[torch.float32]
+    """The least time's rate for the fused matmul's fp32-accurate products.
+    A bf16 operand, or an int8 weight (|q| <= 127), is exact in bf16, and
+    an fp32 one splits exactly into three bf16 pieces, so on the bf16
+    tensor cores (989 TFLOP/s) a product with one fp32 side takes three
+    passes and one with none a single pass; fp32 x fp32 takes three TF32
+    passes (165 TFLOP/s, as fast as the six bf16 ones it would need)."""
+    if x_dtype == w_dtype == torch.float32:
+        return PEAK_OPS_PER_S[torch.float32]
+    pieces = 3 if torch.float32 in (x_dtype, w_dtype) else 1
+    return PEAK_OPS_PER_S[torch.bfloat16] / pieces
 
 
 def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True,
@@ -803,11 +817,7 @@ def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True,
           f"{label}: kernel disagrees with plain: {err}")
     nbytes = (m * k * x.element_size() + k * n * w.element_size()
               + (n * 4 if b is not None else 0) + m * n * 4)
-    ops = 2 * m * n * k
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / fmm_peak(dtype, w_dtype) * 1e3
-    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                  else (t_ops, "operations"))
+    b_ms, b_by = bound(nbytes, 2 * m * n * k, dtype, fmm_peak(dtype, w_dtype))
     ms = device_ms(run_kernel, 20)
     plain_ms = device_ms(run_plain, 20)
     lib_ms, lib = None, None
@@ -825,7 +835,7 @@ def check_fused_matmul(K, m, k, n, act, dtype, gen, with_bias=True,
                max_abs_err=err, tol="atol 1e-4 rtol 1e-4 (fp32 out)", ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, library=lib,
                bound_ms=b_ms, bound_by=b_by,
-               tflops=ops / (ms * 1e-3) / 1e12,
+               tflops=2 * m * n * k / (ms * 1e-3) / 1e12,
                host_ms_per_call=host_ms(run_kernel, 200))
     log("check fused_matmul " + json.dumps(rec))
     return rec
@@ -866,18 +876,26 @@ def check_fused_matmul_special(K, gen):
         "fp32 and bf16, each activation: as the plain body")
 
 
-def check_fused_matmul_int8(K, m, k, n, act, gen, with_bias=True):
-    """The int8 fused matmul kernel (scale in the epilogue) against its
-    plain body (the whole weight dequantized first), fp32 x and out, the
-    weight quantized from a random fp32 one as export_aot(quantize="int8")
-    does. No single PyTorch call computes this function (library_ms null);
-    ``torch.addmm`` on the weight already dequantized to fp32 is timed
-    beside it as a yardstick of other work (no dequant, no activation)."""
+def int8_weight(k, n, gen):
+    """An int8 weight [k, n] and its scale table, quantized from a random
+    fp32 one as export_aot(quantize="int8") does."""
     from paddle_tpu_torch.static.opt_passes import quantize_weight_values
     wf = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
     q = quantize_weight_values({"w": wf}, ["w"], "int8")
-    w, scale = q["w"].cuda(), q["w@quant_scale"].cuda()
-    x = torch.randn(m, k, generator=gen, device="cuda")
+    return q["w"].cuda(), q["w@quant_scale"].cuda()
+
+
+def check_fused_matmul_int8(K, m, k, n, act, gen, with_bias=True,
+                            dtype=torch.float32):
+    """The int8 fused matmul kernel (scale in the epilogue) against its
+    plain body (the whole weight dequantized first), x in ``dtype``, fp32
+    out, the weight quantized from a random fp32 one as
+    export_aot(quantize="int8") does. No single PyTorch call computes this
+    function (library_ms null); ``torch.addmm`` on the weight already
+    dequantized to fp32 is timed beside it as a yardstick of other work (no
+    dequant, no activation)."""
+    w, scale = int8_weight(k, n, gen)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     b = torch.randn(n, generator=gen, device="cuda") if with_bias else None
     kern = K.get_body("fused_matmul_int8", "kernel")
     plain = K.get_body("fused_matmul_int8", "reference")
@@ -888,17 +906,20 @@ def check_fused_matmul_int8(K, m, k, n, act, gen, with_bias=True):
     # weight: atol 1e-4, rtol 1e-4 at outputs O(1)
     err = max_err(out, ref)
     check(within(out, ref, 1e-4, 1e-4),
-          f"fused_matmul_int8 [{m},{k}]x[{k},{n}] {act}: kernel disagrees "
-          f"with plain: {err}")
-    nbytes = m * k * 4 + k * n + n * 4 + (n * 4 if with_bias else 0) \
-        + m * n * 4
-    b_ms, b_by = bound(nbytes, 2 * m * n * k, torch.float32)
+          f"fused_matmul_int8 [{m},{k}]x[{k},{n}] {act} {dtype}: kernel "
+          f"disagrees with plain: {err}")
+    nbytes = m * k * x.element_size() + k * n + n * 4 \
+        + (n * 4 if with_bias else 0) + m * n * 4
+    b_ms, b_by = bound(nbytes, 2 * m * n * k, dtype,
+                       fmm_peak(dtype, torch.int8))
     ms = device_ms(lambda: kern(x, w, scale, b, act), 20)
     plain_ms = device_ms(lambda: plain(x, w, scale, b, act), 20)
     wd = w.float() * (scale / 127.0)
-    yard_ms = device_ms((lambda: torch.addmm(b, x, wd)) if with_bias
-                        else (lambda: torch.mm(x, wd)), 20)
-    rec = dict(shape=[m, k, n], act=act, bias=with_bias, max_abs_err=err,
+    xf = x.float()
+    yard_ms = device_ms((lambda: torch.addmm(b, xf, wd)) if with_bias
+                        else (lambda: torch.mm(xf, wd)), 20)
+    rec = dict(shape=[m, k, n], act=act, dtype=str(dtype), bias=with_bias,
+               max_abs_err=err,
                tol="atol 1e-4 rtol 1e-4 (fp32 out)", ms=ms,
                plain_ms=plain_ms, library_ms=None, library="none",
                addmm_dequantized_ms=yard_ms,
@@ -911,6 +932,32 @@ def check_fused_matmul_int8(K, m, k, n, act, gen, with_bias=True):
                                         200))
     log("check fused_matmul_int8 " + json.dumps(rec))
     return rec
+
+
+def check_fused_matmul_int8_accuracy(K, m, k, n, gen):
+    """The int8 kernel's accuracy at BERT's FFN: fp32 x and bf16 x against
+    an fp64 product of the dequantized weight (the scale applied in fp64),
+    with the tolerance the kernel keeps against its plain body (atol 1e-4,
+    rtol 1e-4: fp32 x takes two TF32 passes, hi and lo of x; bf16 x and
+    the int8 weight are exact in TF32)."""
+    w, scale = int8_weight(k, n, gen)
+    b = torch.randn(n, generator=gen, device="cuda")
+    wd = w.double() * (scale.double() / 127.0)
+    kern = K.get_body("fused_matmul_int8", "kernel")
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        out = kern(x, w, scale, b, None)
+        ref = x.double() @ wd + b.double()
+        torch.cuda.synchronize()
+        errs[str(dt)] = max_err(out.double(), ref)
+        check(within(out.double(), ref, 1e-4, 1e-4),
+              f"fused_matmul_int8 [{m},{k}]x[{k},{n}] {dt} vs fp64: "
+              f"{errs[str(dt)]}")
+    log("check fused_matmul_int8 accuracy " + json.dumps(dict(
+        shape=[m, k, n], max_abs_err_vs_fp64=errs,
+        tol="atol 1e-4 rtol 1e-4 against x @ (w * scale / 127) + b in "
+            "fp64")))
 
 
 def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
@@ -980,9 +1027,10 @@ def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
 
 
 def scatter_atol(ids, h, upd):
-    """Tolerance of the scatter-add against its plain body on the card,
-    which sums with atomics in another order: each of a row's c adds may
-    round by 2^-24 of the partial sum, so 1e-6 * c_max * max|update|."""
+    """Tolerance of the scatter-add against its plain body, which sums in
+    another order (ascending j on the CPU, atomics on the card) than the
+    kernel's two levels: each of a row's c adds may round by 2^-24 of the
+    partial sum, so 1e-6 * c_max * max|update|."""
     wrapped = torch.where(ids < 0, ids + h, ids).long()
     valid = (ids >= -h) & (ids < h)
     c_max = torch.bincount(wrapped[valid], minlength=1).max().item()
@@ -992,13 +1040,15 @@ def scatter_atol(ids, h, upd):
 def check_scatter_add(K, label, dst, ids, upd, edge=False):
     """The scatter-add kernel against its plain body on ``dst`` [h, d],
     ``ids`` [n] and ``upd`` [n, d] on the card: two launches bitwise
-    equal (no atomics), bitwise equal to the plain body on the CPU (whose
-    index_add_ sums in ascending j, as the kernel), and within
-    :func:`scatter_atol` of the plain body on the card. With ``edge``, the
-    checked ids include -1 and -h (wrap once), h and -h-1 (dropped). Timed
-    on the valid ids beside ``dst.index_add(0, ids, upd)``, the same
-    function with atomic order; one more call profiled (the keys, sort,
-    memset, marking and summing kernels by time)."""
+    equal (no atomics); bitwise equal to ``_scatter_add_two_level`` on the
+    CPU, the plain emulation of the kernel's fixed two-level order; within
+    :func:`scatter_atol` of the plain body (ascending j) on the CPU and on
+    the card. With ``edge``, the checked ids include -1 and -h (wrap once),
+    h and -h-1 (dropped). Timed on the valid ids beside
+    ``dst.index_add(0, ids, upd)``, the same function with atomic order;
+    one more call profiled (the keys, sort, summing and join kernels by
+    time)."""
+    from paddle_tpu_torch.ops.kernels.embedding import _scatter_add_two_level
     h, d = dst.shape
     n = ids.numel()
     kern = K.get_body("embedding_scatter_add", "kernel")
@@ -1008,15 +1058,20 @@ def check_scatter_add(K, label, dst, ids, upd, edge=False):
         test_ids[:4] = torch.tensor([-1, -h, h, -h - 1], device="cuda")
     out, again = kern(dst, test_ids, upd), kern(dst, test_ids, upd)
     ref = plain(dst, test_ids, upd)
-    cpu = plain(dst.cpu(), test_ids.cpu(), upd.cpu())
+    args_cpu = (dst.cpu(), test_ids.cpu(), upd.cpu())
+    cpu = plain(*args_cpu)
+    emulated = _scatter_add_two_level(*args_cpu)
     torch.cuda.synchronize()
     check(torch.equal(out, again), f"embedding_scatter_add {label}: two "
                                    "launches differ")
-    check(torch.equal(out.cpu(), cpu), f"embedding_scatter_add {label}: "
-          f"kernel differs from the plain body on the CPU: "
-          f"{max_err(out.cpu(), cpu)}")
+    check(torch.equal(out.cpu(), emulated), f"embedding_scatter_add "
+          f"{label}: kernel differs from the two-level emulation on the "
+          f"CPU: {max_err(out.cpu(), emulated)}")
     atol = scatter_atol(test_ids, h, upd)
     rtol = 2.0 ** -7 if dst.dtype == torch.bfloat16 else 1e-6
+    cpu_err = max_err(out.cpu(), cpu)
+    check(within(out.cpu(), cpu, atol, rtol), f"embedding_scatter_add "
+          f"{label}: kernel disagrees with plain on the CPU: {cpu_err}")
     err = max_err(out, ref)
     check(within(out, ref, atol, rtol), f"embedding_scatter_add {label}: "
           f"kernel disagrees with plain on the card: {err}")
@@ -1028,9 +1083,10 @@ def check_scatter_add(K, label, dst, ids, upd, edge=False):
     lib_ms = device_ms(lambda: dst.index_add(0, ids, upd), 20)
     rec = dict(label=label, dst=[h, d], dtype=str(dst.dtype),
                updates_dtype=str(upd.dtype), ids=n, ids_dtype=str(ids.dtype),
-               edge_ids=edge, max_abs_err=err,
-               tol=f"bitwise on repeat and against the plain body on the "
-                   f"CPU; card plain: atol {atol:.3g}, rtol {rtol:.3g}",
+               edge_ids=edge, max_abs_err=err, max_abs_err_cpu=cpu_err,
+               tol=f"bitwise on repeat and against the two-level emulation "
+                   f"on the CPU; plain body (CPU and card): atol "
+                   f"{atol:.3g}, rtol {rtol:.3g}",
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library="Tensor.index_add", bound_ms=b_ms, bound_by=b_by,
                bytes=nbytes, host_ms_per_call=host_ms(
@@ -1176,11 +1232,14 @@ KERNEL_GROUPS = (
     ("fused_layer_norm", r"layer_norm_fwd_kernel"),
     ("fused_adam", r"fused_adam_kernel"),
     ("embedding_gather", r"::gather_kernel<"),
-    ("fused_matmul_int8", r"fused_matmul_kernel<\w+, signed char"),
+    ("fused_matmul_int8", r"fused_matmul_(wgmma_)?kernel<\w+, signed char"),
     ("fused_matmul", r"fused_matmul_(wgmma_)?kernel"),
     ("fused_sgd", r"fused_sgd_kernel"),
     ("fused_momentum", r"fused_momentum_kernel"),
-    ("embedding_scatter_add", r"scatter_(keys|mark|add|add_long)_kernel"),
+    # the port's own CUB sort (namespace cub::, where torch's is
+    # at_cuda_detail::cub::) is the scatter-add's index preparation
+    ("embedding_scatter_add",
+     r"scatter_(keys|sum|join)_kernel|^(void )?cub::"),
     ("softmax_cross_entropy", r"xent_kernel"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet|sm90_"),
     ("softmax", r"softmax"),
@@ -2292,6 +2351,10 @@ def main():
                 (33, 70, 130, "tanh", False)):
             fmm8[(m, k, n)] = check_fused_matmul_int8(K, m, k, n, act, gen,
                                                       with_bias=bias)
+        # bf16 x (one TF32 pass), and the FFN against fp64
+        check_fused_matmul_int8(K, 64, W2V_HIDDEN, W2V_VOCAB, None, gen,
+                                dtype=torch.bfloat16)
+        check_fused_matmul_int8_accuracy(K, 4096, 768, 3072, gen)
         from paddle_tpu_torch.core.tree import leaves
         bert_shapes = [t.shape for t in leaves(bert.init_params(
             bert.bert_base(), gen))]

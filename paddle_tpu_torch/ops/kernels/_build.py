@@ -1,5 +1,5 @@
 """Build the CUDA kernels with nvcc on first use, bind them with ctypes,
-and check their launches.
+and launch them.
 
 Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers, so a
 build takes seconds, not minutes). It is compiled for ``sm_90a`` into its
@@ -20,10 +20,13 @@ import subprocess
 import threading
 import time
 
+import torch
+
 from paddle_tpu_torch.core.enforce import EnforceNotMet
+from paddle_tpu_torch.ops.kernels import registry
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "SOURCES", "NVCC_FLAGS",
-           "build", "load", "check_launch",
+           "build", "load", "launch", "check_launch", "require_cuda",
            "source_path"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -130,16 +133,18 @@ def _build_locked(names):
 
 def load(name, signatures):
     """The ctypes library of kernel ``name``, built first if needed, with
-    ``signatures`` ({C function: argtypes}, each returning int) and
-    ``pt_cuda_error_string`` declared."""
+    ``signatures`` ({C function: argtypes, returning int, or (argtypes,
+    restype)}) and ``pt_cuda_error_string`` declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = _build_locked([name])[name]["path"]
             lib = ctypes.CDLL(path)
-            for fn, argtypes in signatures.items():
+            for fn, sig in signatures.items():
+                argtypes, restype = (sig if isinstance(sig, tuple)
+                                     else (sig, ctypes.c_int))
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = restype
             lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.pt_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -157,3 +162,23 @@ def check_launch(lib, kernel_name, err):
         raise KernelLaunchError(
             f"{kernel_name}: kernel launch failed with CUDA error {err} "
             f"({msg})")
+
+
+def launch(lib, fn, name, device, *args, count=True):
+    """Call ``fn`` of ``lib`` with ``args`` and the current stream of
+    ``device`` (every launching C function takes the stream last); raise
+    unless CUDA accepted the launch; with ``count``, count one launch of
+    kernel ``name``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    check_launch(lib, name, err)
+    if count:
+        registry.get_kernel(name).count_launch()
+
+
+def require_cuda(name, what, t):
+    """Raise unless tensor ``t`` (named ``what``) is on a CUDA device."""
+    if t.device.type != "cuda":
+        raise EnforceNotMet(f"{name}: the kernel takes CUDA tensors, got "
+                            f"{what} on {t.device}")

@@ -246,14 +246,6 @@ def _strides(t):
                  for n, s in zip(t.shape[:3], t.stride()[:3]))
 
 
-def _launch(lib, fn, name, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    _build.check_launch(lib, name, err)
-    registry.get_kernel(name).count_launch()
-
-
 def _flash_attention_cuda(q, k, v, bias=None, causal=False, sm_scale=None,
                           return_lse=False):
     """Launch ``csrc/flash_attention_fwd.cu`` on the current stream (no
@@ -265,7 +257,7 @@ def _flash_attention_cuda(q, k, v, bias=None, causal=False, sm_scale=None,
     o = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_fwd", _FWD_SIGNATURES)
-    _launch(lib, "pt_flash_attention_fwd", NAME, q.device,
+    _build.launch(lib, "pt_flash_attention_fwd", NAME, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, h, s, d,
@@ -306,7 +298,7 @@ def _flash_bwd_dkdv_cuda(q, k, v, bias, do, lse, delta, causal=False,
     dv = torch.empty_like(dk)
     dbh = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    _launch(lib, "pt_flash_attention_bwd_dkdv", DKDV, q.device,
+    _build.launch(lib, "pt_flash_attention_bwd_dkdv", DKDV, q.device,
             *_ptrs(operands), dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(),
             b, h, s, d, *strides, float(_scale(q, sm_scale)),
             int(bool(causal)), _DTYPE_CODES[q.dtype])
@@ -321,7 +313,7 @@ def _flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, causal=False,
                                                 delta)
     dq = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    _launch(lib, "pt_flash_attention_bwd_dq", DQ, q.device,
+    _build.launch(lib, "pt_flash_attention_bwd_dq", DQ, q.device,
             *_ptrs(operands), dq.data_ptr(), b, h, s, d, *strides,
             float(_scale(q, sm_scale)), int(bool(causal)),
             _DTYPE_CODES[q.dtype])

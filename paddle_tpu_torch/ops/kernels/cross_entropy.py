@@ -106,9 +106,7 @@ def _softmax_xent_cuda(logits, labels, block_n=128):
     """Launch ``csrc/softmax_xent.cu`` on the current stream (no sync)."""
     del block_n
     dev = logits.device
-    if dev.type != "cuda":
-        raise EnforceNotMet(f"{NAME}: the kernel takes CUDA tensors, got "
-                            f"logits on {dev}")
+    _build.require_cuda(NAME, "logits", logits)
     if logits.dtype not in _DTYPE_CODES or logits.dim() < 1 \
             or not logits.is_contiguous() or logits.shape[-1] == 0:
         raise EnforceNotMet(
@@ -128,14 +126,9 @@ def _softmax_xent_cuda(logits, labels, block_n=128):
     es = logits.element_size()
     vec = next(w for w in (8, 4, 2, 1) if w * es <= 16 and v % w == 0
                and logits.data_ptr() % (w * es) == 0)
-    lib = _build.load("softmax_xent", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_softmax_xent(
-            logits.data_ptr(), labels.data_ptr(),
-            int(labels.dtype == torch.int64), loss.data_ptr(),
-            lse.data_ptr(), n, v, _DTYPE_CODES[logits.dtype], vec, stream)
-    _build.check_launch(lib, NAME, err)
-    if n:
-        registry.get_kernel(NAME).count_launch()
+    _build.launch(_build.load("softmax_xent", _SIGNATURES),
+                  "pt_softmax_xent", NAME, dev, logits.data_ptr(),
+                  labels.data_ptr(), int(labels.dtype == torch.int64),
+                  loss.data_ptr(), lse.data_ptr(), n, v,
+                  _DTYPE_CODES[logits.dtype], vec, count=n > 0)
     return loss, lse

@@ -18,19 +18,26 @@
 // in device memory.
 //
 // What bounds it on the H100: operations, where the product is fp32-accurate. The least
-// time the card takes for an fp32-accurate product is three TF32 passes on the tensor cores
-// (below), 495 / 3 = 165 TFLOP/s: BERT's FFN [4096,768]x[768,3072] (19.3 GFLOP) is bound at
-// 117 us, word2vec's [100,256]x[256,2073] (106 MFLOP, 3.1 MB moved) at 0.91 us by bytes,
-// and [8192,256]x[256,2073] at 52.7 us. The served micro-batches ([1|8,256]x[256,256], 1 MFLOP
+// time the card takes for one: fp32 x fp32 takes three TF32 passes (165 TFLOP/s). A bf16
+// operand, or an int8 weight (|q| <= 127), is exact in bf16 and an fp32 one splits exactly
+// into three bf16 pieces, so with one such side the bf16 tensor cores take three passes
+// (989 / 3 = 330 TFLOP/s) for fp32 x and one (989) for bf16 x. BERT's FFN
+// [4096,768]x[768,3072] (19.3 GFLOP) is bound at 117 us in fp32 and at 59 us with an int8
+// w; word2vec's [100,256]x[256,2073] (106 MFLOP, 3.1 MB moved) at 0.91 us by bytes, and
+// [8192,256]x[256,2073] at 52.7 us. The served micro-batches ([1|8,256]x[256,256], 1 MFLOP
 // over 0.3 MB) are bound by latency: what counts there is the number of dependent steps.
 //
-// What the design does about it (fused_matmul_wgmma_kernel, fp32 and bf16 operands): the
-// products run on the tensor cores in TF32 (wgmma m64nNk8), with the accuracy of fp32. Each
-// fp32 operand is split into hi = tf32(v) and lo = tf32(v - hi) (rounded to nearest: wgmma
-// would truncate), and each k8 step takes a_hi b_hi + a_hi b_lo + a_lo b_hi into one fp32
+// What the design does about it (fused_matmul_wgmma_kernel, every entry): the products run
+// on the tensor cores in TF32 (wgmma m64nNk8), with the accuracy of fp32. Each fp32 operand
+// is split into hi = tf32(v) and lo = tf32(v - hi) (rounded to nearest: wgmma would
+// truncate), and each k8 step takes a_hi b_hi + a_hi b_lo + a_lo b_hi into one fp32
 // accumulator; the missing a_lo b_lo and the rounding of lo are ~2^-22 of each product, the
-// error of an fp32 sum. A bf16 operand is exact in TF32 and has no lo part, so fp32 x bf16
-// takes two passes and bf16 x bf16 one. A value that is inf or NaN keeps it in hi (pass one
+// error of an fp32 sum. A bf16 operand is exact in TF32 and has no lo part, and so is an
+// int8 weight (|q| <= 127): fp32 x bf16 and fp32 x int8 take two passes, bf16 x bf16 and
+// bf16 x int8 one (at 495, where the bound's bf16 passes run at 989). An int8 weight is read
+// as bytes (rows of 10 or 2,073 bytes need no padded copy), converted to fp32 where it is
+// split, and its scale multiplies each column's fp32 sum in the epilogue, before the bias.
+// A value that is inf or NaN keeps it in hi (pass one
 // gives inf * w what the fp32 product gives) and has lo = 0; the cross passes read a copy of
 // hi with such values zeroed ("hif"), since inf * a lo of 0 would be NaN and inf * a lo of
 // the other sign would cancel pass one's inf. TF32 wgmma reads only K-major operands from
@@ -57,14 +64,6 @@
 // chain of dependent steps, and add their sums in a fixed order at the end. The bias and the
 // activation run on the fp32 accumulators before the one store. NaN behaviour follows
 // activate<> below.
-//
-// The int8 entry keeps the first, SIMT version (fused_matmul_kernel): each block of 256
-// threads owns a 64x64 output tile and walks K in steps of 16, staging a 64x16 slice of x
-// (transposed, as fp32) and a 16x64 slice of w (an int8 weight read with byte loads and
-// converted sign-correctly, so rows of any width need no padding) in shared memory; each
-// thread accumulates a 4x4 sub-tile with fused multiply-adds. The scale (each thread reads its
-// four columns' entries once), bias and activation run on the registers before the one store.
-// int8 converts to TF32 exactly, so it can move onto the tensor-core mainloop with one pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,13 +75,7 @@
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256;
-
 enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kTanh = 3 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
 constexpr float kQuantBins = 127.f;  // int8 per-channel abs-max: w = q * scale / 127
 
@@ -103,109 +96,7 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-// ------------------------------------------------------------ int8: SIMT
-template <typename TX, typename TW, int ACT>
-__global__ void __launch_bounds__(kThreads)
-fused_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                    const float* __restrict__ scale, const float* __restrict__ bias,
-                    float* __restrict__ out, int64_t M, int64_t N, int64_t K) {
-  __shared__ float xs[kBK][kBM + 1];  // x slice, transposed: xs[k][m]
-  __shared__ float ws[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int64_t k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int idx = tid + r * kThreads;
-      // x: 64 rows x 16 columns, 16 neighbouring threads on one row
-      const int xm = idx / kBK, xk = idx % kBK;
-      const int64_t gm = m0 + xm, gk = k0 + xk;
-      xs[xk][xm] = (gm < M && gk < K) ? to_f32(x[gm * K + gk]) : 0.f;
-      // w: 16 rows x 64 columns, 64 neighbouring threads on one row
-      const int wk = idx / kBN, wn = idx % kBN;
-      const int64_t hk = k0 + wk, hn = n0 + wn;
-      ws[wk][wn] = (hk < K && hn < N) ? to_f32(w[hk * N + hn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  constexpr bool kDequant = std::is_same<TW, int8_t>::value;
-  float col_scale[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int64_t gn = n0 + tx + 16 * j;
-    col_scale[j] = (kDequant && gn < N) ? scale[gn] / kQuantBins : 1.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      float v = acc[i][j];
-      if (kDequant) v *= col_scale[j];
-      if (bias != nullptr) v += bias[gn];
-      out[gm * N + gn] = activate<ACT>(v);
-    }
-  }
-}
-
-template <typename TX, typename TW>
-int launch_act(const void* x, const void* w, const float* scale, const float* bias, float* out,
-               int64_t M, int64_t N, int64_t K, int act, cudaStream_t s) {
-  const int64_t gy = (M + kBM - 1) / kBM, gx = (N + kBN - 1) / kBN;
-  if (gy > 65535 || gx > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  const TX* xp = static_cast<const TX*>(x);
-  const TW* wp = static_cast<const TW*>(w);
-  switch (act) {
-    case kNone:
-      fused_matmul_kernel<TX, TW, kNone>
-          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
-      break;
-    case kRelu:
-      fused_matmul_kernel<TX, TW, kRelu>
-          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
-      break;
-    case kSigmoid:
-      fused_matmul_kernel<TX, TW, kSigmoid>
-          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
-      break;
-    case kTanh:
-      fused_matmul_kernel<TX, TW, kTanh>
-          <<<grid, kThreads, 0, s>>>(xp, wp, scale, bias, out, M, N, K);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------- fp32 / bf16: tensor cores
+// ------------------------------------------------------------ tensor cores
 constexpr int kTcBK = 16;       // k per slice: two TF32 k8 steps
 constexpr int kTcStages = 6;    // shared-memory stages of split x slices
 constexpr int kTcAhead = 2;     // slices of w a consumer thread has in flight
@@ -316,15 +207,22 @@ __device__ __forceinline__ void unpack_x4(const uint32_t (&r)[4], bool vec, floa
   }
 }
 
-// One element of w as loaded (fp32 bits, or bf16 bits in the low half), and
-// as fp32: the conversion waits for the load, so it runs only at the split.
+// One element of w as loaded (fp32 bits, bf16 bits in the low half, or an
+// int8's byte zero-extended: a load that widens nothing after it), and as
+// fp32: the conversion waits for the load, so it runs only at the split.
 __device__ __forceinline__ uint32_t load_bits(const float* p) { return __float_as_uint(__ldg(p)); }
 __device__ __forceinline__ uint32_t load_bits(const __nv_bfloat16* p) {
   return __bfloat16_as_ushort(*p);
 }
+__device__ __forceinline__ uint32_t load_bits(const int8_t* p) {
+  return __ldg(reinterpret_cast<const unsigned char*>(p));
+}
 template <typename TW>
 __device__ __forceinline__ float bits_to_f32(uint32_t b) {
-  return __uint_as_float(std::is_same<TW, float>::value ? b : b << 16);
+  if constexpr (std::is_same<TW, float>::value) return __uint_as_float(b);
+  if constexpr (std::is_same<TW, int8_t>::value)
+    return static_cast<float>(static_cast<int8_t>(b & 0xffu));  // exact: |q| <= 127
+  return __uint_as_float(b << 16);
 }
 
 // The two consumer warpgroups alone (the producer warpgroup may have exited).
@@ -333,12 +231,15 @@ __device__ __forceinline__ void consumer_barrier() {
 }
 
 // One block per (64 or 128 output columns, BN output rows): out^T = w^T x^T.
+// An int8 w (TW = int8_t) takes scale [N]; the others take none.
 template <typename TX, typename TW, int BN>
 __global__ void __launch_bounds__(384, 1)
 fused_matmul_wgmma_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                          const float* __restrict__ bias, float* __restrict__ out, int64_t M,
-                          int64_t N, int64_t K, int act, int x_vec) {
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          float* __restrict__ out, int64_t M, int64_t N, int64_t K, int act,
+                          int x_vec) {
   constexpr bool kLoA = std::is_same<TW, float>::value;
+  constexpr bool kDequant = std::is_same<TW, int8_t>::value;
   constexpr bool kLoB = std::is_same<TX, float>::value;
   using T = FmmTile<BN, kLoA, kLoB>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -483,25 +384,29 @@ fused_matmul_wgmma_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   }
 
   // epilogue: accumulator row 16 warp + g (+ 8) is output column n, column
-  // 8 j + 2 t4 (+ 1) is output row m
+  // 8 j + 2 t4 (+ 1) is output row m; an int8 w's column scale, then the bias
+  // and the activation
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int64_t n = na + 8 * r;
     if (n >= N) continue;
     const float bn = bias != nullptr ? bias[n] : 0.f;
+    const float sn = kDequant ? scale[n] / kQuantBins : 1.f;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int64_t m = m0 + 8 * j + 2 * t4 + e;
-        if (m < M) out[m * N + n] = activate(acc[4 * j + 2 * r + e] + bn, act);
+        float v = acc[4 * j + 2 * r + e];
+        if constexpr (kDequant) v *= sn;
+        if (m < M) out[m * N + n] = activate(v + bn, act);
       }
   }
 }
 
 template <typename TX, typename TW, int BN>
-int launch_tc(const void* x, const void* w, const float* bias, float* out, int64_t M,
-              int64_t N, int64_t K, int act, int x_vec, cudaStream_t s) {
+int launch_tc(const void* x, const void* w, const float* scale, const float* bias, float* out,
+              int64_t M, int64_t N, int64_t K, int act, int x_vec, cudaStream_t s) {
   using T = FmmTile<BN, std::is_same<TW, float>::value, std::is_same<TX, float>::value>;
   constexpr int kCols = 64 * T::kRowGroups;
   const int64_t gx = (N + kCols - 1) / kCols, gy = (M + BN - 1) / BN;
@@ -512,8 +417,8 @@ int launch_tc(const void* x, const void* w, const float* bias, float* out, int64
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
   kernel<<<grid, T::kThreads, T::kSmemBytes, s>>>(static_cast<const TX*>(x),
-                                                   static_cast<const TW*>(w), bias, out, M, N,
-                                                   K, act, x_vec);
+                                                   static_cast<const TW*>(w), scale, bias, out,
+                                                   M, N, K, act, x_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -522,19 +427,19 @@ int launch_tc(const void* x, const void* w, const float* bias, float* out, int64
 // they give at least half the card's 132 SMs a block, else 64 x 32 tiles, or
 // 64 x 64 where those would take more than two waves.
 template <typename TX, typename TW>
-int launch_fp(const void* x, const void* w, const float* bias, float* out, int64_t M,
-              int64_t N, int64_t K, int act, cudaStream_t s) {
+int launch_fp(const void* x, const void* w, const float* scale, const float* bias, float* out,
+              int64_t M, int64_t N, int64_t K, int act, cudaStream_t s) {
   if (act < kNone || act > kTanh) return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align = std::is_same<TX, float>::value ? 16 : 8;
   const int x_vec = (reinterpret_cast<uintptr_t>(x) % align == 0 && K % 4 == 0) ? 1 : 0;
-  if (M <= 8) return launch_tc<TX, TW, 8>(x, w, bias, out, M, N, K, act, x_vec, s);
-  if (M <= 16) return launch_tc<TX, TW, 16>(x, w, bias, out, M, N, K, act, x_vec, s);
-  if (M <= 32) return launch_tc<TX, TW, 32>(x, w, bias, out, M, N, K, act, x_vec, s);
+  if (M <= 8) return launch_tc<TX, TW, 8>(x, w, scale, bias, out, M, N, K, act, x_vec, s);
+  if (M <= 16) return launch_tc<TX, TW, 16>(x, w, scale, bias, out, M, N, K, act, x_vec, s);
+  if (M <= 32) return launch_tc<TX, TW, 32>(x, w, scale, bias, out, M, N, K, act, x_vec, s);
   if (((N + 127) / 128) * ((M + 127) / 128) >= 66)
-    return launch_tc<TX, TW, 128>(x, w, bias, out, M, N, K, act, x_vec, s);
+    return launch_tc<TX, TW, 128>(x, w, scale, bias, out, M, N, K, act, x_vec, s);
   if (((N + 63) / 64) * ((M + 31) / 32) <= 2 * 132)
-    return launch_tc<TX, TW, 32>(x, w, bias, out, M, N, K, act, x_vec, s);
-  return launch_tc<TX, TW, 64>(x, w, bias, out, M, N, K, act, x_vec, s);
+    return launch_tc<TX, TW, 32>(x, w, scale, bias, out, M, N, K, act, x_vec, s);
+  return launch_tc<TX, TW, 64>(x, w, scale, bias, out, M, N, K, act, x_vec, s);
 }
 
 }  // namespace
@@ -550,10 +455,12 @@ extern "C" int pt_fused_matmul(const void* x, int x_bf16, const void* w, int w_b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
-  if (!x_bf16 && !w_bf16) return launch_fp<float, float>(x, w, b, o, M, N, K, act, s);
-  if (!x_bf16 && w_bf16) return launch_fp<float, __nv_bfloat16>(x, w, b, o, M, N, K, act, s);
-  if (x_bf16 && !w_bf16) return launch_fp<__nv_bfloat16, float>(x, w, b, o, M, N, K, act, s);
-  return launch_fp<__nv_bfloat16, __nv_bfloat16>(x, w, b, o, M, N, K, act, s);
+  if (!x_bf16 && !w_bf16) return launch_fp<float, float>(x, w, nullptr, b, o, M, N, K, act, s);
+  if (!x_bf16 && w_bf16)
+    return launch_fp<float, __nv_bfloat16>(x, w, nullptr, b, o, M, N, K, act, s);
+  if (x_bf16 && !w_bf16)
+    return launch_fp<__nv_bfloat16, float>(x, w, nullptr, b, o, M, N, K, act, s);
+  return launch_fp<__nv_bfloat16, __nv_bfloat16>(x, w, nullptr, b, o, M, N, K, act, s);
 }
 
 // The weight-only int8 form: x as above; w: int8 [K, N] row-major; scale: fp32 [N], the
@@ -568,8 +475,8 @@ extern "C" int pt_fused_matmul_int8(const void* x, int x_bf16, const void* w, co
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
-  if (!x_bf16) return launch_act<float, int8_t>(x, w, sc, b, o, M, N, K, act, s);
-  return launch_act<__nv_bfloat16, int8_t>(x, w, sc, b, o, M, N, K, act, s);
+  if (!x_bf16) return launch_fp<float, int8_t>(x, w, sc, b, o, M, N, K, act, s);
+  return launch_fp<__nv_bfloat16, int8_t>(x, w, sc, b, o, M, N, K, act, s);
 }
 
 extern "C" const char* pt_cuda_error_string(int err) {

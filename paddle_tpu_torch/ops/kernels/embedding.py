@@ -11,7 +11,11 @@ in the scatter-add (``.at[].add``). (The Pallas bodies turn negative ids
 into NaN rows, or drop them, instead; the port follows the stock ones,
 which every CPU run of the reference uses.) The kernels are
 ``csrc/embedding.cu``; CPU tensors take :func:`_embedding_gather_reference`
-and :func:`_embedding_scatter_add_reference`.
+and :func:`_embedding_scatter_add_reference`. The scatter-add kernel sums in
+a fixed two-level order (chunks of ``_CHUNK`` sorted positions, then each
+row's chunk sums), which :func:`_scatter_add_two_level` emulates for the
+checks; the TPU kernel adds a one-hot product in the MXU's order, so what
+the port keeps is the stock sum within fp32 rounding, deterministically.
 
 When the table requires grad the gather goes through :class:`_GatherFunction`,
 whose backward is the plain PyTorch port of ``_gather_bwd`` on either device
@@ -40,17 +44,18 @@ _SIGNATURES = {
                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                             ctypes.c_int64, ctypes.c_int, ctypes.c_uint32,
                             ctypes.c_void_p],
-    "pt_embedding_scatter_keys": [ctypes.c_void_p, ctypes.c_int,
-                                  ctypes.c_void_p, ctypes.c_int64,
-                                  ctypes.c_int64, ctypes.c_void_p],
-    "pt_embedding_scatter_add": [ctypes.c_void_p] * 7 + [
+    "pt_embedding_scatter_sort_bytes": ([ctypes.c_int64, ctypes.c_int64],
+                                        ctypes.c_int64),
+    "pt_embedding_scatter_sort": [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p],
+    "pt_embedding_scatter_add": [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_void_p],
 }
-#: the longest run of one row's ids that a thread of the scatter-add sums
-#: itself (``kLongRun`` in ``csrc/embedding.cu``); longer runs get a block
-#: each, and the scratch listing them is sized from it
-_LONG_RUN = 64
+#: sorted positions per chunk of the scatter-add's summation order
+#: (``kChunk`` in ``csrc/embedding.cu``): the kernel keeps two fp32 partial
+#: rows per chunk, and the wrapper sizes that scratch from it
+_CHUNK = 256
 #: dst and update dtypes of the scatter-add kernel
 _SCATTER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -110,9 +115,7 @@ def _embedding_gather_reference(table, ids):
 def _embedding_gather_cuda(table, ids):
     """Launch ``csrc/embedding.cu`` on the current stream (no sync)."""
     dev = table.device
-    if dev.type != "cuda":
-        raise EnforceNotMet(f"{NAME}: the kernel takes CUDA tensors, got a "
-                            f"table on {dev}")
+    _build.require_cuda(NAME, "table", table)
     if table.dtype not in _NAN_WORDS or table.dim() != 2 \
             or not table.is_contiguous():
         raise EnforceNotMet(
@@ -129,15 +132,10 @@ def _embedding_gather_cuda(table, ids):
     row_bytes = d * table.element_size()
     word = next(w for w in (16, 4, 2) if row_bytes % w == 0
                 and table.data_ptr() % w == 0 and out.data_ptr() % w == 0)
-    lib = _build.load("embedding", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_embedding_gather(
-            table.data_ptr(), ids_c.data_ptr(), int(ids_c.dtype == torch.int64),
-            out.data_ptr(), n, h, row_bytes, word, _NAN_WORDS[table.dtype],
-            stream)
-    _build.check_launch(lib, NAME, err)
-    registry.get_kernel(NAME).count_launch()
+    _build.launch(_build.load("embedding", _SIGNATURES), "pt_embedding_gather",
+                  NAME, dev, table.data_ptr(), ids_c.data_ptr(),
+                  int(ids_c.dtype == torch.int64), out.data_ptr(), n, h,
+                  row_bytes, word, _NAN_WORDS[table.dtype])
     return out.reshape(*ids.shape, d)
 
 
@@ -149,8 +147,12 @@ def embedding_scatter_add(dst, ids, updates):
     place: returns a new tensor in dst's dtype and leaves dst as it is.
     ``ids`` holds n integers (any shape), ``updates`` is [n, d]. An id in
     ``[-h, -1]`` wraps once; any other id outside ``[0, h)`` adds nothing.
-    Each row's updates are summed in fp32 in ascending j and added to dst
-    once, then rounded to dst's dtype: the result is deterministic.
+    Each row's updates are summed in fp32 and added to dst once, then
+    rounded to dst's dtype; the result is deterministic. The plain body
+    sums in ascending j; the kernel in the fixed two-level order of
+    :func:`_scatter_add_two_level`, which gives the same bits where a row's
+    ids lie in one chunk of ``_CHUNK`` sorted positions and agrees to fp32
+    rounding elsewhere.
 
     CPU tensors take the plain PyTorch body; CUDA tensors launch the
     kernel or raise. Differentiable in dst and the updates."""
@@ -191,15 +193,71 @@ def _embedding_scatter_add_reference(dst, ids, updates):
     return (dst.float() + acc).to(dst.dtype)
 
 
+def _scatter_add_two_level(dst, ids, updates, chunk=_CHUNK):
+    """The kernel's summation order in plain PyTorch, for checks (no main
+    path calls it): the keys (the wrapped row, or h for a dropped id) in a
+    stable sort, cut into chunks of ``chunk`` sorted positions. Level 1:
+    each piece of a row's run inside one chunk summed in fp32 in ascending
+    position from 0. Level 2: a row's piece sums added in ascending chunk
+    order from 0, then dst once, rounded to dst's dtype. Rows no id names
+    are dst as it is. Each add is one fp32 add of the loops below, in that
+    order (``index_add_`` or a sum would order them its own way); the
+    loops run over the offset inside a piece, and over a row's pieces, each
+    step adding at most once into any one sum."""
+    h, d = dst.shape
+    out = dst.float().clone()
+    idx, valid = _valid_rows(ids, h)
+    keys = torch.where(valid, idx, h)
+    sk, perm = torch.sort(keys, stable=True)
+    n = sk.numel()
+    if n:
+        upd = updates.reshape(-1, d).float()[perm]
+        pos = torch.arange(n, device=sk.device)
+        # level 1: pieces are the maximal runs of one key inside one chunk
+        new = torch.ones(n, dtype=torch.bool, device=sk.device)
+        new[1:] = (sk[1:] != sk[:-1]) | (pos[1:] % chunk == 0)
+        piece = torch.cumsum(new, 0) - 1
+        first = pos[new]
+        off = pos - first[piece]
+        part = torch.zeros(first.numel(), d, device=dst.device)
+        for t in range(int(off.max()) + 1):
+            at = off == t
+            part[piece[at]] = part[piece[at]] + upd[at]
+        pkey = sk[first]
+        keep = pkey < h
+        pkey, part = pkey[keep], part[keep]
+        if pkey.numel():
+            # level 2: each row's pieces in ascending chunk order
+            m = pkey.numel()
+            rnew = torch.ones(m, dtype=torch.bool, device=sk.device)
+            rnew[1:] = pkey[1:] != pkey[:-1]
+            row = torch.cumsum(rnew, 0) - 1
+            pidx = torch.arange(m, device=sk.device)
+            roff = pidx - pidx[rnew][row]
+            acc = torch.zeros(int(rnew.sum()), d, device=dst.device)
+            for t in range(int(roff.max()) + 1):
+                at = roff == t
+                acc[row[at]] = acc[row[at]] + part[at]
+            rows = pkey[rnew]
+            out[rows] = out[rows] + acc
+    return out.to(dst.dtype)
+
+
+def _partials(n, d, device):
+    """The kernel's fp32 scratch: two partial rows of d per chunk of
+    ``_CHUNK`` sorted positions."""
+    return torch.empty(-(-n // _CHUNK), 2, d, dtype=torch.float32,
+                       device=device)
+
+
 def _embedding_scatter_add_cuda(dst, ids, updates):
     """Launch ``csrc/embedding.cu``'s scatter-add on the current stream (no
-    sync): the keys kernel, a stable ``torch.sort`` of the keys (index
-    preparation), then the run-marking and summing kernels (rows with long
-    runs summed by a block each)."""
+    sync): the keys in a stable radix sort of their bits (index
+    preparation, in scratch whose size the library gives), then the summing
+    kernel (level 1, and the copy of the rows no id names) and the join of
+    runs that cross a chunk (level 2)."""
     dev = dst.device
-    if dev.type != "cuda":
-        raise EnforceNotMet(f"{SCATTER}: the kernel takes CUDA tensors, got "
-                            f"dst on {dev}")
+    _build.require_cuda(SCATTER, "dst", dst)
     for nm, t in (("dst", dst), ("updates", updates)):
         if t.dtype not in _SCATTER_DTYPES or t.dim() != 2 \
                 or not t.is_contiguous() or t.device != dev:
@@ -222,30 +280,21 @@ def _embedding_scatter_add_cuda(dst, ids, updates):
     if n == 0:
         return dst.clone()
     out = torch.empty_like(dst)
-    widest = max(dst.element_size(), updates.element_size())
-    vec = next(v for v in (8, 4, 2, 1) if v * widest <= 16 and d % v == 0
-               and all(t.data_ptr() % (v * t.element_size()) == 0
-                       for t in (dst, updates, out)))
     ids_c = ids.reshape(-1).contiguous()
     lib = _build.load("embedding", _SIGNATURES)
-    keys = torch.empty(n, dtype=torch.int32, device=dev)
-    runs = torch.empty(h, 2, dtype=torch.int32, device=dev)
-    # rows with runs too long for one thread: a count, then their ids
-    most_long = n // (_LONG_RUN + 1)
-    long_rows = torch.empty(1 + most_long, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_embedding_scatter_keys(
-            ids_c.data_ptr(), int(ids_c.dtype == torch.int64),
-            keys.data_ptr(), n, h, stream)
-        _build.check_launch(lib, SCATTER, err)
-        sorted_keys, perm = torch.sort(keys, stable=True)
-        err = lib.pt_embedding_scatter_add(
-            dst.data_ptr(), updates.data_ptr(), sorted_keys.data_ptr(),
-            perm.data_ptr(), runs.data_ptr(), long_rows.data_ptr(),
-            out.data_ptr(), n, h, d,
-            _SCATTER_DTYPES[dst.dtype], _SCATTER_DTYPES[updates.dtype], vec,
-            stream)
-    _build.check_launch(lib, SCATTER, err)
-    registry.get_kernel(SCATTER).count_launch()
+    sorted_keys = torch.empty(n, dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.pt_embedding_scatter_sort_bytes(n, h),
+                          dtype=torch.uint8, device=dev)
+    # the sort is index preparation: only the summing launch counts
+    _build.launch(lib, "pt_embedding_scatter_sort", SCATTER, dev,
+                  ids_c.data_ptr(), int(ids_c.dtype == torch.int64),
+                  sorted_keys.data_ptr(), perm.data_ptr(), scratch.data_ptr(),
+                  scratch.numel(), n, h, count=False)
+    partials = _partials(n, d, dev)
+    _build.launch(lib, "pt_embedding_scatter_add", SCATTER, dev,
+                  dst.data_ptr(), updates.data_ptr(), sorted_keys.data_ptr(),
+                  perm.data_ptr(), partials.data_ptr(), out.data_ptr(), n, h,
+                  d, _SCATTER_DTYPES[dst.dtype],
+                  _SCATTER_DTYPES[updates.dtype])
     return out

@@ -91,9 +91,7 @@ def _layer_norm_reference(x, gamma, beta, eps=1e-12, return_stats=False):
 
 def _layer_norm_cuda(x, gamma, beta, eps=1e-12, return_stats=False):
     """Launch ``csrc/layer_norm.cu`` on the current stream (no sync)."""
-    if x.device.type != "cuda":
-        raise EnforceNotMet(f"{NAME}: the kernel takes CUDA tensors, got x "
-                            f"on {x.device}")
+    _build.require_cuda(NAME, "x", x)
     if x.dtype not in _DTYPE_CODES:
         raise EnforceNotMet(f"{NAME}: x must be float32 or bfloat16, got "
                             f"{x.dtype}")
@@ -126,16 +124,12 @@ def _layer_norm_cuda(x, gamma, beta, eps=1e-12, return_stats=False):
     if return_stats:
         mu = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
         rstd = torch.empty_like(mu)
-    lib = _build.load("layer_norm", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pt_layer_norm_fwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            None if mu is None else mu.data_ptr(),
-            None if rstd is None else rstd.data_ptr(),
-            n, h, float(eps), _DTYPE_CODES[x.dtype], stream)
-    _build.check_launch(lib, NAME, err)
-    registry.get_kernel(NAME).count_launch()
+    _build.launch(_build.load("layer_norm", _SIGNATURES), "pt_layer_norm_fwd",
+                  NAME, x.device, x.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), y.data_ptr(),
+                  None if mu is None else mu.data_ptr(),
+                  None if rstd is None else rstd.data_ptr(),
+                  n, h, float(eps), _DTYPE_CODES[x.dtype])
     if return_stats:
         return y, mu, rstd
     return y

@@ -19,12 +19,12 @@ leaves them to two stock dots.
 The int8 half (``dequant=True``, ``fused_matmul_int8_pallas``,
 matmul.py:232-245) is :func:`fused_matmul_int8`, forward only (serving never
 differentiates a quantized program): act(x @ (w_int8 * scale / 127) + bias)
-on the same kernel source, whose int8 entry (SIMT) converts the weight tile
-on load
-and applies the per-column scale to the fp32 sum in the epilogue, so the fp32
-weight never exists in device memory. CPU tensors take
-:func:`_fused_matmul_int8_reference`, which dequantizes the whole weight
-first, as the JAX package's stock body does.
+on the same tensor-core kernel, which reads the int8 weight as bytes,
+converts it to fp32 (exact in TF32, so it has no lo part: two TF32 passes
+for fp32 x, one for bf16 x) and applies the per-column scale to the fp32 sum
+in the epilogue, so the fp32 weight never exists in device memory. CPU
+tensors take :func:`_fused_matmul_int8_reference`, which dequantizes the
+whole weight first, as the JAX package's stock body does.
 """
 
 import ctypes
@@ -149,7 +149,7 @@ def _fused_matmul_reference(x2, w, bias=None, act=None):
 def _fused_matmul_cuda(x2, w, bias=None, act=None):
     """Launch ``csrc/fused_matmul.cu`` on the current stream (no sync)."""
     dev = x2.device
-    _require_cuda(NAME, x2)
+    _build.require_cuda(NAME, "x", x2)
     if act not in _KERNEL_ACTS:
         raise EnforceNotMet(f"{NAME}: the kernel applies relu, sigmoid, "
                             f"tanh or nothing, got {act!r}")
@@ -175,33 +175,17 @@ def _fused_matmul_cuda(x2, w, bias=None, act=None):
     x2, w = x2.contiguous(), w.contiguous()
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     lib = _build.load("fused_matmul", _SIGNATURES)
-    _launch(lib, "pt_fused_matmul", NAME, dev,
+    _build.launch(lib, "pt_fused_matmul", NAME, dev,
             x2.data_ptr(), _BF16[x2.dtype], w.data_ptr(), _BF16[w.dtype],
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             m, n, k, _KERNEL_ACTS[act])
     return out
 
 
-def _require_cuda(name, x2):
-    if x2.device.type != "cuda":
-        raise EnforceNotMet(f"{name}: the kernel takes CUDA tensors, got x "
-                            f"on {x2.device}")
-
-
 def _check_rows(name, m):
     if m > _MAX_ROWS:
         raise EnforceNotMet(f"{name}: the kernel takes at most {_MAX_ROWS} "
                             f"rows of x, got {m}")
-
-
-def _launch(lib, fn, name, device, *args):
-    """Call ``fn`` of ``lib`` with ``args`` and the current stream of
-    ``device``; raise unless CUDA accepted the launch, then count it."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    _build.check_launch(lib, name, err)
-    registry.get_kernel(name).count_launch()
 
 
 def fused_matmul_int8(x, w, scale, bias=None, act=None):
@@ -236,7 +220,7 @@ def _fused_matmul_int8_cuda(x2, w, scale, bias=None, act=None):
     """Launch the int8 entry of ``csrc/fused_matmul.cu`` on the current
     stream (no sync)."""
     dev = x2.device
-    _require_cuda(INT8, x2)
+    _build.require_cuda(INT8, "x", x2)
     if act not in _KERNEL_ACTS:
         raise EnforceNotMet(f"{INT8}: the kernel applies relu, sigmoid, "
                             f"tanh or nothing, got {act!r}")
@@ -264,7 +248,7 @@ def _fused_matmul_int8_cuda(x2, w, scale, bias=None, act=None):
     x2, w = x2.contiguous(), w.contiguous()
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     lib = _build.load("fused_matmul", _SIGNATURES)
-    _launch(lib, "pt_fused_matmul_int8", INT8, dev,
+    _build.launch(lib, "pt_fused_matmul_int8", INT8, dev,
             x2.data_ptr(), _BF16[x2.dtype], w.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             m, n, k, _KERNEL_ACTS[act])

@@ -81,10 +81,7 @@ def _fused_adam_cuda(params, grads, m1s, m2s, lr, step, beta1=0.9,
     """Launch ``csrc/fused_adam.cu`` once over the list on the current
     stream (no sync). p, m1, m2 must be contiguous fp32 CUDA tensors on one
     device; a grad that is not contiguous is copied first."""
-    dev = params[0].device
-    if dev.type != "cuda":
-        raise EnforceNotMet(f"{NAME}: the kernel takes CUDA tensors, got "
-                            f"params on {dev}")
+    dev = _cuda_device(NAME, params)
     if (not isinstance(step, torch.Tensor) or step.device != dev
             or step.dtype != torch.int32 or step.dim() != 0):
         raise EnforceNotMet(f"{NAME}: step must be a 0-d int32 tensor on "
@@ -92,16 +89,11 @@ def _fused_adam_cuda(params, grads, m1s, m2s, lr, step, beta1=0.9,
     rows = _rows(NAME, dev, params, grads, m1s, m2s,
                  names=("param", "grad", "moment1", "moment2"))
     table, starts, n_chunks = _table(dev, rows)
-    lib = _build.load("fused_adam", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_fused_adam(
-            table.data_ptr(), starts, len(rows), n_chunks, step.data_ptr(),
-            float(lr),
-            float(beta1), float(1 - beta1), float(beta2), float(1 - beta2),
-            float(epsilon), stream)
-    _build.check_launch(lib, NAME, err)
-    registry.get_kernel(NAME).count_launch()
+    _build.launch(_build.load("fused_adam", _SIGNATURES), "pt_fused_adam",
+                  NAME, dev, table.data_ptr(), starts, len(rows), n_chunks,
+                  step.data_ptr(), float(lr), float(beta1),
+                  float(1 - beta1), float(beta2), float(1 - beta2),
+                  float(epsilon))
 
 
 def _rows(name, dev, params, *others, names):
@@ -212,13 +204,9 @@ def _fused_sgd_cuda(params, grads, lr):
     dev = _cuda_device(SGD, params)
     rows = _rows(SGD, dev, params, grads, names=("param", "grad"))
     table, starts, n_chunks = _table(dev, rows, [_f32_word(lr)])
-    lib = _build.load("fused_sgd", _SGD_SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_fused_sgd(table.data_ptr(), starts, len(rows), n_chunks,
-                               starts + 8 * (len(rows) + 1), stream)
-    _build.check_launch(lib, SGD, err)
-    registry.get_kernel(SGD).count_launch()
+    _build.launch(_build.load("fused_sgd", _SGD_SIGNATURES), "pt_fused_sgd",
+                  SGD, dev, table.data_ptr(), starts, len(rows), n_chunks,
+                  starts + 8 * (len(rows) + 1))
 
 
 def _fused_momentum_cuda(params, grads, velocities, lr, momentum=0.9,
@@ -229,20 +217,12 @@ def _fused_momentum_cuda(params, grads, velocities, lr, momentum=0.9,
     rows = _rows(MOMENTUM, dev, params, grads, velocities,
                  names=("param", "grad", "velocity"))
     table, starts, n_chunks = _table(dev, rows, [_f32_word(lr)])
-    lib = _build.load("fused_sgd", _SGD_SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_fused_momentum(
-            table.data_ptr(), starts, len(rows), n_chunks,
-            starts + 8 * (len(rows) + 1), _f32(momentum),
-            int(bool(use_nesterov)), stream)
-    _build.check_launch(lib, MOMENTUM, err)
-    registry.get_kernel(MOMENTUM).count_launch()
+    _build.launch(_build.load("fused_sgd", _SGD_SIGNATURES),
+                  "pt_fused_momentum", MOMENTUM, dev, table.data_ptr(),
+                  starts, len(rows), n_chunks, starts + 8 * (len(rows) + 1),
+                  _f32(momentum), int(bool(use_nesterov)))
 
 
 def _cuda_device(name, params):
-    dev = params[0].device
-    if dev.type != "cuda":
-        raise EnforceNotMet(f"{name}: the kernel takes CUDA tensors, got "
-                            f"params on {dev}")
-    return dev
+    _build.require_cuda(name, "params", params[0])
+    return params[0].device

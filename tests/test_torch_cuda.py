@@ -633,7 +633,13 @@ def _int8_weight(gen, k, n, device):
     (4096, 768, 3072, "relu", torch.float32, True),    # BERT's FFN
     (33, 70, 130, "tanh", torch.float32, False),
     (65, 17, 63, "gelu", torch.bfloat16, True),
-    (1, 1, 1, "relu", torch.float32, True)])
+    (1, 1, 1, "relu", torch.float32, True)] + [
+    # every tile width the kernel picks (M 1 .. 4096), rows of w of 10, 130
+    # and 2,073 bytes, fp32 and bf16 x, each activation in turn
+    (m, 256, n, _ACTS[i % 5], xd, i % 3 > 0)
+    for i, (m, n, xd) in enumerate(
+        (m, n, xd) for m in (1, 8, 33, 64, 4096) for n in (10, 130, 2073)
+        for xd in (_F32, _BF16))])
 def test_fused_matmul_int8_kernel_matches_plain(cuda, m, k, n, act, dtype,
                                                 with_bias):
     gen = torch.Generator().manual_seed(m + n)
@@ -653,6 +659,48 @@ def test_fused_matmul_int8_kernel_matches_plain(cuda, m, k, n, act, dtype,
     # fp32 sums of K products in another order, the scale applied once to
     # the sum (the plain body scales every weight): 1e-4 at outputs O(1)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", _ACTS)
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_fused_matmul_int8_kernel_keeps_inf_and_nan(cuda, dtype, act):
+    # inf, -inf and NaN in x (an int8 weight is finite): the TF32 split
+    # keeps them in the first pass only, so each output is NaN, inf of a
+    # sign, or finite where the plain body's is
+    gen = torch.Generator().manual_seed(37)
+    m, k, n = 33, 70, 130
+    w, scale = _int8_weight(gen, k, n, cuda)
+    x = torch.randn(m, k, generator=gen)
+    x[0, 3], x[1, 5], x[2, 7] = float("inf"), float("-inf"), float("nan")
+    x = x.to(cuda, dtype)
+    b = torch.randn(n, generator=gen).to(cuda)
+    out = K.fused_matmul_int8(x, w, scale, b, act)
+    ref = K.get_body("fused_matmul_int8", "reference")(
+        x, w, scale, b, None if act == "gelu" else act)
+    if act == "gelu":
+        ref = torch.nn.functional.gelu(ref)
+    torch.cuda.synchronize()
+    assert out[2].isnan().all() and out[3:].isfinite().all()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_fused_matmul_int8_kernel_is_fp32_accurate_at_bert_ffn(cuda, dtype):
+    # BERT's FFN against the fp64 product of the dequantized weight: two
+    # TF32 passes for fp32 x, one for bf16 x (the int8 weight is exact in
+    # TF32) keep the tolerance that holds the kernel to its plain body
+    gen = torch.Generator().manual_seed(41)
+    w, scale = _int8_weight(gen, 768, 3072, cuda)
+    x = torch.randn(4096, 768, generator=gen).to(cuda, dtype)
+    b = torch.randn(3072, generator=gen).to(cuda)
+    out = K.fused_matmul_int8(x, w, scale, b, "relu")
+    exact = torch.relu(x.double() @ (w.double() * (scale.double() / 127.0))
+                       + b.double())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.double(), exact, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -706,9 +754,14 @@ def test_quantized_server_on_card_matches_cpu(cuda, tmp_path, mode, kernel,
     (33, 130, 400, torch.bfloat16, torch.float32, torch.int32),
     (7, 3, 50, torch.float32, torch.bfloat16, torch.int64),   # 12-byte rows
     (9, 5, 33, torch.bfloat16, torch.bfloat16, torch.int32),
-    # runs longer than one thread takes: column tiles with a ragged edge
+    # runs over many chunks of 256 sorted positions: column tiles with a
+    # ragged edge, partials joined per row
     (3, 100, 5000, torch.bfloat16, torch.bfloat16, torch.int64),
-    (5, 8, 20000, torch.float32, torch.bfloat16, torch.int32)])
+    (5, 8, 20000, torch.float32, torch.bfloat16, torch.int32),
+    (2, 24, 4096, torch.bfloat16, torch.float32, torch.int64),
+    # fewer ids than a chunk, and one id
+    (300, 40, 200, torch.float32, torch.float32, torch.int64),
+    (50, 16, 1, torch.bfloat16, torch.bfloat16, torch.int32)])
 def test_embedding_scatter_add_kernel_matches_plain(cuda, h, d, n, dtype,
                                                     upd_dtype, ids_dtype):
     gen = torch.Generator(device=cuda).manual_seed(h + n)
@@ -718,30 +771,58 @@ def test_embedding_scatter_add_kernel_matches_plain(cuda, h, d, n, dtype,
     # outside [-h, h) (dropped)
     ids = torch.randint(-h - 3, h + 3, (n,), generator=gen, device=cuda,
                         dtype=torch.int64).to(ids_dtype)
-    ids[:4] = torch.tensor([-1, -h, h, -h - 1], device=cuda)
+    ids[:4] = torch.tensor([-1, -h, h, -h - 1], device=cuda)[:n]
+    _check_scatter_add(dst, ids, upd)
+
+
+def _check_scatter_add(dst, ids, upd):
+    """Two launches bitwise equal (no atomics); bitwise equal to the
+    two-level emulation on the CPU; within atol of the plain body
+    (ascending j) on the CPU and on the card."""
+    from paddle_tpu_torch.ops.kernels.embedding import _scatter_add_two_level
+    h, d = dst.shape
     before = K.get_kernel("embedding_scatter_add").launches
     out = K.embedding_scatter_add(dst, ids, upd)
     again = K.embedding_scatter_add(dst, ids, upd)
     torch.cuda.synchronize()
     assert K.get_kernel("embedding_scatter_add").launches == before + 2
-    assert out.dtype == dtype and out.shape == (h, d)
-    # no atomics: the same bits on every launch, and the bits of the plain
-    # body on the CPU, whose index_add_ adds in ascending j as the kernel
+    assert out.dtype == dst.dtype and out.shape == (h, d)
     assert torch.equal(out, again)
-    cpu = K.get_body("embedding_scatter_add", "reference")(
-        dst.cpu(), ids.cpu(), upd.cpu())
-    torch.testing.assert_close(out.cpu(), cpu, atol=0, rtol=0)
-    # the plain body on the card sums with atomics in another order: each
-    # of a row's c adds may round by 2^-24 of the partial sum, so atol
-    # 1e-6 * c_max * max|update| (fp32); bf16 adds one unit in the last
-    # place of the result
-    ref = K.get_body("embedding_scatter_add", "reference")(dst, ids, upd)
+    args_cpu = (dst.cpu(), ids.cpu(), upd.cpu())
+    torch.testing.assert_close(out.cpu(), _scatter_add_two_level(*args_cpu),
+                               atol=0, rtol=0)
+    # the plain body sums in another order (ascending j on the CPU, atomics
+    # on the card): each of a row's c adds may round by 2^-24 of the
+    # partial sum, so atol 1e-6 * c_max * max|update| (fp32); bf16 adds one
+    # unit in the last place of the result
     wrapped = torch.where(ids < 0, ids + h, ids).long()
-    c_max = torch.bincount(wrapped[(ids >= -h) & (ids < h)]).max().item()
-    atol = 1e-6 * c_max * upd.abs().max().item() + 1e-6
-    torch.testing.assert_close(
-        out.float(), ref.float(), atol=atol,
-        rtol=BF16_RTOL if dtype == torch.bfloat16 else 1e-6)
+    c_max = torch.bincount(wrapped[(ids >= -h) & (ids < h)],
+                           minlength=1).max().item()
+    atol = 1e-6 * c_max * upd.float().abs().max().item() + 1e-6
+    rtol = BF16_RTOL if dst.dtype == torch.bfloat16 else 1e-6
+    plain = K.get_body("embedding_scatter_add", "reference")
+    for o, ref in ((out.cpu(), plain(*args_cpu)), (out, plain(dst, ids, upd))):
+        torch.testing.assert_close(o.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zipf_a", [1.2, 2.0])
+def test_embedding_scatter_add_kernel_on_zipf_padded_rows(cuda, zipf_a):
+    # a merged row set of Zipf-skewed CTR ids at DeepFM's width: its pad
+    # rows go to row 0, one run over many chunks, beside unique rows
+    from paddle_tpu_torch import ops
+    rng = np.random.RandomState(int(zipf_a * 10))
+    ids = ((rng.zipf(zipf_a, (2048, 26)) - 1) % 100_000
+           + np.arange(26) * 100_000).reshape(-1)
+    h = 26 * 100_000
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    sr = ops.SelectedRows(torch.as_tensor(ids, device=cuda), torch.randn(
+        ids.size, 8, generator=gen, device=cuda), h)
+    merged, valid = ops.merge_selected_rows(sr)
+    assert int((~valid).sum()) > 4 * 256    # the pad run spans chunks
+    _check_scatter_add(torch.randn(h, 8, generator=gen, device=cuda),
+                       merged.rows, -0.05 * merged.values)
 
 
 @pytest.mark.cuda
@@ -777,16 +858,30 @@ def test_sparse_sgd_on_merged_ctr_rows_matches_plain(cuda, vocab):
     sr = ops.SelectedRows(torch.as_tensor(ids),
                           torch.randn(ids.size, 8, generator=gen), h)
     on_card = ops.SelectedRows(sr.rows.to(cuda), sr.values.to(cuda), h)
+    from paddle_tpu_torch.ops.kernels.embedding import _scatter_add_two_level
     merged, valid = ops.merge_selected_rows(on_card)
     merged_cpu, valid_cpu = ops.merge_selected_rows(sr)
     assert torch.equal(valid.cpu(), valid_cpu)
     assert torch.equal(merged.rows.cpu(), merged_cpu.rows)
-    # the kernel sums each row in ascending j, as the CPU's index_add_
-    torch.testing.assert_close(merged.values.cpu(), merged_cpu.values,
-                               atol=0, rtol=0)
-    new = ops.sparse_sgd_update(table.to(cuda), merged, 0.05)
+    # the kernel sums each row in the two-level order: bitwise its
+    # emulation over the merge's inverse ids, and the CPU's ascending-j sum
+    # to fp32 rounding (a row's ~27 ids may cross a chunk edge)
+    inv = torch.unique(sr.rows, return_inverse=True)[1]
+    n = ids.size
     torch.testing.assert_close(
-        new.cpu(), ops.sparse_sgd_update(table, merged_cpu, 0.05),
+        merged.values.cpu(),
+        _scatter_add_two_level(torch.zeros(n, 8), inv, sr.values),
+        atol=0, rtol=0)
+    c_max = int(torch.bincount(inv).max())
+    torch.testing.assert_close(
+        merged.values.cpu(), merged_cpu.values, rtol=1e-6,
+        atol=1e-6 * c_max * sr.values.abs().max().item() + 1e-6)
+    # one update per row, and the pads' zeros into row 0: the same bits as
+    # the plain body on the CPU from the same merged rows
+    new = ops.sparse_sgd_update(table.to(cuda), merged, 0.05)
+    merged_here = ops.SelectedRows(merged.rows.cpu(), merged.values.cpu(), h)
+    torch.testing.assert_close(
+        new.cpu(), ops.sparse_sgd_update(table, merged_here, 0.05),
         atol=0, rtol=0)
     dense = ops.get_tensor_from_selected_rows(on_card)
     assert torch.equal(ops.get_tensor_from_selected_rows(merged), dense)

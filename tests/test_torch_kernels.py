@@ -20,6 +20,7 @@ rtol 2^-7 plus a small atol. Each gradient test states its own.
 
 import os
 import re
+import types
 import weakref
 
 import jax
@@ -467,7 +468,7 @@ def test_flash_wrappers_copy_only_views_tma_cannot_take(monkeypatch):
     monkeypatch.setattr(A, "_operands", operands)
     monkeypatch.setattr(A, "_check_heads", lambda name, q, named: q.shape)
     monkeypatch.setattr(A._build, "load", lambda *a: None)
-    monkeypatch.setattr(A, "_launch", launch)
+    monkeypatch.setattr(A._build, "launch", launch)
     q, k, v = heads[0], shifted, heads[2]
     A._flash_attention_cuda(q, k, v)
     A._flash_bwd_dkdv_cuda(q, k, v, None, odd_rows, torch.zeros(B, N, S),
@@ -508,8 +509,8 @@ def test_fused_matmul_wrapper_hands_ragged_shapes_to_the_kernel(
         launched.append((fn, name, args))
 
     monkeypatch.setattr(MM._build, "load", lambda *a: None)
-    monkeypatch.setattr(MM, "_launch", launch)
-    monkeypatch.setattr(MM, "_require_cuda", lambda name, t: None)
+    monkeypatch.setattr(MM._build, "launch", launch)
+    monkeypatch.setattr(MM._build, "require_cuda", lambda name, what, t: None)
     out = MM._fused_matmul_cuda(x, w, b, "relu")
     ((fn, name, args),) = launched
     assert (fn, name) == ("pt_fused_matmul", "fused_matmul")
@@ -520,3 +521,90 @@ def test_fused_matmul_wrapper_hands_ragged_shapes_to_the_kernel(
     assert args[6:9] == (m, n, k) and args[9] == 1    # M, N, K; relu
     assert out.shape == (m, n) and out.dtype == torch.float32
     assert K.launch_counts()["fused_matmul"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4096, 8192, 8193])
+def test_scatter_add_wrapper_sizes_partials_from_n_and_chunk(monkeypatch, n):
+    """The scatter-add kernel keeps two fp32 partial rows of d per chunk of
+    ``_CHUNK`` sorted positions: the wrapper allocates ceil(n / _CHUNK) x 2
+    x d of them (no table over the h rows), the sort's scratch of the size
+    the library gives, int32 sorted keys and order, and hands its own
+    pointers and shapes to the kernels. Pinned on the CPU with the launches
+    captured in place of the card's."""
+    from paddle_tpu_torch.ops.kernels import embedding as E
+    h, d = 70, 24
+    dst = torch.randn(h, d)
+    ids = torch.randint(0, h, (n,))
+    upd = torch.randn(n, d)
+    launched, scratch = [], []
+    real_partials = E._partials
+
+    def partials(n_, d_, dev):
+        t = real_partials(n_, d_, dev)
+        scratch.append(t)
+        return t
+
+    def launch(lib, fn, name, dev, *args, count=True):
+        assert name == "embedding_scatter_add"
+        launched.append((fn, args, count))
+
+    monkeypatch.setattr(E, "_partials", partials)
+    lib = types.SimpleNamespace(
+        pt_embedding_scatter_sort_bytes=lambda n_, h_: 8 * n_ + 512)
+    monkeypatch.setattr(E._build, "load", lambda *a: lib)
+    monkeypatch.setattr(E._build, "launch", launch)
+    monkeypatch.setattr(E._build, "require_cuda", lambda name, what, t: None)
+    out = E._embedding_scatter_add_cuda(dst, ids, upd)
+    (kf, kargs, kcount), (sf, sargs, scount) = launched
+    assert (kf, kcount, sf, scount) == ("pt_embedding_scatter_sort", False,
+                                        "pt_embedding_scatter_add", True)
+    assert kargs[0] == ids.data_ptr() and kargs[1] == 1
+    # the scratch's bytes as the library gives them, then n and h
+    assert kargs[5:] == (8 * n + 512, n, h)
+    # the sorted keys and the order the summing kernel reads
+    assert sargs[2:4] == kargs[2:4]
+    (part,) = scratch
+    assert part.shape == (-(-n // E._CHUNK), 2, d)
+    assert part.dtype == torch.float32
+    assert sargs[0] == dst.data_ptr() and sargs[1] == upd.data_ptr()
+    assert sargs[4] == part.data_ptr() and sargs[5] == out.data_ptr()
+    # n, h, d; fp32 dst and updates (the kernel picks its access widths)
+    assert sargs[6:] == (n, h, d, 0, 0)
+    assert out.shape == dst.shape and out.data_ptr() != dst.data_ptr()
+    assert K.launch_counts()["embedding_scatter_add"] == 0
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype", [
+    (8, 256, 10, torch.float32),        # the serving MLP's last fc
+    (64, 256, 2073, torch.float32),     # word2vec's fc 2: 2,073-byte rows
+    (64, 256, 2073, torch.bfloat16),
+    (33, 70, 130, torch.float32)])      # the ragged case
+def test_fused_matmul_int8_wrapper_hands_ragged_shapes_to_the_kernel(
+        monkeypatch, m, k, n, x_dtype):
+    """The int8 entry runs the tensor-core kernel, which reads the int8
+    weight as bytes and masks every edge, so the wrapper passes x, w and
+    the scale as they are (no padded or dequantized copy of w). Pinned on
+    the CPU with the launch captured in place of the card's."""
+    from paddle_tpu_torch.ops.kernels import matmul as MM
+    x = torch.randn(m, k).to(x_dtype)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8)
+    scale = torch.rand(n) + 0.5
+    b = torch.randn(n)
+    launched = []
+
+    def launch(lib, fn, name, dev, *args):
+        launched.append((fn, name, args))
+
+    monkeypatch.setattr(MM._build, "load", lambda *a: None)
+    monkeypatch.setattr(MM._build, "launch", launch)
+    monkeypatch.setattr(MM._build, "require_cuda", lambda name, what, t: None)
+    out = MM._fused_matmul_int8_cuda(x, w, scale, b, "tanh")
+    ((fn, name, args),) = launched
+    assert (fn, name) == ("pt_fused_matmul_int8", "fused_matmul_int8")
+    assert args[0] == x.data_ptr()
+    assert args[1] == int(x_dtype == torch.bfloat16)
+    assert args[2] == w.data_ptr() and args[3] == scale.data_ptr()
+    assert args[4] == b.data_ptr() and args[5] == out.data_ptr()
+    assert args[6:10] == (m, n, k, 3)     # M, N, K; tanh
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    assert K.launch_counts()["fused_matmul_int8"] == 0

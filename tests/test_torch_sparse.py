@@ -2,7 +2,10 @@
 
 - ``embedding_scatter_add``: the port's plain body against the JAX stock
   body (``.at[].add``) and the Pallas ``_scatter_kernel`` run in interpret
-  mode; its autograd Function against ``jax.vjp``.
+  mode; its autograd Function against ``jax.vjp``; the plain emulation of
+  the kernel's two-level summation order (``_scatter_add_two_level``, which
+  the card's kernel matches bit for bit) against a scalar fp32 loop and
+  the plain body.
 - ``ops.selected_rows``: all six functions against
   ``paddle_tpu/ops/selected_rows.py``.
 - ``softmax_cross_entropy``: the plain body against ``_xent_reference`` and
@@ -136,16 +139,141 @@ def test_scatter_add_is_deterministic_and_counts_no_cpu_launch():
     assert K.launch_counts()["embedding_scatter_add"] == 0
 
 
-def test_scatter_add_long_run_matches_the_kernel_source():
-    # the wrapper sizes the kernel's long-run scratch from _LONG_RUN: a
-    # smaller number than kLongRun's would let the kernel write past it
+def test_scatter_add_chunk_matches_the_kernel_source():
+    # the sorted positions are cut into chunks of kChunk: the wrapper sizes
+    # the chunk partials, and the emulation takes the order, from _CHUNK; a
+    # smaller number than kChunk's would let the kernel write past the
+    # partials
     import pathlib
     import re
     from paddle_tpu_torch.ops.kernels import embedding
     src = (pathlib.Path(embedding.__file__).parent / "csrc"
            / "embedding.cu").read_text()
-    m = re.search(r"constexpr int kLongRun = (\d+);", src)
-    assert m and int(m.group(1)) == embedding._LONG_RUN
+    m = re.search(r"constexpr int kChunk = (\d+);", src)
+    assert m and int(m.group(1)) == embedding._CHUNK
+    assert embedding._scatter_add_two_level.__defaults__ == (
+        embedding._CHUNK,)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's two-level summation order, emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+def _two_level_by_scalars(dst, ids, upd, chunk):
+    """The order spelled out with fp32 scalars: sorted positions in chunks,
+    each piece of a row's run summed in ascending position from 0, the
+    pieces in ascending chunk order from 0, then dst once."""
+    h, d = dst.shape
+    keys = np.where((ids >= -h) & (ids < h), np.where(ids < 0, ids + h, ids),
+                    h)
+    order = np.argsort(keys, kind="stable")
+    pieces = {}
+    for p, j in enumerate(order):
+        if keys[j] < h:
+            pieces.setdefault(keys[j], {}).setdefault(p // chunk, []).append(j)
+    out = dst.astype(np.float32).copy()
+    for r, by_chunk in pieces.items():
+        for c in range(d):
+            total = np.float32(0)
+            for q in sorted(by_chunk):
+                part = np.float32(0)
+                for j in by_chunk[q]:
+                    part = np.float32(part + np.float32(upd[j, c]))
+                total = np.float32(total + part)
+            out[r, c] = np.float32(out[r, c] + total)
+    return out
+
+
+def _scatter_atol(ids, h, upd):
+    # the plain body sums in ascending j: each of a row's c adds may round
+    # by 2^-24 of the partial sum, so 1e-6 * c_max * max|update| (fp32)
+    wrapped = np.where(ids < 0, ids + h, ids)
+    valid = (ids >= -h) & (ids < h)
+    c_max = np.bincount(wrapped[valid], minlength=1).max()
+    return 1e-6 * c_max * np.abs(upd).max() + 1e-6
+
+
+_TWO_LEVEL_CASES = [
+    # (h, d, n, id range (lo, hi) or None for 2 rows' long run)
+    (600, 16, 3000, (0, 600)),        # random ids, runs cross chunk edges
+    (2, 24, 4096, (0, 2)),            # one long run per row (16 chunks)
+    (40, 8, 1500, (-43, 43)),         # wrapped and dropped ids
+    (50, 12, 200, (0, 9)),            # n < C
+    (7, 5, 1, (0, 7)),                # n = 1
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,d,n,id_range", _TWO_LEVEL_CASES)
+def test_scatter_add_two_level_is_within_scatter_atol_of_plain(
+        h, d, n, id_range, dtype):
+    from paddle_tpu_torch.ops.kernels import embedding as E
+    rng = np.random.RandomState(h + n)
+    dst = rng.randn(h, d).astype(np.float32)
+    ids = rng.randint(*id_range, n).astype(np.int64)
+    upd = rng.randn(n, d).astype(np.float32)
+    _, dt = _pair(dst, dtype)
+    _, ut = _pair(upd, dtype)
+    got = E._scatter_add_two_level(dt, torch.tensor(ids), ut)
+    plain = E._embedding_scatter_add_reference(dt, torch.tensor(ids), ut)
+    assert got.dtype == dt.dtype and got.shape == dt.shape
+    # another fp32 order: within scatter_atol (fp32); bf16 rounds the sum
+    # once, so one bf16 unit may flip (rtol 2^-7)
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-6
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=rtol,
+                               atol=_scatter_atol(ids, h, _np(ut)))
+    # rows no id names are dst as it is
+    keys = np.where(ids < 0, ids + h, ids)[(ids >= -h) & (ids < h)]
+    untouched = np.setdiff1d(np.arange(h), keys)
+    np.testing.assert_array_equal(_np(got)[untouched], _np(dt)[untouched])
+
+
+@pytest.mark.parametrize("h,d,n,chunk", [
+    (2, 3, 700, 256),       # two rows' runs, each over several chunks
+    (9, 5, 1000, 16),       # many runs, cut at many chunk edges
+    (13, 4, 300, 7)])       # a chunk that is no power of two
+def test_scatter_add_two_level_follows_the_scalar_order(h, d, n, chunk):
+    from paddle_tpu_torch.ops.kernels import embedding as E
+    rng = np.random.RandomState(n)
+    dst = rng.randn(h, d).astype(np.float32)
+    ids = rng.randint(-h - 2, h + 2, n)
+    upd = rng.randn(n, d).astype(np.float32)
+    got = E._scatter_add_two_level(torch.tensor(dst), torch.tensor(ids),
+                                   torch.tensor(upd), chunk)
+    np.testing.assert_array_equal(
+        got.numpy(), _two_level_by_scalars(dst, ids, upd, chunk))
+
+
+def test_scatter_add_two_level_is_deterministic_and_plain_when_runs_fit():
+    from paddle_tpu_torch.ops.kernels import embedding as E
+    rng = np.random.RandomState(11)
+    C = E._CHUNK
+    # four rows of exactly C ids each, shuffled: each row's run is one
+    # whole chunk, so the two levels add as the plain body does, bit for bit
+    ids = rng.permutation(np.repeat(np.arange(4), C))
+    dst = torch.tensor(rng.randn(6, 10).astype(np.float32))
+    upd = torch.tensor(rng.randn(4 * C, 10).astype(np.float32))
+    got = E._scatter_add_two_level(dst, torch.tensor(ids), upd)
+    again = E._scatter_add_two_level(dst, torch.tensor(ids), upd)
+    assert torch.equal(got, again)
+    plain = E._embedding_scatter_add_reference(dst, torch.tensor(ids), upd)
+    assert torch.equal(got, plain)
+    # fewer than C ids: every run fits one chunk, bf16 dst too
+    ids = rng.randint(-3, 8, C - 1)
+    upd = torch.tensor(rng.randn(C - 1, 10).astype(np.float32))
+    for dt in (dst, dst.bfloat16()):
+        assert torch.equal(
+            E._scatter_add_two_level(dt, torch.tensor(ids), upd),
+            E._embedding_scatter_add_reference(dt, torch.tensor(ids), upd))
+    # runs across chunks: deterministic, and the plain body to fp32
+    # rounding
+    ids = rng.randint(0, 2, 4 * C)
+    upd = torch.tensor(rng.randn(4 * C, 10).astype(np.float32))
+    a = E._scatter_add_two_level(dst, torch.tensor(ids), upd)
+    assert torch.equal(a, E._scatter_add_two_level(dst, torch.tensor(ids),
+                                                   upd))
+    plain = E._embedding_scatter_add_reference(dst, torch.tensor(ids), upd)
+    np.testing.assert_allclose(a.numpy(), plain.numpy(), rtol=1e-6,
+                               atol=_scatter_atol(ids, 6, upd.numpy()))
 
 
 def test_scatter_add_function_matches_jax_vjp():
