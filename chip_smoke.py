@@ -41,7 +41,9 @@ Phases; any failure raises and the script exits non-zero:
    yardstick of other work), and SGD and
    momentum (plain and nesterov) over word2vec's parameters, one launch
    per parameter as the static path makes them and one over the list, and
-   over BERT-base's 154 tensors; the scatter-add (bench.py's CTR point
+   over BERT-base's 154 tensors; momentum over ResNet-50's 267 tensors
+   (the image models' update), and the three rules with the rate read
+   from a tensor on the card, as a learning-rate schedule gives it; the scatter-add (bench.py's CTR point
    [65536,256] with 4096 ids, BERT-base's word, position and token-type
    gradients with pretrain-512's 32768 ids into zeros, the merge's
    inverse ids into [32768,768], phase 10's DeepFM-width CTR table
@@ -112,7 +114,32 @@ Phases; any failure raises and the script exits non-zero:
    SGD against the dense update). Exactly 1 cross-entropy
    launch per forward and none in the backward, 1 scatter-add per merge,
    densify and sparse SGD.
-11. Print one JSON line of every ported kernel (launches on the main paths,
+11. Train ResNet-50 as ``bench.py resnet50`` does (train-resnet50),
+   nothing cut: bf16, 224x224, batch 256 of ``synthetic_batch`` reused,
+   Momentum(0.1, 0.9), 8 steps per call, 3 calls. Exactly 1 momentum launch
+   per step (over the 267 parameter tensors) and no other registered
+   kernel; every loss finite; images/s, MFU against 989 TFLOP/s with
+   ``flops_per_image``, peak memory, and one profiled step's kernels by
+   group and the top 10 (busy share: their device time over the steady
+   step latency).
+12. Image training correctness (train-correctness): resnet_cifar10(depth=8,
+   image_size=16) at batch 8, three Momentum steps in bf16 on the card
+   against the port on the CPU in fp32 from the same weights, losses within
+   0.03; then the same with ``piecewise_decay``, ``L2Decay(1e-4)`` and
+   ``GradientClipByGlobalNorm(1.0)``, so the schedule (read by the kernel
+   from the card), the regularizer and the clip run there.
+13. Image inference as ``bench.py inference`` measures it (infer-image):
+   ``forward(train=False)`` of ResNet-50 at batches 1-128 and VGG-16 at
+   1-64, bf16 and fp32, on zero images: latency per batch (host clock to a
+   synchronize, 30 runs after warm-up); at batch 2, from one set of weights
+   (batch-norm stats from a training forward), the card against the port
+   on the CPU in fp32 with cuDNN's TF32 left on (the fp32 model turns it
+   off itself): fp32 logits within 1e-3 and bf16 within 0.15 of the largest
+   logit.
+14. Train SE-ResNeXt-50 (train-se-resnext50): bf16, 224x224, batch 32 (a
+   choice: ``bench.py`` has no SE-ResNeXt), 3 Momentum steps, exactly 1
+   momentum launch per step, finite losses, images/s.
+15. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -671,9 +698,11 @@ def check_flash_bwd(K, B, H, S, D, dtype, causal, masked_keys, gen,
     return recs
 
 
-def check_adam(K, bert, t, gen):
+def check_adam(K, bert, t, gen, lr_on_card=False):
     """The multi-tensor Adam kernel against its plain body over BERT-base's
-    parameter list (random p, g, m1 and m2 >= 0) at step t."""
+    parameter list (random p, g, m1 and m2 >= 0) at step t; with
+    ``lr_on_card`` the kernel reads the rate from a 0-d fp32 tensor on the
+    card (a schedule's value), the plain body takes the float."""
     from paddle_tpu_torch.core.tree import leaves
     shapes = [p.shape for p in leaves(bert.init_params(bert.bert_base(),
                                                         gen))]
@@ -685,7 +714,8 @@ def check_adam(K, bert, t, gen):
     step = torch.tensor(t, dtype=torch.int32, device="cuda")
     kern = K.get_body("fused_adam", "kernel")
     plain = K.get_body("fused_adam", "reference")
-    kern(p, g, m1, m2, 1e-4, step)
+    lr_k = torch.tensor(1e-4, device="cuda") if lr_on_card else 1e-4
+    kern(p, g, m1, m2, lr_k, step)
     plain(*ref, 1e-4, step)
     torch.cuda.synchronize()
     # the kernel rounds every product and sum on its own in the plain
@@ -719,10 +749,11 @@ def check_adam(K, bert, t, gen):
     # the wrapper's host cost (checks, pointer table, pinned copy) is the
     # issue time: the spin ahead of the timed calls hides it
     ms, issue_ms, spin_ms = events_ms(
-        lambda: kern(p, g, m1, m2, 1e-4, step), 20)
+        lambda: kern(p, g, m1, m2, lr_k, step), 20)
     plain_ms = device_ms(lambda: plain(*ref, 1e-4, step), 3)
     lib_ms = device_ms(library, 20)
-    rec = dict(tensors=len(p), elements=n, t=t, max_abs_err=err,
+    rec = dict(tensors=len(p), elements=n, t=t, lr_on_card=lr_on_card,
+               max_abs_err=err,
                tol="p/m1/m2 atol 1e-7 rtol 1e-6", ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms,
                library="torch._fused_adam_ with eps / sqrt(1 - b2^t) "
@@ -960,14 +991,17 @@ def check_fused_matmul_int8_accuracy(K, m, k, n, gen):
             "fp64")))
 
 
-def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
+def check_sgd(K, shapes, rule, gen, label, per_tensor=False,
+              lr_on_card=False):
     """The SGD or momentum kernel against its plain body over fp32 tensors
     of ``shapes`` (bit-identical: every product and sum rounds singly in
     the plain order), timed behind a spin as Adam is. ``per_tensor``: one
     launch per tensor, as the static path's ``apply_optimizer`` ops make
     them; else one launch over the list, as ``apply_gradients`` does.
     Library yardsticks over the list: ``torch._fused_sgd_`` (dampening 0,
-    the same rule) and, for SGD, ``torch._foreach_add_(p, g, alpha=-lr)``."""
+    the same rule) and, for SGD, ``torch._foreach_add_(p, g, alpha=-lr)``.
+    ``lr_on_card``: the kernel reads the rate from a 0-d fp32 tensor on the
+    card (a schedule's value), the plain body takes the float."""
     name = "fused_sgd" if rule == "sgd" else "fused_momentum"
     nest = rule == "nesterov"
     lr, mu = 1e-3, 0.9
@@ -976,9 +1010,10 @@ def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
     ref_p, ref_v = [t.clone() for t in p], [t.clone() for t in v]
     kern = K.get_body(name, "kernel")
     plain = K.get_body(name, "reference")
-    lists, ref_lists, scalars = (
-        ((p, g), (ref_p, g), (lr,)) if rule == "sgd"
-        else ((p, g, v), (ref_p, g, ref_v), (lr, mu, nest)))
+    lr_k = torch.tensor(lr, device="cuda") if lr_on_card else lr
+    lists, ref_lists, scalars, ref_scalars = (
+        ((p, g), (ref_p, g), (lr_k,), (lr,)) if rule == "sgd"
+        else ((p, g, v), (ref_p, g, ref_v), (lr_k, mu, nest), (lr, mu, nest)))
     groups = ([[i] for i in range(len(shapes))] if per_tensor
               else [range(len(shapes))])
 
@@ -987,7 +1022,7 @@ def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
             kern(*([xs[i] for i in idx] for xs in lists), *scalars)
 
     def run_plain():
-        plain(*ref_lists, *scalars)
+        plain(*ref_lists, *ref_scalars)
 
     run_kernel()
     run_plain()
@@ -1013,6 +1048,7 @@ def check_sgd(K, shapes, rule, gen, label, per_tensor=False):
 
     lib_ms = device_ms(fused_sgd_lib, 20)
     rec = dict(rule=rule, label=label, tensors=len(shapes), elements=n,
+               lr_on_card=lr_on_card,
                launches_per_update=len(shapes) if per_tensor else 1,
                max_abs_err=err, tol="bit-identical", ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms,
@@ -1241,6 +1277,11 @@ KERNEL_GROUPS = (
     ("embedding_scatter_add",
      r"scatter_(keys|sum|join)_kernel|^(void )?cub::"),
     ("softmax_cross_entropy", r"xent_kernel"),
+    # the image models: cuDNN's convolutions (forward, data and weight
+    # gradients), batch norm, pooling
+    ("conv", r"fprop|dgrad|wgrad|implicit_gemm|conv|winograd|fft"),
+    ("batch_norm", r"batch_norm|batchnorm|welford|bn_"),
+    ("pool", r"pool"),
     ("matmul", r"gemm|xmma|cutlass|cublas|nvjet|sm90_"),
     ("softmax", r"softmax"),
     ("reduction", r"reduce"),
@@ -2217,6 +2258,254 @@ def phase_sparse_xent(K, bert, ops, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 11 to 14: the image models (train-resnet50, train-correctness,
+# infer-image, train-se-resnext50)
+# ---------------------------------------------------------------------------
+def image_train_calls(K, step_fn, params, state, images, labels, calls,
+                      steps, label, card):
+    """``calls`` calls of an image model's ``step_fn`` on one reused batch
+    already on the card, each with the launch counts set to 0 just before
+    and read just after; every call must launch exactly ``steps``
+    ``fused_momentum`` kernels and nothing else registered, and end with a
+    finite loss. Returns (per-call seconds, losses, accuracies, counts)."""
+    lat, losses, accs, counts = [], [], [], []
+    for i in range(calls):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, acc, params, state = step_fn(params, state, images, labels)
+        loss = loss.item()          # synchronizes
+        dt = time.perf_counter() - t0
+        c = K.launch_counts()
+        counts.append(c)
+        check(math.isfinite(loss), f"{label} call {i}: loss {loss}")
+        for name, n in c.items():
+            want = steps if name == "fused_momentum" else 0
+            check(n == want, f"{label} call {i}: {n} {name} launches, "
+                             f"expected {want}")
+        lat.append(dt)
+        losses.append(loss)
+        accs.append(acc.item())
+        log(f"{label} call {i}: {steps} steps, last loss {loss:.6f}, "
+            f"{dt * 1e3 / steps:.3f} ms/step [{card}]")
+    return lat, losses, accs, counts
+
+
+def phase_train_resnet50(K, resnet, optimizer, card):
+    """``bench.py resnet50``'s config, nothing cut: ResNet-50, bf16, 224,
+    batch 256 of ``synthetic_batch`` reused, Momentum(0.1, 0.9), 8 steps a
+    call, 3 calls (steady state: calls 2-3)."""
+    cfg = resnet.resnet50()
+    B, spc, calls = 256, 8, 3
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9)
+    init_fn, step_fn = resnet.make_train_step(cfg, opt, steps_per_call=spc)
+    params, state = init_fn(torch.Generator(device="cuda").manual_seed(7))
+    images, labels = resnet.synthetic_batch(cfg, B)
+    images = torch.as_tensor(images, device="cuda")
+    labels = torch.as_tensor(labels, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, losses, accs, counts = image_train_calls(
+        K, step_fn, params, state, images, labels, calls, spc,
+        "train-resnet50", card)
+    peak = torch.cuda.max_memory_allocated()
+    card_after = log_card("after train-resnet50's calls")
+    step_ms = 1e3 * sum(lat[1:]) / (len(lat[1:]) * spc)
+    ips = B / (step_ms * 1e-3)
+    _, step1 = resnet.make_train_step(cfg, opt)
+    # one more step under the profiler: its kernels' device time over the
+    # steady step latency is the busy share
+    prof = op_breakdown(lambda: step1(params, state, images, labels),
+                        top=10, host_top=8)
+    rec = dict(batch=B, image_size=cfg.image_size, dtype="bfloat16",
+               steps_per_call=spc, losses=losses, accuracies=accs,
+               ms_per_step=[t * 1e3 / spc for t in lat],
+               steady_ms_per_step=step_ms, steady_images_per_s=ips,
+               gflop_per_image=resnet.flops_per_image(cfg) / 1e9,
+               mfu=resnet.flops_per_image(cfg) * ips / PEAK_OPS_PER_S[
+                   torch.bfloat16],
+               device_busy_share=(prof.get("kernel_ms", 0.0) / step_ms
+                                  if prof else None),
+               peak_gb=peak / 1e9, card_after=card_after, card=card,
+               launches={n: sum(c[n] for c in counts) for n in counts[0]},
+               profile=prof)
+    log("train_resnet50 " + json.dumps(rec))
+    del params, state, images
+    return rec
+
+
+def phase_image_train_checks(K, resnet, optimizer, pt, card):
+    """resnet_cifar10(depth=8, image_size=16), batch 8: three Momentum
+    steps in bf16 on the card against the port on the CPU in fp32 from the
+    same weights; then the same with a piecewise schedule, L2 decay and a
+    global-norm clip, so they run on the card (exactly 1 momentum launch
+    per step, the rate read from the card)."""
+    cfg = resnet.resnet_cifar10(depth=8, image_size=16)
+    images, labels = resnet.synthetic_batch(cfg, 8, seed=3)
+
+    def make(variant):
+        if variant == "momentum":
+            return optimizer.Momentum(learning_rate=0.1, momentum=0.9)
+        return optimizer.Momentum(
+            learning_rate=pt.layers.piecewise_decay([2], [0.1, 0.05]),
+            momentum=0.9, regularization=pt.regularizer.L2Decay(1e-4),
+            grad_clip=pt.clip.GradientClipByGlobalNorm(1.0))
+
+    rec, launches = {}, {}
+    for variant in ("momentum", "schedule+l2+clip"):
+        losses = {}
+        for dev, c in (("cuda", cfg),
+                       ("cpu", dataclasses.replace(cfg,
+                                                   dtype=torch.float32))):
+            init_fn, step_fn = resnet.make_train_step(c, make(variant),
+                                                      device=dev)
+            params, state = init_fn(torch.Generator().manual_seed(3))
+            if dev == "cuda":
+                _, ls, _, counts = image_train_calls(
+                    K, step_fn, params, state, torch.as_tensor(
+                        images, device="cuda"), torch.as_tensor(
+                        labels, device="cuda"), 3, 1,
+                    f"train-correctness {variant}", card)
+                for cn in counts:
+                    for n, v in cn.items():
+                        launches[n] = launches.get(n, 0) + v
+            else:
+                ls = []
+                for _ in range(3):
+                    loss, _, params, state = step_fn(params, state, images,
+                                                     labels)
+                    ls.append(loss.item())
+            losses[dev] = ls
+        diffs = [abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])]
+        # set before the first card run from the same comparison on the CPU
+        # (port bf16 against port fp32): loss differences at most 0.0054
+        # (Momentum) and 0.0028 (schedule, L2 decay, clip): within 0.03
+        check(max(diffs) < 0.03, f"train-correctness {variant}: card bf16 "
+                                 f"vs CPU fp32 losses {losses}")
+        rec[variant] = dict(losses_card_bf16=losses["cuda"],
+                            losses_cpu_fp32=losses["cpu"], loss_diffs=diffs)
+    rec.update(tol="loss 0.03 at each of 3 steps", card=card,
+               launches=launches)
+    log("image_train_checks " + json.dumps(rec))
+    return rec
+
+
+def phase_infer_image(K, resnet, vgg, card):
+    """``bench.py inference``'s shapes: ``forward(train=False)`` of
+    ResNet-50 at batches 1-128 and VGG-16 at 1-64, bf16 and fp32, on zero
+    images (bench.py:258-259): host clock to a synchronize, 30 runs after 3
+    of warm-up; no registered kernel launches. Then at batch 2, from the
+    same weights (batch-norm stats set by one training forward on the CPU),
+    the card against the port on the CPU in fp32, with cuDNN's TF32 left
+    at PyTorch's default (on): the fp32 model must turn it off itself."""
+    from paddle_tpu_torch.core.tree import map_tree
+    out = {"card": card}
+    for mod, cfg, batches in (
+            (resnet, resnet.resnet50(), (1, 2, 4, 8, 16, 32, 64, 128)),
+            (vgg, vgg.vgg16(), (1, 2, 4, 8, 16, 32, 64))):
+        name = type(cfg).__name__
+        params = mod.init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(8))
+        for dt in (torch.bfloat16, torch.float32):
+            c = dataclasses.replace(cfg, dtype=dt)
+            rows = []
+            for b in batches:
+                x = torch.zeros(b, cfg.image_size, cfg.image_size, 3,
+                                device="cuda")
+                with torch.inference_mode():
+                    for _ in range(3):
+                        mod.forward(params, c, x, train=False)
+                    torch.cuda.synchronize()
+                    K.reset_launch_counts()
+                    ms = []
+                    for _ in range(30):
+                        t0 = time.perf_counter()
+                        logits, _ = mod.forward(params, c, x, train=False)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                check(bool(torch.isfinite(logits).all()),
+                      f"infer-image {name} {dt} batch {b}: logits")
+                check(not any(K.launch_counts().values()),
+                      f"infer-image {name}: a registered kernel launched")
+                rows.append(dict(batch=b, median_ms=statistics.median(ms),
+                                 min_ms=min(ms), max_ms=max(ms),
+                                 images_per_s=b / statistics.median(ms)
+                                 * 1e3))
+                log(f"infer-image {name} {str(dt)[6:]} batch {b}: "
+                    f"{statistics.median(ms):.3f} ms median [{card}]")
+            out[f"{name} {str(dt)[6:]}"] = rows
+        del params
+        # the card against the CPU at batch 2, from one set of weights
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        cpu = mod.init_params(c32, torch.Generator().manual_seed(8),
+                              device="cpu")
+        calib, _ = mod.synthetic_batch(cfg, 4, seed=9)
+        with torch.no_grad():
+            _, new = mod.forward(cpu, c32, calib, train=True)
+            resnet._merge_bn_stats(cpu, new)
+            x = calib[:2]
+            want = mod.forward(cpu, c32, x, train=False)[0]
+        card_params = map_tree(lambda _, t: t.to("cuda"), cpu)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                got32 = mod.forward(card_params, c32, x, train=False)[0]
+                got16 = mod.forward(card_params, cfg, x, train=False)[0]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        scale = want.abs().max().item()
+        e32 = max_err(got32.cpu(), want) / scale
+        e16 = max_err(got16.cpu(), want) / scale
+        # fp32: the card and the CPU sum in other orders (observed 1.6e-6
+        # relative on a reduced ResNet-50 in eval mode against the JAX
+        # package); bf16 against fp32 on the CPU at 64x64: 0.046 and 0.011
+        # of the largest logit (ResNet-50, VGG-16)
+        check(e32 < 1e-3, f"infer-image {name}: card fp32 vs CPU fp32 "
+                          f"{e32} of the largest logit {scale}")
+        check(e16 < 0.15, f"infer-image {name}: card bf16 vs CPU fp32 "
+                          f"{e16} of the largest logit {scale}")
+        out[f"{name} card vs cpu"] = dict(
+            batch=2, max_abs_logit=scale, fp32_rel_err=e32,
+            bf16_rel_err=e16, tol="fp32 1e-3, bf16 0.15 of the largest "
+                                  "logit")
+        log(f"infer-image {name} batch 2: card fp32 {e32:.3g}, bf16 "
+            f"{e16:.3g} of the largest logit {scale:.4g} vs the CPU in fp32 "
+            f"[{card}]")
+        del cpu, card_params
+    log("infer_image " + json.dumps(out))
+    return out
+
+
+def phase_train_se_resnext50(K, se_resnext, optimizer, card):
+    """SE-ResNeXt-50 at 224, batch 32 (a choice: bench.py has no
+    SE-ResNeXt), bf16, Momentum(0.1, 0.9): 3 calls of one step, exactly 1
+    momentum launch each."""
+    cfg = se_resnext.se_resnext50()
+    B = 32
+    init_fn, step_fn = se_resnext.make_train_step(
+        cfg, optimizer.Momentum(learning_rate=0.1, momentum=0.9))
+    params, state = init_fn(torch.Generator(device="cuda").manual_seed(9))
+    images, labels = se_resnext.synthetic_batch(cfg, B)
+    images = torch.as_tensor(images, device="cuda")
+    labels = torch.as_tensor(labels, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, losses, accs, counts = image_train_calls(
+        K, step_fn, params, state, images, labels, 3, 1,
+        "train-se-resnext50", card)
+    step_ms = 1e3 * sum(lat[1:]) / len(lat[1:])
+    rec = dict(batch=B, image_size=cfg.image_size, losses=losses,
+               ms_per_step=[t * 1e3 for t in lat], steady_ms_per_step=step_ms,
+               steady_images_per_s=B / (step_ms * 1e-3),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=card,
+               launches={n: sum(c[n] for c in counts) for n in counts[0]})
+    log("train_se_resnext50 " + json.dumps(rec))
+    del params, state, images
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2228,7 +2517,7 @@ def main():
     import numpy as np
 
     from paddle_tpu_torch import ops, optimizer
-    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.models import bert, resnet, se_resnext, vgg
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
 
@@ -2307,6 +2596,7 @@ def main():
                             layout=layout, timed=False)
     adam_main = check_adam(K, bert, 1, gen)
     check_adam(K, bert, 1000, gen)
+    check_adam(K, bert, 1, gen, lr_on_card=True)
     # the static path's kernels: the word2vec step's shapes at batch 100
     # (the main path) and 8192, and BERT-base's shapes beside them
     with torch.inference_mode():
@@ -2368,6 +2658,19 @@ def main():
             check_sgd(K, w2v_shapes, rule, gen, "word2vec, one launch")
             check_sgd(K, bert_shapes, rule, gen,
                       "BERT-base's 154 tensors, one launch")
+        # the image models' update: one momentum launch over ResNet-50's 267
+        # tensors (25,610,152 values); the rate as a float and, as a
+        # schedule gives it, read from the card; the other rules with a
+        # rate on the card
+        rn50_shapes = leaves(resnet.param_shapes(resnet.resnet50()))
+        check(len(rn50_shapes) == 267, f"{len(rn50_shapes)} ResNet-50 leaves")
+        opt_main["momentum_rn50"] = check_sgd(
+            K, rn50_shapes, "momentum", gen, "ResNet-50's 267 tensors, one "
+            "launch")
+        check_sgd(K, rn50_shapes, "momentum", gen, "ResNet-50's 267 "
+                  "tensors, lr on the card", lr_on_card=True)
+        check_sgd(K, w2v_shapes, "sgd", gen, "word2vec, lr on the card",
+                  lr_on_card=True)
         # the scatter-add: bench.py's CTR point; BERT-base's three
         # embedding gradients with pretrain-512's ids into zeros (phase
         # 10's word shape is the main one); the merge's inverse ids; bf16;
@@ -2464,6 +2767,17 @@ def main():
         "(sparse-xent)")
     sparse = phase_sparse_xent(K, bert, ops, card)
     log(f"phases 0-10 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 11: training ResNet-50, 256x224^2 bf16 (train-resnet50)")
+    rn50 = phase_train_resnet50(K, resnet, optimizer, card)
+    log("phase 12: image training correctness on the card "
+        "(train-correctness)")
+    img_checks = phase_image_train_checks(K, resnet, optimizer, pt, card)
+    log("phase 13: ResNet-50 and VGG-16 inference latency (infer-image)")
+    phase_infer_image(K, resnet, vgg, card)
+    log("phase 14: training SE-ResNeXt-50, 32x224^2 bf16 "
+        "(train-se-resnext50)")
+    sx50 = phase_train_se_resnext50(K, se_resnext, optimizer, card)
+    log(f"phases 0-14 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -2476,6 +2790,9 @@ def main():
         "static-w2v": static["launches"],
         "serve-int8": served["launches"],
         "sparse-xent": sparse["launches"],
+        "train-resnet50": rn50["launches"],
+        "train-correctness": img_checks["launches"],
+        "train-se-resnext50": sx50["launches"],
     }
     kernels = []
     for name, main_rec in (
@@ -2487,7 +2804,7 @@ def main():
             ("fused_matmul", fmm[(100, W2V_HIDDEN, W2V_VOCAB, None)]),
             ("fused_matmul_int8", fmm8[(8, 256, 256)]),
             ("fused_sgd", opt_main["sgd"]),
-            ("fused_momentum", opt_main["momentum"]),
+            ("fused_momentum", opt_main["momentum_rn50"]),
             ("embedding_scatter_add", sc["word"]),
             ("softmax_cross_entropy", xent_main)):
         phases = {ph: c[name] for ph, c in by_phase.items()

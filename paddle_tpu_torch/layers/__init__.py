@@ -18,7 +18,9 @@ This slice ports ``fc``, ``embedding`` and the ops they and the word2vec and
 fit-a-line programs use: ``mul``, ``matmul``, ``elementwise_add``, ``relu``,
 ``sigmoid``, ``tanh``, ``gelu``, ``softmax``, ``cross_entropy``,
 ``square_error_cost``, ``mean``, ``concat`` and ``reshape`` (the rest of the
-op library is ROADMAP queue 1 item 4).
+op library is ROADMAP queue 1 item 4), and the learning-rate schedules
+(``learning_rate_scheduler``), exported here as the JAX package exports
+them.
 """
 
 import functools
@@ -30,6 +32,11 @@ from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch.core.dtypes import convert_dtype, dtype_name
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.framework import ParamAttr, unique_name
+from paddle_tpu_torch.layers import learning_rate_scheduler
+from paddle_tpu_torch.layers.learning_rate_scheduler import (
+    cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
+    natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay,
+)
 from paddle_tpu_torch.ops import activation as _act
 from paddle_tpu_torch.ops import loss as _loss
 from paddle_tpu_torch.ops import math as _math
@@ -44,7 +51,10 @@ from paddle_tpu_torch.static.program import (
 __all__ = ["data", "fc", "embedding", "mul", "matmul",
            "elementwise_add", "relu", "sigmoid", "tanh", "gelu", "softmax",
            "cross_entropy", "square_error_cost", "mean", "concat",
-           "reshape"]
+           "reshape", "learning_rate_scheduler", "noam_decay",
+           "exponential_decay", "natural_exp_decay", "inverse_time_decay",
+           "polynomial_decay", "piecewise_decay", "cosine_decay",
+           "linear_lr_warmup"]
 
 #: ops whose leading N args are tensors (default 1)
 _NARGS = {"elementwise_add": 2, "matmul": 2, "mul": 2, "cross_entropy": 2,

@@ -8,8 +8,10 @@
 //   m1 = b1 * m1 + (1 - b1) * g
 //   m2 = b2 * m2 + (1 - b2) * (g * g)
 //   p  = p - (lr * bc) * m1 / (sqrt(m2) + eps),  bc = sqrt(1 - b2^t) / (1 - b1^t)
-// with t the optimizer's step counter, read from device memory (the caller
-// has already incremented it), so a step needs no device-to-host sync. eps
+// with t the optimizer's step counter and lr the learning rate, both read
+// from device memory (the caller has already incremented t; lr is a
+// schedule's value at t, or a constant the caller's table carries), so a
+// step needs no device-to-host sync. eps
 // sits on sqrt(m2) before the bias correction, as in the TPU kernel; the
 // scalar work is fp32 as fused_adam_pallas does it. Every product and sum is
 // rounded on its own (no fused multiply-add), in the order of the plain
@@ -48,8 +50,8 @@ __device__ __forceinline__ void adam(float& p, float g, float& m1, float& m2, co
 
 __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__ chunk_start,
-                  int n_tensors, const int* __restrict__ step, float lr, float b1, float omb1,
-                  float b2, float omb2, float eps) {
+                  int n_tensors, const int* __restrict__ step, const float* __restrict__ lr_ptr,
+                  float b1, float omb1, float b2, float omb2, float eps) {
   const int64_t chunk = blockIdx.x;
   // the last tensor whose first chunk is at or before this one (tensors
   // with no elements own no chunk and are passed over)
@@ -71,7 +73,7 @@ fused_adam_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__
   const float t = static_cast<float>(*step);
   const float bc = __fdiv_rn(__fsqrt_rn(__fsub_rn(1.f, powf(b2, t))),
                              __fsub_rn(1.f, powf(b1, t)));
-  const Scalars c{b1, omb1, b2, omb2, eps, __fmul_rn(lr, bc)};
+  const Scalars c{b1, omb1, b2, omb2, eps, __fmul_rn(*lr_ptr, bc)};
 
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(g) |
@@ -110,18 +112,18 @@ fused_adam_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__
 // table: int64 [n_tensors, 5] on the device, rows {p, g, m1, m2, n} (fp32
 // pointers, element count); chunk_start: int64 [n_tensors + 1] on the device,
 // the prefix sum of ceil(n / 16384) with chunk_start[n_tensors] = n_chunks;
-// step: int32 on the device. omb1 and omb2 are 1 - b1 and 1 - b2 as the
-// caller rounds them. Returns the cudaError_t of the launch (0 = accepted).
+// step: int32 on the device; lr: one fp32 on the device. omb1 and omb2 are 1 - b1 and
+// 1 - b2 as the caller rounds them. Returns the cudaError_t of the launch (0 = accepted).
 extern "C" int pt_fused_adam(const void* table, const void* chunk_start, int n_tensors,
-                             int64_t n_chunks, const void* step, float lr, float b1, float omb1,
-                             float b2, float omb2, float eps, void* stream) {
+                             int64_t n_chunks, const void* step, const void* lr, float b1,
+                             float omb1, float b2, float omb2, float eps, void* stream) {
   if (n_chunks == 0) return 0;
   if (n_tensors <= 0 || n_chunks < 0 || n_chunks > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   fused_adam_kernel<<<static_cast<unsigned>(n_chunks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(table), static_cast<const int64_t*>(chunk_start), n_tensors,
-      static_cast<const int*>(step), lr, b1, omb1, b2, omb2, eps);
+      static_cast<const int*>(step), static_cast<const float*>(lr), b1, omb1, b2, omb2, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

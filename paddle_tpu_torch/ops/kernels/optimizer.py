@@ -34,8 +34,8 @@ _CHUNK = 16384        # elements per block; kChunk of both sources
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _SIGNATURES = {
-    "pt_fused_adam": [_P, _P, ctypes.c_int, ctypes.c_int64, _P] + [_F] * 6
-    + [_P],
+    "pt_fused_adam": [_P, _P, ctypes.c_int, ctypes.c_int64, _P, _P]
+    + [_F] * 5 + [_P],
 }
 _SGD_SIGNATURES = {
     "pt_fused_sgd": [_P, _P, ctypes.c_int, ctypes.c_int64, _P, _P],
@@ -50,7 +50,8 @@ def fused_adam(params, grads, m1s, m2s, lr, step, beta1=0.9, beta2=0.999,
     m1 = b1 m1 + (1-b1) g, m2 = b2 m2 + (1-b2) g^2 and
     p -= lr * sqrt(1-b2^t) / (1-b1^t) * m1 / (sqrt(m2) + eps), with t the
     int32 0-d tensor ``step`` (already incremented for this update).
-    ``lr`` is a float. Returns None.
+    ``lr`` is a float or a 0-d fp32 tensor on the params' device. Returns
+    None.
 
     CPU tensors take the plain PyTorch body; CUDA tensors launch the kernel
     (once for the whole list) or raise."""
@@ -88,12 +89,27 @@ def _fused_adam_cuda(params, grads, m1s, m2s, lr, step, beta1=0.9,
                             f"{dev}")
     rows = _rows(NAME, dev, params, grads, m1s, m2s,
                  names=("param", "grad", "moment1", "moment2"))
-    table, starts, n_chunks = _table(dev, rows)
+    lr_ptr, words = _lr_arg(NAME, lr, dev)
+    table, starts, n_chunks = _table(dev, rows, words)
     _build.launch(_build.load("fused_adam", _SIGNATURES), "pt_fused_adam",
                   NAME, dev, table.data_ptr(), starts, len(rows), n_chunks,
-                  step.data_ptr(), float(lr), float(beta1),
-                  float(1 - beta1), float(beta2), float(1 - beta2),
-                  float(epsilon))
+                  step.data_ptr(), lr_ptr or starts + 8 * (len(rows) + 1),
+                  float(beta1), float(1 - beta1), float(beta2),
+                  float(1 - beta2), float(epsilon))
+
+
+def _lr_arg(name, lr, dev):
+    """(device address of the rate, table words): a 0-d fp32 tensor on
+    ``dev`` is read where it lies (no words); a float travels as the
+    table's last word (address None: the caller points past the prefix
+    sums)."""
+    if not isinstance(lr, torch.Tensor):
+        return None, [_f32_word(lr)]
+    if lr.device != dev or lr.dtype != torch.float32 or lr.dim() != 0:
+        raise EnforceNotMet(f"{name}: lr must be a float or a 0-d float32 "
+                            f"tensor on {dev}, got {lr.dtype} "
+                            f"{tuple(lr.shape)} on {lr.device}")
+    return lr.data_ptr(), []
 
 
 def _rows(name, dev, params, *others, names):
@@ -148,7 +164,8 @@ def _f32_word(x):
 
 def fused_sgd(params, grads, lr):
     """SGD over lists of fp32 tensors, in place: p -= lr * g, with ``lr`` a
-    float (rounded to fp32, as the JAX package's f32 learning rate is).
+    float (rounded to fp32, as the JAX package's f32 learning rate is) or a
+    0-d fp32 tensor on the params' device.
     Returns None. CPU tensors take the plain PyTorch body; CUDA tensors
     launch the kernel (once for the whole list) or raise."""
     if not params:
@@ -160,8 +177,8 @@ def fused_sgd(params, grads, lr):
 def fused_momentum(params, grads, velocities, lr, momentum=0.9,
                    use_nesterov=False):
     """Momentum over lists of fp32 tensors, in place: v = momentum * v + g,
-    then p -= lr * v, or p -= lr * (g + momentum * v) with ``use_nesterov``.
-    Returns None. CPU tensors take the plain PyTorch body; CUDA tensors
+    then p -= lr * v, or p -= lr * (g + momentum * v) with ``use_nesterov``;
+    ``lr`` as for :func:`fused_sgd`. Returns None. CPU tensors take the plain PyTorch body; CUDA tensors
     launch the kernel (once for the whole list) or raise."""
     if not params:
         return None
@@ -194,32 +211,38 @@ def _fused_momentum_reference(params, grads, velocities, lr, momentum=0.9,
 
 
 def _f32(x):
-    """float32(x) as a Python float: the scalar the kernels read."""
+    """float32(x) as a Python float, the scalar the kernels read; a tensor
+    (a scheduled rate, already fp32) as it is."""
+    if isinstance(x, torch.Tensor):
+        return x
     return struct.unpack("<f", struct.pack("<f", float(x)))[0]
 
 
 def _fused_sgd_cuda(params, grads, lr):
     """Launch ``csrc/fused_sgd.cu``'s SGD once over the list on the current
-    stream (no sync); lr travels in the launch table."""
+    stream (no sync); a float lr travels in the launch table."""
     dev = _cuda_device(SGD, params)
     rows = _rows(SGD, dev, params, grads, names=("param", "grad"))
-    table, starts, n_chunks = _table(dev, rows, [_f32_word(lr)])
+    lr_ptr, words = _lr_arg(SGD, lr, dev)
+    table, starts, n_chunks = _table(dev, rows, words)
     _build.launch(_build.load("fused_sgd", _SGD_SIGNATURES), "pt_fused_sgd",
                   SGD, dev, table.data_ptr(), starts, len(rows), n_chunks,
-                  starts + 8 * (len(rows) + 1))
+                  lr_ptr or starts + 8 * (len(rows) + 1))
 
 
 def _fused_momentum_cuda(params, grads, velocities, lr, momentum=0.9,
                          use_nesterov=False):
     """Launch ``csrc/fused_sgd.cu``'s momentum once over the list on the
-    current stream (no sync); lr travels in the launch table."""
+    current stream (no sync); a float lr travels in the launch table."""
     dev = _cuda_device(MOMENTUM, params)
     rows = _rows(MOMENTUM, dev, params, grads, velocities,
                  names=("param", "grad", "velocity"))
-    table, starts, n_chunks = _table(dev, rows, [_f32_word(lr)])
+    lr_ptr, words = _lr_arg(MOMENTUM, lr, dev)
+    table, starts, n_chunks = _table(dev, rows, words)
     _build.launch(_build.load("fused_sgd", _SGD_SIGNATURES),
                   "pt_fused_momentum", MOMENTUM, dev, table.data_ptr(),
-                  starts, len(rows), n_chunks, starts + 8 * (len(rows) + 1),
+                  starts, len(rows), n_chunks,
+                  lr_ptr or starts + 8 * (len(rows) + 1),
                   _f32(momentum), int(bool(use_nesterov)))
 
 

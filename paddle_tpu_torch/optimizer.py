@@ -17,14 +17,25 @@ Adam, on both of its paths.
 
 The kernels take fp32 parameters, grads and slots, where the output dtype
 the JAX package pins by ``eval_shape`` (optimizer.py:255-261) is fp32 as
-well; another dtype raises. A callable learning rate (a schedule),
-``regularization`` and ``grad_clip`` raise :class:`EnforceNotMet` naming the
-ROADMAP item that ports them.
+well; another dtype raises.
+
+The learning rate is a float or a schedule
+(``layers.learning_rate_scheduler``): a schedule is evaluated in fp32 on the
+incremented step counter, on its device, and the kernels read the rate from
+device memory, so a scheduled step adds no host sync. ``regularization``
+(``regularizer.L2Decay``, ...) and ``grad_clip`` (``clip.Gradient...``)
+apply in the JAX package's order: rate, then regularizer, then clip, then
+the update (optimizer.py:96-101). The static path takes a parameter's own
+regularizer and learning rate from its ``ParamAttr``, and the Program's
+clip from ``clip.set_gradient_clip`` as a ``clip_grads`` op; a parameter's
+``gradient_clip`` is kept and saved, and applies nowhere, as in the JAX
+package.
 """
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch import clip as clip_mod
 from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch.core.dtypes import dtype_name
 from paddle_tpu_torch.core.enforce import EnforceNotMet
@@ -48,21 +59,28 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, regularization=None,
                  grad_clip=None, name=None):
-        if callable(learning_rate):
+        if regularization is not None and not callable(regularization):
             raise EnforceNotMet(
-                "a learning-rate schedule is not ported yet (ROADMAP queue 1 "
-                "item 5, with layers/learning_rate_scheduler.py): pass a "
-                "float")
-        if regularization is not None or grad_clip is not None:
+                "regularization must be a (param, grad) -> grad callable "
+                "such as regularizer.L2Decay(1e-4), got "
+                f"{type(regularization).__name__}")
+        if grad_clip is not None and not hasattr(grad_clip, "clip_tree"):
             raise EnforceNotMet(
-                "regularization and grad_clip are not ported yet (ROADMAP "
-                "queue 1 item 7: regularizer.py, clip.py)")
-        self.learning_rate = float(learning_rate)
-        # kept (None) so a saved program's optimizer state has the JAX
-        # package's fields
+                "grad_clip must have clip_tree(grads), as the clip module's "
+                f"classes do, got {type(grad_clip).__name__}")
+        self.learning_rate = (learning_rate if callable(learning_rate)
+                              else float(learning_rate))
         self.regularization = regularization
         self.grad_clip = grad_clip
         self.name = name
+
+    def _lr_value(self, step):
+        """The rate of the update whose (incremented) counter is ``step``:
+        a schedule's 0-d fp32 tensor on the counter's device, or the
+        float."""
+        if callable(self.learning_rate):
+            return self.learning_rate(step.to(torch.float32))
+        return self.learning_rate
 
     def init(self, params):
         """{"step": 0-d int32 tensor on the params' device, "slots": a tree
@@ -81,17 +99,25 @@ class Optimizer:
         """One update, **in place**: params, the slots of ``state`` and its
         step counter are overwritten, and ``(params, state)`` (the same
         objects) are returned. ``grads`` is a tree like params; the trees
-        are matched by key, not by order. ``param_meta`` is accepted and
-        ignored, as in the JAX package (its decoupled-weight-decay
-        extension passes it)."""
+        are matched by key, not by order. The step counter is incremented,
+        the rate taken at it, then the regularizer and the clip applied to
+        the grads (out of place), then the rule's one launch. ``param_meta``
+        is accepted and ignored, as in the JAX package (its
+        decoupled-weight-decay extension passes it)."""
         rows = leaves(map_tree(
             lambda path, p, g, s: (p, _grad(path, p, g), s),
             params, grads, state["slots"]))
+        ps, gs = [p for p, _, _ in rows], [g for _, g, _ in rows]
         state["step"].add_(1)
         with torch.no_grad():
-            self._apply([p for p, _, _ in rows], [g for _, g, _ in rows],
-                        [[s[k] for _, _, s in rows]
-                         for k in self._slot_defaults], state["step"])
+            lr = self._lr_value(state["step"])
+            if self.regularization is not None:
+                gs = [self.regularization(p, g) for p, g in zip(ps, gs)]
+            if self.grad_clip is not None:
+                gs = self.grad_clip.clip_tree(gs)
+            self._apply(ps, gs, [[s[k] for _, _, s in rows]
+                                 for k in self._slot_defaults],
+                        state["step"], lr)
         return params, state
 
     def step(self, params, grads, state=None):
@@ -102,9 +128,13 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        """Append the backward and the update ops to ``loss``'s program and
-        the slots' and step counter's initializers to the startup program
-        (optimizer.py:127-221). Returns ``(update ops, [(param, grad)])``."""
+        """Append the backward, the step counter's increment, the clip (the
+        optimizer's ``grad_clip`` or the Program's, as one ``clip_grads``
+        op over every grad) and one ``apply_optimizer`` op per parameter
+        (with its ``ParamAttr`` regularizer and learning rate) to
+        ``loss``'s program, and the slots' and step counter's initializers
+        to the startup program (optimizer.py:127-221). Returns ``(update
+        ops, [(param, grad)])``."""
         from paddle_tpu_torch.static.backward import append_backward
         if not in_static_mode():
             raise EnforceNotMet(
@@ -113,12 +143,6 @@ class Optimizer:
         program = loss.block.program
         blk = program.global_block()
         p_g = append_backward(loss, parameter_list, no_grad_set)
-        for p, _ in p_g:
-            if p.regularizer is not None or p.gradient_clip is not None:
-                raise EnforceNotMet(
-                    f"parameter {p.name!r}: a per-parameter regularizer or "
-                    "gradient clip is not ported yet (ROADMAP queue 1 item "
-                    "7: regularizer.py, clip.py)")
         sblk = (startup_program or default_startup_program()).global_block()
 
         step_name = f"@opt@{self.name or type(self).__name__}@step"
@@ -133,6 +157,12 @@ class Optimizer:
                                   "dtype": "int32"})
         blk.append_op(type="increment_step", inputs={"X": [step_name]},
                       outputs={"Out": [step_name]}, attrs={})
+
+        clip = self.grad_clip or clip_mod.get_gradient_clip(program)
+        if clip is not None:
+            gnames = [g.name for _, g in p_g]
+            blk.append_op(type="clip_grads", inputs={"X": gnames},
+                          outputs={"Out": gnames}, attrs={"clip": clip})
 
         ops = []
         for p, g in p_g:
@@ -205,7 +235,7 @@ class Optimizer:
         dev = leaves(params)[0].device
         return {"step": torch.tensor(step).to(dev), "slots": slots}
 
-    def _apply(self, params, grads, slots, step):
+    def _apply(self, params, grads, slots, step, lr):
         raise NotImplementedError
 
 
@@ -229,17 +259,17 @@ class AdamOptimizer(Optimizer):
         super().__init__(learning_rate, **kw)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
-    def _apply(self, params, grads, slots, step):
+    def _apply(self, params, grads, slots, step, lr):
         m1s, m2s = slots
-        fused_adam(params, grads, m1s, m2s, self.learning_rate, step,
+        fused_adam(params, grads, m1s, m2s, lr, step,
                    beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon)
 
 
 class SGDOptimizer(Optimizer):
     """sgd_op.cc: p -= lr * g. fp32 params."""
 
-    def _apply(self, params, grads, slots, step):
-        fused_sgd(params, grads, self.learning_rate)
+    def _apply(self, params, grads, slots, step, lr):
+        fused_sgd(params, grads, lr)
 
 
 class MomentumOptimizer(Optimizer):
@@ -254,9 +284,9 @@ class MomentumOptimizer(Optimizer):
         self.momentum = momentum
         self.use_nesterov = use_nesterov
 
-    def _apply(self, params, grads, slots, step):
+    def _apply(self, params, grads, slots, step, lr):
         (velocities,) = slots
-        fused_momentum(params, grads, velocities, self.learning_rate,
+        fused_momentum(params, grads, velocities, lr,
                        momentum=self.momentum,
                        use_nesterov=self.use_nesterov)
 
@@ -288,14 +318,22 @@ def _fused_update(opt, p, g, slots, lr, step):
 def _apply_optimizer_compute(ins, attrs):
     """The static ``apply_optimizer`` op (optimizer.py:264-277): updates
     Param and Slots in place and returns them as ParamOut and SlotOuts. The
-    learning rate is the fp32 product of the optimizer's and the
-    parameter's, as the JAX op computes it."""
+    grad takes the parameter's regularizer, else the optimizer's; the
+    learning rate is the fp32 product of the optimizer's (a schedule's at
+    the step, on the device) and the parameter's, as the JAX op computes
+    it."""
     opt = attrs["opt"]
     p, g, step = ins["Param"][0], ins["Grad"][0], ins["Step"][0]
     slots = dict(zip(attrs["slot_names"], ins.get("Slots", [])))
-    lr = float(np.float32(opt.learning_rate)
-               * np.float32(attrs.get("param_lr", 1.0)))
+    param_lr = attrs.get("param_lr", 1.0)
     with torch.no_grad():
+        reg = attrs.get("regularizer") or opt.regularization
+        if reg is not None:
+            g = reg(p, g)
+        if callable(opt.learning_rate):
+            lr = opt._lr_value(step) * param_lr
+        else:
+            lr = float(np.float32(opt.learning_rate) * np.float32(param_lr))
         _fused_update(opt, p, g, slots, lr, step)
     return {"ParamOut": [p],
             "SlotOuts": [slots[k] for k in attrs["slot_names"]]}
@@ -303,6 +341,8 @@ def _apply_optimizer_compute(ins, attrs):
 
 register_op("apply_optimizer", _apply_optimizer_compute)
 register_op("increment_step", lambda ins, attrs: {"Out": [ins["X"][0] + 1]})
+register_op("clip_grads", lambda ins, attrs: {
+    "Out": attrs["clip"].clip_tree(list(ins["X"]))})
 
 
 Adam = AdamOptimizer

@@ -162,6 +162,8 @@ class Program:
         self.random_seed = 0
         self._version = 0
         self._constants = {}
+        # the default clip of minimize(), set by clip.set_gradient_clip
+        self._grad_clip = None
 
     def _bump(self):
         self._version += 1
@@ -189,6 +191,7 @@ class Program:
         p = Program()
         p.random_seed = self.random_seed
         p._constants = dict(self._constants)
+        p._grad_clip = self._grad_clip
         blk = p.global_block()
         blk.vars = {n: copy.copy(v)
                     for n, v in self.global_block().vars.items()}

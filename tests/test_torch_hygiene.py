@@ -15,7 +15,7 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import optimizer
-from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.models import bert, resnet, se_resnext, vgg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "paddle_tpu_torch")
@@ -47,7 +47,7 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
     assert len(srcs) >= 10
     # the subpackages with copies of jax-free JAX-package modules are
     # scanned too
-    for sub in ("serving", "monitor", "static"):
+    for sub in ("serving", "monitor", "static", "models", "layers"):
         assert any(f"{os.sep}{sub}{os.sep}" in p for p in srcs), sub
     for path in srcs:
         with open(path) as f:
@@ -62,6 +62,10 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.bert, paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.inference, paddle_tpu_torch.serving\n"
         "import paddle_tpu_torch.monitor.trace, paddle_tpu_torch.io\n"
+        "import paddle_tpu_torch.models.resnet, paddle_tpu_torch.models.vgg\n"
+        "import paddle_tpu_torch.models.se_resnext, paddle_tpu_torch.clip\n"
+        "import paddle_tpu_torch.regularizer\n"
+        "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -109,6 +113,13 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
         bert.make_train_step(cfg, optimizer.Adam())
     assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    for model, vcfg in ((resnet, resnet.resnet_cifar10(depth=8)),
+                        (vgg, vgg.vgg11(num_classes=10, image_size=32)),
+                        (se_resnext, se_resnext.se_resnext_tiny())):
+        with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+            model.init_params(vcfg, torch.Generator().manual_seed(0))
+        with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+            model.make_train_step(vcfg, optimizer.Momentum(0.1))
     init_fn, _ = bert.make_train_step(cfg, optimizer.Adam(), device="cpu")
     params, state = init_fn(torch.Generator().manual_seed(0))
     assert state["step"].device == params["embed"]["word"].device == \

@@ -210,13 +210,17 @@ def test_state_from_numpy_is_strict():
 
 
 def test_optimizer_refuses_what_is_not_ported():
-    for kw in ({"learning_rate": lambda step: 0.1},
-               {"regularization": object()}, {"grad_clip": object()}):
-        with pytest.raises(EnforceNotMet, match="ROADMAP"):
+    # schedules, regularizers and clips are ported (tests/test_torch_
+    # schedules.py holds them against the JAX package); what is neither a
+    # regularizer nor a clip is refused
+    for kw, match in (({"regularization": object()}, "regularization"),
+                      ({"grad_clip": object()}, "clip_tree")):
+        with pytest.raises(EnforceNotMet, match=match):
             topt.Adam(**kw)
         for cls in (topt.SGD, topt.Momentum):
-            with pytest.raises(EnforceNotMet, match="ROADMAP"):
+            with pytest.raises(EnforceNotMet, match=match):
                 cls(**{"learning_rate": 0.1, **kw})
+    assert callable(topt.Adam(learning_rate=lambda step: 0.1).learning_rate)
     # outside a Program, minimize() is refused
     with pytest.raises(EnforceNotMet, match="static-graph"):
         topt.Adam().minimize(None)
