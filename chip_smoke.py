@@ -22,7 +22,8 @@ Phases; any failure raises and the script exits non-zero:
    S = 300, 1000 and 2048, causal and masked keys, rows that see no key,
    the fused QKV projection's head views and views the wrapper copies, and
    the fp32 SIMT instantiation at the same edges),
-   the multi-tensor Adam over BERT-base's parameter list; and the static
+   the multi-tensor Adam over BERT-base's parameter list and over
+   Transformer-big's 258 tensors (~243 M values); and the static
    path's kernels: the embedding gather (word2vec's table with 100 and
    8192 ids, BERT-base's word table with 64x512 ids), the fused matmul
    (each activation at both word2vec fc shapes, those at 8192 rows, the
@@ -139,7 +140,33 @@ Phases; any failure raises and the script exits non-zero:
 14. Train SE-ResNeXt-50 (train-se-resnext50): bf16, 224x224, batch 32 (a
    choice: ``bench.py`` has no SE-ResNeXt), 3 Momentum steps, exactly 1
    momentum launch per step, finite losses, images/s.
-15. Print one JSON line of every ported kernel (launches on the main paths,
+15. Train Transformer-big as ``bench.py nmt`` does (train-transformer-big),
+   nothing cut: hidden 1024, 16 heads, FFN 4096, 6+6 layers, vocab 32768,
+   bf16, batch 32, source and target 256, Adam(1e-4) on one reused
+   ``synthetic_batch``, 2 warm-up and 20 counted steps. Exactly 1
+   ``fused_adam`` launch per step and no other registered kernel; the loss
+   falls; target tokens/s, MFU against 989 TFLOP/s with
+   ``flops_per_step``, step latency, peak memory, one profiled step's
+   kernels by group with the tied fp32 output projection on its own line,
+   and that projection's three products timed alone.
+16. Decode with those weights as ``bench.py nmt`` does
+   (decode-transformer-big): ``beam_search_decode(beam_size=4,
+   max_len=64)`` and ``greedy_decode(max_len=64)`` of the 32 sources, 5
+   timed decodes after one warm-up: latency, decode tokens/s, kernel
+   launches per step and the busy share; no registered kernel launches.
+17. Transformer correctness (transformer-correctness): transformer_tiny in
+   fp32 on the card against the CPU (logits within 1e-4 of the largest,
+   greedy tokens equal), and Transformer-big's widths at 1+1 layers, 3
+   Adam steps in bf16 on the card against fp32 on the CPU (losses within
+   0.03).
+18. The DeepFM CTR trainer (ctr-deepfm): ``DeepFMConfig()`` with nothing
+   cut over the host tables (Adagrad 0.05), batch 4096
+   (``benchmark/ctr_trace_r2.json``'s), 20 steps of ``train_step`` with
+   sync and async pushes and of ``train_stream(prefetch=2)``, with the fp32
+   and the fp16 wire: examples/s, the host split of a synchronous step
+   (pull, copy, step, fetch, push) and the step's device busy share; the
+   loss falls and no registered kernel launches.
+19. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -698,14 +725,12 @@ def check_flash_bwd(K, B, H, S, D, dtype, causal, masked_keys, gen,
     return recs
 
 
-def check_adam(K, bert, t, gen, lr_on_card=False):
-    """The multi-tensor Adam kernel against its plain body over BERT-base's
-    parameter list (random p, g, m1 and m2 >= 0) at step t; with
-    ``lr_on_card`` the kernel reads the rate from a 0-d fp32 tensor on the
-    card (a schedule's value), the plain body takes the float."""
-    from paddle_tpu_torch.core.tree import leaves
-    shapes = [p.shape for p in leaves(bert.init_params(bert.bert_base(),
-                                                        gen))]
+def check_adam(K, shapes, t, gen, lr_on_card=False, label="BERT-base"):
+    """The multi-tensor Adam kernel against its plain body over a model's
+    parameter list (``shapes``: BERT-base's 154 tensors, Transformer-big's
+    258; random p, g, m1 and m2 >= 0) at step t; with ``lr_on_card`` the
+    kernel reads the rate from a 0-d fp32 tensor on the card (a schedule's
+    value), the plain body takes the float."""
     p, g, m1, m2 = ([torch.randn(sh, generator=gen, device="cuda")
                      for sh in shapes] for _ in range(4))
     m2 = [x.abs() for x in m2]
@@ -752,8 +777,8 @@ def check_adam(K, bert, t, gen, lr_on_card=False):
         lambda: kern(p, g, m1, m2, lr_k, step), 20)
     plain_ms = device_ms(lambda: plain(*ref, 1e-4, step), 3)
     lib_ms = device_ms(library, 20)
-    rec = dict(tensors=len(p), elements=n, t=t, lr_on_card=lr_on_card,
-               max_abs_err=err,
+    rec = dict(model=label, tensors=len(p), elements=n, t=t,
+               lr_on_card=lr_on_card, max_abs_err=err,
                tol="p/m1/m2 atol 1e-7 rtol 1e-6", ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms,
                library="torch._fused_adam_ with eps / sqrt(1 - b2^t) "
@@ -1291,13 +1316,14 @@ KERNEL_GROUPS = (
 )
 
 
-def op_breakdown(fn, top=10, host_top=0):
+def op_breakdown(fn, top=10, host_top=0, groups=KERNEL_GROUPS):
     """Device time by CUDA kernel over one call of ``fn`` (after one
-    warm-up call), from ``torch.profiler``: ms per group of KERNEL_GROUPS
-    ("other" for the rest) and the ``top`` kernels by time, names cut to
-    100 characters; with ``host_top``, also the host's total time in the
-    call and its ``host_top`` operators by self CPU time. Empty when the
-    profiler recorded no device time."""
+    warm-up call), from ``torch.profiler``: ms per group of ``groups``
+    ("other" for the rest), the number of device events (kernels and
+    copies) and the ``top`` kernels by time, names cut to 100 characters;
+    with ``host_top``, also the host's total time in the call and its
+    ``host_top`` operators by self CPU time. Empty when the profiler
+    recorded no device time."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1315,16 +1341,16 @@ def op_breakdown(fn, top=10, host_top=0):
                and e.self_device_time_total > 0]
     if not kernels:
         return {}
-    groups = {}
+    by_group = {}
     for name, ms, _ in kernels:
-        g = next((g for g, pat in KERNEL_GROUPS
+        g = next((g for g, pat in groups
                   if re.search(pat, name, re.I)), "other")
-        groups[g] = groups.get(g, 0.0) + ms
-    total = sum(groups.values())
+        by_group[g] = by_group.get(g, 0.0) + ms
+    total = sum(by_group.values())
     kernels.sort(key=lambda r: -r[1])
     out = dict(
-        kernel_ms=total,
-        groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        kernel_ms=total, launches=sum(n for _, _, n in kernels),
+        groups_ms=dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         top=[[name[:100], ms, n] for name, ms, n in kernels[:top]])
     if host_top:
         cpu = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
@@ -2506,6 +2532,335 @@ def phase_train_se_resnext50(K, se_resnext, optimizer, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 15-18: Transformer-big NMT and the DeepFM CTR trainer
+# ---------------------------------------------------------------------------
+NMT_B, NMT_S, NMT_STEPS = 32, 256, 20     # bench.py nmt (:1738-1745)
+NMT_DECODE_LEN, NMT_BEAM, NMT_REPS = 64, 4, 5    # bench.py nmt (:1762-1780)
+# the tied output projection's three fp32 products (x @ E^T and its two
+# backward products) are the step's only fp32 GEMMs: cuBLAS's fp32 SIMT
+# kernels (gemm_f32f32_f32f32_f32_..._ffma)
+TIED_FP32_GROUP = ("tied fp32 projection (fp32 SIMT GEMMs)",
+                   r"f32f32_f32f32_f32|sgemm")
+
+
+def tied_projection_ms(cfg, B, T):
+    """Device ms of the tied output projection's forward and its two
+    backward products at train-transformer-big's shapes, fp32, TF32 off (as
+    the model runs them): x [B*T, h] @ E^T, dlogits @ E, dlogits^T @ x."""
+    n, h, v = B * T, cfg.hidden, cfg.tgt_vocab
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(n, h, generator=gen, device="cuda")
+    e = torch.randn(v, h, generator=gen, device="cuda")
+    dl = torch.randn(n, v, generator=gen, device="cuda")
+    out = {}
+    for name, fn in (("forward x @ E^T", lambda: x @ e.T),
+                     ("backward dlogits @ E", lambda: dl @ e),
+                     ("backward dlogits^T @ x", lambda: dl.T @ x)):
+        out[name] = device_ms(fn, 3)
+    out["total"] = sum(out.values())
+    out["tflops"] = 3 * 2 * n * h * v / (out["total"] * 1e-3) / 1e12
+    del x, e, dl
+    return out
+
+
+def phase_train_transformer_big(K, transformer, optimizer, card, adam_ms):
+    """``bench.py nmt``'s training config, nothing cut: Transformer-big
+    (hidden 1024, 16 heads, FFN 4096, 6+6 layers, vocab 32768), bf16, batch
+    32, source and target 256, Adam(1e-4) on one reused ``synthetic_batch``;
+    2 warm-up steps, then 20 counted steps, each with the launch counts set
+    to 0 just before and read just after: exactly 1 ``fused_adam`` and no
+    other registered kernel. tokens/s (target tokens), MFU against 989
+    TFLOP/s on ``flops_per_step``, step latency, peak memory, and one
+    profiled step's kernels by group with the tied fp32 projection on a
+    line of its own (busy share: their device time over the step
+    latency)."""
+    cfg = transformer.transformer_big(max_seq=NMT_S)
+    B, S, steps = NMT_B, NMT_S, NMT_STEPS
+    opt = optimizer.Adam(learning_rate=1e-4)
+    init_fn, step_fn = transformer.make_train_step(cfg, opt)
+    params, state = init_fn(torch.Generator(device="cuda").manual_seed(11))
+    batch = on_card(transformer.synthetic_batch(cfg, B, S, S))
+    warm = []
+    for _ in range(2):
+        loss, params, state = step_fn(params, state, batch)
+        warm.append(loss.item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        K.reset_launch_counts()
+        loss, params, state = step_fn(params, state, batch)
+        counts.append(K.launch_counts())
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()       # synchronizes
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
+    card_after = log_card("after train-transformer-big's steps")
+    for i, c in enumerate(counts):
+        for name, n in c.items():
+            want = 1 if name == "fused_adam" else 0
+            check(n == want, f"train-transformer-big step {i}: {n} {name} "
+                             f"launches, expected {want}")
+    check(all(math.isfinite(x) for x in losses),
+          f"train-transformer-big: losses {losses}")
+    check(losses[-1] < warm[0], f"train-transformer-big: loss {losses[-1]} "
+                                f"after {steps + 2} steps, {warm[0]} first")
+    tps = B * S / (step_ms * 1e-3)
+    flops = transformer.flops_per_step(cfg, B, S, S)
+    prof = op_breakdown(lambda: step_fn(params, state, batch), top=12,
+                        host_top=8,
+                        groups=(TIED_FP32_GROUP,) + KERNEL_GROUPS)
+    tied = tied_projection_ms(cfg, B, S)
+    rec = dict(batch=B, src_len=S, tgt_len=S, dtype="bfloat16", steps=steps,
+               warmup_losses=warm, losses=losses, steady_ms_per_step=step_ms,
+               target_tokens_per_s=tps, tflop_per_step=flops / 1e12,
+               mfu=flops / (step_ms * 1e-3) / PEAK_OPS_PER_S[torch.bfloat16],
+               device_busy_share=(prof.get("kernel_ms", 0.0) / step_ms
+                                  if prof else None),
+               peak_gb=peak / 1e9, card_after=card_after, card=card,
+               adam_device_share=adam_ms / step_ms,
+               tied_projection_ms=tied,
+               launches={n: sum(c[n] for c in counts) for n in counts[0]},
+               profile=prof)
+    log("train_transformer_big " + json.dumps(rec))
+    if prof:
+        log("train-transformer-big kernels by share of one step's "
+            f"{prof['kernel_ms']:.3f} device ms:")
+        for g, ms in prof["groups_ms"].items():
+            log(f"  {g}: {ms:.3f} ms ({ms / prof['kernel_ms']:.1%})")
+    log(f"train-transformer-big tied fp32 projection: "
+        f"{tied['total']:.3f} ms a step ({tied['total'] / step_ms:.1%} of "
+        f"{step_ms:.3f} ms; {tied['tflops']:.1f} TFLOP/s), forward "
+        f"{tied['forward x @ E^T']:.3f}, backward "
+        f"{tied['backward dlogits @ E']:.3f} + "
+        f"{tied['backward dlogits^T @ x']:.3f} ms [{card}]")
+    return rec, (params, cfg, batch)
+
+
+def phase_decode_transformer_big(K, transformer, card, trained):
+    """``bench.py nmt``'s decode on train-transformer-big's params and
+    source batch: ``beam_search_decode(beam_size=4, max_len=64)`` and
+    ``greedy_decode(max_len=64)``, one warm-up then 5 timed decodes each
+    (host clock to the tokens read back); no registered kernel launches.
+    Latency per decode, decode tokens/s (batch x max_len over it), and from
+    one profiled decode the device's busy share and its kernel launches
+    per step."""
+    params, cfg, batch = trained
+    src, mask = batch["src_ids"], batch["src_mask"]
+    B, L = src.shape[0], NMT_DECODE_LEN
+    runs = {
+        "beam4": lambda: transformer.beam_search_decode(
+            params, cfg, src, mask, beam_size=NMT_BEAM, max_len=L),
+        "greedy": lambda: transformer.greedy_decode(params, cfg, src, mask,
+                                                    max_len=L),
+    }
+    rec = dict(batch=B, max_len=L, beam=NMT_BEAM, reps=NMT_REPS, card=card)
+    for name, fn in runs.items():
+        out = fn()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        lat = []
+        for _ in range(NMT_REPS):
+            t0 = time.perf_counter()
+            out = fn()
+            toks = (out[0] if isinstance(out, tuple) else out).cpu()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        check(not any(counts.values()), f"decode {name}: registered kernel "
+                                        f"launches {counts}")
+        want = (B, NMT_BEAM, L) if name == "beam4" else (B, L)
+        check(tuple(toks.shape) == want and toks.dtype == torch.int32,
+              f"decode {name}: tokens {toks.dtype}{list(toks.shape)}")
+        if name == "beam4":
+            scores = out[1].cpu()
+            check(bool(torch.isfinite(scores).all())
+                  and bool((scores[:, 1:] <= scores[:, :-1]).all()),
+                  f"decode beam4: scores not finite or not best-first")
+        prof = op_breakdown(fn, top=8, host_top=6)
+        launches = prof.get("launches")
+        ms = statistics.median(lat)
+        rec[name] = dict(
+            latency_ms=lat, median_ms=ms,
+            decode_tokens_per_s=B * L / (ms * 1e-3),
+            device_busy_share=(prof["kernel_ms"] / prof["host_ms_profiled"]
+                               if prof else None),
+            kernel_launches_per_step=(launches / L if launches else None),
+            profile=prof)
+        log(f"decode-transformer-big {name}: {ms:.3f} ms per decode (median "
+            f"of {NMT_REPS}), {B * L / (ms * 1e-3):.1f} tokens/s, "
+            f"{rec[name]['kernel_launches_per_step']} launches a step, "
+            f"busy {rec[name]['device_busy_share']} [{card}]")
+    log("decode_transformer_big " + json.dumps(rec))
+    return rec
+
+
+def phase_transformer_checks(K, transformer, optimizer, card):
+    """(a) transformer_tiny in fp32 on the card (TF32 off) against the port
+    on the CPU from the same weights: forward logits within 1e-4 of the
+    largest, greedy tokens equal (a flip prints its position and the CPU's
+    top-2 margin there). (b) Transformer-big's widths, depth cut to 1+1
+    layers, batch 2x32: 3 Adam(1e-4) steps in bf16 on the card against
+    fp32 on the CPU from the same weights, losses within 0.03 (BERT's
+    bound)."""
+    cfg = transformer.transformer_tiny(dtype=torch.float32)
+    b = transformer.synthetic_batch(cfg, 4, 12, 10, seed=1)
+    b["src_mask"][1, 8:] = 0
+    b["tgt_mask"][2, 7:] = 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(5), device=dev)
+        with torch.no_grad():
+            logits = transformer.forward(params, cfg, b["src_ids"],
+                                         b["tgt_in"], b["src_mask"],
+                                         b["tgt_mask"])
+        out[dev] = (logits.cpu(), transformer.greedy_decode(
+            params, cfg, b["src_ids"], b["src_mask"]).cpu())
+    cpu_params = params          # the loop ends on the CPU
+    err = max_err(out["cuda"][0], out["cpu"][0]) / \
+        out["cpu"][0].abs().max().item()
+    check(err < 1e-4, f"transformer fp32 card vs CPU: logits {err} of the "
+                      "largest")
+    flips = (out["cuda"][1] != out["cpu"][1]).nonzero().tolist()
+    for row, pos in flips[:3]:
+        # the CPU's logits at the flipped step, teacher-forced on its own
+        # tokens: the top-2 margin there
+        toks = out["cpu"][1][row:row + 1]
+        tin = torch.cat([torch.full((1, 1), cfg.bos_id, dtype=torch.int32),
+                         toks[:, :-1]], dim=1)
+        with torch.no_grad():
+            lg = transformer.forward(cpu_params, cfg,
+                                     b["src_ids"][row:row + 1], tin,
+                                     b["src_mask"][row:row + 1])[0, pos]
+        top2 = torch.topk(lg, 2).values
+        log(f"transformer greedy flip at row {row} pos {pos}: CPU top-2 "
+            f"margin {(top2[0] - top2[1]).item():.3e}")
+    check(not flips, f"transformer fp32 card vs CPU: greedy tokens differ "
+                     f"at {flips[:8]}")
+    rec = dict(fp32_logits_rel_err=err, fp32_tol="1e-4 of the largest logit",
+               greedy_equal=True)
+
+    cfg = transformer.transformer_big(enc_layers=1, dec_layers=1,
+                                      max_seq=64)
+    batch = transformer.synthetic_batch(cfg, 2, 32, 32, seed=5)
+    losses = {}
+    for dev, c in (("cuda", cfg),
+                   ("cpu", dataclasses.replace(cfg, dtype=torch.float32))):
+        init_fn, step_fn = transformer.make_train_step(
+            c, optimizer.Adam(learning_rate=1e-4), device=dev)
+        params, state = init_fn(torch.Generator().manual_seed(3))
+        losses[dev] = []
+        for _ in range(3):
+            loss, params, state = step_fn(params, state, batch)
+            losses[dev].append(loss.item())
+        del params, state
+    diffs = [abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    # set before the first card run from the same comparison on the CPU
+    # (port bf16 against port fp32): loss differences 0.00053, 0.0010 and
+    # 0.00018 over the three steps: within 0.03 at every step
+    check(max(diffs) < 0.03, f"transformer card bf16 vs CPU fp32: losses "
+                             f"{losses}")
+    rec.update(losses_card_bf16=losses["cuda"], losses_cpu_fp32=losses["cpu"],
+               loss_diffs=diffs, tol="loss 0.03 at each of 3 steps",
+               card=card)
+    log("transformer_checks " + json.dumps(rec))
+    return rec
+
+
+CTR_TRAIN_BATCH = 4096    # benchmark/ctr_trace_r2.json's batch
+
+
+def phase_ctr_deepfm(K, deepfm, card):
+    """``DeepFMConfig()`` with nothing cut (26 slots, embed 8, 13 dense,
+    DNN (64, 32), 100,000 ids per slot, Adagrad 0.05 on the host tables),
+    batch 4096 of ``synthetic_ctr_batch`` (4 batches cycled over 20 steps):
+    ``train_step`` with sync and async pushes and ``train_stream(prefetch=
+    2)``, each with the fp32 and the fp16 wire, from a fresh trainer; the
+    loss falls and no registered kernel launches. examples/s per run, and
+    the host split of a synchronous step (pull, copy to the card, step,
+    fetch, push), each part ended by a synchronize, the median over 8 more
+    steps on known ids; the device step's time in a CUDA graph over that
+    split's total is the busy share."""
+    import numpy as np
+    cfg = deepfm.DeepFMConfig()
+    B, steps = CTR_TRAIN_BATCH, 20
+    batches = [deepfm.synthetic_ctr_batch(cfg, B, seed=s) for s in range(4)]
+    stream = [batches[i % 4] for i in range(steps)]
+    rec = dict(batch=B, steps=steps, card=card)
+    for wire in ("float32", "float16"):
+        for mode in ("sync_push", "async_push", "stream"):
+            tr = deepfm.CTRTrainer(cfg, seed=0, sync_push=mode == "sync_push",
+                                   wire_dtype=wire)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            if mode == "stream":
+                losses = list(tr.train_stream(iter(stream), lr=0.05,
+                                              prefetch=2))
+            else:
+                losses = [tr.train_step(*b, lr=0.05)[0] for b in stream]
+                tr.finalize()
+            dt = time.perf_counter() - t0
+            counts = K.launch_counts()
+            check(not any(counts.values()), f"ctr {wire} {mode}: registered "
+                                            f"kernel launches {counts}")
+            check(len(losses) == steps
+                  and all(math.isfinite(x) for x in losses)
+                  and np.mean(losses[-4:]) < np.mean(losses[:4]),
+                  f"ctr {wire} {mode}: losses {losses}")
+            rec[f"{wire}/{mode}"] = dict(
+                examples_per_s=B * steps / dt, ms_per_step=dt * 1e3 / steps,
+                losses=losses, table_rows=tr.table.size)
+            log(f"ctr-deepfm {wire} {mode}: {B * steps / dt:.1f} examples/s, "
+                f"{dt * 1e3 / steps:.3f} ms a step, loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f} [{card}]")
+
+    # the host split of a synchronous fp32 step, from a fresh trainer: the
+    # median over steps 4-11, whose ids the tables hold already (steps 0-3
+    # first materialize theirs)
+    tr = deepfm.CTRTrainer(cfg, seed=0, sync_push=True)
+    split = {k: [] for k in ("pull", "copy", "step", "fetch", "push")}
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[part].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for i in range(12):
+        ids, dense, labels = batches[i % 4]
+        emb, first = timed("pull", lambda: tr._pull(ids))
+        dev = tr.device
+        on = timed("copy", lambda: (
+            emb.to(dev), first.to(dev),
+            torch.as_tensor(dense, device=dev),
+            torch.as_tensor(labels, device=dev)))
+        loss, _, tr.params, gemb, gfirst = timed(
+            "step", lambda: deepfm._train_step(cfg, tr.params, *on, 0.05))
+        gemb, gfirst = timed("fetch", lambda: tr._fetch(gemb, gfirst))
+        timed("push", lambda: tr._push(ids, gemb, gfirst, sync=True))
+    split = {k: statistics.median(v[4:]) for k, v in split.items()}
+    total = sum(split.values())
+    batch0 = [t.to("cuda") for t in tr._pull(batches[0][0])] + [
+        torch.as_tensor(batches[0][1], device="cuda"),
+        torch.as_tensor(batches[0][2], device="cuda")]
+    step_dev_ms = device_ms(lambda: deepfm._train_step(
+        cfg, {k: v.clone() for k, v in tr.params.items()}, *batch0, 0.0), 1)
+    rec["host_split_ms"] = split
+    rec["host_split_total_ms"] = total
+    rec["step_device_ms"] = step_dev_ms
+    rec["device_busy_share"] = step_dev_ms / total
+    log("ctr-deepfm host split of a synchronous fp32 step (median ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; total {total:.3f}, device {step_dev_ms:.3f} (busy "
+          f"{step_dev_ms / total:.4f}) [{card}]")
+    log("ctr_deepfm " + json.dumps(rec))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2517,7 +2872,9 @@ def main():
     import numpy as np
 
     from paddle_tpu_torch import ops, optimizer
-    from paddle_tpu_torch.models import bert, resnet, se_resnext, vgg
+    from paddle_tpu_torch.models import (
+        bert, deepfm, resnet, se_resnext, transformer, vgg,
+    )
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
 
@@ -2594,9 +2951,19 @@ def main():
             check_flash_bwd(K, 2, 4, S, D, dt, causal,
                             S // 10 if masked == "all" else masked, gen,
                             layout=layout, timed=False)
-    adam_main = check_adam(K, bert, 1, gen)
-    check_adam(K, bert, 1000, gen)
-    check_adam(K, bert, 1, gen, lr_on_card=True)
+    from paddle_tpu_torch.core.tree import leaves
+    bert_shapes = [t.shape for t in leaves(bert.init_params(
+        bert.bert_base(), gen))]
+    adam_main = check_adam(K, bert_shapes, 1, gen)
+    check_adam(K, bert_shapes, 1000, gen)
+    check_adam(K, bert_shapes, 1, gen, lr_on_card=True)
+    # Transformer-big's 258 tensors (~243 M values), train-transformer-big's
+    # update
+    nmt_shapes = [t.shape for t in leaves(transformer.init_params(
+        transformer.transformer_big(max_seq=256), gen))]
+    check(len(nmt_shapes) == 258, f"{len(nmt_shapes)} Transformer-big "
+                                  "leaves")
+    adam_nmt = check_adam(K, nmt_shapes, 1, gen, label="Transformer-big")
     # the static path's kernels: the word2vec step's shapes at batch 100
     # (the main path) and 8192, and BERT-base's shapes beside them
     with torch.inference_mode():
@@ -2645,9 +3012,6 @@ def main():
         check_fused_matmul_int8(K, 64, W2V_HIDDEN, W2V_VOCAB, None, gen,
                                 dtype=torch.bfloat16)
         check_fused_matmul_int8_accuracy(K, 4096, 768, 3072, gen)
-        from paddle_tpu_torch.core.tree import leaves
-        bert_shapes = [t.shape for t in leaves(bert.init_params(
-            bert.bert_base(), gen))]
         w2v_shapes = [(W2V_VOCAB, W2V_EMBED), (4 * W2V_EMBED, W2V_HIDDEN),
                       (W2V_HIDDEN,), (W2V_HIDDEN, W2V_VOCAB), (W2V_VOCAB,)]
         opt_main = {}
@@ -2778,6 +3142,21 @@ def main():
         "(train-se-resnext50)")
     sx50 = phase_train_se_resnext50(K, se_resnext, optimizer, card)
     log(f"phases 0-14 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 15: training Transformer-big, 32x256 bf16 "
+        "(train-transformer-big)")
+    nmt, trained = phase_train_transformer_big(K, transformer, optimizer,
+                                               card, adam_nmt["ms"])
+    log("phase 16: Transformer-big beam-4 and greedy decode, 32 sources, "
+        "64 tokens (decode-transformer-big)")
+    phase_decode_transformer_big(K, transformer, card, trained)
+    del trained
+    log("phase 17: Transformer correctness on the card "
+        "(transformer-correctness)")
+    phase_transformer_checks(K, transformer, optimizer, card)
+    log("phase 18: the DeepFM CTR trainer over the host tables, batch 4096 "
+        "(ctr-deepfm)")
+    phase_ctr_deepfm(K, deepfm, card)
+    log(f"phases 0-18 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -2793,6 +3172,7 @@ def main():
         "train-resnet50": rn50["launches"],
         "train-correctness": img_checks["launches"],
         "train-se-resnext50": sx50["launches"],
+        "train-transformer-big": nmt["launches"],
     }
     kernels = []
     for name, main_rec in (

@@ -1,5 +1,7 @@
 """Models of the port."""
 
-from paddle_tpu_torch.models import bert, resnet, se_resnext, vgg  # noqa: F401
+from paddle_tpu_torch.models import (  # noqa: F401
+    bert, deepfm, resnet, se_resnext, transformer, vgg,
+)
 
-__all__ = ["bert", "resnet", "se_resnext", "vgg"]
+__all__ = ["bert", "deepfm", "resnet", "se_resnext", "transformer", "vgg"]

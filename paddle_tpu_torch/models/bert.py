@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.tree import leaves, map_tree
+from paddle_tpu_torch.models._mesh import refuse_mesh
 from paddle_tpu_torch.ops.kernels import flash_attention, fused_layer_norm
 
 __all__ = ["BertConfig", "bert_base", "bert_large", "ernie_base",
@@ -245,9 +246,11 @@ def _block(lp, x, mask_bias, cfg):
 
 
 def forward(params, cfg, input_ids, token_type_ids=None,
-            attention_mask=None):
+            attention_mask=None, mesh=None):
     """Encoder forward on the device of ``params``; returns [B, S, H] in
-    cfg.dtype. Ids and masks may be numpy arrays or tensors."""
+    cfg.dtype. Ids and masks may be numpy arrays or tensors. ``mesh`` must
+    be None (one device)."""
+    refuse_mesh(mesh, "bert.forward")
     emb = params["embed"]
     dev = emb["word"].device
     input_ids = _index(input_ids, dev)
@@ -299,7 +302,7 @@ def _mlm_xent(logits, labels, weights):
     return -(picked * w).sum() / denom
 
 
-def mlm_loss(params, cfg, batch):
+def mlm_loss(params, cfg, batch, mesh=None):
     """Masked-LM objective. Two batch layouts:
 
     - dense: dict(input_ids, labels, weights [, token_type_ids,
@@ -307,10 +310,12 @@ def mlm_loss(params, cfg, batch):
       positions;
     - gathered: masked_positions/masked_labels/masked_weights [B, P]
       instead, so the vocab-size head runs only on the masked positions.
+
+    ``mesh`` must be None (one device).
     """
     hidden = forward(params, cfg, batch["input_ids"],
                      batch.get("token_type_ids"),
-                     batch.get("attention_mask"))
+                     batch.get("attention_mask"), mesh=mesh)
     if "masked_positions" in batch:
         logits = _mlm_head(params, cfg, hidden, batch["masked_positions"])
         return _mlm_xent(logits, batch["masked_labels"],
@@ -333,9 +338,10 @@ def _loss_and_grads(params, cfg, batch):
     return loss.detach(), map_tree(lambda _, t: next(grads), live)
 
 
-def make_train_step(cfg, optimizer, steps_per_call=1, device=None):
+def make_train_step(cfg, optimizer, mesh=None, steps_per_call=1,
+                    device=None):
     """Returns (init_fn, step_fn), as the JAX package's ``make_train_step``
-    on one device (no mesh yet).
+    on one device: ``mesh`` must be None.
 
     ``init_fn(generator)`` -> (params, opt_state) on ``device`` (the card
     by default; ``generator`` as for :func:`init_params`).
@@ -349,6 +355,7 @@ def make_train_step(cfg, optimizer, steps_per_call=1, device=None):
     and returns the last loss. Batch leaves (numpy arrays or tensors) may
     carry a leading [steps_per_call] axis, one slice per step (told by 3-D
     input_ids), or be plain: the same batch reused."""
+    refuse_mesh(mesh, "bert.make_train_step")
     device = resolve_device(device)
 
     def init_fn(generator):

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.tree import map_tree
+from paddle_tpu_torch.models._mesh import refuse_mesh
 
 __all__ = ["ResNetConfig", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "resnet_cifar10", "init_params", "params_from_numpy",
@@ -559,9 +560,10 @@ def _train_step_fns(init, step, optimizer, steps_per_call, device):
     return init_fn, step_fn
 
 
-def make_train_step(cfg, optimizer, steps_per_call=1, device=None):
+def make_train_step(cfg, optimizer, mesh=None, steps_per_call=1,
+                    device=None):
     """Returns (init_fn, step_fn), as the JAX package's ``make_train_step``
-    on one device (no mesh yet).
+    on one device: ``mesh`` must be None.
 
     ``init_fn(generator)`` -> (params, opt_state) on ``device`` (the card
     by default). ``step_fn(params, opt_state, images, labels)`` -> (loss,
@@ -575,6 +577,8 @@ def make_train_step(cfg, optimizer, steps_per_call=1, device=None):
     ``steps_per_call > 1`` runs that many steps per call: ``images`` either
     one batch [B, H, W, 3], reused every step, or stacked [K, B, H, W, 3]
     with labels [K, B]."""
+    refuse_mesh(mesh, "resnet.make_train_step")
+
     def step(params, opt_state, images, labels):
         loss, (bn_params, logits), grads = _loss_and_grads(
             lambda p: loss_fn(p, cfg, images, labels), params, cfg)

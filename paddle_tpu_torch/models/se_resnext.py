@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from paddle_tpu_torch.models._mesh import refuse_mesh
 from paddle_tpu_torch.models.resnet import (
     _accuracy, _bn, _bn_spec, _conv, _conv_spec, _copy_tree, _from_numpy,
     _images, _init_from_layout, _label_smoothed_xent, _labels,
@@ -177,10 +178,15 @@ def loss_fn(params, cfg, images, labels, train=True):
     return loss, (_accuracy(logits.detach(), labels), new)
 
 
-def make_train_step(cfg, optimizer, steps_per_call=1, device=None):
-    """(init_fn, step_fn) as ``resnet.make_train_step``: the batch-norm
-    stats are copied over their leaves after the optimizer's update, so a
-    regularizer or clip never leaves its mark on them."""
+def make_train_step(cfg, optimizer, mesh=None, steps_per_call=1,
+                    device=None):
+    """(init_fn, step_fn) as ``resnet.make_train_step`` (``mesh`` must be
+    None; ``steps_per_call`` is the port's, after the JAX package's
+    parameters): the batch-norm stats are copied over their leaves after
+    the optimizer's update, so a regularizer or clip never leaves its mark
+    on them."""
+    refuse_mesh(mesh, "se_resnext.make_train_step")
+
     def step(params, opt_state, images, labels):
         loss, (acc, bn_params), grads = _loss_and_grads(
             lambda p: loss_fn(p, cfg, images, labels), params, cfg)

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from paddle_tpu_torch.models._mesh import refuse_mesh
 from paddle_tpu_torch.models.resnet import (
     _accuracy, _bn, _bn_spec, _conv, _conv_spec, _copy_tree, _from_numpy,
     _init_from_layout, _labels, _loss_and_grads, _maxpool, _merge_bn_stats,
@@ -154,12 +155,15 @@ def loss_fn(params, cfg, images, labels, train=True, generator=None):
     return loss, (new_params, logits)
 
 
-def make_train_step(cfg, optimizer, steps_per_call=1, device=None):
-    """(init_fn, step_fn) as ``resnet.make_train_step``, with
+def make_train_step(cfg, optimizer, mesh=None, steps_per_call=1,
+                    device=None):
+    """(init_fn, step_fn) as ``resnet.make_train_step`` (``mesh`` must be
+    None), with
     ``step_fn(params, opt_state, images, labels, generator=None)``: dropout
     draws from ``generator``, or from one of the step's own (seeded 0 when
     made) that advances every step, as the JAX package folds its step count
     into the default key; each inner step takes a fresh draw."""
+    refuse_mesh(mesh, "vgg.make_train_step")
     own = {}
 
     def step(params, opt_state, images, labels, generator=None):

@@ -13,10 +13,15 @@ tail-sampling verdict keeps it: errors always, the slowest observation of
 each exemplar metric so far, and every N-th of the rest at ``sample_rate``.
 Kept spans land in an in-process ring (``spans()``).
 
-Not ported yet (ROADMAP queue 1 item 10): the per-rank jsonl writer and the
-cross-rank merge, the slowest-N reservoir over a rolling window, the
-``slo_exemplar_ms`` gauge and the trace metrics, stage notes and the
-executor's step traces.
+The constructor, ``enable`` and ``start_trace`` take the JAX package's
+parameters in its order. Not ported yet: the per-rank jsonl writer
+(``enable(dirname=)``) and the slowest-N reservoir over a rolling window
+(``slow_keep``, ``slow_window_s``, ``exemplar_factor``), which raise
+:class:`EnforceNotMet` naming ROADMAP queue 1 item 8 when asked for (their
+defaults are taken; the port keeps an exemplar whenever an observation is
+the slowest so far); the cross-rank merge, the ``slo_exemplar_ms`` gauge
+and the trace metrics, stage notes and the executor's step traces (item
+10).
 """
 
 import collections
@@ -24,6 +29,8 @@ import itertools
 import os
 import threading
 import time
+
+from paddle_tpu_torch.core.enforce import EnforceNotMet
 
 __all__ = ["TraceContext", "Tracer", "enable", "disable", "is_enabled",
            "start_trace", "end_trace", "record_span", "record_exemplar",
@@ -65,16 +72,32 @@ class TraceContext:
 class Tracer:
     """The span recorder: bounded ring, tail-sampling policy, exemplars."""
 
-    def __init__(self, sample_rate=0.05, capacity=4096):
+    def __init__(self, capacity=4096, sample_rate=0.05, slow_keep=8,
+                 slow_window_s=60.0, exemplar_factor=1.2):
+        slow = {"slow_keep": (slow_keep, 8),
+                "slow_window_s": (slow_window_s, 60.0),
+                "exemplar_factor": (exemplar_factor, 1.2)}
+        asked = [f"{k}={v!r}" for k, (v, default) in slow.items()
+                 if v != default]
+        if asked:
+            raise EnforceNotMet(
+                f"Tracer({', '.join(asked)}): the slow reservoir is not "
+                "ported yet (ROADMAP queue 1 item 8); the port takes only "
+                "its defaults")
+        self.capacity = int(capacity)
         self.sample_rate = float(sample_rate)
         self._sample_every = (int(round(1.0 / self.sample_rate))
                               if self.sample_rate > 0 else 0)
-        self._ring = collections.deque(maxlen=int(capacity))
+        self.slow_keep = int(slow_keep)
+        self.slow_window_s = float(slow_window_s)
+        self.exemplar_factor = float(exemplar_factor)
+        self._ring = collections.deque(maxlen=self.capacity)
         self._lock = threading.Lock()
         self._completed = 0
         self._sampled_kept = 0
         self._exemplars = {}            # metric -> slowest ms so far
         self._prefix = f"{os.getpid():x}-"
+        self._tls = threading.local()
 
     def _sample(self, count):
         """Every N-th unit by kept-vs-target credits (benign races under
@@ -86,9 +109,16 @@ class Tracer:
             return True
         return False
 
-    def start_trace(self, name, attrs=None):
-        return TraceContext(self._prefix + format(next(_trace_id_seq), "x"),
-                            name, attrs)
+    def start_trace(self, name, attrs=None, current=False):
+        """Open a trace. ``current=True`` also makes it this thread's
+        in-flight trace (``_tls.current``, as in the JAX package) until it
+        ends: for work that stays on one thread, not for requests
+        completed on another."""
+        ctx = TraceContext(self._prefix + format(next(_trace_id_seq), "x"),
+                           name, attrs)
+        if current:
+            self._tls.current = ctx
+        return ctx
 
     def record_span(self, ctx, name, t0, t1, parent=None, tid=None,
                     kind="span", status="ok", attrs=None):
@@ -111,6 +141,8 @@ class Tracer:
         if ctx.ended:
             return None
         ctx.ended = True
+        if getattr(self._tls, "current", None) is ctx:
+            self._tls.current = None
         dur = time.perf_counter() - ctx.t0
         err = error or ctx.error
         if err:
@@ -170,10 +202,22 @@ class Tracer:
 TRACER = Tracer()
 
 
-def enable(sample_rate=0.05, capacity=4096):
-    """Arm tracing with a fresh tracer."""
+def enable(dirname=None, **kwargs):
+    """Arm tracing. ``kwargs`` (``capacity``, ``sample_rate``, the slow
+    reservoir's defaults) build a fresh tracer with that policy, keeping
+    the exemplars, as in the JAX package; without them the current tracer
+    stays. A ``dirname`` (the per-rank jsonl writer) raises: it is not
+    ported yet (ROADMAP queue 1 item 8)."""
     global TRACER, _enabled
-    TRACER = Tracer(sample_rate=sample_rate, capacity=capacity)
+    if dirname:
+        raise EnforceNotMet(
+            f"trace.enable(dirname={dirname!r}): the trace file writer is "
+            "not ported yet (ROADMAP queue 1 item 8); spans stay in the "
+            "in-process ring (spans())")
+    if kwargs:
+        old = TRACER
+        TRACER = Tracer(**kwargs)
+        TRACER._exemplars = dict(old._exemplars)
     _enabled = True
     return TRACER
 
@@ -187,8 +231,8 @@ def is_enabled():
     return _enabled
 
 
-def start_trace(name, attrs=None):
-    return TRACER.start_trace(name, attrs)
+def start_trace(name, attrs=None, current=False):
+    return TRACER.start_trace(name, attrs=attrs, current=current)
 
 
 def end_trace(ctx, error=False, assemble=None):

@@ -1088,3 +1088,109 @@ def test_image_train_step_on_card_matches_cpu(cuda, scheduled):
     assert abs(lc - lr_) < 1e-4
     for a, b in zip(pc, pr):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Transformer NMT and the DeepFM CTR trainer
+# ---------------------------------------------------------------------------
+def _nmt_batch(cfg):
+    from paddle_tpu_torch.models import transformer
+    b = transformer.synthetic_batch(cfg, 3, 12, 10, seed=1)
+    b["src_mask"][1, 8:] = 0
+    b["tgt_mask"][2, 7:] = 0
+    return b
+
+
+@pytest.mark.cuda
+def test_transformer_train_step_on_card_matches_cpu(cuda):
+    """transformer_tiny in fp32 (TF32 off): three Adam steps on the card
+    against the CPU from the same weights, exactly one fused_adam launch per
+    step and nothing else registered."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.transformer_tiny(dtype=torch.float32)
+    batch = _nmt_batch(cfg)
+    out = {}
+    for dev in (cuda, "cpu"):
+        init_fn, step_fn = transformer.make_train_step(
+            cfg, optimizer.Adam(learning_rate=1e-3), device=dev)
+        params, state = init_fn(torch.Generator().manual_seed(3))
+        losses = []
+        for _ in range(3):
+            K.reset_launch_counts()
+            loss, params, state = step_fn(params, state, batch)
+            counts = K.launch_counts()
+            losses.append(float(loss))
+            if dev == cuda:
+                assert counts["fused_adam"] == 1
+                assert sum(counts.values()) == 1
+        out[str(dev)] = (losses, [t.cpu() for t in leaves(params)])
+    (lc, pc), (lr_, pr) = out[str(cuda)], out["cpu"]
+    np.testing.assert_allclose(lc, lr_, atol=1e-5, rtol=0)
+    for a, b in zip(pc, pr):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_transformer_cache_written_in_place_matches_a_copy(cuda):
+    """The decode step's in-place cache write at ``pos`` against writing
+    into a fresh copy of the cache at every step (as the JAX package's
+    ``dynamic_update_slice`` does), on the card; then greedy and beam
+    tokens on the card equal the CPU's."""
+    from paddle_tpu_torch.models import transformer as tr
+    cfg = tr.transformer_tiny(dtype=torch.float32)
+    b = _nmt_batch(cfg)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = tr.init_params(cfg, torch.Generator().manual_seed(5),
+                                device=dev)
+        with torch.no_grad():
+            mem = tr.encode(params, cfg, b["src_ids"], b["src_mask"])
+            cross = tr._cross_kv(params, cfg, mem)
+            bias = tr._mask_bias(torch.as_tensor(b["src_mask"], device=dev))
+            inplace = tr._init_cache(cfg, 3, dev)
+            copied = tr._init_cache(cfg, 3, dev)
+            for pos, tok in enumerate((0, 5, 9, 2)):
+                tok = torch.full((3,), tok, device=dev)
+                li, inplace = tr._decode_step(params, cfg, tok, pos, inplace,
+                                              cross, bias)
+                copied = [{n: c.clone() for n, c in layer.items()}
+                          for layer in copied]
+                lc, copied = tr._decode_step(params, cfg, tok, pos, copied,
+                                             cross, bias)
+                torch.testing.assert_close(li, lc, rtol=0, atol=0)
+        for a, c in zip(inplace, copied):
+            for n in ("k", "v"):
+                torch.testing.assert_close(a[n], c[n], rtol=0, atol=0)
+        greedy = tr.greedy_decode(params, cfg, b["src_ids"], b["src_mask"])
+        seqs, scores = tr.beam_search_decode(params, cfg, b["src_ids"],
+                                             b["src_mask"], 4, 12)
+        out[dev.type] = (greedy.cpu(), seqs.cpu(), scores.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=0)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_ctr_trainer_step_on_card_matches_cpu(cuda, wire):
+    """Five synchronous CTRTrainer steps with the dense part on the card
+    against the CPU from the same weights and tables; no registered kernel
+    is launched (the step is plain PyTorch, the tables numpy)."""
+    from paddle_tpu_torch.models import deepfm
+    cfg = deepfm.DeepFMConfig(num_slots=5, embed_dim=4, dense_dim=3,
+                              dnn_sizes=(16,), vocab_per_slot=200)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        tr = deepfm.CTRTrainer(cfg, seed=0, sync_push=True, wire_dtype=wire,
+                               device=dev)
+        losses = []
+        K.reset_launch_counts()
+        for s in range(5):
+            ids, dense, labels = deepfm.synthetic_ctr_batch(cfg, 128, seed=s)
+            losses.append(tr.train_step(ids, dense, labels, lr=0.05)[0])
+        assert sum(K.launch_counts().values()) == 0
+        runs[str(dev)] = losses
+    np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], atol=1e-4,
+                               rtol=0)

@@ -15,7 +15,9 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import optimizer
-from paddle_tpu_torch.models import bert, resnet, se_resnext, vgg
+from paddle_tpu_torch.models import (
+    bert, deepfm, resnet, se_resnext, transformer, vgg,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "paddle_tpu_torch")
@@ -47,7 +49,8 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
     assert len(srcs) >= 10
     # the subpackages with copies of jax-free JAX-package modules are
     # scanned too
-    for sub in ("serving", "monitor", "static", "models", "layers"):
+    for sub in ("serving", "monitor", "static", "models", "layers",
+                "distributed"):
         assert any(f"{os.sep}{sub}{os.sep}" in p for p in srcs), sub
     for path in srcs:
         with open(path) as f:
@@ -65,6 +68,8 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.resnet, paddle_tpu_torch.models.vgg\n"
         "import paddle_tpu_torch.models.se_resnext, paddle_tpu_torch.clip\n"
         "import paddle_tpu_torch.regularizer\n"
+        "import paddle_tpu_torch.models.transformer\n"
+        "import paddle_tpu_torch.models.deepfm, paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
@@ -120,6 +125,21 @@ def test_default_device_raises_without_a_card(monkeypatch):
             model.init_params(vcfg, torch.Generator().manual_seed(0))
         with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
             model.make_train_step(vcfg, optimizer.Momentum(0.1))
+    tcfg = transformer.transformer_tiny()
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        transformer.init_params(tcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        transformer.params_from_numpy({}, tcfg)
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        transformer.make_train_step(tcfg, optimizer.Adam())
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        deepfm.CTRTrainer(deepfm.DeepFMConfig(num_slots=2))
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        deepfm.init_dense_params(deepfm.DeepFMConfig(),
+                                 torch.Generator().manual_seed(0))
+    assert deepfm.CTRTrainer(deepfm.DeepFMConfig(num_slots=2),
+                             device="cpu").params["w0"].device == \
+        torch.device("cpu")
     init_fn, _ = bert.make_train_step(cfg, optimizer.Adam(), device="cpu")
     params, state = init_fn(torch.Generator().manual_seed(0))
     assert state["step"].device == params["embed"]["word"].device == \

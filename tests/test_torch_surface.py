@@ -1,7 +1,7 @@
 """The port's public surface against the reference's, on the CPU, with no
 JAX import: every ``paddle_tpu.`` name of ``tools/api_spec.txt`` that
 resolves under ``paddle_tpu_torch.`` must have the reference's signature,
-and the repairs of ROADMAP queue 3 (F1-F3) hold.
+and the repairs of ROADMAP queue 3 (F1-F3, F5-F7) hold.
 
 A signature matches when the port's parameters, ``self`` dropped, start
 with the reference's (names, kinds and defaults, as ``inspect`` prints
@@ -33,8 +33,9 @@ import print_signatures  # noqa: E402
 SPEC = os.path.join(_TOOLS, "api_spec.txt")
 #: spec names the port resolves: 254 before ``paddle_tpu_torch.ops``
 #: star-exported its op modules, 297 after, 318 with the schedules,
-#: regularizers and clips; only rises
-RESOLVED_FLOOR = 318
+#: regularizers and clips, 354 with the monitor's re-exports (28) and
+#: ``distributed.SparseEmbeddingTable`` (8); only rises
+RESOLVED_FLOOR = 354
 SKIPPED = ("paddle_tpu.serving.Replica", "paddle_tpu.serving.ReplicaPool")
 _STUB = re.compile(r"^\((self, )?\*args, \*\*kwargs\)$")
 
@@ -121,7 +122,8 @@ PORTED_MODULES = ("paddle_tpu", "paddle_tpu.layers", "paddle_tpu.ops",
                   "paddle_tpu.static.opt_passes", "paddle_tpu.io",
                   "paddle_tpu.initializer", "paddle_tpu.inference",
                   "paddle_tpu.serving", "paddle_tpu.clip",
-                  "paddle_tpu.regularizer")
+                  "paddle_tpu.regularizer", "paddle_tpu.monitor",
+                  "paddle_tpu.distributed")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -283,3 +285,104 @@ def test_block_takes_parent_idx():
     prog = tpt.Program()
     assert tpt.static.Block(prog, 1, parent_idx=0).parent_idx == 0
     assert tpt.static.Block(prog).parent_idx == -1
+
+
+def test_monitor_re_exports_its_names():
+    """F5: ``paddle_tpu.monitor``'s re-exports of registry and trace."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.monitor import (  # noqa: F401
+        REGISTRY, TRACER, Counter, Gauge, Histogram, Registry, TraceContext,
+        Tracer, counter, gauge, histogram, registry, trace,
+    )
+    assert monitor.Counter is registry.Counter
+    assert monitor.Tracer is trace.Tracer and monitor.REGISTRY is \
+        registry.REGISTRY
+    assert all(hasattr(monitor, n) for n in monitor.__all__)
+
+
+def test_tracer_takes_the_reference_signatures():
+    """F6: ``Tracer(capacity, sample_rate, ...)``, ``enable(dirname=None,
+    **kwargs)`` and ``start_trace(..., current=False)``."""
+    from paddle_tpu_torch.monitor import trace
+    t = trace.Tracer(1024)
+    assert t.capacity == 1024 and t._ring.maxlen == 1024
+    assert t.sample_rate == 0.05
+    for kw in ({"slow_keep": 4}, {"slow_window_s": 5.0},
+               {"exemplar_factor": 1.0}):
+        with pytest.raises(EnforceNotMet, match="queue 1 item 8"):
+            trace.Tracer(**kw)
+    ctx = t.start_trace("step", current=True)
+    assert t._tls.current is ctx
+    other = t.start_trace("request")
+    assert t._tls.current is ctx
+    t.end_trace(other)
+    assert t._tls.current is ctx
+    t.end_trace(ctx)
+    assert getattr(t._tls, "current", None) is None
+
+    old = trace.TRACER
+    try:
+        with pytest.raises(EnforceNotMet, match="queue 1 item 8"):
+            trace.enable("/tmp/x")
+        assert trace.enable() is old and trace.is_enabled()
+        new = trace.enable(capacity=16, sample_rate=1.0)
+        assert trace.TRACER is new and new.capacity == 16
+        ctx = trace.start_trace("step", current=True)
+        assert new._tls.current is ctx
+        trace.end_trace(ctx)
+    finally:
+        trace.disable()
+        trace.TRACER = old
+
+
+@pytest.mark.parametrize("model", ["bert", "resnet", "vgg", "se_resnext",
+                                   "transformer"])
+def test_make_train_step_takes_mesh_at_its_reference_position(model):
+    """F7: ``make_train_step(cfg, opt, mesh=None, steps_per_call=1,
+    device=None)``; a mesh that is not None raises naming item 9."""
+    import importlib
+    m = importlib.import_module(f"paddle_tpu_torch.models.{model}")
+    cfg = {"bert": lambda: m.bert_tiny(dtype=torch.float32),
+           "resnet": lambda: m.resnet_cifar10(depth=8, image_size=16),
+           "vgg": lambda: m.vgg11(num_classes=10, image_size=32, fc_dim=64),
+           "se_resnext": lambda: m.se_resnext_tiny(),
+           "transformer": lambda: m.transformer_tiny()}[model]()
+    params = list(inspect.signature(m.make_train_step).parameters)
+    assert params[:3] == ["cfg", "optimizer", "mesh"]
+    with pytest.raises(EnforceNotMet, match="queue 1 item 9"):
+        m.make_train_step(cfg, tpt.optimizer.SGD(0.1), object(),
+                          device="cpu")
+    if model == "transformer":
+        return
+    # a call written for the reference binds steps_per_call positionally
+    init_fn, step_fn = m.make_train_step(cfg, tpt.optimizer.SGD(0.1), None,
+                                         2, device="cpu")
+    params, state = init_fn(torch.Generator().manual_seed(0))
+    if model == "bert":
+        batch = m.synthetic_batch(cfg, 2, 16)
+        step_fn(params, state, batch)
+    else:
+        images, labels = m.synthetic_batch(cfg, 2)
+        step_fn(params, state, images, labels)
+    assert int(state["step"]) == 2
+
+
+def test_bert_forward_and_mlm_loss_take_mesh():
+    """F7: ``bert.forward(..., mesh=None)`` and ``mlm_loss(..., mesh=None)``
+    at the reference's positions."""
+    from paddle_tpu_torch.models import bert
+    for fn, name in ((bert.forward, "attention_mask"),
+                     (bert.mlm_loss, "batch")):
+        ps = list(inspect.signature(fn).parameters)
+        assert ps[ps.index(name) + 1] == "mesh"
+    cfg = bert.bert_tiny(dtype=torch.float32)
+    params = bert.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    batch = bert.synthetic_batch(cfg, 2, 16)
+    a = bert.mlm_loss(params, cfg, batch, None)
+    torch.testing.assert_close(a, bert.mlm_loss(params, cfg, batch),
+                               rtol=0, atol=0)
+    with pytest.raises(EnforceNotMet, match="queue 1 item 9"):
+        bert.mlm_loss(params, cfg, batch, mesh=object())
+    with pytest.raises(EnforceNotMet, match="queue 1 item 9"):
+        bert.forward(params, cfg, batch["input_ids"], mesh=object())

@@ -32,6 +32,8 @@ also climbs (2.0, 7.0, 61.6), where any two implementations part. At lr
 0.01, batch 4 (VGG 2), every case here passes with these tolerances.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -149,6 +151,46 @@ def test_bf16_forward_matches_jax():
     tl, _ = tres.forward(tp, tcfg, images)
     # observed 2.6e-3 of the largest logit
     assert _rel(tl.detach().numpy(), np.asarray(jl)) < 0.02
+
+
+# the bottleneck ResNet (7x7/2 stem, SAME max-pool, bottleneck blocks) at a
+# small width; bounds relative to the largest fp64 logit, each side held to
+# the port's own fp64 run. Observed (train; eval): port 3.9e-5; 8.9e-7 from
+# fp64, JAX 6.7e-4; 1.8e-6 from it: the JAX training batch norm takes var =
+# E[x^2] - mean^2 (ROADMAP queue 3 note g), which loses fp32 digits at this
+# depth, where the port's Welford statistics do not. So |port - JAX| is
+# bounded by the two distances to fp64, each held about 3x above what it
+# reads, and not by a bare 1e-4
+RESNET50_FP64_TOL = {True: (1e-4, 2e-3), False: (1e-5, 1e-5)}
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_resnet50_forward_matches_jax_and_fp64(train):
+    kw = dict(num_classes=10, image_size=64, width=16)
+    jcfg = jres.resnet50(dtype=jnp.float32, **kw)
+    tcfg = tres.resnet50(dtype=torch.float32, **kw)
+    jp = jres.init_params(jax.random.PRNGKey(0), jcfg)
+    p0 = jax.tree.map(lambda a: np.array(a), jp)
+    tp = tres.params_from_numpy(p0, tcfg, device="cpu")
+    images, _ = jres.synthetic_batch(jcfg, 8, seed=1)
+    jl, _ = jres.forward(jp, jcfg, jnp.asarray(images), train=train)
+    tl, _ = tres.forward(tp, tcfg, images, train=train)
+    # the port in fp64 up to the pooled features; the head stays fp32, as
+    # the model casts its pooled features to fp32 (one product, ~1e-7)
+    p64 = map_tree(lambda path, t: t if path.startswith("head")
+                   else t.double(), tp)
+    ref, _ = tres.forward(p64, dataclasses.replace(tcfg, dtype=torch.float64),
+                          images.astype(np.float64), train=train)
+    ref = ref.detach().numpy()
+    jl, tl = np.asarray(jl), tl.detach().numpy()
+
+    def err(a, b):
+        return float(np.abs(a - b).max() / np.abs(ref).max())
+
+    port_tol, jax_tol = RESNET50_FP64_TOL[train]
+    assert err(tl, ref) < port_tol
+    assert err(jl, ref) < jax_tol
+    assert err(tl, jl) < port_tol + jax_tol
 
 
 def test_eval_mode_uses_running_stats():
