@@ -166,7 +166,33 @@ Phases; any failure raises and the script exits non-zero:
    and the fp16 wire: examples/s, the host split of a synchronous step
    (pull, copy, step, fetch, push) and the step's device busy share; the
    loss falls and no registered kernel launches.
-19. Print one JSON line of every ported kernel (launches on the main paths,
+19. The recognize_digits ``conv_net`` of the Fluid book, nothing cut
+   (train-book-digits): 1x28x28, conv-pool 20, batch norm, conv-pool 50,
+   fc 10 softmax, built with ``layers``/``nets`` and minimized by
+   Adam(1e-3) through ``Program``/``Executor.run`` on the card, batch 64,
+   50 steps over 10 synthetic batches: exactly 1 fused matmul (the fc) and
+   1 ``fused_adam`` per parameter per step; the loss falls; ms per step,
+   images/s, peak memory, one profiled step by op group and the busy share.
+20. The image_classification ``vgg16_bn_drop``, nothing cut
+   (train-book-vgg): 3x32x32, five conv groups with batch norm and the
+   reference's drop rates, fc 512 twice, batch 128, the same records;
+   exactly 3 fused matmuls and 60 ``fused_adam`` per step.
+21. Book correctness (book-correctness): conv_net (batch 64), vgg16_bn_drop
+   (batch 16, drop rates 0) and the two-tower recommender at MovieLens-1M's
+   id counts (batch 256; 2 gathers, 2 fused matmuls per step), 3 Adam
+   steps on the card against the CPU from the same weights with TF32 off
+   and cuDNN's deterministic algorithms: first-step gradients, losses,
+   parameters and the batch-norm running stats within ``BOOK_TOL``;
+   dropout on the card at p 0.3 and 0.5 (keep share within 5 sigma, kept
+   values exactly x or x/(1-p), the seed sets the mask, the Executor's
+   masks follow the program's seed); the for_test clone against a
+   save/load_inference_model round trip.
+22. The twelve optimizer rules without a kernel (optimizer-rules), each
+   under a schedule, L2 decay and a global-norm clip: 3 updates on the
+   card against the CPU over vgg16_bn_drop's 60 parameters, then device
+   microseconds and device events per update over that list and over
+   ResNet-50's 267 tensors; no registered kernel launches.
+23. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2861,6 +2887,526 @@ def phase_ctr_deepfm(K, deepfm, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 19-22: the Fluid book CNNs through the static path (train-book-
+# digits, train-book-vgg, book-correctness) and the optimizer rules without
+# a kernel (optimizer-rules)
+# ---------------------------------------------------------------------------
+DIGITS_BATCH, VGG_BATCH, BOOK_STEPS = 64, 128, 50
+#: the recommender's two towers at MovieLens-1M's id counts (users, movies)
+ML_USERS, ML_MOVIES, ML_EMBED, ML_BATCH = 6040, 3952, 32, 256
+#: the rate of the book models' Adam; the correctness runs take epsilon
+#: 1e-4 (see phase_book_checks)
+BOOK_LR = 1e-3
+#: phase 21's limits on the card against the CPU, set before the first card
+#: run from the port on the CPU against itself with oneDNN's convolutions
+#: off (another summation order; tools/book_order_probe.py order):
+#: conv_net's first-step gradients agree to 1.4e-6 and its 3-step
+#: parameters to 5.6e-6; vgg16_bn_drop's 13 conv+ReLU layers carry a
+#: summation order's rounding to 1.2e-2 (batch 16) and 3.6e-2 (batch 64) of
+#: a gradient's norm at the first step, and a loss 0.068 apart after 3 Adam
+#: steps, so its trajectory is bounded, not held; its forward is held
+#: (1.7e-5 in the probe). The recommender has no conv
+BOOK_TOL = {
+    "conv_net": {"loss_gap": 1e-4, "grad_relnorm_err": 1e-4,
+                 "param_gap": 1e-4, "bn_stat_gap": 1e-5},
+    "vgg16_bn_drop": {"loss_gap_step1": 1e-4, "grad_relnorm_err": 0.2,
+                      "loss_gap": 0.5},
+    "recommender": {"loss_gap": 1e-4, "grad_relnorm_err": 1e-4,
+                    "param_gap": 1e-4},
+}
+#: phase 22's card-against-CPU limit on the parameters after 3 updates
+#: (values near 0.1): the elementwise rules round alike up to an ulp of
+#: pow and the clip's norm (CPU tests: 1e-6 against JAX)
+RULE_TOL = {"default": 1e-5}
+
+
+def build_conv_net(pt, opt):
+    """The reference's recognize_digits ``conv_net`` (Fluid 1.5,
+    tests/book/test_recognize_digits.py), nothing cut: 1x28x28 images,
+    simple_img_conv_pool(20 filters, 5x5, pool 2/2, relu), batch_norm,
+    simple_img_conv_pool(50, 5x5, 2/2, relu), fc(10, softmax), cross
+    entropy, mean. Returns (main, startup, pred, loss, the for_test clone
+    made before minimize)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = pt.data("img", [1, 28, 28])
+        label = pt.data("label", [1], "int64")
+        x = pt.nets.simple_img_conv_pool(img, num_filters=20, filter_size=5,
+                                         pool_size=2, pool_stride=2,
+                                         act="relu")
+        x = pt.layers.batch_norm(x)
+        x = pt.nets.simple_img_conv_pool(x, num_filters=50, filter_size=5,
+                                         pool_size=2, pool_stride=2,
+                                         act="relu")
+        pred = pt.layers.fc(x, 10, act="softmax")
+        loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+        test = main.clone(for_test=True)
+        opt.minimize(loss)
+    return main, startup, pred, loss, test
+
+
+#: vgg16_bn_drop's five groups: (width, convs, drop rate of each conv)
+VGG_GROUPS = ((64, 2, (0.3, 0.0)), (128, 2, (0.4, 0.0)),
+              (256, 3, (0.4, 0.4, 0.0)), (512, 3, (0.4, 0.4, 0.0)),
+              (512, 3, (0.4, 0.4, 0.0)))
+
+
+def build_vgg16_bn_drop(pt, opt, drop=1.0):
+    """The reference's image_classification ``vgg16_bn_drop`` (Fluid 1.5,
+    tests/book/test_image_classification.py), nothing cut: 3x32x32 images,
+    five img_conv_groups (64x2, 128x2, 256x3, 512x3, 512x3) of 3x3 convs
+    with batch norm and relu, the reference's drop rates (0 on each group's
+    last conv) and pool 2/2; dropout 0.5, fc 512, batch_norm relu, dropout
+    0.5, fc 512, fc 10 softmax. ``drop`` scales every rate (0 for the
+    correctness phase: the ops stay, at rate 0). Returns what
+    ``build_conv_net`` returns."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = pt.data("img", [3, 32, 32])
+        label = pt.data("label", [1], "int64")
+        x = img
+        for width, convs, rates in VGG_GROUPS:
+            x = pt.nets.img_conv_group(
+                x, conv_num_filter=[width] * convs, pool_size=2,
+                pool_stride=2, conv_filter_size=3, conv_act="relu",
+                conv_with_batchnorm=True,
+                conv_batchnorm_drop_rate=[r * drop for r in rates],
+                pool_type="max")
+        x = pt.layers.dropout(x, dropout_prob=0.5 * drop)
+        x = pt.layers.fc(x, 512)
+        x = pt.layers.batch_norm(x, act="relu")
+        x = pt.layers.dropout(x, dropout_prob=0.5 * drop)
+        x = pt.layers.fc(x, 512)
+        pred = pt.layers.fc(x, 10, act="softmax")
+        loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+        test = main.clone(for_test=True)
+        opt.minimize(loss)
+    return main, startup, pred, loss, test
+
+
+def build_recommender(pt, opt):
+    """tests/test_book.py's two-tower recommender_system at MovieLens-1M's
+    id counts: user and movie embeddings of 32, an fc of 32 on each, cosine
+    similarity scaled by 5, square error against the score. (The
+    reference's full model needs sequence_conv_pool: ROADMAP queue 1 item
+    5+4, step 4.)"""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        uid = pt.data("uid", [1], "int64")
+        mid = pt.data("mid", [1], "int64")
+        score = pt.data("score", [1])
+        u = pt.layers.reshape(pt.layers.embedding(uid, [ML_USERS, ML_EMBED]),
+                              [-1, ML_EMBED])
+        m = pt.layers.reshape(pt.layers.embedding(mid, [ML_MOVIES,
+                                                        ML_EMBED]),
+                              [-1, ML_EMBED])
+        sim = pt.layers.cos_sim(pt.layers.fc(u, ML_EMBED),
+                                pt.layers.fc(m, ML_EMBED))
+        pred = pt.layers.scale(sim, scale=5.0)
+        loss = pt.layers.mean(pt.layers.square_error_cost(pred, score))
+        test = main.clone(for_test=True)
+        opt.minimize(loss)
+    return main, startup, pred, loss, test
+
+
+def book_batches(shape, batch, n, seed):
+    """``n`` feeds of ``batch`` images of ``shape`` in [0, 1], each half a
+    class template (one per label, from the seed) and half noise, with
+    their int64 labels: data in the datasets' shapes that a model can
+    learn."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    templates = rng.rand(10, *shape).astype(np.float32)
+    out = []
+    for _ in range(n):
+        label = rng.randint(0, 10, (batch, 1))
+        img = 0.5 * templates[label[:, 0]] + 0.5 * rng.rand(batch, *shape)
+        out.append({"img": img.astype(np.float32),
+                    "label": label.astype(np.int64)})
+    return out
+
+
+def ml_batches(batch, n, seed):
+    """``n`` feeds of (user, movie, score): scores in [0, 5] from a fixed
+    low-rank table, so the two towers can fit them."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    pu = rng.rand(ML_USERS, 4).astype(np.float32)
+    pm = rng.rand(ML_MOVIES, 4).astype(np.float32)
+    out = []
+    for _ in range(n):
+        uid = rng.randint(0, ML_USERS, (batch, 1))
+        mid = rng.randint(0, ML_MOVIES, (batch, 1))
+        s = (pu[uid[:, 0]] * pm[mid[:, 0]]).sum(1, keepdims=True) * 1.25
+        out.append({"uid": uid.astype(np.int64), "mid": mid.astype(np.int64),
+                    "score": s.astype(np.float32)})
+    return out
+
+
+def trainable(program):
+    return [p.name for p in program.all_parameters() if p.trainable]
+
+
+def phase_train_book(K, pt, card, label, built, feeds, batch, fmm_per_step):
+    """``BOOK_STEPS`` steps of a book model through ``Executor.run`` on the
+    card (each fetching the loss as numpy, as a fluid script does), the
+    launch counts set to 0 just before and read just after: exactly
+    ``fmm_per_step`` fused matmuls (the fcs) and one ``fused_adam`` per
+    parameter per step, nothing else registered; the loss falls. Records
+    ms per step (steady: the median of steps 5 on), images/s, the peak
+    memory above what was allocated before the startup program ran (the
+    model's weights and slots included), and one more profiled step's
+    device time by op group over the step latency (the busy share).
+    Returns (record, (the built program, executor, scope))."""
+    main, startup, pred, loss, test = built
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    n_params = len(trainable(main))
+    want = {"fused_matmul": fmm_per_step, "fused_adam": n_params}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(BOOK_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feeds[i % len(feeds)],
+                                    fetch_list=[loss], scope=scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    # this model's own peak: earlier phases may still hold memory
+    peak = torch.cuda.max_memory_allocated() - base
+    for name, n in counts.items():
+        check(n == want.get(name, 0) * BOOK_STEPS,
+              f"{label}: {n} {name} launches in {BOOK_STEPS} steps, "
+              f"expected {want.get(name, 0)} per step")
+    check(all(math.isfinite(x) for x in losses), f"{label}: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"{label}: loss {first} over the first 5 steps, "
+                        f"{last} over the last 5")
+    steady = statistics.median(step_ms[5:])
+    prof = op_breakdown(lambda: exe.run(main, feed=feeds[0],
+                                        fetch_list=[loss], scope=scope),
+                        top=10, host_top=8)
+    rec = dict(batch=batch, steps=BOOK_STEPS, params=n_params,
+               optimizer=f"Adam {BOOK_LR}", losses_first5_last5=[first, last],
+               loss_first=losses[0], loss_last=losses[-1],
+               ms_per_step_steady=steady,
+               ms_per_step_quartiles=statistics.quantiles(step_ms[5:], n=4),
+               first_step_ms=step_ms[0], images_per_s=batch / steady * 1e3,
+               launches_per_step={k: v // BOOK_STEPS
+                                  for k, v in counts.items() if v},
+               device_events_per_step=prof.get("launches"),
+               device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                                  if prof else None),
+               peak_gb=peak / 1e9, card=card, profile=prof,
+               launches={k: v for k, v in counts.items() if v})
+    log(f"{label}: {BOOK_STEPS} steps at batch {batch}, loss {losses[0]:.4f}"
+        f" -> {losses[-1]:.4f}, {steady:.3f} ms/step, "
+        f"{batch / steady * 1e3:.1f} images/s, peak {peak / 1e9:.3f} GB "
+        f"[{card}]")
+    log(label.replace("-", "_") + " " + json.dumps(rec))
+    return rec, (built, exe, scope)
+
+
+def card_vs_cpu(K, pt, label, built, feeds, steps=3):
+    """``steps`` steps of one program on the card and on the CPU from the
+    startup weights drawn on the card: the first step's gradients (the
+    largest relative norm error over the parameters whose gradient norm is
+    at least 1e-4 of the largest: a bias that feeds a batch norm has a
+    gradient of rounding noise alone), the losses, the largest parameter
+    and batch-norm-stat gaps after the last step, and the card's
+    launches."""
+    import numpy as np
+    main, startup, pred, loss, test = built
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    snap = {n: scope.find_var(n).cpu().numpy().copy()
+            for n, v in startup.global_block().vars.items() if v.persistable}
+    params = trainable(main)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = pt.Scope.from_numpy(snap, dev, startup)
+        e = pt.Executor(pt.CPUPlace() if dev == "cpu" else None)
+        K.reset_launch_counts()
+        first = e.run(main, feed=feeds[0], scope=s,
+                      fetch_list=[loss] + [n + "@GRAD" for n in params])
+        ls = [float(first[0])] + [
+            float(e.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                        scope=s)[0]) for i in range(1, steps)]
+        out[dev] = (ls, first[1:], {n: s.find_var(n).cpu() for n in snap},
+                    K.launch_counts(), s)
+    (cl, cg, cp, counts, card_scope), (pl, pg, pp, _, _) = \
+        out["cuda"], out["cpu"]
+    norms = [float(np.linalg.norm(g)) for g in pg]
+    errs = {n: float(np.linalg.norm(a - b)) / nb for n, a, b, nb in
+            zip(params, cg, pg, norms) if nb >= 1e-4 * max(norms)}
+    stats = [n for n in snap if n.startswith(("bn_mean", "bn_variance"))]
+    rec = dict(
+        losses_card=cl, losses_cpu=pl, loss_gap_step1=abs(cl[0] - pl[0]),
+        loss_gap=max(abs(a - b) for a, b in zip(cl, pl)),
+        grad_relnorm_err=max(errs.values()),
+        grad_relnorm_err_worst=max(errs, key=errs.get),
+        grads_held=len(errs), grads_noise=len(params) - len(errs),
+        param_gap=max(max_err(cp[n], pp[n]) for n in params),
+        param_gap_rel=max(max_err(cp[n], pp[n])
+                          / max(pp[n].abs().max().item(), 1e-30)
+                          for n in params),
+        launches={k: v for k, v in counts.items() if v})
+    if stats:
+        rec["bn_stat_gap"] = max(max_err(cp[n], pp[n]) for n in stats)
+        rec["bn_stats_card_first4"] = {n: cp[n][:4].tolist()
+                                       for n in stats[:2]}
+    log(f"book-correctness {label}: " + json.dumps(rec))
+    return rec, (built, card_scope)
+
+
+def phase_book_checks(K, pt, ops, card):
+    """recognize_digits' conv_net (batch 64), vgg16_bn_drop (batch 16, every
+    drop rate 0) and the recommender (batch 256): 3 Adam steps each on the
+    card against the CPU from the same weights, TF32 off and cuDNN's
+    deterministic algorithms pinned (the default backward algorithms sum in
+    an order that changes from run to run, ROADMAP queue 3 F8); then
+    dropout on the card, and the for_test clone against a
+    save/load_inference_model round trip."""
+    import tempfile
+    import numpy as np
+    # a bias that feeds a batch norm has a gradient that is 0 but for
+    # rounding; at epsilon 1e-8 Adam's first step moves it by up to the
+    # rate, differently on the card and on the CPU (tests/test_torch_book.py
+    # BOOK, tools/book_order_probe.py bias-noise): the CNNs' comparisons
+    # take epsilon 1e-4
+    opt = lambda eps=1e-4: pt.optimizer.Adam(BOOK_LR, epsilon=eps)  # noqa
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        digits, (dig_built, dig_scope) = card_vs_cpu(
+            K, pt, "conv_net", build_conv_net(pt, opt()),
+            book_batches((1, 28, 28), DIGITS_BATCH, 3, 11))
+        vgg, _ = card_vs_cpu(
+            K, pt, "vgg16_bn_drop", build_vgg16_bn_drop(pt, opt(), drop=0.0),
+            book_batches((3, 32, 32), 16, 3, 12))
+        rec_sys, _ = card_vs_cpu(
+            K, pt, "recommender", build_recommender(pt, opt(1e-8)),
+            ml_batches(ML_BATCH, 3, 13))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            old
+    for name, r in (("conv_net", digits), ("vgg16_bn_drop", vgg),
+                    ("recommender", rec_sys)):
+        tol = BOOK_TOL[name]
+        bad = {k: r.get(k, 0.0) for k in tol if r.get(k, 0.0) > tol[k]}
+        check(not bad, f"book-correctness {name}: card vs CPU {bad} beyond "
+                       f"{tol}")
+    check(digits["launches"] == {"fused_matmul": 3, "fused_adam": 24},
+          f"conv_net: card launches {digits['launches']}")
+    check(vgg["launches"] == {"fused_matmul": 9, "fused_adam": 180},
+          f"vgg16_bn_drop: card launches {vgg['launches']}")
+    check(rec_sys["launches"] == {"embedding_gather": 6, "fused_matmul": 6,
+                                  "fused_adam": 18},
+          f"recommender: card launches {rec_sys['launches']}")
+
+    # dropout on the card: the keep share within 5 sigma of the binomial,
+    # kept values exactly x (downgrade_in_infer) or x / (1 - p)
+    # (upscale_in_train), the same seed the same mask
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(VGG_BATCH, 512, 4, 4, generator=gen, device="cuda") + 0.5
+    drops = {}
+    for p in (0.3, 0.5):
+        for impl in ("downgrade_in_infer", "upscale_in_train"):
+            out = ops.dropout(x, p, dropout_implementation=impl,
+                              rng=torch.Generator(device="cuda").manual_seed(17))
+            kept = out != 0
+            share = kept.double().mean().item()
+            sigma = math.sqrt(p * (1 - p) / x.numel())
+            want = x / (1.0 - p) if impl == "upscale_in_train" else x
+            same = ops.dropout(x, p, dropout_implementation=impl,
+                               rng=torch.Generator(device="cuda").manual_seed(
+                                   17))
+            other = ops.dropout(x, p, dropout_implementation=impl,
+                                rng=torch.Generator(device="cuda").manual_seed(
+                                    18))
+            check(abs(share - (1 - p)) < 5 * sigma,
+                  f"dropout p={p} {impl}: keep share {share}, 5 sigma "
+                  f"{5 * sigma}")
+            check(torch.equal(out[kept], want[kept]),
+                  f"dropout p={p} {impl}: kept values are not x or x/(1-p)")
+            check(torch.equal(same, out) and not torch.equal(other, out),
+                  f"dropout p={p} {impl}: the seed does not set the mask")
+            drops[f"{p}/{impl}"] = dict(keep_share=share,
+                                        sigmas=(share - (1 - p)) / sigma)
+    # the Executor's masks: two executors on one seed draw the same, the
+    # next run another
+    def masks(runs):
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = 7
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            d = pt.layers.dropout(pt.data("x", [4096]), 0.5)
+        e, s = pt.Executor(), pt.Scope()
+        e.run(startup, scope=s)
+        return [e.run(main, feed={"x": np.ones((64, 4096), np.float32)},
+                      fetch_list=[d], scope=s)[0] != 0 for _ in range(runs)]
+    a, b = masks(2), masks(1)
+    check(np.array_equal(a[0], b[0]) and not np.array_equal(a[0], a[1]),
+          "static dropout: the executors' masks do not follow the seed")
+
+    # the for_test clone of the conv_net trained above on the card against
+    # a save/load_inference_model round trip
+    (main, startup, pred, loss, test) = dig_built
+    e = pt.Executor()
+    feed = book_batches((1, 28, 28), DIGITS_BATCH, 1, 14)[0]
+    want = e.run(test, feed=feed, fetch_list=[pred], scope=dig_scope)[0]
+    with tempfile.TemporaryDirectory() as d:
+        with pt.scope_guard(dig_scope):
+            pt.io.save_inference_model(d, ["img"], [pred], e,
+                                       main_program=main)
+        ls = pt.Scope()
+        prog, feeds, fetches = pt.io.load_inference_model(d, e, scope=ls)
+        got = e.run(prog, feed={"img": feed["img"]}, fetch_list=fetches,
+                    scope=ls)[0]
+    infer_gap = float(np.abs(got - want).max())
+    check(infer_gap <= 1e-6, f"conv_net: the loaded inference model "
+                             f"predicts {infer_gap} off the for_test clone")
+    launches = {}
+    for r in (digits, vgg, rec_sys):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rec = dict(conv_net=digits, vgg16_bn_drop=vgg, recommender=rec_sys,
+               tol=BOOK_TOL, dropout=drops, inference_round_trip_gap=infer_gap,
+               launches=launches, card=card)
+    log("book_checks " + json.dumps(rec))
+    return rec
+
+
+def rule_optimizers(pt):
+    """The twelve rules without a kernel, each under a piecewise schedule,
+    L2 decay and a global-norm clip (ModelAverage and the EMA take none)."""
+    o = pt.optimizer
+
+    def kw(lr):
+        return dict(learning_rate=pt.layers.piecewise_decay(
+                        [2], [lr, lr / 2]),
+                    regularization=pt.regularizer.L2Decay(1e-4),
+                    grad_clip=pt.clip.GradientClipByGlobalNorm(1.0))
+
+    return {
+        "LarsMomentum": lambda: o.LarsMomentum(momentum=0.9, **kw(0.1)),
+        "Adagrad": lambda: o.Adagrad(epsilon=1e-6, **kw(0.01)),
+        "Adamax": lambda: o.Adamax(**kw(0.002)),
+        "DecayedAdagrad": lambda: o.DecayedAdagrad(**kw(0.01)),
+        "Adadelta": lambda: o.Adadelta(**kw(1.0)),
+        "RMSProp": lambda: o.RMSProp(**kw(0.001)),
+        "RMSProp centered": lambda: o.RMSProp(centered=True, momentum=0.9,
+                                              **kw(0.001)),
+        "Ftrl": lambda: o.Ftrl(l1=1e-4, l2=1e-4, **kw(0.05)),
+        "Ftrl lr_power -0.3": lambda: o.Ftrl(l1=1e-4, l2=1e-4, lr_power=-0.3,
+                                             **kw(0.05)),
+        "ProximalGD": lambda: o.ProximalGD(l1=1e-4, l2=1e-4, **kw(0.05)),
+        "ProximalAdagrad": lambda: o.ProximalAdagrad(l1=1e-4, l2=1e-4,
+                                                     **kw(0.05)),
+        "Lamb": lambda: o.Lamb(**kw(0.002)),
+        "ModelAverage": lambda: o.ModelAverage(0.15, 10000, 10000),
+        "ExponentialMovingAverage": lambda: o.ExponentialMovingAverage(0.999),
+    }
+
+
+def rule_step(opt):
+    """One update of ``opt`` as a function of (params, grads, state)."""
+    name = type(opt).__name__
+    if name == "ModelAverage":
+        return lambda p, g, s: opt.accumulate(g, s)
+    if name == "ExponentialMovingAverage":
+        return lambda p, g, s: opt.update(g, s)
+    return lambda p, g, s: opt.apply_gradients(p, g, s)
+
+
+def rule_result(opt, params, state):
+    name = type(opt).__name__
+    if name == "ModelAverage":
+        return opt.average(state)
+    if name == "ExponentialMovingAverage":
+        return opt.apply(state)
+    return params
+
+
+def phase_optimizer_rules(K, pt, resnet, card, vgg_shapes):
+    """Each rule 3 updates on the card against the CPU over phase 20's
+    parameter list (vgg16_bn_drop's 60 tensors) from the same values and
+    grads (the averages take the grads as the next parameters), then, over
+    that list and over ResNet-50's 267 tensors, the device time of one
+    update (captured in a CUDA graph: its thousands of small launches
+    overrun the launch queue behind a spin), its host time (wall clock to
+    a synchronize) and its device events. No registered kernel may launch.
+    Data for a later PR: nothing here is tuned."""
+    from paddle_tpu_torch.core.tree import leaves
+
+    def tree(shapes, seed, device, scale):
+        g = torch.Generator().manual_seed(seed)
+        return {f"t{i}": (scale * torch.randn(tuple(s), generator=g)).to(
+            device) for i, s in enumerate(shapes)}
+
+    rn50 = [tuple(s) for s in leaves(resnet.param_shapes(resnet.resnet50()))]
+    check(len(rn50) == 267, f"{len(rn50)} ResNet-50 leaves")
+    rec = {}
+    for name, make in rule_optimizers(pt).items():
+        finals = {}
+        for dev in ("cuda", "cpu"):
+            opt = make()
+            params = tree(vgg_shapes, 0, dev, 0.1)
+            grads = [tree(vgg_shapes, 1 + i, dev, 0.01) for i in range(3)]
+            state = opt.init(params)
+            step = rule_step(opt)
+            K.reset_launch_counts()
+            for g in grads:
+                step(params, g, state)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                check(not any(counts.values()),
+                      f"optimizer-rules {name}: kernel launches {counts}")
+            finals[dev] = {k: v.cpu() for k, v in
+                           rule_result(opt, params, state).items()}
+        gap = max(max_err(finals["cuda"][k], finals["cpu"][k])
+                  for k in finals["cpu"])
+        scale_ = max(finals["cpu"][k].abs().max().item()
+                     for k in finals["cpu"])
+        r = dict(gap=gap, gap_rel=gap / scale_)
+        for label, shapes in (("vgg16_bn_drop", vgg_shapes),
+                              ("resnet50", rn50)):
+            opt = make()
+            params = tree(shapes, 0, "cuda", 0.1)
+            g = tree(shapes, 1, "cuda", 0.01)
+            state = opt.init(params)
+            step = rule_step(opt)
+            dev = device_ms(lambda: step(params, g, state), 1)
+            host = host_ms(lambda: step(params, g, state), 3)
+            prof = op_breakdown(lambda: step(params, g, state), top=3)
+            r[label] = dict(device_us=dev * 1e3, host_us=host * 1e3,
+                            device_busy_share=dev / host,
+                            device_events=prof.get("launches"),
+                            top=prof.get("top"))
+        check(gap <= RULE_TOL.get(name, RULE_TOL["default"]),
+              f"optimizer-rules {name}: card vs CPU gap {gap}")
+        rec[name] = r
+        log(f"optimizer-rules {name}: gap {gap:.3g} (rel {gap / scale_:.3g});"
+            + "".join(f" {k} {r[k]['device_us']:.1f} us device, "
+                      f"{r[k]['host_us']:.1f} us host, "
+                      f"{r[k]['device_events']} events;"
+                      for k in ("vgg16_bn_drop", "resnet50"))
+            + f" [{card}]")
+    rec.update(tensors={"vgg16_bn_drop": len(vgg_shapes), "resnet50": 267},
+               values={"vgg16_bn_drop": sum(math.prod(s) for s in vgg_shapes),
+                       "resnet50": sum(math.prod(s) for s in rn50)},
+               tol=RULE_TOL, card=card)
+    log("optimizer_rules " + json.dumps(rec))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3157,6 +3703,30 @@ def main():
         "(ctr-deepfm)")
     phase_ctr_deepfm(K, deepfm, card)
     log(f"phases 0-18 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 19: the recognize_digits conv_net through the static path, "
+        "batch 64 (train-book-digits)")
+    digits, _ = phase_train_book(
+        K, pt, card, "train-book-digits",
+        build_conv_net(pt, pt.optimizer.Adam(BOOK_LR)),
+        book_batches((1, 28, 28), DIGITS_BATCH, 10, 1), DIGITS_BATCH, 1)
+    log("phase 20: vgg16_bn_drop through the static path, 3x32x32, batch "
+        "128 (train-book-vgg)")
+    vgg_rec, (vgg_built, _, _) = phase_train_book(
+        K, pt, card, "train-book-vgg",
+        build_vgg16_bn_drop(pt, pt.optimizer.Adam(BOOK_LR)),
+        book_batches((3, 32, 32), VGG_BATCH, 10, 2), VGG_BATCH, 3)
+    vgg_main = vgg_built[0]
+    vgg_shapes = [tuple(vgg_main.global_block().var(n).shape)
+                  for n in trainable(vgg_main)]
+    del vgg_built
+    log(f"phases 0-20 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 21: the book models on the card against the CPU, dropout, "
+        "the inference round trip (book-correctness)")
+    book = phase_book_checks(K, pt, ops, card)
+    log("phase 22: the twelve optimizer rules without a kernel, card "
+        "against CPU, device time per update (optimizer-rules)")
+    phase_optimizer_rules(K, pt, resnet, card, vgg_shapes)
+    log(f"phases 0-22 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -3173,6 +3743,9 @@ def main():
         "train-correctness": img_checks["launches"],
         "train-se-resnext50": sx50["launches"],
         "train-transformer-big": nmt["launches"],
+        "train-book-digits": digits["launches"],
+        "train-book-vgg": vgg_rec["launches"],
+        "book-correctness": book["launches"],
     }
     kernels = []
     for name, main_rec in (

@@ -24,7 +24,7 @@ __version__ = "0.1.0"
 
 __all__ = ["__version__", "NoCudaDeviceError", "default_device",
            "resolve_device", "layers", "optimizer", "initializer", "static",
-           "io", "regularizer", "clip",
+           "io", "regularizer", "clip", "nets",
            "Program", "program_guard", "default_main_program",
            "default_startup_program", "enable_static", "disable_static",
            "data", "Executor", "Scope", "global_scope", "scope_guard",
@@ -59,7 +59,7 @@ def resolve_device(device=None):
 # the Fluid surface (after the definitions above, which its modules import)
 from paddle_tpu_torch import initializer, layers, optimizer, static  # noqa: E402,F401,I001
 from paddle_tpu_torch import clip, regularizer  # noqa: E402,F401
-from paddle_tpu_torch import io  # noqa: E402,F401
+from paddle_tpu_torch import io, nets  # noqa: E402,F401
 from paddle_tpu_torch.core.flags import get_flag, set_flags  # noqa: E402
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: E402
 from paddle_tpu_torch.framework import ParamAttr, unique_name  # noqa: E402

@@ -1,5 +1,5 @@
 """Parameter initializers: the port of ``paddle_tpu/initializer.py``'s
-``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.
+``Constant``, ``Uniform``, ``Normal``, ``Xavier`` and ``MSRA``.
 
 An initializer is a callable ``(generator, shape, dtype) -> tensor`` that
 draws on the CPU from an explicit ``torch.Generator`` (the startup program's,
@@ -17,7 +17,7 @@ from paddle_tpu_torch.core.dtypes import convert_dtype
 
 __all__ = ["Initializer", "Constant", "ConstantInitializer", "Uniform",
            "UniformInitializer", "Normal", "NormalInitializer", "Xavier",
-           "XavierInitializer"]
+           "XavierInitializer", "MSRA", "MSRAInitializer"]
 
 
 def _fans(shape):
@@ -86,8 +86,27 @@ class XavierInitializer(Initializer):
                                  self.seed)(gen, shape, dtype)
 
 
+class MSRAInitializer(Initializer):
+    """He initialization from the fan-in: uniform in +-sqrt(6/fan_in), or
+    normal with std sqrt(2/fan_in)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, gen, shape, dtype=torch.float32):
+        fi, _ = _fans(tuple(shape))
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            return UniformInitializer(-limit, limit, self.seed)(
+                gen, shape, dtype)
+        return NormalInitializer(0.0, math.sqrt(2.0 / fi), self.seed)(
+            gen, shape, dtype)
+
+
 # fluid-style aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

@@ -14,13 +14,22 @@ Every function works in both modes, as the JAX package's do:
   tensors never reach the kernel registry: an op that holds a kernel is
   inferred through its plain body (``_SHAPE_BODIES``).
 
-This slice ports ``fc``, ``embedding`` and the ops they and the word2vec and
-fit-a-line programs use: ``mul``, ``matmul``, ``elementwise_add``, ``relu``,
+Ported: ``fc``, ``embedding`` and the ops they and the word2vec and
+fit-a-line programs use (``mul``, ``matmul``, ``elementwise_add``, ``relu``,
 ``sigmoid``, ``tanh``, ``gelu``, ``softmax``, ``cross_entropy``,
-``square_error_cost``, ``mean``, ``concat`` and ``reshape`` (the rest of the
-op library is ROADMAP queue 1 item 4), and the learning-rate schedules
+``square_error_cost``, ``mean``, ``concat``, ``reshape``); the layers of
+the recognize_digits, image_classification and recommender_system book
+models (``conv2d``, ``pool2d``, ``batch_norm``, ``dropout``, ``cos_sim``,
+``scale``, ``elementwise_mul``, ``split``); and the learning-rate schedules
 (``learning_rate_scheduler``), exported here as the JAX package exports
-them.
+them. The rest of the op library is ROADMAP queue 1 item 4.
+
+``dropout`` is an op that draws (``_needs_rng``): the Executor hands it a
+generator on its device, seeded from the program's ``random_seed``, the run
+and the op. ``batch_norm`` in a Program keeps its moving mean and variance
+as non-trainable persistable parameters, which its op's ``MeanOut`` and
+``VarianceOut`` overwrite; outside a Program it needs the module context
+(queue 1 item 7d) and raises.
 """
 
 import functools
@@ -49,16 +58,19 @@ from paddle_tpu_torch.static.program import (
 )
 
 __all__ = ["data", "fc", "embedding", "mul", "matmul",
-           "elementwise_add", "relu", "sigmoid", "tanh", "gelu", "softmax",
-           "cross_entropy", "square_error_cost", "mean", "concat",
-           "reshape", "learning_rate_scheduler", "noam_decay",
+           "elementwise_add", "elementwise_mul", "relu", "sigmoid", "tanh",
+           "gelu", "softmax", "cross_entropy", "square_error_cost", "mean",
+           "concat", "reshape", "split", "scale", "cos_sim", "conv2d",
+           "pool2d", "batch_norm", "dropout",
+           "learning_rate_scheduler", "noam_decay",
            "exponential_decay", "natural_exp_decay", "inverse_time_decay",
            "polynomial_decay", "piecewise_decay", "cosine_decay",
            "linear_lr_warmup"]
 
 #: ops whose leading N args are tensors (default 1)
-_NARGS = {"elementwise_add": 2, "matmul": 2, "mul": 2, "cross_entropy": 2,
-          "square_error_cost": 2, "embedding": 2}
+_NARGS = {"elementwise_add": 2, "elementwise_mul": 2, "matmul": 2, "mul": 2,
+          "cross_entropy": 2, "square_error_cost": 2, "cos_sim": 2,
+          "embedding": 2, "conv2d": 2}
 #: ops whose first arg is a list of tensors
 _LIST_FIRST = {"concat"}
 #: ops whose compute reaches a kernel: shape inference runs this plain body
@@ -76,7 +88,8 @@ def _register(name, fn):
     def compute(ins, attrs):
         xs = ins.get("X", [])
         out = fn(list(xs), **attrs) if listy else fn(*xs, **attrs)
-        return {"Out": list(out) if isinstance(out, tuple) else [out]}
+        return {"Out": list(out) if isinstance(out, (tuple, list))
+                else [out]}
 
     register_op(name, compute)
     return _NARGS.get(name, 1), listy
@@ -95,8 +108,11 @@ def _meta_of(v, val):
 
 
 def _append_static(name, tensor_vals, attrs, listy):
-    """Append one op to the current program; returns its output Variable.
-    A literal (non-Variable) operand becomes a program constant."""
+    """Append one op to the current program; returns its output Variable
+    (a list of them where the op returns a list, as ``split`` does). A
+    literal (non-Variable) operand becomes a program constant; attrs whose
+    name starts with ``_`` are the Executor's (``_needs_rng``) and do not
+    reach the op's function here."""
     program = default_main_program()
     blk = program.global_block()
     fn = _SHAPE_BODIES.get(name, _OPS[name])
@@ -118,8 +134,10 @@ def _append_static(name, tensor_vals, attrs, listy):
             probes2.append(arr.to(_META))
             probes3.append(arr.to(_META))
 
+    fn_attrs = {k: v for k, v in attrs.items() if not k.startswith("_")}
+
     def infer(xs):
-        return fn(list(xs), **attrs) if listy else fn(*xs, **attrs)
+        return fn(list(xs), **fn_attrs) if listy else fn(*xs, **fn_attrs)
 
     shape_error = None
     try:
@@ -134,20 +152,27 @@ def _append_static(name, tensor_vals, attrs, listy):
             # the op traces only at the first probe (e.g. a reshape tied to
             # it): mark just the batch dim dynamic
             out3 = None
-    shape, dtype = None, torch.float32
-    if out2 is not None:
-        dtype = out2.dtype
-        shape = [d if out3 is None or d == out3.shape[j] else -1
-                 for j, d in enumerate(out2.shape)]
-        if out3 is None and had_dyn and shape and shape[0] == 2:
-            shape[0] = -1
-    v = blk.create_var(name=unique_name.generate(f"{name}.out"),
-                       shape=shape, dtype=dtype)
-    if shape is None:
-        v._shape_error = shape_error
+    multi = isinstance(out2, (tuple, list))
+    outs2 = list(out2) if multi else [out2]
+    outs3 = (list(out3) if isinstance(out3, (tuple, list))
+             else [out3] * len(outs2))
+    outs = []
+    for o2, o3 in zip(outs2, outs3):
+        shape, dtype = None, torch.float32
+        if o2 is not None:
+            dtype = o2.dtype
+            shape = [d if o3 is None or d == o3.shape[j] else -1
+                     for j, d in enumerate(o2.shape)]
+            if o3 is None and had_dyn and shape and shape[0] == 2:
+                shape[0] = -1
+        v = blk.create_var(name=unique_name.generate(f"{name}.out"),
+                           shape=shape, dtype=dtype)
+        if shape is None:
+            v._shape_error = shape_error
+        outs.append(v)
     blk.append_op(type=name, inputs={"X": in_names},
-                  outputs={"Out": [v.name]}, attrs=dict(attrs))
-    return v
+                  outputs={"Out": [v.name for v in outs]}, attrs=dict(attrs))
+    return outs if multi else outs[0]
 
 
 def _has_variable(vals):
@@ -202,8 +227,15 @@ square_error_cost = _dual("square_error_cost", _loss.square_error_cost)
 mean = _dual("mean", _reduce.mean)
 concat = _dual("concat", _tensor.concat)
 reshape = _dual("reshape", _tensor.reshape)
+elementwise_mul = _dual("elementwise_mul", _math.elementwise_mul)
+scale = _dual("scale", _math.scale)
+split = _dual("split", _tensor.split)
+cos_sim = _dual("cos_sim", _loss.cos_sim)
+pool2d = _dual("pool2d", _nn.pool2d)
 _register("embedding", _nn.embedding)
 _register("softmax", _act.softmax)
+_register("conv2d", _nn.conv2d)
+_register("dropout", _nn.dropout)
 
 
 def softmax(input, use_cudnn=False, name=None, axis=-1):
@@ -217,7 +249,7 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
 # ---------------------------------------------------------------------------
 # parameterized layers
 # ---------------------------------------------------------------------------
-def _make_param(prefix, shape, dtype, attr, default_init):
+def _make_param(prefix, shape, dtype, attr, default_init, trainable=True):
     """Create a parameter in the current program, and its ``init_param``
     op in the startup program (once per name)."""
     attr = ParamAttr.to_attr(attr) if attr is not None else ParamAttr()
@@ -226,11 +258,11 @@ def _make_param(prefix, shape, dtype, attr, default_init):
         raise EnforceNotMet(
             "a parameterized layer needs a Program (enable_static or "
             "program_guard); the eager module context is not ported yet "
-            "(ROADMAP queue 1 item 7)")
+            "(ROADMAP queue 1 item 7d)")
     blk = default_main_program().global_block()
     name = attr.name or unique_name.generate(prefix)
     p = blk.create_parameter(
-        name, shape, dtype, trainable=attr.trainable,
+        name, shape, dtype, trainable=attr.trainable and trainable,
         regularizer=attr.regularizer, gradient_clip=attr.gradient_clip,
         optimize_attr={"learning_rate": attr.learning_rate},
         initializer=init)
@@ -306,3 +338,95 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         else size[0] + padding_idx
     return _append_static("embedding", [input, w], {"padding_idx": pi},
                           False)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None, data_format="NCHW"):
+    """fluid.layers.conv2d parity: an OIHW weight drawn by
+    ``MSRA(uniform=False)``, the ``conv2d`` op, a bias added on axis 1,
+    then ``act``. ``use_cudnn`` is advisory, as in the JAX package."""
+    c_in = int(input.shape[1] if data_format == "NCHW" else input.shape[-1])
+    fs = filter_size if isinstance(filter_size, (list, tuple)) \
+        else (filter_size, filter_size)
+    w = _make_param("conv2d_w", (num_filters, c_in // groups) + tuple(fs),
+                    torch.float32, param_attr, I.MSRA(uniform=False))
+    attrs = dict(stride=stride, padding=padding, dilation=dilation,
+                 groups=groups, data_format=data_format)
+    if in_static_mode() and isinstance(input, Variable):
+        out = _append_static("conv2d", [input, w], attrs, False)
+    else:
+        out = _nn.conv2d(input, w, **attrs)
+    if bias_attr is not False:
+        b = _make_param("conv2d_b", (num_filters,), torch.float32, bias_attr,
+                        I.Constant(0.0))
+        out = elementwise_add(out, b, axis=1)
+    return _apply_act(out, act)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False):
+    """fluid.layers.batch_norm parity in a Program: scale and bias
+    parameters, the moving mean and variance as non-trainable persistable
+    parameters (0 and 1), and one ``batch_norm`` op whose ``MeanOut`` and
+    ``VarianceOut`` overwrite them. Outside a Program the running stats
+    need the module context, which is not ported yet: it raises."""
+    if not (in_static_mode() and isinstance(input, Variable)):
+        raise EnforceNotMet(
+            "batch_norm outside a Program keeps its running stats in the "
+            "module context (nn state), which is not ported yet (ROADMAP "
+            "queue 1 item 7d)")
+    c = int(input.shape[1] if data_layout == "NCHW" else input.shape[-1])
+    scale_p = _make_param("bn_scale", (c,), torch.float32, param_attr,
+                          I.Constant(1.0))
+    bias_p = _make_param("bn_bias", (c,), torch.float32, bias_attr,
+                         I.Constant(0.0))
+    mean = _make_param(moving_mean_name or "bn_mean", (c,), torch.float32,
+                       ParamAttr(name=moving_mean_name, trainable=False),
+                       I.Constant(0.0), trainable=False)
+    var = _make_param(moving_variance_name or "bn_variance", (c,),
+                      torch.float32,
+                      ParamAttr(name=moving_variance_name, trainable=False),
+                      I.Constant(1.0), trainable=False)
+    blk = default_main_program().global_block()
+    out = blk.create_var(name=unique_name.generate("bn.out"),
+                         shape=input.shape, dtype=input.dtype)
+    blk.append_op(
+        type="batch_norm",
+        inputs={"X": [input.name, scale_p.name, bias_p.name, mean.name,
+                      var.name]},
+        outputs={"Out": [out.name], "MeanOut": [mean.name],
+                 "VarianceOut": [var.name]},
+        attrs={"epsilon": epsilon, "momentum": momentum, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return _apply_act(out, act)
+
+
+def _bn_compute(ins, attrs):
+    x, scale_t, bias_t, mean, var = ins["X"]
+    out, m_out, v_out, _, _ = _nn.batch_norm(
+        x, scale_t, bias_t, mean, var, attrs["epsilon"], attrs["momentum"],
+        attrs["is_test"], attrs["data_layout"], attrs["use_global_stats"])
+    return {"Out": [out], "MeanOut": [m_out], "VarianceOut": [v_out]}
+
+
+register_op("batch_norm", _bn_compute)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """fluid.layers.dropout parity. In a Program: a ``dropout`` op that
+    draws from the Executor's generator (``seed`` is not recorded, as in
+    the JAX package); outside one: the op at once, its generator made from
+    ``seed`` (the JAX layer's branch outside a module)."""
+    if in_static_mode() and isinstance(x, Variable):
+        return _append_static(
+            "dropout", [x],
+            {"dropout_prob": dropout_prob, "is_test": is_test,
+             "dropout_implementation": dropout_implementation,
+             "_needs_rng": True}, False)
+    return _nn.dropout(x, dropout_prob, is_test, seed,
+                       dropout_implementation)

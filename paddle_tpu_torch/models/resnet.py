@@ -45,6 +45,7 @@ from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.tree import map_tree
 from paddle_tpu_torch.models._mesh import refuse_mesh
+from paddle_tpu_torch.ops.nn import _same_pad, no_tf32
 
 __all__ = ["ResNetConfig", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "resnet_cifar10", "init_params", "params_from_numpy",
@@ -288,15 +289,8 @@ def _precision(dtype):
     if dtype != torch.float32:
         yield
         return
-    old = (torch.backends.cudnn.allow_tf32,
-           torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = old
 
 
 def _images(images, dtype, device):
@@ -308,14 +302,6 @@ def _images(images, dtype, device):
         raise EnforceNotMet(f"images must be [B, H, W, 3], got "
                             f"{list(x.shape)}")
     return x.to(device).permute(0, 3, 1, 2).to(dtype)
-
-
-def _same_pad(size, k, stride, dilation=1):
-    """XLA's SAME padding of one spatial dim: (before, after), the odd
-    pixel after."""
-    eff = (k - 1) * dilation + 1
-    total = max((-(-size // stride) - 1) * stride + eff - size, 0)
-    return total // 2, total - total // 2
 
 
 def _conv(x, w, stride=1, dilation=1, groups=1):

@@ -261,7 +261,10 @@ def try_fused_matmul(ins, attrs):
     matmul.py:273-340: the output, or None when the
     operands fall outside the kernel's contract (then the caller runs the
     plain composition, as the JAX package does). Inside the contract a CUDA
-    tensor always launches the kernel or raises."""
+    tensor always launches the kernel or raises. One difference: a ``mul``
+    takes x of any rank, flattened after dim 0 as the op flattens it (the
+    JAX contract refuses an x whose last dim is not w's first, so an fc
+    over a conv's [B, C, H, W] output ran the composition there)."""
     xs = list(ins["X"])
     x, w = xs[0], xs[1]
     quant = attrs.get("quant")
@@ -274,7 +277,7 @@ def try_fused_matmul(ins, attrs):
             return None
     elif quant not in (None, "bf16"):
         return None
-    if w.dim() != 2 or x.dim() < 2 or x.shape[-1] != w.shape[0]:
+    if w.dim() != 2 or x.dim() < 2:
         return None
     if not x.is_floating_point() or (quant != "int8"
                                      and not w.is_floating_point()):
@@ -282,7 +285,8 @@ def try_fused_matmul(ins, attrs):
     mm_attrs = attrs.get("mm_attrs", {})
     if attrs["mm_type"] == "matmul":
         if mm_attrs.get("transpose_x") or mm_attrs.get("transpose_y") \
-                or mm_attrs.get("alpha", 1.0) != 1.0:
+                or mm_attrs.get("alpha", 1.0) != 1.0 \
+                or x.shape[-1] != w.shape[0]:
             return None
         x_eff = x
         out_shape = (*x.shape[:-1], w.shape[1])

@@ -1,5 +1,6 @@
 """Elementwise and linear-algebra ops of the static path: the port of
-``paddle_tpu/ops/math.py``'s ``elementwise_add``, ``matmul`` and ``mul``.
+``paddle_tpu/ops/math.py``'s ``elementwise_add``, ``elementwise_mul``,
+``matmul``, ``mul`` and ``scale``.
 
 The reference's elementwise ops take an ``axis`` attr that aligns a
 lower-rank y against x's dims starting at ``axis`` (-1: trailing).
@@ -9,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["elementwise_add", "matmul", "mul"]
+__all__ = ["elementwise_add", "elementwise_mul", "matmul", "mul", "scale"]
 
 
 def _align(x, y, axis=-1):
@@ -26,6 +27,20 @@ def _align(x, y, axis=-1):
 def elementwise_add(x, y, axis=-1, name=None):
     x, y = _align(x, y, axis)
     return x + y
+
+
+def elementwise_mul(x, y, axis=-1, name=None):
+    x, y = _align(x, y, axis)
+    return x * y
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
+    """scale_op.cc parity: ``x * scale + bias``, or ``(x + bias) * scale``
+    with ``bias_after_scale=False``."""
+    x = torch.as_tensor(x)
+    if bias_after_scale:
+        return x * scale + bias
+    return (x + bias) * scale
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,

@@ -1,5 +1,5 @@
-"""Optimizers: the port of ``paddle_tpu/optimizer.py``'s SGD, Momentum and
-Adam, on both of its paths.
+"""Optimizers: the port of ``paddle_tpu/optimizer.py``'s update rules,
+ModelAverage and ExponentialMovingAverage, on both of its paths.
 
 - **functional**: ``state = opt.init(params)`` then
   ``opt.apply_gradients(params, grads, state)``, with params, grads and
@@ -18,6 +18,15 @@ Adam, on both of its paths.
 The kernels take fp32 parameters, grads and slots, where the output dtype
 the JAX package pins by ``eval_shape`` (optimizer.py:255-261) is fp32 as
 well; another dtype raises.
+
+The other rules (LarsMomentum, Adagrad, Adamax, DecayedAdagrad, Adadelta,
+RMSProp, Ftrl, ProximalGD, ProximalAdagrad, Lamb; optimizer.py:326-552)
+have no Pallas body in the JAX package (pallas/optimizer.py:160-168 registers
+only the three above), and here no kernel: they are plain PyTorch ops per
+parameter, on the device, written back in place, on both paths. Their rate
+is a 0-d fp32 tensor on the parameter's device (``jnp.asarray(lr,
+float32)``, optimizer.py:70-74) and ``beta ** t`` is fp32 on the step
+counter, so a step makes no host sync.
 
 The learning rate is a float or a schedule
 (``layers.learning_rate_scheduler``): a schedule is evaluated in fp32 on the
@@ -45,8 +54,15 @@ from paddle_tpu_torch.static.program import (
     default_startup_program, in_static_mode, register_op,
 )
 
-__all__ = ["Optimizer", "AdamOptimizer", "Adam", "SGDOptimizer", "SGD",
-           "MomentumOptimizer", "Momentum"]
+__all__ = [
+    "Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
+    "LarsMomentum", "LarsMomentumOptimizer", "Adagrad", "AdagradOptimizer",
+    "Adam", "AdamOptimizer", "Adamax", "AdamaxOptimizer", "DecayedAdagrad",
+    "DecayedAdagradOptimizer", "Adadelta", "AdadeltaOptimizer", "RMSProp",
+    "RMSPropOptimizer", "Ftrl", "FtrlOptimizer", "Lamb", "LambOptimizer",
+    "ProximalGD", "ProximalGDOptimizer", "ProximalAdagrad",
+    "ProximalAdagradOptimizer", "ModelAverage", "ExponentialMovingAverage",
+]
 
 
 class Optimizer:
@@ -236,7 +252,37 @@ class Optimizer:
         return {"step": torch.tensor(step).to(dev), "slots": slots}
 
     def _apply(self, params, grads, slots, step, lr):
+        """The rule over the flat lists (``slots``: one list per slot name,
+        in ``_slot_defaults`` order): the kernel rules launch once; the
+        others run ``_update`` per parameter and write back in place."""
+        names = list(self._slot_defaults)
+        lr = _lr_tensor(lr, params[0].device)
+        for i, (p, g) in enumerate(zip(params, grads)):
+            self._update_in_place(p, g, {k: slots[j][i]
+                                         for j, k in enumerate(names)},
+                                  lr, step)
+
+    def _update_in_place(self, p, g, slots, lr, step):
+        new_p, new_slots = self._update(p, g, slots,
+                                        _lr_tensor(lr, p.device), step)
+        for k, v in new_slots.items():
+            if v is not slots[k]:
+                slots[k].copy_(v)
+        p.copy_(new_p)
+
+    def _update(self, p, g, slots, lr, t):
+        """One parameter's rule, out of place: ``(new p, {slot: new
+        value})``. ``lr`` is a 0-d fp32 tensor, ``t`` the int32 step
+        counter after its increment."""
         raise NotImplementedError
+
+
+def _lr_tensor(lr, device):
+    """The rate as the JAX package holds it: a 0-d fp32 tensor (a fill on
+    the device, no host copy)."""
+    if isinstance(lr, torch.Tensor):
+        return lr
+    return torch.full((), lr, dtype=torch.float32, device=device)
 
 
 def _grad(path, p, g):
@@ -294,9 +340,14 @@ class MomentumOptimizer(Optimizer):
 def _fused_update(opt, p, g, slots, lr, step):
     """One launch of the rule's kernel over the one parameter ``p``, in
     place (the counterpart of ``_pallas_fused_update``,
-    optimizer.py:224-261). The stock rule's output dtype, which the JAX
-    package pins by ``eval_shape``, is fp32 for fp32 inputs; the kernels
-    take nothing else."""
+    optimizer.py:224-261), for SGD, Momentum and Adam; the other rules run
+    their own update, as the JAX op does when ``_pallas_fused_update``
+    returns None (optimizer.py:264-277). The stock rule's output dtype,
+    which the JAX package pins by ``eval_shape``, is fp32 for fp32 inputs;
+    the kernels take nothing else."""
+    if type(opt) not in (AdamOptimizer, MomentumOptimizer, SGDOptimizer):
+        opt._update_in_place(p, g, slots, lr, step)
+        return
     for nm, t in (("param", p), ("grad", g), *slots.items()):
         if t.dtype != torch.float32:
             raise EnforceNotMet(
@@ -345,6 +396,289 @@ register_op("clip_grads", lambda ins, attrs: {
     "Out": attrs["clip"].clip_tree(list(ins["X"]))})
 
 
-Adam = AdamOptimizer
+# ---------------------------------------------------------------------------
+# the rules without a kernel (operators/optimizers/*.cc; optimizer.py:326-552)
+# ---------------------------------------------------------------------------
+def _norm(x):
+    return torch.sqrt(torch.sum(torch.square(x)))
+
+
+class LarsMomentumOptimizer(Optimizer):
+    """lars_momentum_op.cc: layer-wise adaptive rate scaling, the trust
+    ratio from whole-tensor norms (1 where either norm is 0)."""
+
+    _slot_defaults = {"velocity": 0.0}
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self.momentum = momentum
+        self.lars_coeff = lars_coeff
+        self.lars_weight_decay = lars_weight_decay
+
+    def _update(self, p, g, slots, lr, t):
+        p_norm, g_norm = _norm(p), _norm(g)
+        local_lr = torch.where(
+            (p_norm > 0) & (g_norm > 0),
+            self.lars_coeff * p_norm
+            / (g_norm + self.lars_weight_decay * p_norm + 1e-12), 1.0)
+        v = self.momentum * slots["velocity"] + lr * local_lr * (
+            g + self.lars_weight_decay * p)
+        return p - v, {"velocity": v}
+
+
+class AdagradOptimizer(Optimizer):
+    """adagrad_op.cc. ``initial_accumulator_value`` sets the slot's start
+    on the instance, which ``init`` and ``minimize`` read."""
+
+    _slot_defaults = {"moment": 0.0}
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self.epsilon = epsilon
+        self._slot_defaults = {"moment": initial_accumulator_value}
+
+    def _update(self, p, g, slots, lr, t):
+        m = slots["moment"] + torch.square(g)
+        return p - lr * g / (torch.sqrt(m) + self.epsilon), {"moment": m}
+
+
+class AdamaxOptimizer(Optimizer):
+    """adamax_op.cc"""
+
+    _slot_defaults = {"moment": 0.0, "inf_norm": 0.0}
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def _update(self, p, g, slots, lr, t):
+        t = t.to(torch.float32)
+        m = self.beta1 * slots["moment"] + (1 - self.beta1) * g
+        u = torch.maximum(self.beta2 * slots["inf_norm"], torch.abs(g))
+        new_p = p - lr / (1 - self.beta1 ** t) * m / (u + self.epsilon)
+        return new_p, {"moment": m, "inf_norm": u}
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    """decayed_adagrad_op.cc"""
+
+    _slot_defaults = {"moment": 0.0}
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.decay, self.epsilon = decay, epsilon
+
+    def _update(self, p, g, slots, lr, t):
+        m = self.decay * slots["moment"] + (1 - self.decay) * torch.square(g)
+        return p - lr * g / (torch.sqrt(m) + self.epsilon), {"moment": m}
+
+
+class AdadeltaOptimizer(Optimizer):
+    """adadelta_op.cc"""
+
+    _slot_defaults = {"avg_squared_grad": 0.0, "avg_squared_update": 0.0}
+
+    def __init__(self, learning_rate=1.0, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self.epsilon, self.rho = epsilon, rho
+
+    def _update(self, p, g, slots, lr, t):
+        g2 = (self.rho * slots["avg_squared_grad"]
+              + (1 - self.rho) * torch.square(g))
+        upd = g * torch.sqrt(slots["avg_squared_update"] + self.epsilon) \
+            / torch.sqrt(g2 + self.epsilon)
+        u2 = (self.rho * slots["avg_squared_update"]
+              + (1 - self.rho) * torch.square(upd))
+        return p - lr * upd, {"avg_squared_grad": g2,
+                              "avg_squared_update": u2}
+
+
+class RMSPropOptimizer(Optimizer):
+    """rmsprop_op.cc. Not centered, ``mean_grad`` is carried unchanged;
+    ``momentum`` scales the previous step's move."""
+
+    _slot_defaults = {"mean_square": 0.0, "mean_grad": 0.0, "momentum": 0.0}
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.rho, self.epsilon = rho, epsilon
+        self.momentum_coef = momentum
+        self.centered = centered
+
+    def _update(self, p, g, slots, lr, t):
+        ms = self.rho * slots["mean_square"] + (1 - self.rho) * torch.square(g)
+        mg = (self.rho * slots["mean_grad"] + (1 - self.rho) * g
+              if self.centered else slots["mean_grad"])
+        denom = ms - torch.square(mg) if self.centered else ms
+        mom = self.momentum_coef * slots["momentum"] \
+            + lr * g / torch.sqrt(denom + self.epsilon)
+        return p - mom, {"mean_square": ms, "mean_grad": mg,
+                         "momentum": mom}
+
+
+class FtrlOptimizer(Optimizer):
+    """ftrl_op.cc: sqrt at ``lr_power`` -0.5, pow otherwise; divides by
+    the rate."""
+
+    _slot_defaults = {"squared": 0.0, "linear": 0.0}
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self.l1, self.l2, self.lr_power = l1, l2, lr_power
+
+    def _update(self, p, g, slots, lr, t):
+        sq, lin = slots["squared"], slots["linear"]
+        new_sq = sq + torch.square(g)
+        if self.lr_power == -0.5:
+            sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+            denom = torch.sqrt(new_sq) / lr + 2 * self.l2
+        else:
+            sigma = (new_sq ** -self.lr_power - sq ** -self.lr_power) / lr
+            denom = new_sq ** -self.lr_power / lr + 2 * self.l2
+        new_lin = lin + g - sigma * p
+        pre = torch.clamp(new_lin, -self.l1, self.l1) - new_lin
+        return pre / denom, {"squared": new_sq, "linear": new_lin}
+
+
+class ProximalGDOptimizer(Optimizer):
+    """proximal_gd_op.cc: prox = p - lr*g; p = sign(prox) * max(|prox| -
+    lr*l1, 0) / (1 + lr*l2)."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self.l1, self.l2 = l1, l2
+
+    def _prox(self, prox, lr):
+        return (torch.sign(prox)
+                * torch.clamp(torch.abs(prox) - lr * self.l1, min=0.0)
+                / (1.0 + lr * self.l2))
+
+    def _update(self, p, g, slots, lr, t):
+        return self._prox(p - lr * g, lr), slots
+
+
+class ProximalAdagradOptimizer(ProximalGDOptimizer):
+    """proximal_adagrad_op.cc: m += g^2; prox = p - lr*g/sqrt(max(m,
+    1e-12)); then ProximalGD's shrink."""
+
+    _slot_defaults = {"moment": 0.0}
+
+    def _update(self, p, g, slots, lr, t):
+        m = slots["moment"] + torch.square(g)
+        prox = p - lr * g / torch.sqrt(torch.clamp(m, min=1e-12))
+        return self._prox(prox, lr), {"moment": m}
+
+
+class LambOptimizer(Optimizer):
+    """lamb_op.cc: layer-adaptive Adam with weight decay, the trust ratio
+    from whole-tensor norms. ``exclude_from_weight_decay_fn`` is kept and
+    applies nowhere, as in the JAX package."""
+
+    _slot_defaults = {"moment1": 0.0, "moment2": 0.0}
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6,
+                 exclude_from_weight_decay_fn=None, **kw):
+        super().__init__(learning_rate, **kw)
+        self.wd = lamb_weight_decay
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.exclude_fn = exclude_from_weight_decay_fn
+
+    def _update(self, p, g, slots, lr, t):
+        t = t.to(torch.float32)
+        m1 = self.beta1 * slots["moment1"] + (1 - self.beta1) * g
+        m2 = self.beta2 * slots["moment2"] + (1 - self.beta2) * torch.square(g)
+        m1h = m1 / (1 - self.beta1 ** t)
+        m2h = m2 / (1 - self.beta2 ** t)
+        r = m1h / (torch.sqrt(m2h) + self.epsilon) + self.wd * p
+        p_norm, r_norm = _norm(p), _norm(r)
+        trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, 1.0)
+        return p - lr * trust * r, {"moment1": m1, "moment2": m2}
+
+
+class ModelAverage(Optimizer):
+    """optimizer.py:2244 parity, functional: ``state = ma.init(params)``,
+    ``ma.accumulate(params, state)`` (in place; returns ``state``), then
+    ``ma.average(state)``, the parameters to evaluate with. Only
+    ``max_average_window`` is kept, as in the JAX package, and it bounds
+    nothing there either. There is no update rule: ``apply_gradients``
+    raises."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kw):
+        super().__init__(0.0, **kw)
+        self.max_window = max_average_window
+
+    def init(self, params):
+        flat = leaves(params)
+        if not flat:
+            raise EnforceNotMet("init: params has no tensors")
+        return {"sum": map_tree(lambda _, p: torch.zeros_like(p), params),
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=flat[0].device)}
+
+    def accumulate(self, params, state):
+        with torch.no_grad():
+            map_tree(lambda _, s, p: s.add_(p), state["sum"], params)
+            state["count"].add_(1)
+        return state
+
+    def average(self, state):
+        c = torch.clamp(state["count"], min=1).to(torch.float32)
+        return map_tree(lambda _, s: s / c, state["sum"])
+
+    def apply_gradients(self, params, grads, state, param_meta=None):
+        raise NotImplementedError(
+            "ModelAverage keeps a running sum of the parameters "
+            "(accumulate / average); it has no update rule")
+
+
+class ExponentialMovingAverage:
+    """optimizer.py:2434 parity, functional: ``state = ema.init(params)``,
+    ``ema.update(params, state)`` (in place; returns ``state``), then
+    ``ema.apply(state)``. The decay of update t is ``min(decay, (1 + t) /
+    (10 + t))`` in fp32 on the counter's device; ``thres_steps`` is kept
+    and applies nowhere, as in the JAX package."""
+
+    def __init__(self, decay=0.999, thres_steps=None):
+        self.decay = decay
+
+    def init(self, params):
+        flat = leaves(params)
+        if not flat:
+            raise EnforceNotMet("init: params has no tensors")
+        return {"ema": map_tree(lambda _, p: p.detach().clone(), params),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=flat[0].device)}
+
+    def update(self, params, state):
+        state["step"].add_(1)
+        s = state["step"].to(torch.float32)
+        d = torch.clamp((1.0 + s) / (10.0 + s), max=self.decay)
+        with torch.no_grad():
+            map_tree(lambda _, e, p: e.copy_(d * e + (1 - d) * p),
+                     state["ema"], params)
+        return state
+
+    def apply(self, state):
+        return state["ema"]
+
+
+# fluid-style short aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+LarsMomentum = LarsMomentumOptimizer
+Adagrad = AdagradOptimizer
+Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+Lamb = LambOptimizer
+ProximalGD = ProximalGDOptimizer
+ProximalAdagrad = ProximalAdagradOptimizer

@@ -21,9 +21,18 @@ plain bodies (on the CPU).
   ``torch.autograd.grad`` with respect to the parameters, a parameter the
   loss does not reach getting a zero grad (executor.py:1544-1573); the ops
   after it run under ``no_grad`` and update parameters and slots in place;
-- persistable vars go back to the scope, the feeds and fetches are numpy
-  arrays or (``return_numpy=False``) tensors on the device, and the scope's
-  ``@step@`` counts the runs.
+- persistable vars go back to the scope (detached: a ``batch_norm`` op's
+  new running stats too), the feeds and fetches are numpy arrays or
+  (``return_numpy=False``) tensors on the device, and the scope's
+  ``@step@`` counts the runs;
+- an op that draws (``_needs_rng``: ``dropout``) gets a generator on the
+  device seeded from ``program.random_seed``, the run's ``@step@`` and the
+  op's first output name (the counterpart of the JAX executor's per-step
+  fold, executor.py:1365-1510: the same seed gives the same masks in two
+  executors, and the pass pipeline moves no mask). The forward runs once
+  under autograd, so the fetched loss and the grads see one mask;
+- fp32 convolutions and matrix products run with cuDNN's and cuBLAS's TF32
+  off, so the card computes what the CPU does.
 
 Not ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item:
 host segments (ops marked ``_host``: parameter-server send/recv, queue 1
@@ -36,6 +45,7 @@ feeds (goodput, trace, anomaly, tensorwatch, numerics; item 10).
 """
 
 import threading
+import zlib
 
 import numpy as np
 import torch
@@ -43,6 +53,7 @@ import torch
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.flags import define_flag, get_flag
 from paddle_tpu_torch.core.place import place_device
+from paddle_tpu_torch.ops.nn import no_tf32
 from paddle_tpu_torch.static.backward import GRAD_SUFFIX
 from paddle_tpu_torch.static.program import OP_REGISTRY, default_main_program
 
@@ -174,14 +185,29 @@ def exec_op(op, env, rng=None):
             for n, v in zip(names, outs.get(slot, []))}
 
 
-def _interpret(ops, env):
+def _op_generator(device, seed, step, op):
+    """The generator of a ``_needs_rng`` op in run ``step`` of a program
+    seeded ``seed``: a function of the three and of the op's first output
+    name, so neither the executor nor the pass pipeline changes it."""
+    key = zlib.crc32(op.output_names()[0].encode())
+    mixed = ((int(seed) * 0x9E3779B1 + int(step)) * 0x85EBCA77 + key) \
+        & ((1 << 63) - 1)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def _interpret(ops, env, rng_for=None):
     """Run ``ops`` in order over ``env``; the ``autodiff`` op makes the
-    grads of the summed loss over the ops before it."""
+    grads of the summed loss over the ops before it. ``rng_for(op)`` gives
+    a ``_needs_rng`` op its generator."""
+    def run(op):
+        rng = rng_for(op) if rng_for and op.attrs.get("_needs_rng") else None
+        env.update(exec_op(op, env, rng))
+
     ad = next((i for i, op in enumerate(ops) if op.type == "autodiff"), None)
     if ad is None:
         with torch.no_grad():
             for op in ops:
-                env.update(exec_op(op, env))
+                run(op)
         return env
     adop = ops[ad]
     names = adop.attrs["params"]
@@ -190,7 +216,7 @@ def _interpret(ops, env):
     env.update(leaves)
     with torch.enable_grad():
         for op in ops[:ad]:
-            env.update(exec_op(op, env))
+            run(op)
         loss = env[adop.attrs["loss"]].sum()
         # a loss that reaches no parameter gives every parameter a zero grad
         grads = (torch.autograd.grad(loss, list(leaves.values()),
@@ -204,7 +230,7 @@ def _interpret(ops, env):
         env[n + GRAD_SUFFIX] = torch.zeros_like(params[n]) if g is None else g
     with torch.no_grad():
         for op in ops[ad + 1:]:
-            env.update(exec_op(op, env))
+            run(op)
     return env
 
 
@@ -290,8 +316,11 @@ class Executor:
                 f"startup program first (exe.run(startup_program))")
         for k, v in feed.items():
             env[k] = self._as_feed(blk, k, v)
-        scope.set_var(_STEP, (scope.find_var(_STEP) or 0) + 1)
-        env = _interpret(list(blk.ops), env)
+        step = (scope.find_var(_STEP) or 0) + 1
+        scope.set_var(_STEP, step)
+        with no_tf32():
+            env = _interpret(list(blk.ops), env, lambda op: _op_generator(
+                self.device, prog.random_seed, step, op))
         for n in state_names:
             scope.set_var(n, env[n])
         return {n: env.get(n) for n in fetch_names}

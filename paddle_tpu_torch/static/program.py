@@ -185,9 +185,10 @@ class Program:
         return list(self.global_block().vars.values())
 
     def clone(self, for_test=False):
-        """Program.clone parity. ``for_test`` freezes dropout and
-        batch_norm in the JAX package; neither op is ported, so a test
-        clone equals a plain one."""
+        """Program.clone parity. ``for_test=True`` sets ``is_test`` on the
+        ``dropout`` and ``batch_norm`` ops (``_TEST_MODE_ATTRS``), freezing
+        them to their inference behaviour, as the reference rewrites op
+        attrs in framework.py's clone."""
         p = Program()
         p.random_seed = self.random_seed
         p._constants = dict(self._constants)
@@ -198,7 +199,10 @@ class Program:
         for v in blk.vars.values():
             v.block = blk
         for op in self.global_block().ops:
-            new = Operator(blk, op.type, None, None, dict(op.attrs))
+            attrs = dict(op.attrs)
+            if for_test and "is_test" in _TEST_MODE_ATTRS.get(op.type, ()):
+                attrs["is_test"] = True
+            new = Operator(blk, op.type, None, None, attrs)
             new.inputs = {k: list(v) for k, v in op.inputs.items()}
             new.outputs = {k: list(v) for k, v in op.outputs.items()}
             blk.ops.append(new)
@@ -207,6 +211,13 @@ class Program:
 
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)
+
+
+#: op type -> the attrs ``clone(for_test=True)`` sets
+_TEST_MODE_ATTRS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+}
 
 
 # ---------------------------------------------------------------------------

@@ -1055,7 +1055,16 @@ def test_image_forward_on_card_matches_cpu(cuda, name, train):
 def test_image_train_step_on_card_matches_cpu(cuda, scheduled):
     """resnet_cifar10(depth=8) in fp32: three steps on the card against the
     CPU, exactly one momentum launch per step and nothing else; with a
-    schedule, L2 decay and a global-norm clip too."""
+    schedule, L2 decay and a global-norm clip too.
+
+    cuDNN's deterministic algorithms are pinned for the card's run: the
+    default backward algorithms sum in an order that changes from run to
+    run, and at this configuration three ReLU inputs lie within 1e-5 of
+    zero, so some runs take the other branch at one of them and a conv
+    weight ends 4e-4 (23 % relative) off the CPU's in a quarter of its
+    elements (``tools/cudnn_determinism_check.py``: 6 distinct card results
+    in 6 runs, 5 failing; pinned: one result, 6 passing; H100 80GB HBM3,
+    700 W)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.models import resnet
@@ -1071,19 +1080,26 @@ def test_image_train_step_on_card_matches_cpu(cuda, scheduled):
             grad_clip=pt.clip.GradientClipByGlobalNorm(1.0))
 
     out = {}
-    for dev in (cuda, "cpu"):
-        init_fn, step_fn = resnet.make_train_step(cfg, opt(),
-                                                  steps_per_call=3,
-                                                  device=dev)
-        params, state = init_fn(torch.Generator().manual_seed(3))
-        K.reset_launch_counts()
-        loss, _, params, state = step_fn(params, state, images, labels)
-        counts = K.launch_counts()
-        if dev == cuda:
-            torch.cuda.synchronize()
-            assert counts["fused_momentum"] == 3
-            assert sum(counts.values()) == 3
-        out[str(dev)] = (float(loss), [t.cpu() for t in leaves(params)])
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for dev in (cuda, "cpu"):
+            init_fn, step_fn = resnet.make_train_step(cfg, opt(),
+                                                      steps_per_call=3,
+                                                      device=dev)
+            params, state = init_fn(torch.Generator().manual_seed(3))
+            K.reset_launch_counts()
+            loss, _, params, state = step_fn(params, state, images, labels)
+            counts = K.launch_counts()
+            if dev == cuda:
+                torch.cuda.synchronize()
+                assert counts["fused_momentum"] == 3
+                assert sum(counts.values()) == 3
+            out[str(dev)] = (float(loss), [t.cpu() for t in leaves(params)])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            old
     (lc, pc), (lr_, pr) = out[str(cuda)], out["cpu"]
     assert abs(lc - lr_) < 1e-4
     for a, b in zip(pc, pr):
@@ -1194,3 +1210,230 @@ def test_ctr_trainer_step_on_card_matches_cpu(cuda, wire):
         runs[str(dev)] = losses
     np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], atol=1e-4,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the Fluid book CNNs' ops, one book step each, and the optimizer rules
+# without a kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,padding,dilation,groups,layout", [
+    (1, 0, 1, 1, "NCHW"), (2, "SAME", 1, 1, "NCHW"), (2, "SAME", 1, 4, "NHWC"),
+    (1, [1, 2], 2, 1, "NCHW"), (2, "VALID", 1, 2, "NHWC")])
+def test_conv2d_on_card_matches_cpu(cuda, stride, padding, dilation, groups,
+                                    layout):
+    """fp32 with TF32 off: cuDNN against the CPU's convolution, 1e-5."""
+    from paddle_tpu_torch import ops
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 11, 10, generator=gen)
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    w = 0.3 * torch.randn(16, 8 // groups, 3, 3, generator=gen)
+    kw = dict(stride=stride, padding=padding, dilation=dilation,
+              groups=groups, data_format=layout)
+    want = ops.conv2d(x, w, **kw)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = ops.conv2d(x.to(cuda), w.to(cuda), **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ptype,k,stride,padding,ceil,exclusive,glob", [
+    ("max", 3, 2, 1, False, True, False), ("max", 3, 2, 2, True, True, False),
+    ("avg", 3, 2, 1, False, True, False), ("avg", 3, 2, 2, True, False, False),
+    ("avg", 2, 1, 0, False, True, True)])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_pool2d_and_batch_norm_on_card_match_cpu(cuda, ptype, k, stride,
+                                                 padding, ceil, exclusive,
+                                                 glob, layout):
+    from paddle_tpu_torch import ops
+    gen = torch.Generator().manual_seed(4)
+    shape = (2, 3, 9, 10) if layout == "NCHW" else (2, 9, 10, 3)
+    x = torch.randn(shape, generator=gen)
+    kw = dict(pool_size=k, pool_type=ptype, pool_stride=stride,
+              pool_padding=padding, global_pooling=glob, ceil_mode=ceil,
+              exclusive=exclusive, data_format=layout)
+    torch.testing.assert_close(ops.pool2d(x.to(cuda), **kw).cpu(),
+                               ops.pool2d(x, **kw), rtol=1e-6, atol=1e-6)
+    args = (x, torch.rand(3, generator=gen) + 0.5,
+            torch.randn(3, generator=gen), torch.randn(3, generator=gen),
+            torch.rand(3, generator=gen) + 0.5)
+    for is_test in (False, True):
+        want = ops.batch_norm(*args, is_test=is_test, data_layout=layout)
+        got = ops.batch_norm(*(a.to(cuda) for a in args), is_test=is_test,
+                             data_layout=layout)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.3, 0.5])
+def test_dropout_on_card(cuda, p):
+    """The keep share within 5 sigma of the binomial, kept values exactly
+    x / (1 - p), the gradient the mask times the scale, and a generator's
+    seed sets the mask."""
+    from paddle_tpu_torch import ops
+    x = (torch.rand(512, 1024, device=cuda) + 0.5).requires_grad_()
+    out = ops.dropout(x, p, dropout_implementation="upscale_in_train",
+                      rng=torch.Generator(device=cuda).manual_seed(9))
+    kept = out != 0
+    share = kept.double().mean().item()
+    assert abs(share - (1 - p)) < 5 * (p * (1 - p) / x.numel()) ** 0.5
+    want = x.detach() / (1.0 - p)
+    assert torch.equal(out.detach()[kept], want[kept])
+    out.sum().backward()
+    torch.testing.assert_close(x.grad, kept.float() / (1.0 - p), rtol=1e-6,
+                               atol=0)
+    again = ops.dropout(x.detach(), p, dropout_implementation=
+                        "upscale_in_train",
+                        rng=torch.Generator(device=cuda).manual_seed(9))
+    assert torch.equal(again != 0, kept)
+
+
+def _book_program(pt, name):
+    """One of the book models at small widths (the CPU tests' shapes):
+    (main, startup, loss, feed, fused matmuls per step)."""
+    rng = np.random.RandomState(0)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        if name == "recommender":
+            uid = pt.data("uid", [1], "int64")
+            mid = pt.data("mid", [1], "int64")
+            score = pt.data("score", [1])
+            u = pt.layers.reshape(pt.layers.embedding(uid, [12, 8]), [-1, 8])
+            m = pt.layers.reshape(pt.layers.embedding(mid, [15, 8]), [-1, 8])
+            pred = pt.layers.scale(pt.layers.cos_sim(pt.layers.fc(u, 8),
+                                                     pt.layers.fc(m, 8)), 5.0)
+            loss = pt.layers.mean(pt.layers.square_error_cost(pred, score))
+            feed = {"uid": rng.randint(0, 12, (32, 1)).astype(np.int64),
+                    "mid": rng.randint(0, 15, (32, 1)).astype(np.int64),
+                    "score": (5 * rng.rand(32, 1)).astype(np.float32)}
+            fmm = 2
+        else:
+            shape = [1, 16, 16] if name == "digits" else [3, 8, 8]
+            img = pt.data("img", shape)
+            label = pt.data("label", [1], "int64")
+            if name == "digits":
+                x = pt.nets.simple_img_conv_pool(img, 4, 5, 2, 2, act="relu")
+                x = pt.layers.batch_norm(x)
+                x = pt.nets.simple_img_conv_pool(x, 8, 5, 2, 2, act="relu")
+                fmm = 1
+            else:
+                x = pt.nets.img_conv_group(
+                    img, [4, 4], 2, pool_stride=2, conv_act="relu",
+                    conv_with_batchnorm=True,
+                    conv_batchnorm_drop_rate=[0.0, 0.0])
+                x = pt.layers.dropout(x, 0.0)
+                x = pt.layers.batch_norm(pt.layers.fc(x, 16), act="relu")
+                x = pt.layers.fc(x, 16)
+                fmm = 3
+            pred = pt.layers.fc(x, 10, act="softmax")
+            loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+            lab = rng.randint(0, 10, (16, 1))
+            feed = {"img": (lab[:, :, None, None] / 10.0 + 0.1 * rng.randn(
+                16, *shape)).astype(np.float32),
+                "label": lab.astype(np.int64)}
+        pt.optimizer.Adam(5e-3, epsilon=1e-4).minimize(loss)
+    return main, startup, loss, feed, fmm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["digits", "vgg", "recommender"])
+def test_book_step_on_card_matches_cpu(cuda, name):
+    """Two static Adam steps of a book model on the card against the CPU
+    from the same weights: one fused_adam per parameter and one fused
+    matmul per fc each step (the recommender's two gathers too), nothing
+    else registered; losses, parameters and batch-norm stats within
+    1e-5."""
+    import paddle_tpu_torch as pt
+    main, startup, loss, feed, fmm = _book_program(pt, name)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    snap = {n: scope.find_var(n).numpy().copy() for n, v in
+            startup.global_block().vars.items() if v.persistable}
+    n_params = len([p for p in main.all_parameters() if p.trainable])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = pt.Scope.from_numpy(snap, dev, startup)
+        exe = pt.Executor(pt.CPUPlace() if dev == "cpu" else None)
+        K.reset_launch_counts()
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=s)[0]) for _ in range(2)]
+        counts = K.launch_counts()
+        out[dev] = (losses, {n: s.find_var(n).cpu() for n in snap})
+        if dev == "cuda":
+            want = {"fused_adam": 2 * n_params, "fused_matmul": 2 * fmm}
+            if name == "recommender":
+                want["embedding_gather"] = 4
+            assert {k: v for k, v in counts.items() if v} == want
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for n in snap:
+        torch.testing.assert_close(out["cuda"][1][n], out["cpu"][1][n],
+                                   rtol=1e-5, atol=1e-5, msg=n)
+
+
+_RULES = {
+    "LarsMomentum": dict(momentum=0.9), "Adagrad": {}, "Adamax": {},
+    "DecayedAdagrad": {}, "Adadelta": {}, "RMSProp": {},
+    "RMSProp centered": dict(centered=True, momentum=0.9),
+    "Ftrl": dict(l1=1e-3, l2=1e-3),
+    "Ftrl pow": dict(l1=1e-3, l2=1e-3, lr_power=-0.3),
+    "ProximalGD": dict(l1=1e-3, l2=1e-3),
+    "ProximalAdagrad": dict(l1=1e-3, l2=1e-3), "Lamb": {},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", list(_RULES) + ["ModelAverage",
+                                                 "ExponentialMovingAverage"])
+def test_optimizer_rule_on_card_matches_cpu(cuda, rule):
+    """Three updates under a piecewise schedule, L2 decay and a global-norm
+    clip, card against CPU (1e-6; Ftrl's pow and the norm rules 1e-5), no
+    registered kernel launched, the rate never read back to the host."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer as topt
+
+    def make():
+        if rule == "ModelAverage":
+            return topt.ModelAverage(0.15, 100, 100)
+        if rule == "ExponentialMovingAverage":
+            return topt.ExponentialMovingAverage(0.9)
+        cls = getattr(topt, rule.split()[0])
+        return cls(learning_rate=pt.layers.piecewise_decay([2], [0.05,
+                                                                 0.02]),
+                   regularization=pt.regularizer.L2Decay(1e-3),
+                   grad_clip=pt.clip.GradientClipByGlobalNorm(1.0),
+                   **_RULES[rule])
+
+    gen = torch.Generator().manual_seed(8)
+    p0 = {"w": torch.randn(64, 33, generator=gen), "b": torch.randn(
+        33, generator=gen), "z": torch.zeros(7)}
+    grads = [{k: torch.randn(v.shape, generator=gen) for k, v in p0.items()}
+             for _ in range(3)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        opt = make()
+        p = {k: v.clone().to(dev) for k, v in p0.items()}
+        state = opt.init(p)
+        K.reset_launch_counts()
+        for g in grads:
+            g = {k: v.to(dev) for k, v in g.items()}
+            if rule == "ModelAverage":
+                opt.accumulate(g, state)
+            elif rule == "ExponentialMovingAverage":
+                opt.update(g, state)
+            else:
+                opt.apply_gradients(p, g, state)
+        assert sum(K.launch_counts().values()) == 0
+        res = (opt.average(state) if rule == "ModelAverage" else
+               opt.apply(state) if rule == "ExponentialMovingAverage" else p)
+        out[dev.type] = {k: v.cpu() for k, v in res.items()}
+    tol = 1e-5 if rule in ("Ftrl pow", "LarsMomentum", "Lamb") else 1e-6
+    for k in p0:
+        torch.testing.assert_close(out["cuda"][k], out["cpu"][k], rtol=tol,
+                                   atol=tol, msg=k)

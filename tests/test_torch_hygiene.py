@@ -52,6 +52,8 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
     for sub in ("serving", "monitor", "static", "models", "layers",
                 "distributed"):
         assert any(f"{os.sep}{sub}{os.sep}" in p for p in srcs), sub
+    for mod in ("nets.py", "optimizer.py", f"ops{os.sep}nn.py"):
+        assert any(p.endswith(f"{os.sep}{mod}") for p in srcs), mod
     for path in srcs:
         with open(path) as f:
             m = _FORBIDDEN.search(f.read())
@@ -71,6 +73,7 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.transformer\n"
         "import paddle_tpu_torch.models.deepfm, paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
+        "import paddle_tpu_torch.nets\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -82,6 +85,11 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip() == "[]"
+
+
+def leaves_device(tree):
+    from paddle_tpu_torch.core.tree import leaves
+    return {t.device for t in leaves(tree)}
 
 
 def _run_chip_smoke(cwd):
@@ -140,6 +148,21 @@ def test_default_device_raises_without_a_card(monkeypatch):
     assert deepfm.CTRTrainer(deepfm.DeepFMConfig(num_slots=2),
                              device="cpu").params["w0"].device == \
         torch.device("cpu")
+    # the book models' path: the Executor asks for the card; the ops,
+    # nets and the rules without a kernel stay on their tensors' device
+    main, startup = paddle_tpu_torch.Program(), paddle_tpu_torch.Program()
+    with paddle_tpu_torch.program_guard(main, startup):
+        img = paddle_tpu_torch.data("img", [1, 12, 12])
+        out = paddle_tpu_torch.nets.simple_img_conv_pool(
+            img, num_filters=2, filter_size=3, pool_size=2, pool_stride=2)
+        optimizer.Adagrad(0.1).minimize(paddle_tpu_torch.layers.mean(
+            paddle_tpu_torch.layers.batch_norm(out)))
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        paddle_tpu_torch.Executor()
+    p = {"w": torch.ones(3)}
+    for opt in (optimizer.Lamb(), optimizer.ExponentialMovingAverage()):
+        state = opt.init(p)
+        assert leaves_device(state) == {torch.device("cpu")}
     init_fn, _ = bert.make_train_step(cfg, optimizer.Adam(), device="cpu")
     params, state = init_fn(torch.Generator().manual_seed(0))
     assert state["step"].device == params["embed"]["word"].device == \

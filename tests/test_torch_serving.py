@@ -221,10 +221,10 @@ def test_port_programs_write_the_jax_documents(opt):
 
 
 def test_documents_refuse_what_the_port_cannot_build(exports):
-    node = {"__obj__": "paddle_tpu.initializer:MSRAInitializer",
-            "state": {"uniform": True, "fan_in": None, "seed": 0}}
+    node = {"__obj__": "paddle_tpu.initializer:TruncatedNormalInitializer",
+            "state": {"loc": 0.0, "scale": 1.0, "seed": 0}}
     with pytest.raises(tser.SerializationError,
-                       match="MSRAInitializer.*queue 1 item 7"):
+                       match="TruncatedNormalInitializer.*queue 1 item 7"):
         tser.decode_value(node)
     for path in ("os:system", "paddle_tpu_torch.initializer:Constant",
                  "paddle_tpu.nosuchmodule:Thing"):

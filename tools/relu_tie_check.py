@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Tell a ReLU tie from a port fault in image-model gradient parity.
 
-    JAX_PLATFORMS=cpu python tools/relu_tie_check.py [--lr 0.1] [--seed 1]
+    JAX_PLATFORMS=cpu python tools/relu_tie_check.py [--lr 0.1] [--seed 1] \
+        [--batch 4]
 
 Trains resnet_cifar10(depth=8, image_size=16) in fp32 for one Momentum
-step in the JAX package (batch 4 of ``synthetic_batch(seed)``), then, at
+step in the JAX package (``batch`` images of ``synthetic_batch(seed)``),
+then, at
 the JAX parameters after that step, prints for the element whose gradient
 the two packages disagree on most: the JAX gradient, the port's (fp32), the
 port's autograd gradient in fp64 (its forward on fp64 tensors) and a
@@ -69,10 +71,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=4)
     args = ap.parse_args()
     jcfg = jres.resnet_cifar10(depth=8, image_size=16, dtype=jnp.float32)
     tcfg = tres.resnet_cifar10(depth=8, image_size=16, dtype=torch.float32)
-    images, labels = jres.synthetic_batch(jcfg, 4, seed=args.seed)
+    images, labels = jres.synthetic_batch(jcfg, args.batch,
+                                           seed=args.seed)
     with mesh_guard(make_mesh(MeshConfig(data=1, model=1, seq=1, pipe=1))):
         init_fn, step_fn = jres.make_train_step(
             jcfg, jpt.optimizer.Momentum(learning_rate=args.lr, momentum=0.9))
