@@ -22,11 +22,16 @@ Phases; any failure raises and the script exits non-zero:
    S = 300, 1000 and 2048, causal and masked keys, rows that see no key,
    the fused QKV projection's head views and views the wrapper copies, and
    the fp32 SIMT instantiation at the same edges),
-   the multi-tensor Adam over BERT-base's parameter list and over
-   Transformer-big's 258 tensors (~243 M values); and the static
+   the multi-tensor Adam over BERT-base's parameter list, over
+   Transformer-big's 258 tensors (~243 M values) and over the GRU
+   encoder-decoder's 10 (phase 25); and the static
    path's kernels: the embedding gather (word2vec's table with 100 and
-   8192 ids, BERT-base's word table with 64x512 ids), the fused matmul
-   (each activation at both word2vec fc shapes, those at 8192 rows, the
+   8192 ids, BERT-base's word table with 64x512 ids, and the sequence
+   models' tables at their batches' ids: IMDB's 5147 words with 128x512,
+   the SRL's 44068 with 10x64, the NMT's 30000 x512 with 64x50, MovieLens'
+   6041 users with 256), the fused matmul (db_lstm's six fc shapes at
+   10x64 rows with tanh;
+   each activation at both word2vec fc shapes, those at 8192 rows, the
    serving MLP's fp32 buckets [1|8,256]x[256,256] relu and [1|8,256]x
    [256,10], word2vec's fc 2 with a bf16 weight, inf, -inf and NaN in x
    and w through each activation, and BERT's FFN [4096,768]x[768,3072]
@@ -42,7 +47,8 @@ Phases; any failure raises and the script exits non-zero:
    yardstick of other work), and SGD and
    momentum (plain and nesterov) over word2vec's parameters, one launch
    per parameter as the static path makes them and one over the list, and
-   over BERT-base's 154 tensors; momentum over ResNet-50's 267 tensors
+   over BERT-base's 154 tensors; SGD over db_lstm's 67 with the rate on
+   the card; momentum over ResNet-50's 267 tensors
    (the image models' update), and the three rules with the rate read
    from a tensor on the card, as a learning-rate schedule gives it; the scatter-add (bench.py's CTR point
    [65536,256] with 4096 ids, BERT-base's word, position and token-type
@@ -192,7 +198,40 @@ Phases; any failure raises and the script exits non-zero:
    card against the CPU over vgg16_bn_drop's 60 parameters, then device
    microseconds and device events per update over that list and over
    ResNet-50's 267 tensors; no registered kernel launches.
-23. Print one JSON line of every ported kernel (launches on the main paths,
+23. The Fluid book's understand_sentiment ``convolution_net``
+   (train-book-sentiment) in the module context at its published widths
+   (the IMDB word_dict's 5147 ids, embedding 32, ``sequence_conv_pool`` of
+   32 filters at 3 and 4 with tanh and sqrt pooling, fc 2 softmax), batch
+   128 of synthetic reviews 16-512 tokens long, 30 Adagrad(0.002) steps
+   through ``nn.transform``, autograd and ``apply_gradients``: exactly 1
+   gather a step; the loss falls; ms per step (median of steps 5-29),
+   reviews/s, peak memory, the busy share.
+24. label_semantic_roles' ``db_lstm`` (train-book-srl) through
+   ``Program``/``Executor.run`` at its widths (word table 44068 x32 frozen
+   and shared by six slots, predicates 3162 x32, marks 2 x5, hidden 512,
+   depth 8 of ``dynamic_lstm`` at 128 with peepholes, every second one
+   reversed, 59 labels, ``linear_chain_crf``), batch 10 of sentences 8-64
+   long, 30 SGD steps under ``exponential_decay(0.01, 100000, 0.5,
+   staircase)``: exactly 8 gathers, 24 fused matmuls (every fc) and one
+   ``fused_sgd`` per trainable parameter a step; then ``crf_decoding`` of a
+   batch through the for_test clone (latency), and the recurrences'
+   device events per time step.
+25. The machine_translation GRU encoder-decoder (train-book-nmt) at book
+   ch. 08's widths (dictionaries 30000, word and hidden 512), batch 64,
+   lengths 10-50, 20 Adam steps: exactly 2 gathers and 1 ``fused_adam`` a
+   step; target tokens/s, peak memory, the busy share.
+26. The full MovieLens recommender (train-book-movielens): the user and
+   movie towers at Fluid 1.5's widths (categories summed, the title through
+   ``sequence_conv_pool``), batch 256, 30 SGD(0.2) steps: exactly 7
+   gathers and 1 ``fused_sgd`` a step; examples/s.
+27. Sequence correctness (sequence-correctness): the four models at batch
+   4-8 and their full widths, 3 steps on the card against the port on the
+   CPU from the same weights in fp32 with TF32 off (losses, first-step
+   gradients, parameters within ``SEQ_TOL``, the SRL's Viterbi paths
+   equal); every sequence op, the CRF and each recurrent function (outputs
+   and gradients) card against CPU at a zero-length, a one-step and a full
+   row, forward and reversed.
+28. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -3162,7 +3201,7 @@ def card_vs_cpu(K, pt, label, built, feeds, steps=3):
         rec["bn_stats_card_first4"] = {n: cp[n][:4].tolist()
                                        for n in stats[:2]}
     log(f"book-correctness {label}: " + json.dumps(rec))
-    return rec, (built, card_scope)
+    return rec, (built, card_scope, out["cpu"][4])
 
 
 def phase_book_checks(K, pt, ops, card):
@@ -3185,7 +3224,7 @@ def phase_book_checks(K, pt, ops, card):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
         True, False
     try:
-        digits, (dig_built, dig_scope) = card_vs_cpu(
+        digits, (dig_built, dig_scope, _) = card_vs_cpu(
             K, pt, "conv_net", build_conv_net(pt, opt()),
             book_batches((1, 28, 28), DIGITS_BATCH, 3, 11))
         vgg, _ = card_vs_cpu(
@@ -3407,6 +3446,778 @@ def phase_optimizer_rules(K, pt, resnet, card, vgg_shapes):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 23-27: the Fluid book's sequence models (train-book-sentiment,
+# train-book-srl, train-book-nmt, train-book-movielens, sequence-
+# correctness)
+# ---------------------------------------------------------------------------
+#: understand_sentiment's convolution_net (Fluid 1.5 tests/book/
+#: test_understand_sentiment.py, book ch. 06): the IMDB word_dict's 5147
+#: ids, embedding 32, sequence_conv_pool of 32 filters at 3 and 4 (tanh,
+#: sqrt pool), fc 2 softmax; batch 128, Adagrad 0.002; review lengths
+#: uniform over 16-512 tokens (synthetic), padded to the batch's longest
+SENT = dict(vocab=5147, emb=32, hid=32, batch=128, lens=(16, 512), lr=0.002)
+#: label_semantic_roles' db_lstm (Fluid 1.5 test_label_semantic_roles.py):
+#: word dict 44068 (one frozen table ``emb`` [44068, 32] for the word and
+#: its five context slots), predicates 3162 x32, marks 2 x5, labels 59,
+#: hidden_dim 512 (each dynamic_lstm at 128 with a [7*128] peephole bias),
+#: depth 8; batch 10, sentence lengths uniform over 8-64 (synthetic)
+SRL = dict(words=44068, preds=3162, labels=59, word_dim=32, mark_dim=5,
+           hidden=512, depth=8, batch=10, lens=(8, 64))
+SRL_SLOTS = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+             "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data")
+#: machine_translation: tests/test_book.py's GRU encoder-decoder at book
+#: ch. 08's widths (the WMT-14 dictionaries' default 30000, word and hidden
+#: 512); batch 64, source and target lengths uniform over 10-50
+#: (synthetic), Adam 1e-3
+NMT = dict(src=30000, tgt=30000, emb=512, hid=512, batch=64, lens=(10, 50),
+           lr=1e-3)
+#: recommender_system's full MovieLens model (Fluid 1.5
+#: test_recommender_system.py): users 6041 x32, gender 2 x16, age 7 x16,
+#: jobs 21 x16, movies 3953 x32, 18 categories x32 summed over 1-6 ids,
+#: title words 5175 x32 through sequence_conv_pool(32, 3, tanh, sum) over
+#: 1-15 words, towers of fc 200 tanh; batch 256, SGD 0.2
+MLF = dict(users=6041, jobs=21, movies=3953, cats=18, titles=5175, emb=32,
+           small=16, fc=200, cat_T=6, title_T=15, batch=256, lr=0.2)
+#: counted steps (30; 20 for the NMT), over SEQ_BATCHES batches cycled, so
+#: the first and the last five steps see the same batches
+SEQ_STEPS, NMT_STEPS, SEQ_BATCHES = 30, 20, 5
+#: phase 27's limits, card against the port on the CPU in fp32 with TF32
+#: off, set before the first card run from the CPU tests against the JAX
+#: package (gaps of 1e-7 to 2e-6 at small widths, tests/test_torch_book_
+#: seq.py): losses 1e-5 of the loss (the SRL's CRF loss is ~260 at full
+#: width), first-step gradients 1e-4 of their norm, parameters 1e-4 after
+#: 3 steps; Viterbi paths equal; the ops and recurrences 1e-5 of their
+#: largest value (1e-6 on the CPU against JAX)
+SEQ_TOL = {"loss_gap_rel": 1e-5, "grad_relnorm_err": 1e-4,
+           "param_gap": 1e-4}
+SEQ_OP_TOL = 1e-5
+
+
+def seq_lengths(rng, b, lo, hi):
+    return rng.randint(lo, hi + 1, b).astype("int32")
+
+
+def padded_ids(rng, ln, vocab, T=None):
+    """[B, T] int64 ids below ``vocab``, 0 past each row's length; T the
+    longest row by default."""
+    import numpy as np
+    T = T or int(ln.max())
+    x = rng.randint(0, vocab, (len(ln), T))
+    x[np.arange(T)[None, :] >= ln[:, None]] = 0
+    return x.astype(np.int64)
+
+
+def sentiment_model(pt, cfg):
+    """The convolution_net in the module context, every parameter named
+    (ROADMAP queue 3 note h: the JAX module context would share a bare
+    name between the two sequence_conv_pool)."""
+    from paddle_tpu_torch.core.lod import RaggedBatch
+    A = pt.ParamAttr
+
+    def model(words, lengths, label):
+        emb = pt.layers.embedding(words, [cfg["vocab"], cfg["emb"]],
+                                  param_attr=A(name="emb"))
+        convs = [pt.nets.sequence_conv_pool(
+            RaggedBatch(emb, lengths), cfg["hid"], k, act="tanh",
+            pool_type="sqrt", param_attr=A(name=f"conv{k}_w"),
+            bias_attr=A(name=f"conv{k}_b")) for k in (3, 4)]
+        pred = pt.layers.fc(convs, 2, act="softmax",
+                            param_attr=[A(name="fc3_w"), A(name="fc4_w")],
+                            bias_attr=A(name="fc_b"))
+        return pt.layers.mean(pt.layers.cross_entropy(pred, label))
+    return pt.nn.transform(model)
+
+
+def sentiment_batches(cfg, n, seed, b=None):
+    """(words, lengths, label) of ``b`` reviews, the label drawn at random
+    and written into the words: a positive review has token 1 at every
+    eighth position (learnable)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b = b or cfg["batch"]
+    out = []
+    for _ in range(n):
+        ln = seq_lengths(rng, b, *cfg["lens"])
+        words = padded_ids(rng, ln, cfg["vocab"])
+        label = rng.randint(0, 2, b)
+        words[label == 1, ::8] = 1
+        words[np.arange(words.shape[1])[None, :] >= ln[:, None]] = 0
+        out.append((words, ln, label.astype(np.int64)[:, None]))
+    return out
+
+
+def movielens_model(pt, cfg):
+    """The full recommender in the module context: the user tower (id,
+    gender, age and job embeddings, an fc each, concat, fc 200 tanh), the
+    movie tower (id embedding and fc, categories summed, title through
+    sequence_conv_pool, concat, fc 200 tanh), cos_sim scaled by 5, square
+    error, mean."""
+    from paddle_tpu_torch.core.lod import RaggedBatch
+    A, L = pt.ParamAttr, pt.layers
+    e, s = cfg["emb"], cfg["small"]
+
+    def emb_fc(ids, rows, width, name):
+        x = L.embedding(ids, [rows, width], param_attr=A(name=f"{name}_table"))
+        return L.fc(x, width, param_attr=A(name=f"{name}_fc_w"),
+                    bias_attr=A(name=f"{name}_fc_b"))
+
+    def model(uid, gender, age, job, mid, cat, cat_len, title, title_len,
+              score):
+        usr = L.concat([emb_fc(uid, cfg["users"], e, "user"),
+                        emb_fc(gender, 2, s, "gender"),
+                        emb_fc(age, 7, s, "age"),
+                        emb_fc(job, cfg["jobs"], s, "job")], axis=1)
+        usr = L.fc(usr, cfg["fc"], act="tanh", param_attr=A(name="usr_w"),
+                   bias_attr=A(name="usr_b"))
+        cat_emb = L.embedding(cat, [cfg["cats"], e],
+                              param_attr=A(name="category_table"))
+        cat_vec = L.sequence_pool(RaggedBatch(cat_emb, cat_len), "sum")
+        title_emb = L.embedding(title, [cfg["titles"], e],
+                                param_attr=A(name="title_table"))
+        title_vec = pt.nets.sequence_conv_pool(
+            RaggedBatch(title_emb, title_len), e, 3, act="tanh",
+            pool_type="sum", param_attr=A(name="title_conv_w"),
+            bias_attr=A(name="title_conv_b"))
+        mov = L.concat([emb_fc(mid, cfg["movies"], e, "movie"), cat_vec,
+                        title_vec], axis=1)
+        mov = L.fc(mov, cfg["fc"], act="tanh", param_attr=A(name="mov_w"),
+                   bias_attr=A(name="mov_b"))
+        pred = L.scale(L.cos_sim(usr, mov), scale=5.0)
+        return L.mean(L.square_error_cost(pred, score))
+    return pt.nn.transform(model)
+
+
+def movielens_batches(cfg, n, seed, b=None):
+    """Feeds in MovieLens-1M's id ranges; scores in [0, 5] from a fixed
+    low-rank table (learnable); categories and titles ragged, padded to
+    6 and 15."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b = b or cfg["batch"]
+    pu, pm = rng.rand(cfg["users"], 4), rng.rand(cfg["movies"], 4)
+    out = []
+    for _ in range(n):
+        uid = rng.randint(1, cfg["users"], (b, 1))
+        mid = rng.randint(1, cfg["movies"], (b, 1))
+        cat_len = seq_lengths(rng, b, 1, cfg["cat_T"])
+        title_len = seq_lengths(rng, b, 1, cfg["title_T"])
+        score = (pu[uid[:, 0]] * pm[mid[:, 0]]).sum(1, keepdims=True) * 1.25
+        out.append((uid.astype(np.int64),
+                    rng.randint(0, 2, (b, 1)).astype(np.int64),
+                    rng.randint(0, 7, (b, 1)).astype(np.int64),
+                    rng.randint(0, cfg["jobs"], (b, 1)).astype(np.int64),
+                    mid.astype(np.int64),
+                    padded_ids(rng, cat_len, cfg["cats"], cfg["cat_T"]),
+                    cat_len,
+                    padded_ids(rng, title_len, cfg["titles"],
+                               cfg["title_T"]),
+                    title_len, score.astype(np.float32)))
+    return out
+
+
+def db_lstm_program(pt, cfg, make_opt):
+    """label_semantic_roles' db_lstm through the static path: the word and
+    context slots share the frozen ``emb``, the predicate takes ``vemb``,
+    the mark its own table; an fc tanh on each (num_flatten_dims 2), summed;
+    ``depth`` dynamic_lstm layers (every second one reversed) joined by sums
+    of two fcs; linear_chain_crf (``crfw``, learning rate 1e-3) and
+    crf_decoding over it. Returns (main, startup, decode, loss, the
+    for_test clone made before minimize)."""
+    main, startup = pt.Program(), pt.Program()
+    L, A = pt.layers, pt.ParamAttr
+    H = cfg["hidden"] // 4
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        slots = {n: pt.data(n, [-1, -1], "int64", lod_level=1)
+                 for n in SRL_SLOTS}
+        target = pt.data("target", [-1, -1], "int64", lod_level=1)
+        length = pt.data("length", [], "int32")
+        embs = [L.embedding(slots[n], [cfg["words"], cfg["word_dim"]],
+                            param_attr=A(name="emb", trainable=False))
+                for n in SRL_SLOTS[:6]]
+        embs.append(L.embedding(slots["verb_data"],
+                                [cfg["preds"], cfg["word_dim"]],
+                                param_attr="vemb"))
+        embs.append(L.embedding(slots["mark_data"], [2, cfg["mark_dim"]]))
+        hidden_0 = L.sums([L.fc(x, cfg["hidden"], num_flatten_dims=2,
+                                act="tanh") for x in embs])
+
+        def lstm(x, i):
+            w = L.create_parameter([H, 4 * H], name=f"lstm{i}_w")
+            b = L.create_parameter([7 * H], name=f"lstm{i}_b", is_bias=True)
+            return L.dynamic_lstm(x, w, b, lengths=length,
+                                  is_reverse=(i % 2) == 1)
+
+        tmp = [hidden_0, lstm(hidden_0, 0)]
+        for i in range(1, cfg["depth"]):
+            mix = L.sums([L.fc(x, cfg["hidden"], num_flatten_dims=2,
+                               act="tanh") for x in tmp])
+            tmp = [mix, lstm(mix, i)]
+        feature = L.sums([L.fc(x, cfg["labels"], num_flatten_dims=2,
+                               act="tanh") for x in tmp])
+        cost = L.linear_chain_crf(feature, target, length=length,
+                                  param_attr=A(name="crfw",
+                                               learning_rate=1e-3))
+        decode = L.crf_decoding(feature, main.global_block().var("crfw"),
+                                length=length)
+        loss = L.mean(cost)
+        test = main.clone(for_test=True)
+        make_opt(pt).minimize(loss)
+    return main, startup, decode, loss, test
+
+
+def srl_sgd(pt):
+    """The book's SGD at exponential_decay(0.01, 100000, 0.5,
+    staircase)."""
+    return pt.optimizer.SGD(pt.layers.exponential_decay(
+        0.01, 100000, 0.5, staircase=True))
+
+
+def srl_feeds(cfg, n, seed, b=None):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b = b or cfg["batch"]
+    out = []
+    for _ in range(n):
+        ln = seq_lengths(rng, b, *cfg["lens"])
+        feed = {s: padded_ids(rng, ln, cfg["words"]) for s in SRL_SLOTS[:6]}
+        feed["verb_data"] = padded_ids(rng, ln, cfg["preds"])
+        feed["mark_data"] = padded_ids(rng, ln, 2)
+        # a tag the words and the mark decide: learnable
+        feed["target"] = (feed["word_data"] * 7 + feed["mark_data"]) \
+            % cfg["labels"]
+        feed["length"] = ln
+        out.append(feed)
+    return out
+
+
+def gru_nmt_shapes(cfg):
+    E, H = cfg["emb"], cfg["hid"]
+    return {"src_emb": (cfg["src"], E), "tgt_emb": (cfg["tgt"], E),
+            "enc_wih": (E, 3 * H), "enc_whh": (H, 3 * H), "enc_b": (3 * H,),
+            "dec_wih": (E, 3 * H), "dec_whh": (H, 3 * H), "dec_b": (3 * H,),
+            "out_w": (H, cfg["tgt"]), "out_b": (cfg["tgt"],)}
+
+
+def nmt_params(cfg, seed, device):
+    """The encoder-decoder's weights from a CPU generator (N(0, 0.1), zero
+    biases), on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    return {k: (torch.zeros(s) if k.endswith("_b")
+                else torch.randn(*s, generator=gen) * 0.1).to(device)
+            for k, s in gru_nmt_shapes(cfg).items()}
+
+
+def nmt_loss(ops, p, src, src_len, tgt_in, tgt_out, tgt_len):
+    """tests/test_book.py's encoder-decoder with lengths: two gathers, the
+    source GRU's last state starts the target GRU, the [B*T, 512] x [512,
+    30000] projection (plain, as in the JAX package) and the token cross
+    entropy averaged over the valid target steps."""
+    es = ops.embedding(src, p["src_emb"])
+    _, h = ops.rnn.gru(es, p["enc_wih"], p["enc_whh"], p["enc_b"],
+                       lengths=src_len)
+    et = ops.embedding(tgt_in, p["tgt_emb"])
+    outs, _ = ops.rnn.gru(et, p["dec_wih"], p["dec_whh"], p["dec_b"], h0=h,
+                          lengths=tgt_len)
+    logits = outs @ p["out_w"] + p["out_b"]
+    xent = ops.softmax_with_cross_entropy(logits, tgt_out[..., None])
+    mask = ops.sequence_mask(tgt_len, tgt_out.shape[1])
+    return torch.sum(xent[..., 0] * mask) / torch.sum(mask)
+
+
+def nmt_batches(cfg, n, seed, b=None):
+    """(src, src_len, tgt_in, tgt_out, tgt_len): ids in the dictionaries'
+    ranges, the target a function of the source (learnable), source and
+    target lengths drawn on their own."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b = b or cfg["batch"]
+    out = []
+    for _ in range(n):
+        sl = seq_lengths(rng, b, *cfg["lens"])
+        tl = seq_lengths(rng, b, *cfg["lens"])
+        src = padded_ids(rng, sl, cfg["src"])
+        T = int(tl.max())
+        tgt = (np.pad(src, ((0, 0), (0, max(T - src.shape[1], 0))))[:, :T]
+               * 3 + 1) % cfg["tgt"]
+        tgt[np.arange(T)[None, :] >= tl[:, None]] = 0
+        tgt_in = np.concatenate([np.zeros((b, 1), np.int64), tgt[:, :-1]], 1)
+        out.append((src, sl, tgt_in, tgt.astype(np.int64), tl))
+    return out
+
+
+def tensors_on(batch, device="cuda"):
+    return [torch.as_tensor(a, device=device) for a in batch]
+
+
+def eager_step(loss_fn, params, opt, state):
+    """One training step of a module-context or functional model: the
+    loss, autograd's gradients, ``apply_gradients`` (in place)."""
+    keys = list(params)
+
+    def step(batch):
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        opt.apply_gradients(params, dict(zip(keys, grads)), state)
+        return loss.detach()
+    return step
+
+
+def seq_train(K, label, step, batches, steps, want, card, units, unit,
+              extra=None):
+    """``steps`` steps over ``batches`` cycled (each ending in a
+    synchronize), the launch counts set to 0 just before and read just
+    after: exactly ``want`` launches per step, nothing else registered;
+    every loss finite and the last five steps' mean below the first five's
+    (the same batches). ms per step (the median of steps 5 on), ``unit``
+    per second (``units(batch)`` a step), and one more profiled step's
+    device time by op group over it (the busy share). The peak memory is
+    the caller's."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    losses = [float(x) for x in losses]
+    for name, n in counts.items():
+        check(n == want.get(name, 0) * steps,
+              f"{label}: {n} {name} launches in {steps} steps, expected "
+              f"{want.get(name, 0)} per step")
+    check(all(math.isfinite(x) for x in losses), f"{label}: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"{label}: loss {first} over the first 5 steps, "
+                        f"{last} over the last 5 (the same batches)")
+    steady = statistics.median(step_ms[5:])
+    per_s = statistics.mean(units(b) for b in batches) / steady * 1e3
+    prof = op_breakdown(lambda: step(batches[0]), top=8, host_top=6)
+    rec = dict(steps=steps, losses_first5_last5=[first, last],
+               loss_first=losses[0], loss_last=losses[-1],
+               ms_per_step_steady=steady,
+               ms_per_step_quartiles=statistics.quantiles(step_ms[5:], n=4),
+               first_step_ms=step_ms[0], **{f"{unit}_per_s": per_s},
+               launches_per_step={k: v // steps for k, v in counts.items()
+                                  if v},
+               device_events_per_step=prof.get("launches"),
+               device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                                  if prof else None),
+               card=card, profile=prof,
+               launches={k: v for k, v in counts.items() if v})
+    rec.update(extra or {})
+    log(f"{label}: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{steady:.3f} ms/step, {per_s:.1f} {unit}/s, busy "
+        f"{rec['device_busy_share']} [{card}]")
+    return rec
+
+
+def peak_since(base):
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_train_module_book(K, pt, card, label, model, cfg, batches_of,
+                            opt, want, unit, seed):
+    """A book model of the module context at ``cfg``'s widths: init on the
+    card from a generator, ``SEQ_STEPS`` steps through ``nn.transform``,
+    autograd and ``apply_gradients``, exactly ``want`` launches a step.
+    The sentiment model (Adagrad has no kernel): 1 gather; MovieLens: 7
+    gathers and 1 ``fused_sgd``."""
+    from paddle_tpu_torch.ops.nn import no_tf32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    batches = [tensors_on(b) for b in batches_of(cfg, SEQ_BATCHES, seed)]
+    tm = model(pt, cfg)
+    with no_tf32():
+        params, _ = tm.init(torch.Generator(device="cuda").manual_seed(seed),
+                            *batches[0])
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        step = eager_step(lambda p, b: tm.apply(p, {}, None, *b)[0], params,
+                          opt, opt.init(params))
+        rec = seq_train(
+            K, label, step, batches, SEQ_STEPS, want, card,
+            lambda b: b[0].shape[0], unit,
+            dict(batch=cfg["batch"], params=len(params),
+                 optimizer=f"{type(opt).__name__} {cfg['lr']}"))
+    rec["peak_gb"] = peak_since(base)
+    log(label.replace("-", "_") + " " + json.dumps(rec))
+    return rec
+
+
+def phase_train_book_nmt(K, pt, ops, card):
+    """The GRU encoder-decoder at NMT's widths, batch 64: ``NMT_STEPS``
+    Adam steps, exactly 2 gathers and 1 ``fused_adam`` a step; target
+    tokens/s counts the valid target steps."""
+    from paddle_tpu_torch.ops.nn import no_tf32
+    cfg = NMT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    batches = [tensors_on(b) for b in nmt_batches(cfg, SEQ_BATCHES, 25)]
+    params = {k: v.requires_grad_()
+              for k, v in nmt_params(cfg, 25, "cuda").items()}
+    opt = pt.optimizer.Adam(cfg["lr"])
+    with no_tf32():
+        step = eager_step(lambda p, b: nmt_loss(ops, p, *b), params, opt,
+                          opt.init(params))
+        rec = seq_train(
+            K, "train-book-nmt", step, batches, NMT_STEPS,
+            {"embedding_gather": 2, "fused_adam": 1}, card,
+            lambda b: int(b[4].sum()), "target_tokens",
+            dict(batch=cfg["batch"], params=len(params),
+                 values=sum(v.numel() for v in params.values()),
+                 optimizer=f"Adam {cfg['lr']}",
+                 target_T=[int(b[3].shape[1]) for b in batches]))
+    rec["peak_gb"] = peak_since(base)
+    log("train_book_nmt " + json.dumps(rec))
+    return rec
+
+
+def recurrence_launches(ops):
+    """Device events per time step of the loops (the cost of a Python loop
+    over time, which CUDA graphs later remove): dynamic_lstm at the SRL's
+    hidden 128, gru at the NMT's 512, the CRF's forward and Viterbi at 59
+    tags, batch 10 over 64 steps; forward alone and forward plus backward,
+    from one profiled call each."""
+    B, T, H, G = SRL["batch"], SRL["lens"][1], SRL["hidden"] // 4, \
+        NMT["hid"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*s):
+        return (torch.randn(*s, generator=gen, device="cuda") * 0.1
+                ).requires_grad_()
+
+    ln = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    x, w, b = rnd(B, T, 4 * H), rnd(H, 4 * H), rnd(7 * H)
+    xg, wi, wh, bg = rnd(B, T, G), rnd(G, 3 * G), rnd(G, 3 * G), rnd(3 * G)
+    em, tr = rnd(B, T, SRL["labels"]), rnd(SRL["labels"] + 2, SRL["labels"])
+    lab = torch.zeros(B, T, dtype=torch.int64, device="cuda")
+
+    def fwd_bwd(f, leaves):
+        return lambda: torch.autograd.grad(f().sum(), leaves)
+
+    calls = {
+        "dynamic_lstm_fwd": lambda: ops.rnn.dynamic_lstm(
+            x.detach(), w.detach(), b.detach(), lengths=ln),
+        "dynamic_lstm_fwd_bwd": fwd_bwd(lambda: ops.rnn.dynamic_lstm(
+            x, w, b, lengths=ln)[0], [x, w, b]),
+        "gru_fwd": lambda: ops.rnn.gru(xg.detach(), wi.detach(), wh.detach(),
+                                       bg.detach(), lengths=ln),
+        "gru_fwd_bwd": fwd_bwd(lambda: ops.rnn.gru(
+            xg, wi, wh, bg, lengths=ln)[0], [xg, wi, wh, bg]),
+        "linear_chain_crf_fwd_bwd": fwd_bwd(lambda: ops.linear_chain_crf(
+            em, tr, lab, ln), [em, tr]),
+        "crf_decoding": lambda: ops.crf_decoding(em.detach(), tr.detach(),
+                                                 ln),
+    }
+    out = {}
+    for name, fn in calls.items():
+        prof = op_breakdown(fn, top=0)
+        out[name] = prof.get("launches", 0) / T
+    return out
+
+
+def phase_train_book_srl(K, pt, ops, card):
+    """db_lstm through ``Executor.run`` at SRL's widths, batch 10:
+    ``SEQ_STEPS`` SGD steps under the book's schedule, exactly 8 gathers,
+    one fused matmul per fc (24 at depth 8) and one ``fused_sgd`` per
+    trainable parameter a step; then ``crf_decoding`` of one batch through
+    the for_test clone (latency, the paths' shape and range, 0 past each
+    length), and the recurrences' device events per time step."""
+    import numpy as np
+    cfg = SRL
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    main, startup, decode, loss, test = db_lstm_program(pt, cfg, srl_sgd)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feeds = srl_feeds(cfg, SEQ_BATCHES, 24)
+    n_params = len(trainable(main))
+    n_fc = 8 + 2 * (cfg["depth"] - 1) + 2
+    check("emb" not in trainable(main) and "crfw" in trainable(main),
+          "db_lstm: the frozen table or the CRF's transitions")
+
+    def step(feed):
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+
+    rec = seq_train(
+        K, "train-book-srl", step, feeds, SEQ_STEPS,
+        {"embedding_gather": 8, "fused_matmul": n_fc,
+         "fused_sgd": n_params}, card, lambda f: int(f["length"].sum()),
+        "tokens", dict(batch=cfg["batch"], params=n_params, fcs=n_fc,
+                       optimizer="SGD exponential_decay(0.01, 100000, 0.5,"
+                                 " staircase)",
+                       padded_T=[int(f["length"].max()) for f in feeds]))
+    rec["peak_gb"] = peak_since(base)
+    dec_ms = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        paths = exe.run(test, feed=feeds[i % len(feeds)], fetch_list=[decode],
+                        scope=scope)[0]
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+    f = feeds[5 % len(feeds)]
+    T = int(f["length"].max())
+    check(paths.dtype == np.int32 and paths.shape == (cfg["batch"], T)
+          and paths.min() >= 0 and paths.max() < cfg["labels"]
+          and (paths[np.arange(T)[None, :] >= f["length"][:, None]] == 0
+               ).all(), "train-book-srl: crf_decoding's paths")
+    rec.update(decode_ms=statistics.median(dec_ms[1:]),
+               decode_first_ms=dec_ms[0],
+               decode_tokens_per_s=int(f["length"].sum())
+               / statistics.median(dec_ms[1:]) * 1e3,
+               launches_per_time_step=recurrence_launches(ops))
+    log("train_book_srl " + json.dumps(rec))
+    return rec, (main, startup, decode, loss, test)
+
+
+def eager_card_vs_cpu(K, label, loss_fn, params_np, make_opt, batches,
+                      steps=3):
+    """``steps`` steps of a module-context or functional model on the card
+    and on the CPU from the same weights (fp32, TF32 off): first-step
+    gradients (the largest relative norm error over the parameters whose
+    gradient norm is at least 1e-4 of the largest), losses, the largest
+    parameter gap after the last step, and the card's launches."""
+    import numpy as np
+    from paddle_tpu_torch.ops.nn import no_tf32
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: torch.tensor(v, device=dev).requires_grad_()
+                  for k, v in params_np.items()}
+        opt = make_opt()
+        state = opt.init(params)
+        K.reset_launch_counts()
+        losses, first = [], None
+        with no_tf32():
+            for i in range(steps):
+                batch = tensors_on(batches[i % len(batches)], dev)
+                loss = loss_fn(params, batch)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                if first is None:
+                    first = [g.detach().cpu().numpy() for g in grads]
+                opt.apply_gradients(params, dict(zip(params, grads)), state)
+                losses.append(float(loss.detach()))
+        out[dev] = (losses, first, {k: v.detach().cpu()
+                                    for k, v in params.items()},
+                    K.launch_counts())
+    (cl, cg, cp, counts), (pl, pg, pp, _) = out["cuda"], out["cpu"]
+    names = list(params_np)
+    norms = [float(np.linalg.norm(g)) for g in pg]
+    errs = {n: float(np.linalg.norm(a - b)) / nb for n, a, b, nb in
+            zip(names, cg, pg, norms) if nb >= 1e-4 * max(norms)}
+    rec = dict(
+        losses_card=cl, losses_cpu=pl,
+        loss_gap_rel=max(abs(a - b) / max(abs(b), 1.0)
+                         for a, b in zip(cl, pl)),
+        grad_relnorm_err=max(errs.values()),
+        grad_relnorm_err_worst=max(errs, key=errs.get),
+        grads_held=len(errs), grads_noise=len(names) - len(errs),
+        param_gap=max(max_err(cp[n], pp[n]) for n in names),
+        launches={k: v for k, v in counts.items() if v})
+    log(f"sequence-correctness {label}: " + json.dumps(rec))
+    return rec
+
+
+def seq_ops_card_vs_cpu(ops):
+    """Every sequence op, the CRF (with its gradient) and each recurrent
+    function (outputs and gradients) on the card against the CPU at the
+    hazard cases: a zero-length row, a full one, a one-step one; the
+    recurrences forward and reversed. Returns {case: the largest gap over
+    the largest value}; moves and compares must be exact."""
+    import numpy as np
+    from paddle_tpu_torch.ops.nn import no_tf32
+    rng = np.random.RandomState(27)
+    B, T, Hd = 4, 9, 6
+    x = rng.randn(B, T, Hd).astype(np.float32)
+    ln = np.array([0, T, 1, 5], np.int32)
+    ids = rng.randint(0, 7, (B, T)).astype(np.int64)
+    exact = {
+        "sequence_first_step": lambda d, l, i: ops.sequence_first_step((d, l)),
+        "sequence_last_step": lambda d, l, i: ops.sequence_last_step((d, l)),
+        "sequence_reverse": lambda d, l, i: ops.sequence_reverse((d, l)).data,
+        "sequence_pad": lambda d, l, i: ops.sequence_pad((d, l), -2.0,
+                                                         T + 2)[0],
+        "sequence_pool max": lambda d, l, i: ops.sequence_pool((d, l),
+                                                               "max"),
+        "sequence_slice": lambda d, l, i: ops.sequence_slice(
+            (d, l), torch.ones_like(l), torch.full_like(l, 3)).data,
+        "sequence_expand": lambda d, l, i: ops.sequence_expand(
+            d[:, 0], (d, l)).data,
+        "sequence_concat": lambda d, l, i: ops.sequence_concat(
+            [(d, l), (d[:, :4], torch.clamp(l, max=4))]).data,
+        "sequence_reshape": lambda d, l, i: ops.sequence_reshape(
+            (d, l), 3).data,
+        "sequence_enumerate": lambda d, l, i: ops.sequence_enumerate(
+            (i, l), 3, -1).data,
+        "sequence_erase": lambda d, l, i: ops.sequence_erase(
+            (i, l), [0, 3]).data,
+        "sequence_mask": lambda d, l, i: ops.sequence_mask(l, T),
+        "crf_decoding": lambda d, l, i: ops.crf_decoding(
+            d, d.new_tensor(np.random.RandomState(1).randn(
+                Hd + 2, Hd).astype(np.float32)), l),
+    }
+    summed = {
+        "sequence_pool " + p: (lambda p: lambda d, l, i: ops.sequence_pool(
+            (d, l), p))(p) for p in ("sum", "average", "sqrt")}
+    summed.update({
+        "sequence_softmax": lambda d, l, i: ops.sequence_softmax(
+            (d, l)).data,
+        "sequence_scatter": lambda d, l, i: ops.sequence_scatter(
+            d, i[:, :3], d[:, :3]),
+        "sequence_conv": lambda d, l, i: ops.sequence_conv(
+            (d, l), d.new_tensor(np.random.RandomState(2).randn(
+                3 * Hd, 5).astype(np.float32)), 3).data,
+    })
+    gaps = {}
+    with no_tf32():
+        dev_in = {dev: (torch.tensor(x, device=dev),
+                        torch.tensor(ln, device=dev),
+                        torch.tensor(ids, device=dev))
+                  for dev in ("cuda", "cpu")}
+        for name, fn in {**exact, **summed}.items():
+            a = fn(*dev_in["cuda"]).cpu()
+            b = fn(*dev_in["cpu"])
+            scale = max(float(b.abs().max()), 1.0) if b.numel() else 1.0
+            gaps[name] = max_err(a, b) / scale if b.numel() else 0.0
+            if name in exact:
+                check(torch.equal(a, b), f"sequence-correctness: {name} "
+                                         f"card != CPU")
+
+        # the recurrences and the CRF, outputs and gradients
+        def leaf(*s, seed):
+            return np.random.RandomState(seed).randn(*s).astype(
+                np.float32) * 0.4
+
+        H, D = 5, Hd
+        cases = {
+            "lstm peepholes reverse": (lambda a: ops.rnn.lstm(
+                a[0], a[1], a[2], a[3], lengths=a[-1], reverse=True,
+                peepholes=a[4])[0],
+                [leaf(B, T, D, seed=1), leaf(D, 4 * H, seed=2),
+                 leaf(H, 4 * H, seed=3), leaf(4 * H, seed=4),
+                 leaf(3 * H, seed=5)]),
+            "dynamic_lstm 7H": (lambda a: ops.rnn.dynamic_lstm(
+                a[0], a[1], a[2], lengths=a[-1])[0],
+                [leaf(B, T, 4 * H, seed=6), leaf(H, 4 * H, seed=7),
+                 leaf(7 * H, seed=8)]),
+            "dynamic_lstmp reverse": (lambda a: ops.rnn.dynamic_lstmp(
+                a[0], a[1], a[2], a[3], lengths=a[-1], is_reverse=True)[0],
+                [leaf(B, T, 4 * H, seed=9), leaf(3, 4 * H, seed=10),
+                 leaf(H, 3, seed=11), leaf(4 * H, seed=12)]),
+            "gru origin_mode reverse": (lambda a: ops.rnn.gru(
+                a[0], a[1], a[2], a[3], h0=a[4], lengths=a[-1],
+                reverse=True, origin_mode=True)[0],
+                [leaf(B, T, D, seed=13), leaf(D, 3 * H, seed=14),
+                 leaf(H, 3 * H, seed=15), leaf(3 * H, seed=16),
+                 leaf(B, H, seed=17)]),
+            "dynamic_gru": (lambda a: ops.rnn.dynamic_gru(
+                a[0], a[1], a[2], lengths=a[-1])[0],
+                [leaf(B, T, 3 * H, seed=18), leaf(H, 3 * H, seed=19),
+                 leaf(3 * H, seed=20)]),
+            "simple_rnn": (lambda a: ops.rnn.simple_rnn(
+                a[0], a[1], a[2], a[3], lengths=a[-1])[0],
+                [leaf(B, T, D, seed=21), leaf(D, H, seed=22),
+                 leaf(H, H, seed=23), leaf(H, seed=24)]),
+            "bidirectional_lstm": (lambda a: ops.rnn.bidirectional_lstm(
+                *a[:-1], lengths=a[-1]),
+                [leaf(B, T, D, seed=25), leaf(D, 4 * H, seed=26),
+                 leaf(H, 4 * H, seed=27), leaf(D, 4 * H, seed=28),
+                 leaf(H, 4 * H, seed=29), leaf(4 * H, seed=30),
+                 leaf(4 * H, seed=31)]),
+            "attention_lstm": (lambda a: ops.rnn.attention_lstm(
+                a[0], a[1], a[2], a[3], a[4], a[5], lengths=a[-1])[0],
+                [leaf(B, T, D, seed=32), leaf(B, H, seed=33),
+                 leaf(D + H, 1, seed=34), leaf(D + H, 4 * H, seed=35),
+                 leaf(1, seed=36), leaf(4 * H, seed=37)]),
+            "linear_chain_crf": (lambda a: ops.linear_chain_crf(
+                a[0], a[1], torch.as_tensor(ids % 4, device=a[0].device),
+                a[-1]),
+                [leaf(B, T, 4, seed=38), leaf(6, 4, seed=39)]),
+        }
+        for name, (fn, arrays) in cases.items():
+            res = []
+            for dev in ("cuda", "cpu"):
+                ts = [torch.tensor(a, device=dev, requires_grad=True)
+                      for a in arrays]
+                out = fn(ts + [torch.tensor(ln, device=dev)])
+                grads = torch.autograd.grad(torch.sin(out).sum(), ts)
+                res.append([out.detach().cpu()] + [g.cpu() for g in grads])
+            gaps[name] = max(max_err(a, b) / max(float(b.abs().max()), 1.0)
+                             for a, b in zip(*res))
+    worst = max(gaps, key=gaps.get)
+    check(gaps[worst] <= SEQ_OP_TOL, f"sequence-correctness: {worst} card "
+                                     f"vs CPU {gaps[worst]} > {SEQ_OP_TOL}")
+    return gaps
+
+
+def phase_sequence_checks(K, pt, ops, card, srl_built):
+    """The four models at batch 4-8 and their full widths, 3 steps on the
+    card against the port on the CPU from the same weights in fp32 with
+    TF32 off (losses, first-step gradients, parameters within SEQ_TOL; the
+    SRL's Viterbi paths equal after the steps); then every sequence op,
+    the CRF and each recurrence at the hazard cases."""
+    import numpy as np
+    recs = {}
+    sent_b = sentiment_batches(SENT, 2, 271, b=8)
+    tm = sentiment_model(pt, SENT)
+    p0, _ = tm.init(torch.Generator().manual_seed(271),
+                    *tensors_on(sent_b[0], "cpu"))
+    recs["sentiment"] = eager_card_vs_cpu(
+        K, "sentiment", lambda p, b: tm.apply(p, {}, None, *b)[0],
+        {k: v.numpy() for k, v in p0.items()},
+        lambda: pt.optimizer.Adagrad(SENT["lr"]), sent_b)
+    ml_b = movielens_batches(MLF, 2, 272, b=8)
+    mm = movielens_model(pt, MLF)
+    p0, _ = mm.init(torch.Generator().manual_seed(272),
+                    *tensors_on(ml_b[0], "cpu"))
+    recs["movielens"] = eager_card_vs_cpu(
+        K, "movielens", lambda p, b: mm.apply(p, {}, None, *b)[0],
+        {k: v.numpy() for k, v in p0.items()},
+        lambda: pt.optimizer.SGD(MLF["lr"]), ml_b)
+    recs["nmt"] = eager_card_vs_cpu(
+        K, "nmt", lambda p, b: nmt_loss(ops, p, *b),
+        {k: v.numpy() for k, v in nmt_params(NMT, 273, "cpu").items()},
+        lambda: pt.optimizer.Adam(NMT["lr"]), nmt_batches(NMT, 2, 273, b=4))
+    srl, (built, card_scope, cpu_scope) = card_vs_cpu(
+        K, pt, "db_lstm", srl_built, srl_feeds(SRL, 2, 274, b=4))
+    srl["loss_gap_rel"] = max(abs(a - b) / max(abs(b), 1.0) for a, b in
+                              zip(srl["losses_card"], srl["losses_cpu"]))
+    main, startup, decode, loss, test = built
+    feed = srl_feeds(SRL, 1, 275, b=4)[0]
+    paths = [pt.Executor(place).run(test, feed=feed, fetch_list=[decode],
+                                    scope=s)[0]
+             for place, s in ((None, card_scope),
+                              (pt.CPUPlace(), cpu_scope))]
+    srl["viterbi_equal"] = bool(np.array_equal(*paths))
+    srl["viterbi_tokens"] = int(feed["length"].sum())
+    check(srl["viterbi_equal"], "sequence-correctness: db_lstm's Viterbi "
+                                "paths differ between the card and the CPU")
+    recs["srl"] = srl
+    for name, r in recs.items():
+        bad = {k: r[k] for k in SEQ_TOL if r[k] > SEQ_TOL[k]}
+        check(not bad, f"sequence-correctness {name}: card vs CPU {bad} "
+                       f"beyond {SEQ_TOL}")
+    want = {"sentiment": {"embedding_gather": 3},
+            "movielens": {"embedding_gather": 21, "fused_sgd": 3},
+            "nmt": {"embedding_gather": 6, "fused_adam": 3},
+            "srl": {"embedding_gather": 24, "fused_matmul": 72,
+                    "fused_sgd": 3 * len(trainable(main))}}
+    for name, w in want.items():
+        check(recs[name]["launches"] == w, f"sequence-correctness {name}: "
+              f"card launches {recs[name]['launches']}, expected {w}")
+    gaps = seq_ops_card_vs_cpu(ops)
+    launches = {}
+    for r in recs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rec = dict(models=recs, tol=SEQ_TOL, ops_tol=SEQ_OP_TOL, op_gaps=gaps,
+               launches=launches, card=card)
+    log("sequence_checks " + json.dumps(rec))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3510,6 +4321,8 @@ def main():
     check(len(nmt_shapes) == 258, f"{len(nmt_shapes)} Transformer-big "
                                   "leaves")
     adam_nmt = check_adam(K, nmt_shapes, 1, gen, label="Transformer-big")
+    check_adam(K, list(gru_nmt_shapes(NMT).values()), 1, gen,
+               label="the GRU encoder-decoder")
     # the static path's kernels: the word2vec step's shapes at batch 100
     # (the main path) and 8192, and BERT-base's shapes beside them
     with torch.inference_mode():
@@ -3517,6 +4330,14 @@ def main():
                                    100, gen)
         check_embedding(K, W2V_VOCAB, W2V_EMBED, torch.float32, 8192, gen)
         check_embedding(K, 30528, 768, torch.bfloat16, 64 * 512, gen)
+        # the sequence models' tables at their batches' ids: the IMDB
+        # words (128 x 512), the SRL word table (10 x 64), the NMT
+        # dictionaries (64 x 50), MovieLens' users (256)
+        for h, d, n in ((SENT["vocab"], SENT["emb"], 128 * 512),
+                        (SRL["words"], SRL["word_dim"], 10 * 64),
+                        (NMT["src"], NMT["emb"], 64 * 50),
+                        (MLF["users"], MLF["emb"], MLF["batch"])):
+            check_embedding(K, h, d, torch.float32, n, gen)
         fmm = {}
         for act in (None, "relu", "sigmoid", "tanh", "gelu"):
             for m, k, n in ((100, 4 * W2V_EMBED, W2V_HIDDEN),
@@ -3538,6 +4359,17 @@ def main():
         check_fused_matmul(K, 100, W2V_HIDDEN, W2V_VOCAB, None,
                            torch.float32, gen, w_dtype=torch.bfloat16)
         check_fused_matmul_special(K, gen)
+        # the sequence models' static fcs (phase 24, db_lstm at batch 10 x
+        # 64 steps): each input slot's fc 512, the mix fcs over the hidden
+        # and the LSTM's 128, the label fcs (59)
+        for k, n in ((SRL["word_dim"], SRL["hidden"]),
+                     (SRL["mark_dim"], SRL["hidden"]),
+                     (SRL["hidden"], SRL["hidden"]),
+                     (SRL["hidden"] // 4, SRL["hidden"]),
+                     (SRL["hidden"], SRL["labels"]),
+                     (SRL["hidden"] // 4, SRL["labels"])):
+            check_fused_matmul(K, SRL["batch"] * SRL["lens"][1], k, n,
+                               "tanh", torch.float32, gen)
         # the static BERT trunk's FFN (bench.py:485)
         for dt in (torch.float32, torch.bfloat16):
             check_fused_matmul(K, 4096, 768, 3072, "relu", dt, gen)
@@ -3581,6 +4413,17 @@ def main():
                   "tensors, lr on the card", lr_on_card=True)
         check_sgd(K, w2v_shapes, "sgd", gen, "word2vec, lr on the card",
                   lr_on_card=True)
+        # db_lstm's 67 tensors with the schedule's rate read from the card,
+        # in one launch: the static path's one launch per parameter cannot
+        # be timed behind a spin (each launch's pinned table waits on the
+        # spun stream, so the host allocates a new one: ~0.6 ms a launch on
+        # an H100 80GB HBM3, PERF.md); phase 27 holds those launches card
+        # vs CPU
+        srl_main = db_lstm_program(pt, SRL, srl_sgd)[0]
+        srl_shapes = [tuple(srl_main.global_block().var(n).shape)
+                      for n in trainable(srl_main)]
+        check_sgd(K, srl_shapes, "sgd", gen, f"db_lstm's {len(srl_shapes)} "
+                  "tensors, lr on the card, one launch", lr_on_card=True)
         # the scatter-add: bench.py's CTR point; BERT-base's three
         # embedding gradients with pretrain-512's ids into zeros (phase
         # 10's word shape is the main one); the merge's inverse ids; bf16;
@@ -3727,6 +4570,30 @@ def main():
         "against CPU, device time per update (optimizer-rules)")
     phase_optimizer_rules(K, pt, resnet, card, vgg_shapes)
     log(f"phases 0-22 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 23: understand_sentiment's convolution_net, batch 128 "
+        "(train-book-sentiment)")
+    sent = phase_train_module_book(
+        K, pt, card, "train-book-sentiment", sentiment_model, SENT,
+        sentiment_batches, pt.optimizer.Adagrad(SENT["lr"]),
+        {"embedding_gather": 1}, "reviews", 23)
+    log("phase 24: label_semantic_roles' db_lstm through the static path, "
+        "batch 10 (train-book-srl)")
+    srl, _ = phase_train_book_srl(K, pt, ops, card)
+    log("phase 25: the GRU encoder-decoder at 512, batch 64 "
+        "(train-book-nmt)")
+    book_nmt = phase_train_book_nmt(K, pt, ops, card)
+    log("phase 26: the full MovieLens recommender, batch 256 "
+        "(train-book-movielens)")
+    movielens = phase_train_module_book(
+        K, pt, card, "train-book-movielens", movielens_model, MLF,
+        movielens_batches, pt.optimizer.SGD(MLF["lr"]),
+        {"embedding_gather": 7, "fused_sgd": 1}, "examples", 26)
+    log(f"phases 0-26 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 27: the sequence models, ops and recurrences on the card "
+        "against the CPU (sequence-correctness)")
+    seq_checks = phase_sequence_checks(K, pt, ops, card,
+                                       db_lstm_program(pt, SRL, srl_sgd))
+    log(f"phases 0-27 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -3746,6 +4613,11 @@ def main():
         "train-book-digits": digits["launches"],
         "train-book-vgg": vgg_rec["launches"],
         "book-correctness": book["launches"],
+        "train-book-sentiment": sent["launches"],
+        "train-book-srl": srl["launches"],
+        "train-book-nmt": book_nmt["launches"],
+        "train-book-movielens": movielens["launches"],
+        "sequence-correctness": seq_checks["launches"],
     }
     kernels = []
     for name, main_rec in (

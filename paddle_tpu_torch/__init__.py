@@ -13,7 +13,9 @@ rather than falling back.
 
 The package root carries the Fluid surface of the static path (``Program``,
 ``program_guard``, ``data``, ``layers``, ``optimizer``, ``Executor``, ...),
-so a fluid script runs with ``import paddle_tpu_torch as pt``.
+so a fluid script runs with ``import paddle_tpu_torch as pt``, and the
+module context of the eager path (``nn``) with the ragged-batch helpers
+(``create_lod_tensor``).
 """
 
 import torch
@@ -24,7 +26,8 @@ __version__ = "0.1.0"
 
 __all__ = ["__version__", "NoCudaDeviceError", "default_device",
            "resolve_device", "layers", "optimizer", "initializer", "static",
-           "io", "regularizer", "clip", "nets",
+           "io", "regularizer", "clip", "nets", "nn", "lod_tensor",
+           "create_lod_tensor", "create_random_int_lodtensor",
            "Program", "program_guard", "default_main_program",
            "default_startup_program", "enable_static", "disable_static",
            "data", "Executor", "Scope", "global_scope", "scope_guard",
@@ -59,10 +62,13 @@ def resolve_device(device=None):
 # the Fluid surface (after the definitions above, which its modules import)
 from paddle_tpu_torch import initializer, layers, optimizer, static  # noqa: E402,F401,I001
 from paddle_tpu_torch import clip, regularizer  # noqa: E402,F401
-from paddle_tpu_torch import io, nets  # noqa: E402,F401
+from paddle_tpu_torch import io, lod_tensor, nets, nn  # noqa: E402,F401
 from paddle_tpu_torch.core.flags import get_flag, set_flags  # noqa: E402
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: E402
 from paddle_tpu_torch.framework import ParamAttr, unique_name  # noqa: E402
+from paddle_tpu_torch.lod_tensor import (  # noqa: E402
+    create_lod_tensor, create_random_int_lodtensor,
+)
 from paddle_tpu_torch.static import (  # noqa: E402
     BuildStrategy, CompiledProgram, Executor, Program, Scope,
     append_backward, data, default_main_program, default_startup_program,

@@ -28,8 +28,22 @@ them. The rest of the op library is ROADMAP queue 1 item 4.
 generator on its device, seeded from the program's ``random_seed``, the run
 and the op. ``batch_norm`` in a Program keeps its moving mean and variance
 as non-trainable persistable parameters, which its op's ``MeanOut`` and
-``VarianceOut`` overwrite; outside a Program it needs the module context
-(queue 1 item 7d) and raises.
+``VarianceOut`` overwrite; outside a Program its running stats would be
+module state, which it does not keep yet (queue 1 item 7d): it raises.
+
+The sequence models' layers: the 17 sequence ops (``sequence_*``), the CRF
+(``linear_chain_crf`` with its ``crfw`` parameter, ``crf_decoding``), the
+recurrent ops (``lstm``, ``gru``, ``dynamic_lstm``, ``dynamic_lstmp``,
+``dynamic_gru``, ``simple_rnn``, ``bidirectional_lstm``,
+``attention_lstm``), ``sums`` and ``create_parameter``. A parameterized
+layer outside a Program creates its parameters in the module context
+(``paddle_tpu_torch.nn``: ``nn.transform``, ``Layer.init``/``apply``) and
+computes at once. In a Program, an optional tensor argument given as a
+Variable in an attribute position (``dynamic_lstm``'s ``w_hh``, ``bias``
+and ``lengths``, ``crf_decoding``'s ``length``) rides the op's inputs, its
+parameter names recorded in the ``_tensor_params`` attr, as the JAX
+package's ``_append_static`` records them; the recurrent ops' op yields one
+Variable, the outputs (their final state is not an output of the op).
 """
 
 import functools
@@ -46,11 +60,15 @@ from paddle_tpu_torch.layers.learning_rate_scheduler import (
     cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
     natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay,
 )
+from paddle_tpu_torch.nn import module as _module
 from paddle_tpu_torch.ops import activation as _act
+from paddle_tpu_torch.ops import crf as _crf
 from paddle_tpu_torch.ops import loss as _loss
 from paddle_tpu_torch.ops import math as _math
 from paddle_tpu_torch.ops import nn as _nn
 from paddle_tpu_torch.ops import reduce as _reduce
+from paddle_tpu_torch.ops import rnn as _rnn
+from paddle_tpu_torch.ops import sequence as _seq
 from paddle_tpu_torch.ops import tensor_ops as _tensor
 from paddle_tpu_torch.static.program import (
     Variable, default_main_program, default_startup_program,
@@ -61,8 +79,9 @@ __all__ = ["data", "fc", "embedding", "mul", "matmul",
            "elementwise_add", "elementwise_mul", "relu", "sigmoid", "tanh",
            "gelu", "softmax", "cross_entropy", "square_error_cost", "mean",
            "concat", "reshape", "split", "scale", "cos_sim", "conv2d",
-           "pool2d", "batch_norm", "dropout",
-           "learning_rate_scheduler", "noam_decay",
+           "pool2d", "batch_norm", "dropout", "sums", "create_parameter",
+           "linear_chain_crf", "crf_decoding"] + _rnn.__all__ + \
+    _seq.__all__ + ["learning_rate_scheduler", "noam_decay",
            "exponential_decay", "natural_exp_decay", "inverse_time_decay",
            "polynomial_decay", "piecewise_decay", "cosine_decay",
            "linear_lr_warmup"]
@@ -70,14 +89,32 @@ __all__ = ["data", "fc", "embedding", "mul", "matmul",
 #: ops whose leading N args are tensors (default 1)
 _NARGS = {"elementwise_add": 2, "elementwise_mul": 2, "matmul": 2, "mul": 2,
           "cross_entropy": 2, "square_error_cost": 2, "cos_sim": 2,
-          "embedding": 2, "conv2d": 2}
+          "embedding": 2, "conv2d": 2, "linear_chain_crf": 3,
+          "crf_decoding": 2}
 #: ops whose first arg is a list of tensors
-_LIST_FIRST = {"concat"}
+_LIST_FIRST = {"concat", "sums"}
+#: ops that return (outputs, final state): in a Program the op's one output
+#: is the first (the JAX package's op count of 1 for them)
+_FIRST_OUT = {"lstm", "gru", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru",
+              "simple_rnn", "attention_lstm"}
 #: ops whose compute reaches a kernel: shape inference runs this plain body
 _SHAPE_BODIES = {"embedding": _nn.embedding_reference}
 _META = torch.device("meta")
 #: op name -> its op function (the eager body of its layer)
 _OPS = {}
+
+
+def _call(fn, xs, attrs, listy):
+    """``fn`` over an op's inputs: a list first, by parameter name (an op
+    with promoted tensor arguments: its ``_tensor_params`` attr names its
+    inputs in order) or positionally."""
+    attrs = dict(attrs)
+    tparams = attrs.pop("_tensor_params", None)
+    if listy:
+        return fn(list(xs), **attrs)
+    if tparams is not None:
+        return fn(**attrs, **dict(zip(tparams, xs)))
+    return fn(*xs, **attrs)
 
 
 def _register(name, fn):
@@ -86,8 +123,7 @@ def _register(name, fn):
     _OPS[name] = fn
 
     def compute(ins, attrs):
-        xs = ins.get("X", [])
-        out = fn(list(xs), **attrs) if listy else fn(*xs, **attrs)
+        out = _call(fn, ins.get("X", []), attrs, listy)
         return {"Out": list(out) if isinstance(out, (tuple, list))
                 else [out]}
 
@@ -107,18 +143,27 @@ def _meta_of(v, val):
     return torch.empty(_sub_dyn(v.shape, val), dtype=v.dtype, device=_META)
 
 
-def _append_static(name, tensor_vals, attrs, listy):
+def _append_static(name, tensor_vals, attrs, listy, tensor_params=None,
+                   promoted=None):
     """Append one op to the current program; returns its output Variable
     (a list of them where the op returns a list, as ``split`` does). A
     literal (non-Variable) operand becomes a program constant; attrs whose
     name starts with ``_`` are the Executor's (``_needs_rng``) and do not
-    reach the op's function here."""
+    reach the op's function here. ``promoted`` is an ordered {parameter:
+    Variable} of tensors found in attribute positions: they join the
+    inputs after ``tensor_params`` (the leading tensor parameters' names),
+    and the ``_tensor_params`` attr records all their names in order."""
     program = default_main_program()
     blk = program.global_block()
     fn = _SHAPE_BODIES.get(name, _OPS[name])
     in_names, probes2, probes3 = [], [], []
     had_dyn = False
-    for tv in (tensor_vals[0] if listy else tensor_vals):
+    flat = list(tensor_vals[0] if listy else tensor_vals)
+    if promoted:
+        flat += list(promoted.values())
+        attrs = {k: v for k, v in attrs.items() if k not in promoted}
+        attrs["_tensor_params"] = tuple(tensor_params) + tuple(promoted)
+    for tv in flat:
         if isinstance(tv, Variable):
             in_names.append(tv.name)
             probes2.append(_meta_of(tv, 2))
@@ -134,10 +179,12 @@ def _append_static(name, tensor_vals, attrs, listy):
             probes2.append(arr.to(_META))
             probes3.append(arr.to(_META))
 
-    fn_attrs = {k: v for k, v in attrs.items() if not k.startswith("_")}
+    fn_attrs = {k: v for k, v in attrs.items()
+                if not k.startswith("_") or k == "_tensor_params"}
 
     def infer(xs):
-        return fn(list(xs), **fn_attrs) if listy else fn(*xs, **fn_attrs)
+        out = _call(fn, xs, fn_attrs, listy)
+        return out[0] if name in _FIRST_OUT else out
 
     shape_error = None
     try:
@@ -203,13 +250,19 @@ def _dual(name, fn):
             tensor_vals = [vals[p] for p in pnames[:n_tensor]]
             attr_names = pnames[n_tensor:]
         attrs = {p: vals[p] for p in attr_names if p in vals and p != "name"}
-        if in_static_mode() and _has_variable(
-                tensor_vals[0] if listy else tensor_vals):
-            if any(isinstance(v, Variable) for v in attrs.values()):
+        if in_static_mode():
+            promoted = {p: v for p, v in attrs.items()
+                        if isinstance(v, Variable)}
+            if any(isinstance(v, (list, tuple)) and _has_variable(v)
+                   for v in attrs.values()):
                 raise EnforceNotMet(
-                    f"{name}: a Variable in an attribute position is not "
-                    "ported yet (ROADMAP queue 1 item 4)")
-            return _append_static(name, tensor_vals, attrs, listy)
+                    f"{name}: a list of Variables in an attribute position "
+                    "is not ported yet (ROADMAP queue 1 item 4)")
+            if promoted or _has_variable(
+                    tensor_vals[0] if listy else tensor_vals):
+                return _append_static(name, tensor_vals, attrs, listy,
+                                      tensor_params=pnames[:n_tensor],
+                                      promoted=promoted)
         return fn(*args, **kwargs)
 
     return wrapper
@@ -232,6 +285,14 @@ scale = _dual("scale", _math.scale)
 split = _dual("split", _tensor.split)
 cos_sim = _dual("cos_sim", _loss.cos_sim)
 pool2d = _dual("pool2d", _nn.pool2d)
+sums = _dual("sums", _math.sums)
+crf_decoding = _dual("crf_decoding", _crf.crf_decoding)
+for _n in _rnn.__all__:
+    globals()[_n] = _dual(_n, getattr(_rnn, _n))
+for _n in _seq.__all__:
+    globals()[_n] = _dual(_n, getattr(_seq, _n))
+del _n
+_register("linear_chain_crf", _crf.linear_chain_crf)
 _register("embedding", _nn.embedding)
 _register("softmax", _act.softmax)
 _register("conv2d", _nn.conv2d)
@@ -250,15 +311,19 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
 # parameterized layers
 # ---------------------------------------------------------------------------
 def _make_param(prefix, shape, dtype, attr, default_init, trainable=True):
-    """Create a parameter in the current program, and its ``init_param``
-    op in the startup program (once per name)."""
+    """Create a parameter in whichever context is active: in the current
+    program (and its ``init_param`` op in the startup program, once per
+    name), or in the module context's frame (JAX layers/__init__.py:398-
+    429)."""
     attr = ParamAttr.to_attr(attr) if attr is not None else ParamAttr()
     init = attr.initializer or default_init
     if not in_static_mode():
+        if _module.in_module_ctx():
+            return _module.create_parameter(prefix, shape, dtype,
+                                            initializer=init, attr=attr)
         raise EnforceNotMet(
-            "a parameterized layer needs a Program (enable_static or "
-            "program_guard); the eager module context is not ported yet "
-            "(ROADMAP queue 1 item 7d)")
+            "parameterized layer needs a Program (use program_guard) or a "
+            "module context (nn.transform / Layer.init)")
     blk = default_main_program().global_block()
     name = attr.name or unique_name.generate(prefix)
     p = blk.create_parameter(
@@ -285,6 +350,18 @@ def _init_param_compute(ins, attrs):
 
 
 register_op("init_param", _init_param_compute)
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """fluid.layers.create_parameter parity: in a Program or the module
+    context, Constant(0) for a bias and Xavier otherwise by default."""
+    default = default_initializer or (
+        I.Constant(0.0) if is_bias else I.Xavier())
+    if attr is None and name is not None:
+        attr = ParamAttr(name=name)
+    return _make_param(name or "param", tuple(shape), convert_dtype(dtype),
+                       attr, default)
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -336,8 +413,10 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                     I.Xavier())
     pi = padding_idx if padding_idx is None or padding_idx >= 0 \
         else size[0] + padding_idx
-    return _append_static("embedding", [input, w], {"padding_idx": pi},
-                          False)
+    if in_static_mode() and isinstance(input, Variable):
+        return _append_static("embedding", [input, w], {"padding_idx": pi},
+                              False)
+    return _nn.embedding(input, w, pi)
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
@@ -430,3 +509,20 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
              "_needs_rng": True}, False)
     return _nn.dropout(x, dropout_prob, is_test, seed,
                        dropout_implementation)
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """fluid.layers.linear_chain_crf parity: creates the ``crfw``
+    transition parameter ([num_tags+2, num_tags], ref: operators/
+    linear_chain_crf_op.cc OpMaker) and returns the per-sequence negative
+    log-likelihood. In a Program, ``length`` (when given) is the op's
+    fourth input. Decode with crf_decoding(input, crfw)."""
+    num_tags = int(input.shape[-1])
+    w = _make_param("crfw", (num_tags + 2, num_tags), torch.float32,
+                    param_attr, I.Xavier())
+    if in_static_mode() and isinstance(input, Variable):
+        tensors = [input, w, label]
+        if length is not None:
+            tensors.append(length)
+        return _append_static("linear_chain_crf", tensors, {}, False)
+    return _crf.linear_chain_crf(input, w, label, length)

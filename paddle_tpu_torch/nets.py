@@ -1,16 +1,16 @@
 """fluid.nets: the port of ``paddle_tpu/nets.py``'s composite helpers,
 built from ``paddle_tpu_torch.layers``, so each works where its layers do
 (in a Program; ``glu`` and ``scaled_dot_product_attention`` also on
-tensors).
-
-``sequence_conv_pool`` needs ragged batches (``core/lod``), which are not
-ported yet: it raises naming ROADMAP queue 1 item 5+4, step 4.
+tensors; ``sequence_conv_pool`` on ragged batches in the module context,
+as in the JAX package, whose sequence ops run eagerly).
 """
 
 import torch
 
+from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch import layers
-from paddle_tpu_torch.core.enforce import EnforceNotMet
+from paddle_tpu_torch.core.lod import RaggedBatch
+from paddle_tpu_torch.ops import sequence as seq_ops
 
 __all__ = [
     "simple_img_conv_pool", "img_conv_group", "sequence_conv_pool", "glu",
@@ -74,11 +74,23 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max", bias_attr=None):
-    """Not ported yet: raises."""
-    raise EnforceNotMet(
-        "nets.sequence_conv_pool needs ragged batches (core/lod "
-        "RaggedBatch, sequence_conv, sequence_pool), which are not ported "
-        "yet (ROADMAP queue 1 item 5+4, step 4)")
+    """nets.sequence_conv_pool parity: a context convolution (an im2col
+    weight ``seqconv_w`` [filter_size * H, num_filters] and a bias
+    ``seqconv_b``), ``act``, then a sequence pool. ``input``: RaggedBatch
+    or (data [B, T, H], lengths). The bias and the activation reach the
+    padded steps too, and the pool masks them, as in the JAX package."""
+    data = input.data if isinstance(input, RaggedBatch) else input[0]
+    h = int(data.shape[-1])
+    w = layers._make_param("seqconv_w", (filter_size * h, num_filters),
+                           torch.float32, param_attr, I.Xavier())
+    conv_out = seq_ops.sequence_conv(input, w, filter_size)
+    if bias_attr is not False:
+        b = layers._make_param("seqconv_b", (num_filters,), torch.float32,
+                               bias_attr, I.Constant(0.0))
+        conv_out = RaggedBatch(conv_out.data + b, conv_out.lengths)
+    conv_out = RaggedBatch(layers._apply_act(conv_out.data, act),
+                           conv_out.lengths)
+    return seq_ops.sequence_pool(conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

@@ -262,9 +262,12 @@ def try_fused_matmul(ins, attrs):
     operands fall outside the kernel's contract (then the caller runs the
     plain composition, as the JAX package does). Inside the contract a CUDA
     tensor always launches the kernel or raises. One difference: a ``mul``
-    takes x of any rank, flattened after dim 0 as the op flattens it (the
-    JAX contract refuses an x whose last dim is not w's first, so an fc
-    over a conv's [B, C, H, W] output ran the composition there)."""
+    takes x of any rank, flattened at ``x_num_col_dims`` as the op
+    flattens it, the output's leading dims restored after (the JAX contract
+    refuses an x whose last dim is not w's first, so an fc over a conv's
+    [B, C, H, W] output ran the composition there; an fc with
+    ``num_flatten_dims=2`` over [B, T, D] has D last and takes the kernel
+    in both)."""
     xs = list(ins["X"])
     x, w = xs[0], xs[1]
     quant = attrs.get("quant")
@@ -291,13 +294,13 @@ def try_fused_matmul(ins, attrs):
         x_eff = x
         out_shape = (*x.shape[:-1], w.shape[1])
     elif attrs["mm_type"] == "mul":
-        if mm_attrs.get("x_num_col_dims", 1) != 1 \
-                or mm_attrs.get("y_num_col_dims", 1) != 1:
+        k = mm_attrs.get("x_num_col_dims", 1)
+        if not 1 <= k < x.dim() or mm_attrs.get("y_num_col_dims", 1) != 1:
             return None
-        x_eff = x.reshape(x.shape[0], -1)
+        x_eff = x.reshape(math.prod(x.shape[:k]), -1)
         if x_eff.shape[1] != w.shape[0]:
             return None
-        out_shape = (x.shape[0], w.shape[1])
+        out_shape = (*x.shape[:k], w.shape[1])
     else:
         return None
     bias = None

@@ -1,6 +1,6 @@
 """Elementwise and linear-algebra ops of the static path: the port of
 ``paddle_tpu/ops/math.py``'s ``elementwise_add``, ``elementwise_mul``,
-``matmul``, ``mul`` and ``scale``.
+``matmul``, ``mul``, ``scale`` and ``sums``.
 
 The reference's elementwise ops take an ``axis`` attr that aligns a
 lower-rank y against x's dims starting at ``axis`` (-1: trailing).
@@ -10,7 +10,8 @@ import math
 
 import torch
 
-__all__ = ["elementwise_add", "elementwise_mul", "matmul", "mul", "scale"]
+__all__ = ["elementwise_add", "elementwise_mul", "matmul", "mul", "scale",
+           "sums"]
 
 
 def _align(x, y, axis=-1):
@@ -73,3 +74,11 @@ def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
     ys = y.reshape(math.prod(y.shape[:y_num_col_dims]), -1)
     out = torch.matmul(xs, ys)
     return out.reshape(*x.shape[:x_num_col_dims], ys.shape[-1])
+
+
+def sums(inputs, name=None):
+    """sum_op.cc parity: a list of tensors added left to right."""
+    out = inputs[0]
+    for t in inputs[1:]:
+        out = out + t
+    return out

@@ -10,6 +10,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,9 +51,12 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
     # the subpackages with copies of jax-free JAX-package modules are
     # scanned too
     for sub in ("serving", "monitor", "static", "models", "layers",
-                "distributed"):
+                "distributed", "nn"):
         assert any(f"{os.sep}{sub}{os.sep}" in p for p in srcs), sub
-    for mod in ("nets.py", "optimizer.py", f"ops{os.sep}nn.py"):
+    for mod in ("nets.py", "optimizer.py", f"ops{os.sep}nn.py",
+                "lod_tensor.py", f"core{os.sep}lod.py",
+                f"ops{os.sep}sequence.py", f"ops{os.sep}crf.py",
+                f"ops{os.sep}rnn.py", f"nn{os.sep}module.py"):
         assert any(p.endswith(f"{os.sep}{mod}") for p in srcs), mod
     for path in srcs:
         with open(path) as f:
@@ -73,7 +77,10 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.transformer\n"
         "import paddle_tpu_torch.models.deepfm, paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
-        "import paddle_tpu_torch.nets\n"
+        "import paddle_tpu_torch.nets, paddle_tpu_torch.nn\n"
+        "import paddle_tpu_torch.nn.module, paddle_tpu_torch.lod_tensor\n"
+        "import paddle_tpu_torch.core.lod, paddle_tpu_torch.ops.sequence\n"
+        "import paddle_tpu_torch.ops.crf, paddle_tpu_torch.ops.rnn\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -163,6 +170,22 @@ def test_default_device_raises_without_a_card(monkeypatch):
     for opt in (optimizer.Lamb(), optimizer.ExponentialMovingAverage()):
         state = opt.init(p)
         assert leaves_device(state) == {torch.device("cpu")}
+    # the sequence models' entry points: ragged batches, the lod tensors,
+    # the JAX weights and the module context's parameters go to the card
+    from paddle_tpu_torch.core.lod import RaggedBatch
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        RaggedBatch.from_list([[1, 2], [3]])
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        paddle_tpu_torch.create_random_int_lodtensor([[2, 1]], [1])
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        paddle_tpu_torch.nn.params_from_numpy({"w": np.zeros(2)})
+    model = paddle_tpu_torch.nn.transform(
+        lambda x: paddle_tpu_torch.layers.fc(x, 2))
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        model.init(None, torch.ones(1, 3))
+    params, _ = model.init(torch.Generator().manual_seed(0),
+                           torch.ones(1, 3))
+    assert leaves_device(params) == {torch.device("cpu")}
     init_fn, _ = bert.make_train_step(cfg, optimizer.Adam(), device="cpu")
     params, state = init_fn(torch.Generator().manual_seed(0))
     assert state["step"].device == params["embed"]["word"].device == \
