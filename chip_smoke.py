@@ -231,7 +231,29 @@ Phases; any failure raises and the script exits non-zero:
    equal); every sequence op, the CRF and each recurrent function (outputs
    and gradients) card against CPU at a zero-length, a one-step and a full
    row, forward and reversed.
-28. Print one JSON line of every ported kernel (launches on the main paths,
+28. The PTB LSTM language model at ``lm_model.py``'s medium config
+   (train-ptb-lm; ``models/ptb_lm.py``): vocabulary 10000, hidden 650, 2
+   layers, 35 steps, batch 20, dropout 0.5 outside the loop, SGD 1.0 under
+   ``GradientClipByGlobalNorm(5.0)``, built with ``layers.static_rnn`` (a
+   ``scan_block``) and fed by a ``py_reader``: ``Executor.prepare`` (its
+   time; the kernel libraries it loads; no runner built after it), then
+   two epochs of 30 windows of a seeded Markov stream through the
+   start/reset protocol, each window's final state fed back on the card.
+   Exactly 1 gather, 1 fused matmul and 7 ``fused_sgd`` launches a step;
+   the loss falls; first step against the median of steps 5 on, tokens/s,
+   peak memory beside ``memory_usage``'s estimate, the busy share and the
+   device events per step and per time step.
+29. Greedy generation over phase 28's weights through ``layers.while_loop``
+   (generate-ptb-lm): 35 tokens for 20 streams, one host read per
+   iteration and one more, no registered kernel; latency, tokens/s, device
+   events per iteration.
+30. Control-flow correctness (control-flow-correctness): the LM at medium's
+   widths and batch 4 (dropout 0), 3 steps on the card against the CPU
+   within ``LM_TOL``; phase 29's windows again on the CPU, token for
+   token; module 1's ops, the eager and static control flow (zero-trip
+   loops) and the tensor arrays (tied lengths, a row of length 0) card
+   against CPU within ``CF_OP_TOL``.
+31. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -4218,6 +4240,560 @@ def phase_sequence_checks(K, pt, ops, card, srl_built):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 28-30: static control flow, the reader protocol and prepare: the
+# PTB LSTM language model at lm_model.py's medium config
+# ---------------------------------------------------------------------------
+#: steps per epoch of phase 28's two epochs (the same windows each epoch)
+LM_STEPS = 30
+#: phase 30's limits, card against the port on the CPU in fp32 with TF32
+#: off, set before the first card run as phase 27's are (the CPU tests
+#: against the JAX package show gaps of 1e-7 to 1e-6 at a small width,
+#: tests/test_torch_ptb.py); the loss is a sum over 35 steps (~322 at the
+#: start), so its limit is relative
+LM_TOL = {"loss_gap_rel": 1e-5, "grad_relnorm_err": 1e-4, "param_gap": 1e-4}
+#: module 1's ops and the control-flow constructs, card against CPU: moves,
+#: selections and compares exact, float results 1e-5 of their largest value
+CF_OP_TOL = 1e-5
+
+
+def lm_windows(ptb_lm, cfg, steps, seed):
+    """``steps`` windows of a seeded Markov stream cut as the PTB reader
+    cuts its corpus."""
+    stream = ptb_lm.markov_stream(cfg, cfg.batch * (cfg.num_steps * steps
+                                                    + 1), seed)
+    w = ptb_lm.ptb_windows(stream, cfg)
+    check(len(w) == steps, f"{len(w)} windows, expected {steps}")
+    return w
+
+
+def lm_epoch(exe, built, scope, device):
+    """One epoch of the start/reset protocol: ``reader.start()``, then
+    ``Executor.run`` with the state fed back (a tensor on ``device``) until
+    ``EOFException``, then ``reset``. Returns (losses, ms of each step,
+    the last state); each step ends in the loss's host read."""
+    from paddle_tpu_torch.core import EOFException
+    cfg_b, cfg_w = built["init"].shape
+    state = torch.zeros(cfg_b, cfg_w, device=device)
+    fetch = [built["loss"], built["final"]]
+    losses, step_ms = [], []
+    built["reader"].start()
+    while True:
+        t0 = time.perf_counter()
+        try:
+            loss, state = exe.run(built["main"], feed={"init": state},
+                                  fetch_list=fetch, scope=scope,
+                                  return_numpy=False)
+        except EOFException:
+            break
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    built["reader"].reset()
+    return losses, step_ms, state
+
+
+def phase_train_ptb_lm(K, pt, ptb_lm, card):
+    """Path A at lm_model.py's medium config: ``Executor.prepare`` with the
+    feeds' (shape, dtype) pairs (its time, the kernel libraries it loads,
+    and no runner built after it), then two epochs of ``LM_STEPS`` steps
+    through the py_reader's start/reset protocol (the batches staged in
+    pinned memory by the reader's thread), each window's final state fed
+    back as a card tensor. Exactly 1 gather, 1 fused matmul and 7
+    fused_sgd launches a step; the mean loss of the last five steps below
+    the first five's."""
+    cfg = ptb_lm.medium()
+    B, T, W = cfg.batch, cfg.num_steps, cfg.state_width
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    built = ptb_lm.build_train(pt, cfg)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(built["startup"], scope=scope)
+    windows = lm_windows(ptb_lm, cfg, LM_STEPS, 14)
+    built["reader"].decorate_tensor_provider(lambda: iter(windows))
+    xn, yn = [v.name for v in built["reader"].vars]
+    t0 = time.perf_counter()
+    check(exe.prepare(built["main"], feed={
+        xn: ((B, T), "int64"), yn: ((B, T, 1), "int64"),
+        "init": ((B, W), "float32")},
+        fetch_list=[built["loss"], built["final"]], scope=scope),
+        "train-ptb-lm: prepare")
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    (runner,) = exe._runners.values()
+    check(runner.kernel_libraries == ["embedding", "fused_matmul",
+                                      "fused_sgd"],
+          f"train-ptb-lm: prepare loaded {runner.kernel_libraries}")
+    want = {"embedding_gather": 1, "fused_matmul": 1, "fused_sgd": 7}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(2):
+        ls, ms, state = lm_epoch(exe, built, scope, "cuda")
+        check(len(ls) == LM_STEPS, f"train-ptb-lm: {len(ls)} steps in an "
+                                   f"epoch, expected {LM_STEPS}")
+        losses += ls
+        step_ms += ms
+    counts = K.launch_counts()
+    steps = len(losses)
+    for name, n in counts.items():
+        check(n == want.get(name, 0) * steps,
+              f"train-ptb-lm: {n} {name} launches in {steps} steps, "
+              f"expected {want.get(name, 0)} per step")
+    check(exe.trace_count == 1, f"train-ptb-lm: {exe.trace_count} runners "
+                                "built; prepare's should serve every step")
+    check(all(math.isfinite(x) for x in losses), f"train-ptb-lm: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"train-ptb-lm: loss {first} over the first 5 "
+                        f"steps, {last} over the last 5")
+    steady = statistics.median(step_ms[5:])
+    x, y = windows[0]
+
+    def one_step():
+        exe.run(built["main"], feed={xn: x, yn: y, "init": state},
+                fetch_list=[built["loss"]], scope=scope, return_numpy=False)
+
+    prof = op_breakdown(one_step, top=8, host_top=8)
+    est = pt.static.memory_usage(built["main"], batch_size=B)
+    rec = dict(
+        config="lm_model.py medium", vocab=cfg.vocab, hidden=cfg.hidden,
+        layers=cfg.layers, num_steps=T, batch=B, dropout=cfg.dropout,
+        optimizer="SGD 1.0, GradientClipByGlobalNorm(5.0)",
+        params=sum(math.prod(scope.find_var(n).shape)
+                   for n in ptb_lm.param_names(cfg)),
+        prepare_ms=prepare_ms, kernel_libraries=runner.kernel_libraries,
+        steps=steps, first_step_ms=step_ms[0], ms_per_step_steady=steady,
+        ms_per_step_quartiles=statistics.quantiles(step_ms[5:], n=4),
+        tokens_per_s=B * T / steady * 1e3,
+        loss_per_token_first5_last5=[first / T, last / T],
+        loss_first=losses[0], loss_last=losses[-1],
+        launches_per_step={k: v // steps for k, v in counts.items() if v},
+        device_events_per_step=prof.get("launches"),
+        device_events_per_time_step=(prof.get("launches") or 0) / T,
+        device_busy_share=prof.get("kernel_ms", 0.0) / steady,
+        peak_gb=peak_since(base),
+        memory_usage_estimate_gb=[est[0] / 1e9, est[1] / 1e9],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        card=card, profile=prof,
+        launches={k: v for k, v in counts.items() if v})
+    log(f"train-ptb-lm: {steps} steps, loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}, first step {step_ms[0]:.1f} ms, steady "
+        f"{steady:.3f} ms/step, {rec['tokens_per_s']:.0f} tokens/s [{card}]")
+    log("train_ptb_lm " + json.dumps(rec))
+    return rec, (built, scope, state, windows)
+
+
+def phase_generate_ptb_lm(K, pt, ptb_lm, card, trained):
+    """Path B over phase 28's trained scope: greedy generation of 35 tokens
+    for the 20 streams through ``layers.while_loop``, from the last
+    window's final state; one host read per iteration (the predicate) and
+    one more, and no registered kernel."""
+    from paddle_tpu_torch.ops import control_flow as cf
+    cfg = ptb_lm.medium()
+    built, scope, state, windows = trained
+    n = cfg.num_steps
+    gen = ptb_lm.build_generate(pt, cfg, n)
+    exe = pt.Executor()
+    x_last = windows[-1][0]
+    feed = {"gen_state": state, "gen_tok": x_last[:, -1], "gen_buf": x_last}
+
+    def run():
+        return exe.run(gen["main"], feed=feed, fetch_list=[gen["out"]],
+                       scope=scope)[0]
+
+    run()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    cf.reset_host_reads()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = run()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    reads = cf.host_reads() / 5
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    check(not counts, f"generate-ptb-lm: registered kernels launched: "
+                      f"{counts}")
+    check(reads == n + 1, f"generate-ptb-lm: {reads} host reads per "
+                          f"generation, expected {n + 1}")
+    check(out.shape == (cfg.batch, n) and out.min() >= 0
+          and out.max() < cfg.vocab, f"generate-ptb-lm: window {out.shape}")
+    prof = op_breakdown(run, top=6, host_top=6)
+    lat = statistics.median(ms)
+    rec = dict(streams=cfg.batch, tokens=n, latency_ms=lat, latency_ms_all=ms,
+               tokens_per_s=cfg.batch * n / lat * 1e3,
+               host_reads_per_generation=reads,
+               device_events_per_iteration=(prof.get("launches") or 0) / n,
+               device_busy_share=prof.get("kernel_ms", 0.0) / lat,
+               card=card, profile=prof)
+    log(f"generate-ptb-lm: {cfg.batch}x{n} tokens in {lat:.2f} ms, "
+        f"{rec['tokens_per_s']:.0f} tokens/s, {reads:.0f} host reads [{card}]")
+    log("generate_ptb_lm " + json.dumps(rec))
+    return rec, out
+
+
+def lm_card_vs_cpu(K, pt, ptb_lm, steps=3, devices=("cuda", "cpu")):
+    """The LM at medium's widths and batch 4 (dropout 0), ``steps`` steps
+    on the card and on the port on the CPU from the same weights through
+    the reader, fp32 with TF32 off: losses, the first step's gradients
+    (the largest relative norm error), the parameters after."""
+    import dataclasses
+    import numpy as np
+    cfg = dataclasses.replace(ptb_lm.medium(), batch=4, dropout=0.0)
+    windows = lm_windows(ptb_lm, cfg, steps, 30)
+    names = ptb_lm.param_names(cfg)
+    grads = [n + "@GRAD" for n in names]
+    snap, out = None, {}
+    for key, dev in zip(("card", "cpu"), devices):
+        built = ptb_lm.build_train(pt, cfg)
+        exe = pt.Executor(pt.CPUPlace() if dev == "cpu" else None)
+        if snap is None:
+            scope = pt.Scope()
+            exe.run(built["startup"], scope=scope)
+            snap = {n: scope.find_var(n).cpu().numpy().copy()
+                    for n, v in built["startup"].global_block().vars.items()
+                    if v.persistable}
+        scope = pt.Scope.from_numpy(snap, dev, built["startup"])
+        built["reader"].decorate_tensor_provider(
+            lambda: iter(windows), places=pt.CPUPlace() if dev == "cpu"
+            else None)
+        built["reader"].start()
+        state = torch.zeros(cfg.batch, cfg.state_width, device=dev)
+        K.reset_launch_counts()
+        losses, first = [], None
+        for i in range(steps):
+            res = exe.run(built["main"], feed={"init": state},
+                          fetch_list=[built["loss"], built["final"]]
+                          + (grads if i == 0 else []), scope=scope,
+                          return_numpy=False)
+            losses.append(float(res[0]))
+            state = res[1]
+            first = first or [g.cpu().numpy().copy() for g in res[2:]]
+        built["reader"].reset()
+        out[key] = (losses, first, {n: scope.find_var(n).cpu()
+                                    for n in names}, K.launch_counts())
+    (cl, cg, cp, counts), (pl, pg, pp, _) = out["card"], out["cpu"]
+    errs = {n: float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+            for n, a, b in zip(names, cg, pg)}
+    rec = dict(
+        batch=cfg.batch, losses_card=cl, losses_cpu=pl,
+        loss_gap_rel=max(abs(a - b) / max(abs(b), 1.0)
+                         for a, b in zip(cl, pl)),
+        grad_relnorm_err=max(errs.values()),
+        grad_relnorm_err_worst=max(errs, key=errs.get),
+        param_gap=max(max_err(cp[n], pp[n]) for n in names),
+        launches={k: v for k, v in counts.items() if v})
+    for k, lim in LM_TOL.items():
+        check(rec[k] <= lim, f"control-flow-correctness LM: {k} {rec[k]} "
+                             f"above {lim}: {rec}")
+    check(rec["launches"] == {"embedding_gather": steps,
+                              "fused_matmul": steps,
+                              "fused_sgd": 7 * steps},
+          f"control-flow-correctness LM: launches {rec['launches']}")
+    log("control-flow-correctness LM: " + json.dumps(rec))
+    return rec
+
+
+def lm_generation_card_vs_cpu(pt, ptb_lm, trained, card_out):
+    """Phase 29's generation from phase 28's trained weights, run again by
+    the port on the CPU: the windows must be equal token for token."""
+    import numpy as np
+    cfg = ptb_lm.medium()
+    built, scope, state, windows = trained
+    cpu = pt.Scope()
+    for n in ptb_lm.param_names(cfg):
+        cpu.set_var(n, scope.find_var(n).cpu())
+    gen = ptb_lm.build_generate(pt, cfg, cfg.num_steps)
+    x_last = windows[-1][0]
+    got = pt.Executor(pt.CPUPlace()).run(
+        gen["main"], feed={"gen_state": state.cpu(),
+                           "gen_tok": x_last[:, -1], "gen_buf": x_last},
+        fetch_list=[gen["out"]], scope=cpu)[0]
+    differ = int((got != card_out).sum())
+    check(differ == 0, f"control-flow-correctness: the CPU's generated "
+                       f"windows differ from the card's at {differ} tokens: "
+                       f"first at {np.argwhere(got != card_out)[:1]}")
+    return dict(generated_tokens=int(got.size), differ=differ)
+
+
+def cf_cases(pt, ops):
+    """Module 1's ops, the eager and static control-flow constructs and the
+    tensor arrays as (name, fn(device) -> tensors) cases at tied lengths
+    (numpy's sort orders), zero-trip loops and rows of length 0."""
+    import numpy as np
+    from paddle_tpu_torch.core.lod import RaggedBatch
+    from paddle_tpu_torch.ops import control_flow as cf
+    from paddle_tpu_torch.ops import tensor_array as ta
+    rng = np.random.RandomState(30)
+    xf = rng.randn(64, 33).astype("float32")
+    xp = (np.abs(xf) + 0.1).astype("float32")
+    xu = rng.uniform(-0.99, 0.99, (64, 33)).astype("float32")
+    yf = rng.randn(64, 33).astype("float32")
+    xi = rng.randint(-5, 6, (64, 33)).astype("int32")
+    ties = rng.randint(0, 4, (16, 9)).astype("float32")
+    xb, yb = xf > 0, yf > 0
+    lens = np.array([3, 0, 5, 5, 2, 3], "int32")
+    seq = rng.randn(6, 5, 4).astype("float32")
+
+    def T(a, dev):
+        return torch.tensor(a, device=dev)
+
+    cases = []
+    for n in ops.activation.__all__:
+        if n == "prelu":
+            cases.append((n, lambda d: ops.prelu(T(xf, d), T(xf[0], d),
+                                                 mode="element")))
+        elif n == "maxout":
+            cases.append((n, lambda d: ops.maxout(T(xf[:, :32], d).reshape(
+                8, 8, 4, 8), 2)))
+        else:
+            cases.append((n, lambda d, n=n: getattr(ops, n)(T(xf, d))))
+    unary_pos = {"log", "sqrt", "rsqrt", "reciprocal"}
+    unary = {"abs", "ceil", "floor", "round", "exp", "square", "sign", "cos",
+             "sin", "atan", "isfinite", "increment"} | unary_pos
+    for n in sorted(unary):
+        src = xp if n in unary_pos else xf
+        cases.append((n, lambda d, n=n, src=src: getattr(ops, n)(T(src, d))))
+    for n in ("acos", "asin"):
+        cases.append((n, lambda d, n=n: getattr(ops, n)(T(xu, d))))
+    for n in ops.math.__all__:
+        if n.startswith("elementwise_") or n == "minus":
+            b = xp if n in ("elementwise_div", "elementwise_mod",
+                            "elementwise_floordiv", "elementwise_pow") else yf
+            a = xp if n == "elementwise_pow" else xf
+            cases.append((n, lambda d, n=n, a=a, b=b: getattr(ops, n)(
+                T(a, d), T(b, d))))
+            cases.append((n + "_int", lambda d, n=n: getattr(ops, n)(
+                T(xi, d), T(np.abs(xi) + 1, d))))
+        elif n in ("equal", "not_equal", "less_than", "less_equal",
+                   "greater_than", "greater_equal"):
+            cases.append((n, lambda d, n=n: getattr(ops, n)(T(xi, d),
+                                                            T(xi[0], d))))
+        elif n.startswith("logical_"):
+            cases.append((n, lambda d, n=n: getattr(ops, n)(
+                T(xb, d), T(yb, d)) if n != "logical_not"
+                else ops.logical_not(T(xb, d))))
+    cases += [
+        ("matmul", lambda d: ops.matmul(T(xf, d), T(yf, d),
+                                        transpose_y=True)),
+        ("mul", lambda d: ops.mul(T(seq, d), T(xf[:4, :7], d),
+                                  x_num_col_dims=2)),
+        ("bmm", lambda d: ops.bmm(T(seq, d), T(seq, d).transpose(1, 2))),
+        ("dot", lambda d: ops.dot(T(xf, d), T(yf, d))),
+        ("scale", lambda d: ops.scale(T(xf, d), 2.0, 0.5, False)),
+        ("sums", lambda d: ops.sums([T(xf, d), T(yf, d), T(xf, d)])),
+        ("cumsum", lambda d: ops.cumsum(T(xi, d), axis=1, exclusive=True,
+                                        reverse=True)),
+        ("clip", lambda d: ops.clip(T(xf, d), -0.5, 0.5)),
+        ("clip_by_norm", lambda d: ops.clip_by_norm(T(xf, d), 1.0)),
+        ("cast", lambda d: ops.cast(T(xf, d), "int64")),
+        ("pow", lambda d: ops.pow(T(xp, d), 1.5)),
+    ]
+    for n in ops.reduce.__all__:
+        if n.startswith("reduce_"):
+            src = xb if n in ("reduce_all", "reduce_any") else (
+                xp[:, :4] if n == "reduce_prod" else xf)
+            cases.append((n, lambda d, n=n, src=src: getattr(ops, n)(
+                T(src, d), dim=[0], keep_dim=True)))
+            cases.append((n + "_all", lambda d, n=n, src=src: getattr(
+                ops, n)(T(src, d))))
+    cases += [
+        ("mean", lambda d: ops.mean(T(xi, d))),
+        ("squared_l2_norm", lambda d: ops.squared_l2_norm(T(xf, d))),
+        ("l1_norm", lambda d: ops.l1_norm(T(xf, d))),
+        ("l2_normalize", lambda d: ops.l2_normalize(T(xf, d))),
+        ("norm", lambda d: ops.norm(T(xf, d), axis=0)),
+        ("mean_iou", lambda d: ops.mean_iou(
+            T(np.abs(xi) % 3, d), T(np.abs(xi[::-1].copy()) % 3, d), 3)),
+        ("argsort_ties", lambda d: ops.argsort(T(ties, d), descending=True)),
+        ("argsort_ties_axis0", lambda d: ops.argsort(T(ties, d), axis=0)),
+        ("topk_ties", lambda d: ops.topk(T(ties, d), 4)),
+        ("argmax_ties", lambda d: ops.argmax(T(ties, d), axis=1)),
+        ("argmin_ties", lambda d: ops.argmin(T(ties, d), axis=1)),
+        ("unique_ties", lambda d: ops.unique_with_counts(T(ties, d))),
+        ("gather", lambda d: ops.gather(T(xf, d), T(np.array([5, 0, 5]), d))),
+        ("gather_nd", lambda d: ops.gather_nd(T(seq, d), T(np.array(
+            [[0, 1], [5, 4]]), d))),
+        ("scatter_add", lambda d: ops.scatter(T(xf, d), T(np.array(
+            [1, 3, 1]), d), T(yf[:3], d), overwrite=False)),
+        ("scatter", lambda d: ops.scatter(T(xf, d), T(np.array([2, 7]), d),
+                                          T(yf[:2], d))),
+        ("scatter_nd_add", lambda d: ops.scatter_nd_add(
+            T(xf, d), T(np.array([[0, 1], [0, 1]]), d), T(yf[0, :2], d))),
+        ("slice", lambda d: ops.slice(T(seq, d), [1, 2], [-3, 1], [100, 3])),
+        ("strided_slice", lambda d: ops.strided_slice(T(seq, d), [1], [4],
+                                                      [0], [-2])),
+        ("where", lambda d: ops.where(T(xb, d), T(xf, d), T(yf, d))),
+        ("where_index", lambda d: ops.where_index(T(xb, d))),
+        ("multiplex", lambda d: ops.multiplex(
+            [T(xf, d), T(yf, d)], T(np.arange(64) % 2, d))),
+        ("concat_split", lambda d: ops.split(ops.concat(
+            [T(xf, d), T(yf, d)], axis=1), [10, 20, 36], dim=1)),
+        ("stack_unstack", lambda d: ops.unstack(ops.stack(
+            [T(xf, d), T(yf, d)], axis=2), axis=1)),
+        ("expand_tile_flip_roll", lambda d: ops.roll(ops.flip(ops.tile(
+            ops.expand(T(seq, d), [1, 2, 1]), [1, 1, 2]), [0, 2]), 3,
+            axis=1)),
+        ("transpose_reshape", lambda d: ops.reshape(ops.transpose(
+            T(seq, d), [2, 0, 1]), [0, -1])),
+        ("fill_constant", lambda d: ops.fill_constant([3, 4], "int64", 7,
+                                                      device=d)),
+        ("arange_linspace_eye", lambda d: (
+            ops.arange(0, 7, 2, "int32", device=d),
+            ops.linspace(-1.0, 1.0, 9, device=d), ops.eye(3, 5, device=d))),
+        ("cond", lambda d: cf.cond(T(True, d), lambda a: a * 2.0,
+                                   lambda a: a - 1.0, (T(xf, d),))),
+        ("case", lambda d: cf.case([(T(False, d), lambda: T(xf, d)),
+                                    (T(True, d), lambda: T(yf, d))],
+                                   default=lambda: T(xf * 0, d))),
+        ("switch_case", lambda d: cf.switch_case(
+            T(np.int32(7), d), {1: lambda: T(xf, d), 3: lambda: T(yf, d)},
+            default=lambda: T(xf + 1.0, d))),
+        ("while_zero_trip", lambda d: cf.while_loop(
+            lambda i, v: i < 0, lambda i, v: [i + 1, v * 2.0],
+            [T(np.int32(0), d), T(xf, d)])),
+        ("while_5", lambda d: cf.while_loop(
+            lambda i, v: i < 5, lambda i, v: [i + 1, ops.tanh(v) * 1.5],
+            [T(np.int32(0), d), T(xf, d)])),
+        ("static_rnn", lambda d: cf.static_rnn(
+            lambda h, x: (ops.tanh(h + x), h * 2.0), T(seq, d),
+            T(seq[:, 0], d))),
+        ("dynamic_rnn_len0", lambda d: cf.dynamic_rnn(
+            lambda h, x: (ops.tanh(h + x), h * 2.0),
+            RaggedBatch(T(seq, d), T(lens, d)), T(seq[:, 0], d))),
+        ("StaticRNN_DynamicRNN", lambda d: _rnn_classes(
+            pt, ops, T(seq, d), T(lens, d))),
+        ("Switch", lambda d: _switch(pt, T(xf, d))),
+        ("IfElse", lambda d: _ifelse(pt, T(xf, d))),
+        ("tensor_array", lambda d: _arrays(ta, RaggedBatch(T(seq, d),
+                                                           T(lens, d)), d)),
+        ("static_while_scan", lambda d: _static_blocks(pt, xf, seq, d)),
+    ]
+    return cases
+
+
+def _rnn_classes(pt, ops, seq, lens):
+    outs = []
+    for rnn in (pt.layers.StaticRNN(), pt.layers.DynamicRNN(lengths=lens)):
+        rnn.step_input(seq)
+        rnn.memory(init=seq[:, 0])
+        outs += rnn(lambda x, h: {"mem": [ops.tanh(h + x)], "out": [h]})
+    return outs
+
+
+def _switch(pt, x):
+    with pt.layers.Switch() as sw:
+        with sw.case(x > 1.0):
+            a = x * 10.0
+        with sw.case(x > 0.0):
+            b = x * 100.0
+        with sw.default():
+            c = -x
+    return sw.select(a, b, c)
+
+
+def _ifelse(pt, x):
+    ie = pt.layers.IfElse(x[:, 0] > 0)
+    with ie.true_block():
+        ie.output(ie.input(x) * 10.0)
+    with ie.false_block():
+        ie.output(ie.input(x) - 1.0)
+    return ie()[0]
+
+
+def _arrays(ta, rb, dev):
+    """Every tensor-array function at tied lengths (numpy's orders) and a
+    row of length 0."""
+    a = ta.create_array(4, (rb.data.shape[2],), device=dev)
+    a = ta.array_write(a, torch.tensor(2, device=dev), rb.data[0, 0])
+    steps, order, lens = ta.lod_tensor_to_array(rb)
+    table = ta.lod_rank_table(rb)
+    t, f, restore = ta.split_lod_tensor(rb.data[:, 0], rb.lengths > 2)
+    return [a.stack(), ta.tensor_array_to_tensor(a, axis=1),
+            ta.array_read(a, 2), ta.array_length(a), *steps,
+            torch.tensor(order), ta.array_to_lod_tensor(steps, order,
+                                                        lens).data,
+            torch.tensor(table), ta.reorder_lod_tensor_by_rank(rb, table).data,
+            ta.lod_reset(rb, [int(lens.sum()) - 2, 2]).data,
+            ta.merge_lod_tensor(t, f, restore),
+            ta.shrink_rnn_memory(rb.data[:, 0], table, 2)]
+
+
+def _static_blocks(pt, xf, seq, dev):
+    """A while_block (5 trips, and 0) and a scan_block through
+    ``Executor.run`` on ``dev``."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.data("x", list(xf.shape), append_batch_size=False)
+        s = pt.data("s", list(seq.shape), append_batch_size=False)
+        outs = []
+        for trips in (5, 0):
+            lim = L.fill_constant([1], "int32", trips)
+            outs.append(L.while_loop(
+                lambda i, v: L.reduce_all(L.less_than(i, lim)),
+                lambda i, v: [L.increment(i, value=1), L.tanh(v)],
+                [L.fill_constant([1], "int32", 0), x])[1])
+        h0 = pt.data("h0", [seq.shape[0], seq.shape[2]],
+                     append_batch_size=False)
+        outs += list(L.static_rnn(
+            lambda h, x_t: (L.tanh(L.elementwise_add(h, x_t)), h), s, h0))
+    exe = pt.Executor(pt.CPUPlace() if dev == "cpu" else None)
+    return exe.run(main, feed={"x": xf, "s": seq, "h0": seq[:, 0]},
+                   fetch_list=outs, scope=pt.Scope(), return_numpy=False)
+
+
+def cf_card_vs_cpu(pt, ops):
+    """Each case of :func:`cf_cases` on the card and on the CPU: returns
+    {case: the largest gap over the largest value}; integer and boolean
+    results must be equal."""
+    from paddle_tpu_torch.ops.nn import no_tf32
+
+    def flat(v):
+        if isinstance(v, (list, tuple)):
+            return [x for e in v for x in flat(e)]
+        if hasattr(v, "lengths"):           # a RaggedBatch
+            return [v.data, v.lengths]
+        return [v if isinstance(v, torch.Tensor) else torch.as_tensor(v)]
+
+    gaps = {}
+    with no_tf32():
+        for name, fn in cf_cases(pt, ops):
+            a, b = flat(fn("cuda")), flat(fn("cpu"))
+            check(len(a) == len(b), f"{name}: {len(a)} vs {len(b)} outputs")
+            worst = 0.0
+            for u, v in zip(a, b):
+                u = u.cpu()
+                check(u.shape == v.shape and u.dtype == v.dtype,
+                      f"{name}: {u.shape} {u.dtype} vs {v.shape} {v.dtype}")
+                if not v.is_floating_point():
+                    check(torch.equal(u, v), f"{name}: card and CPU differ")
+                    continue
+                scale = max(v.abs().max().item(), 1.0) if v.numel() else 1.0
+                gap = (u - v).abs().max().item() / scale if v.numel() else 0.0
+                check(gap <= CF_OP_TOL, f"{name}: card vs CPU {gap}")
+                worst = max(worst, gap)
+            gaps[name] = worst
+    return gaps
+
+
+def phase_control_flow_checks(K, pt, ops, ptb_lm, trained, card_out):
+    """Phase 30: the LM at batch 4 card vs CPU (3 steps), phase 29's
+    generation again on the CPU, then module 1's ops, the control-flow
+    constructs and the tensor arrays card vs CPU."""
+    rec = dict(lm=lm_card_vs_cpu(K, pt, ptb_lm),
+               generation=lm_generation_card_vs_cpu(pt, ptb_lm, trained,
+                                                    card_out))
+    K.reset_launch_counts()
+    gaps = cf_card_vs_cpu(pt, ops)
+    rec.update(cases=len(gaps), worst_gap=max(gaps.values()),
+               worst_case=max(gaps, key=gaps.get), gaps=gaps,
+               tol=f"{LM_TOL}; ops {CF_OP_TOL} of the largest value, "
+                   "integers and booleans equal")
+    log("control_flow_correctness " + json.dumps(rec))
+    rec["launches"] = rec["lm"]["launches"]
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4230,7 +4806,7 @@ def main():
 
     from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import (
-        bert, deepfm, resnet, se_resnext, transformer, vgg,
+        bert, deepfm, ptb_lm, resnet, se_resnext, transformer, vgg,
     )
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
@@ -4338,6 +4914,10 @@ def main():
                         (NMT["src"], NMT["emb"], 64 * 50),
                         (MLF["users"], MLF["emb"], MLF["batch"])):
             check_embedding(K, h, d, torch.float32, n, gen)
+        # the PTB LM's table (phase 28): [10000,650] with 20x35 ids
+        lm = ptb_lm.medium()
+        check_embedding(K, lm.vocab, lm.hidden, torch.float32,
+                        lm.batch * lm.num_steps, gen)
         fmm = {}
         for act in (None, "relu", "sigmoid", "tanh", "gelu"):
             for m, k, n in ((100, 4 * W2V_EMBED, W2V_HIDDEN),
@@ -4370,6 +4950,9 @@ def main():
                      (SRL["hidden"] // 4, SRL["labels"])):
             check_fused_matmul(K, SRL["batch"] * SRL["lens"][1], k, n,
                                "tanh", torch.float32, gen)
+        # the PTB LM's softmax fc (phase 28): [700,650]x[650,10000] fp32
+        check_fused_matmul(K, lm.batch * lm.num_steps, lm.hidden, lm.vocab,
+                           None, torch.float32, gen)
         # the static BERT trunk's FFN (bench.py:485)
         for dt in (torch.float32, torch.bfloat16):
             check_fused_matmul(K, 4096, 768, 3072, "relu", dt, gen)
@@ -4424,6 +5007,12 @@ def main():
                       for n in trainable(srl_main)]
         check_sgd(K, srl_shapes, "sgd", gen, f"db_lstm's {len(srl_shapes)} "
                   "tensors, lr on the card, one launch", lr_on_card=True)
+        # the PTB LM's 7 tensors (19.8 M values), one launch
+        lm_main = ptb_lm.build_train(pt, lm)["main"]
+        check_sgd(K, [tuple(lm_main.global_block().var(n).shape)
+                      for n in ptb_lm.param_names(lm)], "sgd", gen,
+                  "the PTB LM's 7 tensors, one launch")
+        del lm_main
         # the scatter-add: bench.py's CTR point; BERT-base's three
         # embedding gradients with pretrain-512's ids into zeros (phase
         # 10's word shape is the main one); the merge's inverse ids; bf16;
@@ -4594,6 +5183,18 @@ def main():
     seq_checks = phase_sequence_checks(K, pt, ops, card,
                                        db_lstm_program(pt, SRL, srl_sgd))
     log(f"phases 0-27 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 28: the PTB LSTM language model at lm_model.py's medium "
+        "config through the reader, StaticRNN and prepare (train-ptb-lm)")
+    lm_train, lm_trained = phase_train_ptb_lm(K, pt, ptb_lm, card)
+    log("phase 29: greedy generation through the while loop, 20 streams x "
+        "35 tokens (generate-ptb-lm)")
+    _, lm_out = phase_generate_ptb_lm(K, pt, ptb_lm, card, lm_trained)
+    log("phase 30: the LM, the control flow, tensor arrays and module 1's "
+        "ops on the card against the CPU (control-flow-correctness)")
+    cf_checks = phase_control_flow_checks(K, pt, ops, ptb_lm, lm_trained,
+                                          lm_out)
+    del lm_trained
+    log(f"phases 0-30 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -4618,6 +5219,8 @@ def main():
         "train-book-nmt": book_nmt["launches"],
         "train-book-movielens": movielens["launches"],
         "sequence-correctness": seq_checks["launches"],
+        "train-ptb-lm": lm_train["launches"],
+        "control-flow-correctness": cf_checks["launches"],
     }
     kernels = []
     for name, main_rec in (

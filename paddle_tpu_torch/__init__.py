@@ -33,7 +33,8 @@ __all__ = ["__version__", "NoCudaDeviceError", "default_device",
            "data", "Executor", "Scope", "global_scope", "scope_guard",
            "CPUPlace", "CUDAPlace", "ParamAttr", "unique_name",
            "CompiledProgram", "BuildStrategy", "get_flag", "set_flags",
-           "append_backward"]
+           "append_backward", "backward", "dataio", "reader", "DataFeeder",
+           "batch"]
 
 
 class NoCudaDeviceError(EnforceNotMet):
@@ -63,6 +64,9 @@ def resolve_device(device=None):
 from paddle_tpu_torch import initializer, layers, optimizer, static  # noqa: E402,F401,I001
 from paddle_tpu_torch import clip, regularizer  # noqa: E402,F401
 from paddle_tpu_torch import io, lod_tensor, nets, nn  # noqa: E402,F401
+from paddle_tpu_torch import backward, dataio, reader  # noqa: E402,F401
+from paddle_tpu_torch.dataio.feeder import DataFeeder  # noqa: E402
+from paddle_tpu_torch.io import batch  # noqa: E402
 from paddle_tpu_torch.core.flags import get_flag, set_flags  # noqa: E402
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: E402
 from paddle_tpu_torch.framework import ParamAttr, unique_name  # noqa: E402

@@ -11,6 +11,11 @@ class EnforceNotMet(RuntimeError):
     """Raised when a framework invariant is violated."""
 
 
+class EOFException(Exception):
+    """End of a started reader's data (ref: fluid.core.EOFException, the
+    non-iterable reader protocol's loop terminator)."""
+
+
 def enforce(cond, msg="", *fmt_args):
     if not cond:
         raise EnforceNotMet(msg % fmt_args if fmt_args else str(msg))

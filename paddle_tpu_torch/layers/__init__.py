@@ -14,15 +14,19 @@ Every function works in both modes, as the JAX package's do:
   tensors never reach the kernel registry: an op that holds a kernel is
   inferred through its plain body (``_SHAPE_BODIES``).
 
-Ported: ``fc``, ``embedding`` and the ops they and the word2vec and
-fit-a-line programs use (``mul``, ``matmul``, ``elementwise_add``, ``relu``,
-``sigmoid``, ``tanh``, ``gelu``, ``softmax``, ``cross_entropy``,
-``square_error_cost``, ``mean``, ``concat``, ``reshape``); the layers of
-the recognize_digits, image_classification and recommender_system book
-models (``conv2d``, ``pool2d``, ``batch_norm``, ``dropout``, ``cos_sim``,
-``scale``, ``elementwise_mul``, ``split``); and the learning-rate schedules
-(``learning_rate_scheduler``), exported here as the JAX package exports
-them. The rest of the op library is ROADMAP queue 1 item 4.
+Every function of the op modules ``activation``, ``math``, ``reduce``,
+``tensor_ops``, ``loss``, ``control_flow`` and ``tensor_array`` is wrapped
+here as the JAX package wraps every exported op (layers/__init__.py:
+340-360), with its table of leading tensor arguments (``_NARGS``; 0 for
+the ops that make a tensor from nothing, which therefore compute at once
+in a Program too, their value becoming a program constant where a
+Variable op uses it). Beside them: ``fc``, ``embedding``, ``softmax``,
+the layers of the book CNNs (``conv2d``, ``pool2d``, ``batch_norm``,
+``dropout``), the learning-rate schedules (``learning_rate_scheduler``),
+the control-flow classes (``While``, ``Switch``, ``IfElse``,
+``StaticRNN``, ``DynamicRNN``), ``while_loop`` and ``static_rnn`` (in a
+Program: the ``while_block`` and ``scan_block`` ops of
+``static/nested.py``) and the reader surface of ``layers/io.py``.
 
 ``dropout`` is an op that draws (``_needs_rng``): the Executor hands it a
 generator on its device, seeded from the program's ``random_seed``, the run
@@ -62,6 +66,7 @@ from paddle_tpu_torch.layers.learning_rate_scheduler import (
 )
 from paddle_tpu_torch.nn import module as _module
 from paddle_tpu_torch.ops import activation as _act
+from paddle_tpu_torch.ops import control_flow as _cf
 from paddle_tpu_torch.ops import crf as _crf
 from paddle_tpu_torch.ops import loss as _loss
 from paddle_tpu_torch.ops import math as _math
@@ -69,30 +74,61 @@ from paddle_tpu_torch.ops import nn as _nn
 from paddle_tpu_torch.ops import reduce as _reduce
 from paddle_tpu_torch.ops import rnn as _rnn
 from paddle_tpu_torch.ops import sequence as _seq
+from paddle_tpu_torch.ops import tensor_array as _ta
 from paddle_tpu_torch.ops import tensor_ops as _tensor
+from paddle_tpu_torch.layers.control_flow_classes import (
+    DynamicRNN, IfElse, StaticRNN, Switch, While,
+)
 from paddle_tpu_torch.static.program import (
     Variable, default_main_program, default_startup_program,
     in_static_mode, data, register_op,
 )
 
-__all__ = ["data", "fc", "embedding", "mul", "matmul",
-           "elementwise_add", "elementwise_mul", "relu", "sigmoid", "tanh",
-           "gelu", "softmax", "cross_entropy", "square_error_cost", "mean",
-           "concat", "reshape", "split", "scale", "cos_sim", "conv2d",
-           "pool2d", "batch_norm", "dropout", "sums", "create_parameter",
-           "linear_chain_crf", "crf_decoding"] + _rnn.__all__ + \
-    _seq.__all__ + ["learning_rate_scheduler", "noam_decay",
-           "exponential_decay", "natural_exp_decay", "inverse_time_decay",
-           "polynomial_decay", "piecewise_decay", "cosine_decay",
-           "linear_lr_warmup"]
+#: the op modules whose every function ``layers`` wraps (the JAX package
+#: wraps every exported op, layers/__init__.py:340-360)
+_WRAPPED = (_act, _math, _reduce, _tensor, _loss, _cf, _ta)
 
-#: ops whose leading N args are tensors (default 1)
-_NARGS = {"elementwise_add": 2, "elementwise_mul": 2, "matmul": 2, "mul": 2,
-          "cross_entropy": 2, "square_error_cost": 2, "cos_sim": 2,
-          "embedding": 2, "conv2d": 2, "linear_chain_crf": 3,
-          "crf_decoding": 2}
+__all__ = sorted(
+    {"data", "fc", "embedding", "softmax", "conv2d", "pool2d", "batch_norm",
+     "dropout", "create_parameter", "linear_chain_crf", "crf_decoding",
+     "while_loop", "static_rnn", "While", "Switch", "IfElse", "StaticRNN",
+     "DynamicRNN", "io", "py_reader", "create_py_reader_by_data",
+     "read_file", "double_buffer", "batch", "shuffle", "load", "open_files",
+     "random_data_generator", "Preprocessor"}
+    | {n for m in _WRAPPED for n in m.__all__}
+    | set(_rnn.__all__) | set(_seq.__all__)) + [
+    "learning_rate_scheduler", "noam_decay", "exponential_decay",
+    "natural_exp_decay", "inverse_time_decay", "polynomial_decay",
+    "piecewise_decay", "cosine_decay", "linear_lr_warmup"]
+
+#: ops whose leading N args are tensors (default 1), the JAX package's
+#: table for the ported ops
+_NARGS = {
+    "elementwise_add": 2, "elementwise_sub": 2, "elementwise_mul": 2,
+    "elementwise_div": 2, "elementwise_min": 2, "elementwise_max": 2,
+    "elementwise_pow": 2, "elementwise_mod": 2, "elementwise_floordiv": 2,
+    "minus": 2, "matmul": 2, "mul": 2, "bmm": 2, "dot": 2,
+    "cross_entropy": 2, "softmax_with_cross_entropy": 2,
+    "sigmoid_cross_entropy_with_logits": 2, "square_error_cost": 2,
+    "smooth_l1": 2, "huber_loss": 2, "log_loss": 2, "hinge_loss": 2,
+    "margin_rank_loss": 3, "rank_loss": 3, "kldiv_loss": 2, "bpr_loss": 2,
+    "cos_sim": 2, "modified_huber_loss": 2, "mse_loss": 2,
+    "teacher_student_sigmoid_loss": 2, "npair_loss": 3,
+    "gather": 2, "gather_nd": 2, "scatter": 3, "scatter_nd_add": 3,
+    "where": 3, "expand_as": 2,
+    "logical_and": 2, "logical_or": 2, "logical_xor": 2,
+    "equal": 2, "not_equal": 2, "less_than": 2, "less_equal": 2,
+    "greater_than": 2, "greater_equal": 2,
+    "fill_constant": 0, "zeros": 0, "ones": 0, "eye": 0,
+    "linspace": 0, "arange": 0, "create_tensor": 0,
+    "prelu": 2, "conv2d": 2, "embedding": 2,
+    "linear_chain_crf": 3, "crf_decoding": 2, "dice_loss": 2,
+    "sampled_softmax_with_cross_entropy": 2,
+}
 #: ops whose first arg is a list of tensors
-_LIST_FIRST = {"concat", "sums"}
+_LIST_FIRST = {"concat", "sums", "stack", "multiplex"}
+#: a layer's arguments that never become op attrs
+_NOT_ATTRS = ("name", "device")
 #: ops that return (outputs, final state): in a Program the op's one output
 #: is the first (the JAX package's op count of 1 for them)
 _FIRST_OUT = {"lstm", "gru", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru",
@@ -249,7 +285,8 @@ def _dual(name, fn):
         else:
             tensor_vals = [vals[p] for p in pnames[:n_tensor]]
             attr_names = pnames[n_tensor:]
-        attrs = {p: vals[p] for p in attr_names if p in vals and p != "name"}
+        attrs = {p: vals[p] for p in attr_names
+                 if p in vals and p not in _NOT_ATTRS}
         if in_static_mode():
             promoted = {p: v for p, v in attrs.items()
                         if isinstance(v, Variable)}
@@ -268,30 +305,17 @@ def _dual(name, fn):
     return wrapper
 
 
-mul = _dual("mul", _math.mul)
-matmul = _dual("matmul", _math.matmul)
-elementwise_add = _dual("elementwise_add", _math.elementwise_add)
-relu = _dual("relu", _act.relu)
-sigmoid = _dual("sigmoid", _act.sigmoid)
-tanh = _dual("tanh", _act.tanh)
-gelu = _dual("gelu", _act.gelu)
-cross_entropy = _dual("cross_entropy", _loss.cross_entropy)
-square_error_cost = _dual("square_error_cost", _loss.square_error_cost)
-mean = _dual("mean", _reduce.mean)
-concat = _dual("concat", _tensor.concat)
-reshape = _dual("reshape", _tensor.reshape)
-elementwise_mul = _dual("elementwise_mul", _math.elementwise_mul)
-scale = _dual("scale", _math.scale)
-split = _dual("split", _tensor.split)
-cos_sim = _dual("cos_sim", _loss.cos_sim)
+for _m in _WRAPPED:
+    for _n in _m.__all__:
+        if _n != "softmax":
+            globals()[_n] = _dual(_n, getattr(_m, _n))
 pool2d = _dual("pool2d", _nn.pool2d)
-sums = _dual("sums", _math.sums)
 crf_decoding = _dual("crf_decoding", _crf.crf_decoding)
 for _n in _rnn.__all__:
     globals()[_n] = _dual(_n, getattr(_rnn, _n))
 for _n in _seq.__all__:
     globals()[_n] = _dual(_n, getattr(_seq, _n))
-del _n
+del _m, _n
 _register("linear_chain_crf", _crf.linear_chain_crf)
 _register("embedding", _nn.embedding)
 _register("softmax", _act.softmax)
@@ -392,17 +416,15 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     return _apply_act(out, act)
 
 
-_ACTS = {"relu": relu, "sigmoid": sigmoid, "tanh": tanh, "gelu": gelu,
-         "softmax": softmax}
-
-
 def _apply_act(x, act):
+    """``act`` by name: any layer of this module (an activation), as the
+    JAX layers apply it."""
     if act is None:
         return x
-    if act not in _ACTS:
-        raise EnforceNotMet(f"activation {act!r} is not ported yet (ROADMAP "
-                            f"queue 1 item 4); ported: {sorted(_ACTS)}")
-    return _ACTS[act](x)
+    fn = globals().get(act)
+    if fn is None:
+        raise EnforceNotMet(f"unknown activation {act!r}")
+    return fn(x)
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
@@ -526,3 +548,35 @@ def linear_chain_crf(input, label, param_attr=None, length=None):
             tensors.append(length)
         return _append_static("linear_chain_crf", tensors, {}, False)
     return _crf.linear_chain_crf(input, w, label, length)
+
+
+# ---------------------------------------------------------------------------
+# control flow with callable bodies: the wrapping treats every positional
+# argument as a tensor, so these two get explicit duals. In a Program the
+# bodies are traced into serializable sub-programs (static/nested.py, ref
+# while_op.cc / recurrent_op.cc sub-blocks); outside one they run as eager
+# Python loops (ops/control_flow.py).
+# ---------------------------------------------------------------------------
+def while_loop(cond, body, loop_vars, is_test=False, name=None):
+    lv = loop_vars if isinstance(loop_vars, (list, tuple)) else [loop_vars]
+    if in_static_mode() and _has_variable(list(lv)):
+        from paddle_tpu_torch.static.nested import static_while_loop
+        return static_while_loop(cond, body, loop_vars)
+    return _cf.while_loop(cond, body, loop_vars)
+
+
+def static_rnn(step_fn, inputs, initial_state):
+    if in_static_mode() and _has_variable(
+            list(inputs if isinstance(inputs, (list, tuple))
+                 else [inputs])):
+        from paddle_tpu_torch.static.nested import static_rnn_block
+        return static_rnn_block(step_fn, inputs, initial_state)
+    return _cf.static_rnn(step_fn, inputs, initial_state)
+
+
+# fluid.layers.io surface (reader builders; see layers/io.py)
+from paddle_tpu_torch.layers import io  # noqa: E402
+from paddle_tpu_torch.layers.io import (  # noqa: E402,F401
+    Preprocessor, batch, create_py_reader_by_data, double_buffer, load,
+    open_files, py_reader, random_data_generator, read_file, shuffle,
+)

@@ -6,6 +6,7 @@ The ported op modules are star-exported here, as the JAX package's
 stay under ``ops.kernels``."""
 
 from paddle_tpu_torch.ops.activation import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.control_flow import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.crf import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.loss import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.math import *  # noqa: F401,F403
@@ -14,12 +15,14 @@ from paddle_tpu_torch.ops.reduce import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.rnn import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.selected_rows import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.sequence import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.tensor_array import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.tensor_ops import *  # noqa: F401,F403
 from paddle_tpu_torch.ops import (  # noqa: F401
-    activation, crf, loss, math, nn, reduce, rnn, selected_rows, sequence,
-    tensor_ops,
+    activation, control_flow, crf, loss, math, nn, reduce, rnn,
+    selected_rows, sequence, tensor_array, tensor_ops,
 )
 
-__all__ = (activation.__all__ + crf.__all__ + loss.__all__ + math.__all__
-           + nn.__all__ + reduce.__all__ + rnn.__all__
-           + selected_rows.__all__ + sequence.__all__ + tensor_ops.__all__)
+__all__ = (activation.__all__ + control_flow.__all__ + crf.__all__
+           + loss.__all__ + math.__all__ + nn.__all__ + reduce.__all__
+           + rnn.__all__ + selected_rows.__all__ + sequence.__all__
+           + tensor_array.__all__ + tensor_ops.__all__)

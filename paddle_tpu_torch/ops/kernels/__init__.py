@@ -90,8 +90,22 @@ register_kernel(
     source="paddle_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
     replaces="paddle_tpu/ops/pallas_kernels.py:567")
 
+#: kernel library (``_build.SOURCES``'s name) -> the C functions its
+#: wrappers declare, for ``_build.load`` ahead of a first launch
+#: (``Executor.prepare``)
+LIBRARY_SIGNATURES = {
+    "layer_norm": _layer_norm._SIGNATURES,
+    "flash_attention_fwd": _attention._FWD_SIGNATURES,
+    "flash_attention_bwd": _attention._BWD_SIGNATURES,
+    "fused_adam": _optimizer._SIGNATURES,
+    "embedding": _embedding._SIGNATURES,
+    "fused_matmul": _matmul._SIGNATURES,
+    "fused_sgd": _optimizer._SGD_SIGNATURES,
+    "softmax_xent": _cross_entropy._SIGNATURES,
+}
+
 __all__ = [
-    "embedding_gather", "embedding_scatter_add", "flash_attention",
+    "LIBRARY_SIGNATURES", "embedding_gather", "embedding_scatter_add", "flash_attention",
     "fused_adam", "fused_layer_norm", "fused_matmul", "fused_matmul_int8",
     "fused_momentum", "fused_sgd", "softmax_cross_entropy",
     "try_fused_matmul",

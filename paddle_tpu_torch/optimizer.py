@@ -366,6 +366,16 @@ def _fused_update(opt, p, g, slots, lr, step):
         raise EnforceNotMet(f"{type(opt).__name__} has no fused update")
 
 
+def kernel_library(opt):
+    """The kernel library (``ops/kernels/_build.py``'s name) the static
+    update of ``opt`` launches, or None for a rule without a kernel."""
+    if type(opt) is AdamOptimizer:
+        return "fused_adam"
+    if type(opt) in (MomentumOptimizer, SGDOptimizer):
+        return "fused_sgd"
+    return None
+
+
 def _apply_optimizer_compute(ins, attrs):
     """The static ``apply_optimizer`` op (optimizer.py:264-277): updates
     Param and Slots in place and returns them as ParamOut and SlotOuts. The

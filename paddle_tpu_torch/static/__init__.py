@@ -1,5 +1,6 @@
 """The static-graph (Program) path of the port: Program IR, layers' ops,
-append_backward, the pass pipeline and the Executor (see the modules)."""
+append_backward, the pass pipeline, the control-flow blocks
+(``nested.py``), the debugger and the Executor (see the modules)."""
 
 from paddle_tpu_torch.static.program import (  # noqa: F401
     OP_REGISTRY, Block, Operator, Parameter, Program, Variable, data,
@@ -9,7 +10,13 @@ from paddle_tpu_torch.static.program import (  # noqa: F401
 # registers the fused_matmul compute: an optimized program must run
 # without the pass pipeline having run in this process
 import paddle_tpu_torch.static.opt_passes  # noqa: F401,E402
-from paddle_tpu_torch.static.backward import append_backward  # noqa: E402
+from paddle_tpu_torch.static.backward import (  # noqa: E402,F401
+    append_backward, gradients,
+)
+from paddle_tpu_torch.static.debugger import (  # noqa: E402,F401
+    draw_graph, memory_usage, pprint_program,
+)
+import paddle_tpu_torch.static.nested  # noqa: F401,E402
 from paddle_tpu_torch.static.executor import (  # noqa: E402
     Executor, Scope, global_scope, scope_guard,
 )

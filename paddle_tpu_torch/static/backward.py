@@ -9,7 +9,7 @@ loss over the interpreted prefix.
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.static.program import Parameter
 
-__all__ = ["GRAD_SUFFIX", "append_backward"]
+__all__ = ["GRAD_SUFFIX", "append_backward", "gradients", "calc_gradient"]
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -42,3 +42,18 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         attrs={"loss": loss.name, "params": [p.name for p in params],
                "checkpoint": False})
     return list(zip(params, grad_vars))
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """fluid.gradients parity (calc_gradient, backward.py:695), in the JAX
+    package's restricted form: ``targets`` is one loss var, ``inputs``
+    parameters; returns their grad vars."""
+    t = targets[0] if isinstance(targets, (list, tuple)) else targets
+    pg = append_backward(t, parameter_list=[
+        i if isinstance(i, str) else i.name
+        for i in (inputs if isinstance(inputs, (list, tuple)) else [inputs])])
+    return [g for _, g in pg]
+
+
+#: fluid's name for the same entry point (backward.py:695)
+calc_gradient = gradients

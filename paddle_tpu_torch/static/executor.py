@@ -34,14 +34,29 @@ plain bodies (on the CPU).
 - fp32 convolutions and matrix products run with cuDNN's and cuBLAS's TF32
   off, so the card computes what the CPU does.
 
+Each (program, version, feed signature, fetch list, passes) gets one
+prepared runner, built on first use and kept (with
+``FLAGS_executor_fast_path``): the optimized clone, its persistable names
+and the kernel libraries its ops reach, built and loaded before its first
+step. ``Executor.prepare`` builds it ahead of the first step from arrays
+or (shape, dtype) pairs, as the JAX package's AOT warm start does (there
+is no XLA compile to warm here: preparing is the pass pipeline and the
+kernel builds), and ``trace_count`` counts runner builds. A run pulls
+the next batch from every started reader attached to the program whose
+vars the feed does not give (``layers.py_reader``'s start/reset protocol;
+``EOFException`` at the end), with the JAX checks. Differentiating
+through a ``while_block`` is refused, as ``lax.while_loop`` refuses reverse-mode
+differentiation; a ``scan_block`` is differentiated through its steps.
+
 Not ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item:
 host segments (ops marked ``_host``: parameter-server send/recv, queue 1
 item 9), prefetch (``device_prefetch``, ``background_prefetch``,
-``Executor.feed_stage``; item 10), ``Executor.prepare`` (AOT warm start;
-item 5), mesh specs (``CompiledProgram.with_data_parallel`` /
-``with_mesh_sharding``; item 9), ``train_from_dataset`` /
-``infer_from_dataset`` (item 10), and the monitor hooks the JAX executor
-feeds (goodput, trace, anomaly, tensorwatch, numerics; item 10).
+``Executor.feed_stage``) and ``train_from_dataset`` /
+``infer_from_dataset`` (item 10), the persistent compile cache
+(``PADDLE_TPU_CACHE_DIR``; item 10), mesh specs
+(``CompiledProgram.with_data_parallel`` / ``with_mesh_sharding``; item 9),
+and the monitor hooks the JAX executor feeds (goodput, trace, anomaly,
+tensorwatch, numerics; item 10).
 """
 
 import threading
@@ -50,20 +65,24 @@ import zlib
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.dtypes import dtype_name
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.flags import define_flag, get_flag
 from paddle_tpu_torch.core.place import place_device
 from paddle_tpu_torch.ops.nn import no_tf32
 from paddle_tpu_torch.static.backward import GRAD_SUFFIX
-from paddle_tpu_torch.static.program import OP_REGISTRY, default_main_program
+from paddle_tpu_torch.static.program import (
+    OP_REGISTRY, Program, default_main_program,
+)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "exec_op",
            "device_prefetch", "background_prefetch"]
 
 define_flag("executor_fast_path", True,
-            "Keep the pass pipeline's optimized clone per (program, "
-            "version, fetch list) so a steady-state step "
-            "does not re-run the pipeline (0 = optimize every run)")
+            "Keep the prepared runner (the pass pipeline's optimized "
+            "clone, its state names and kernel libraries) per (program, "
+            "version, feed signature, fetch list) so a steady-state step "
+            "does not re-run the pipeline (0 = prepare every run)")
 define_flag("apply_ir_passes", True,
             "Run the program-level pass pipeline (static/opt_passes.py: "
             "matmul+bias+act fusion, dead-op elimination) before running "
@@ -246,6 +265,82 @@ def _fetch_value(name, v, return_numpy):
     return v.detach().to("cpu", copy=True).numpy()
 
 
+def _spec_of(v):
+    """(shape, dtype name) of a feed: an array, a tensor or a (shape, dtype)
+    pair, the currency of ``prepare``."""
+    if isinstance(v, tuple) and len(v) == 2 and not hasattr(v, "dtype"):
+        shape, dtype = v
+        if not isinstance(dtype, torch.dtype):
+            dtype = np.dtype(dtype)
+        return tuple(int(d) for d in shape), dtype_name(dtype)
+    if not hasattr(v, "dtype"):
+        v = np.asarray(v)
+    return tuple(v.shape), dtype_name(v.dtype)
+
+
+def _feed_signature(feed):
+    return tuple(sorted((k, *_spec_of(v)) for k, v in feed.items()))
+
+
+def _sub_programs(op):
+    return [v for v in op.attrs.values() if isinstance(v, Program)]
+
+
+def _kernel_libraries(ops):
+    """The kernel libraries (``ops/kernels/_build.py``'s names) that
+    ``ops``, and the ops of their sub-programs, launch."""
+    from paddle_tpu_torch.optimizer import kernel_library
+    from paddle_tpu_torch.static.opt_passes import FUSED_MATMUL
+    libs = set()
+    for op in ops:
+        if op.type == "embedding":
+            libs.add("embedding")
+        elif op.type == FUSED_MATMUL:
+            libs.add("fused_matmul")
+        elif op.type == "apply_optimizer":
+            lib = kernel_library(op.attrs["opt"])
+            if lib is not None:
+                libs.add(lib)
+        for sub in _sub_programs(op):
+            libs |= _kernel_libraries(sub.global_block().ops)
+    return libs
+
+
+def _refuse_grad_through_while(ops):
+    """The JAX package cannot differentiate through ``lax.while_loop``
+    (reverse mode); neither does the port through a ``while_block`` that a
+    differentiated value reaches before the ``autodiff`` op."""
+    ad = next((i for i, op in enumerate(ops) if op.type == "autodiff"), None)
+    if ad is None:
+        return
+    live = set(ops[ad].attrs["params"])
+    for op in ops[:ad]:
+        if live.isdisjoint(op.input_names()):
+            continue
+        if op.type == "while_block":
+            raise EnforceNotMet(
+                "autodiff through a while_block: reverse-mode "
+                "differentiation does not work for a while loop (the JAX "
+                "package's lax.while_loop refuses it too); a loop of fixed "
+                "length differentiates as layers.static_rnn (scan_block)")
+        live.update(op.output_names())
+
+
+class _Runner:
+    """One prepared (program, version, feed signature, fetch list,
+    passes): the program to interpret (the pass pipeline's optimized clone,
+    or the program itself), its persistable names and the kernel libraries
+    its ops launch, built and loaded when it was prepared."""
+
+    def __init__(self, program, kernel_libraries):
+        self.program = program
+        blk = program.global_block()
+        self.ops = list(blk.ops)
+        self.state_names = [n for n, v in blk.vars.items() if v.persistable]
+        self.kernel_libraries = sorted(kernel_libraries)
+        _refuse_grad_through_while(self.ops)
+
+
 class Executor:
     """Runs Programs on one device: ``place`` (``CPUPlace()``,
     ``CUDAPlace(i)``, a torch device) or, by default, the card
@@ -254,7 +349,14 @@ class Executor:
     def __init__(self, place=None):
         self.place = place
         self.device = place_device(place)
-        self._optimized = {}
+        self._runners = {}
+        self._trace_count = 0
+
+    @property
+    def trace_count(self):
+        """The prepared runners this executor built: a steady-state step
+        with an unchanged feed signature does not move it."""
+        return self._trace_count
 
     @staticmethod
     def _passes_enabled(compiled):
@@ -265,72 +367,157 @@ class Executor:
             return bool(bs.apply_ir_passes)
         return bool(get_flag("apply_ir_passes"))
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
-        """Run one step; returns the fetches in ``fetch_list`` order, as
-        numpy arrays or (``return_numpy=False``) tensors on the device (a
-        persistable's is the live tensor, which later steps update in
-        place)."""
+    @staticmethod
+    def _unwrap(program):
         from paddle_tpu_torch.compiler import CompiledProgram
         program = program or default_main_program()
         compiled = program if isinstance(program, CompiledProgram) else None
         if compiled is not None:
             program = compiled._program
-        feed = feed or {}
+        return program, compiled
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        """Run one step; returns the fetches in ``fetch_list`` order, as
+        numpy arrays or (``return_numpy=False``) tensors on the device (a
+        persistable's is the live tensor, which later steps update in
+        place). With no feed, the started readers attached to the program
+        give it (``EOFException`` when one is exhausted)."""
+        program, compiled = self._unwrap(program)
+        feed = dict(feed or {})
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
+        feed = {**self._pull_readers(program, fetch_names, feed), **feed}
         scope = scope or global_scope()
         if not feed and self._is_startup_like(program):
             self._run_eager(program, scope)
             values = {n: scope.find_var(n) for n in fetch_names}
         else:
-            values = self._run_main(program, feed, fetch_names, scope,
-                                    self._passes_enabled(compiled))
+            runner = self._runner(program, _feed_signature(feed),
+                                  fetch_names, scope,
+                                  self._passes_enabled(compiled))
+            values = self._run_main(runner, feed, fetch_names, scope)
         return [_fetch_value(n, values[n], return_numpy)
                 for n in fetch_names]
 
-    def _run_main(self, program, feed, fetch_names, scope, apply_passes):
-        prog = program
-        if apply_passes:
-            key = (program, program.version, tuple(fetch_names))
-            prog = self._optimized.get(key) \
-                if get_flag("executor_fast_path") else None
-            if prog is None:
+    @staticmethod
+    def _program_read_names(program):
+        """The names the program's ops read, memoized by op count (ops are
+        only ever appended)."""
+        ops = program.global_block().ops
+        cached = getattr(program, "_read_names_cache", None)
+        if cached is not None and cached[0] == len(ops):
+            return cached[1]
+        names = {n for op in ops for n in op.input_names()}
+        program._read_names_cache = (len(ops), names)
+        return names
+
+    def _pull_readers(self, program, fetch_names, feed):
+        """The non-iterable reader protocol (fluid.layers.py_reader's
+        start()/reset()): the next batch of every started reader attached
+        to the program whose vars it reads and the feed does not give (as
+        in Fluid, a run may feed other vars, such as an RNN's initial
+        state, beside a reader; the JAX package pulls only when nothing is
+        fed). Two started readers feeding one var raise before anything is
+        pulled (a chained reader registers itself and its underlying
+        py_reader)."""
+        started = [r for r in program._py_readers
+                   if getattr(r, "_started", False)
+                   and not all(v.name in feed for v in r.vars)]
+        if not started:
+            return {}
+        read_names = self._program_read_names(program) | set(fetch_names)
+        pull, fed_by = [], {}
+        for r in started:
+            rnames = {v.name for v in r.vars}
+            if read_names and not (rnames & read_names):
+                continue
+            for n in rnames:
+                if n in fed_by:
+                    raise EnforceNotMet(
+                        f"two started readers would both feed var '{n}' — "
+                        f"start only the outermost reader of a chain (e.g. "
+                        f"the batch reader, not its underlying py_reader)")
+                fed_by[n] = r
+            pull.append(r)
+        feed = {}
+        for r in pull:
+            feed.update(r._next_feed())
+        return feed
+
+    def prepare(self, program=None, feed=None, fetch_list=None,
+                scope=None):
+        """Warm start before the first step: build the prepared runner of
+        (program, feed signature, fetch list), run the pass pipeline and
+        build and load, on the card, every kernel library its ops launch,
+        so the first step compiles nothing. ``feed`` maps names to sample
+        arrays or (shape, dtype) pairs; only shapes and dtypes matter. The
+        startup program must have run (a persistable missing from the scope
+        raises). Returns True: every op of the program is prepared."""
+        program, compiled = self._unwrap(program)
+        fetch_names = [f if isinstance(f, str) else f.name
+                       for f in (fetch_list or [])]
+        scope = scope or global_scope()
+        self._runner(program, _feed_signature(feed or {}), fetch_names,
+                     scope, self._passes_enabled(compiled))
+        return True
+
+    def _runner(self, program, feed_sig, fetch_names, scope, apply_passes):
+        key = (program, program.version, feed_sig, tuple(fetch_names),
+               apply_passes)
+        runner = self._runners.get(key)
+        if runner is None:
+            prog = program
+            if apply_passes:
                 from paddle_tpu_torch.static.opt_passes import \
                     optimize_for_execution
                 prog = optimize_for_execution(program, fetch_names)
-                if get_flag("executor_fast_path"):
-                    self._optimized[key] = prog
-        blk = prog.global_block()
-        state_names = [n for n, v in blk.vars.items() if v.persistable]
-        env = {n: c.to(self.device) for n, c in prog._constants.items()}
-        missing = []
-        for n in state_names:
-            v = scope.find_var(n)
-            if v is None:
-                missing.append(n)
-            env[n] = v
+            libs = _kernel_libraries(prog.global_block().ops)
+            runner = _Runner(prog, libs)
+            self._check_state(runner, scope)
+            if self.device.type == "cuda":
+                from paddle_tpu_torch.ops import kernels
+                from paddle_tpu_torch.ops.kernels import _build
+                for lib in runner.kernel_libraries:
+                    _build.load(lib, kernels.LIBRARY_SIGNATURES[lib])
+            self._trace_count += 1
+            if get_flag("executor_fast_path"):
+                self._runners[key] = runner
+        return runner
+
+    @staticmethod
+    def _check_state(runner, scope):
+        missing = [n for n in runner.state_names if scope.find_var(n) is None]
         if missing:
             raise EnforceNotMet(
                 f"Persistable vars not initialized: {missing[:5]} — run the "
                 f"startup program first (exe.run(startup_program))")
+
+    def _run_main(self, runner, feed, fetch_names, scope):
+        prog = runner.program
+        self._check_state(runner, scope)
+        env = {n: c.to(self.device) for n, c in prog._constants.items()}
+        for n in runner.state_names:
+            env[n] = scope.find_var(n)
+        blk = prog.global_block()
         for k, v in feed.items():
             env[k] = self._as_feed(blk, k, v)
         step = (scope.find_var(_STEP) or 0) + 1
         scope.set_var(_STEP, step)
         with no_tf32():
-            env = _interpret(list(blk.ops), env, lambda op: _op_generator(
+            env = _interpret(runner.ops, env, lambda op: _op_generator(
                 self.device, prog.random_seed, step, op))
-        for n in state_names:
+        for n in runner.state_names:
             scope.set_var(n, env[n])
         return {n: env.get(n) for n in fetch_names}
 
     def _as_feed(self, blk, name, value):
-        """A feed as a tensor on the device, in its data var's dtype."""
+        """A feed as a tensor on the device, in its data var's dtype (a
+        reader's pinned batch is copied without blocking the host)."""
         t = value if isinstance(value, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(value))
         dtype = blk.vars[name].dtype if blk.has_var(name) else t.dtype
-        return t.to(self.device, dtype)
+        return t.to(self.device, dtype, non_blocking=True)
 
     def _is_startup_like(self, program):
         blk = program.global_block()
@@ -353,10 +540,6 @@ class Executor:
             if v is not None:
                 scope.set_var(n, v)
 
-    def prepare(self, *args, **kwargs):
-        """Not ported yet: raises."""
-        _not_ported("Executor.prepare (AOT warm start)", 5)
-
     def feed_stage(self, *args, **kwargs):
         """Not ported yet: raises."""
         _not_ported("Executor.feed_stage (prefetch)", "10 (dataio)")
@@ -370,4 +553,4 @@ class Executor:
         _not_ported("Executor.infer_from_dataset", "10 (dataio)")
 
     def close(self):
-        self._optimized.clear()
+        self._runners.clear()

@@ -58,9 +58,22 @@ class Variable:
         return (f"Variable(name={self.name}, shape={self.shape}, "
                 f"dtype={dtype_name(self.dtype)})")
 
-    def __add__(self, other):
+    # arithmetic sugar (framework.py monkey-patches these on Variable)
+    def _binary(self, other, op_type):
         from paddle_tpu_torch import layers
-        return layers.elementwise_add(self, other)
+        return getattr(layers, op_type)(self, other)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
 
 
 class Parameter(Variable):
@@ -155,13 +168,16 @@ class Block:
 class Program:
     """ProgramDesc parity, with one block. ``_constants`` holds the literal
     (non-Variable) operands captured while building, name -> tensor; the
-    Executor seeds each run with them."""
+    Executor seeds each run with them. ``_py_readers`` lists the readers
+    (``layers.py_reader`` ...) that feed this program's data vars; a run
+    with no feed pulls a batch from each one started."""
 
     def __init__(self):
         self.blocks = [Block(self, 0)]
         self.random_seed = 0
         self._version = 0
         self._constants = {}
+        self._py_readers = []
         # the default clip of minimize(), set by clip.set_gradient_clip
         self._grad_clip = None
 

@@ -51,12 +51,18 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
     # the subpackages with copies of jax-free JAX-package modules are
     # scanned too
     for sub in ("serving", "monitor", "static", "models", "layers",
-                "distributed", "nn"):
+                "distributed", "nn", "dataio"):
         assert any(f"{os.sep}{sub}{os.sep}" in p for p in srcs), sub
     for mod in ("nets.py", "optimizer.py", f"ops{os.sep}nn.py",
                 "lod_tensor.py", f"core{os.sep}lod.py",
                 f"ops{os.sep}sequence.py", f"ops{os.sep}crf.py",
-                f"ops{os.sep}rnn.py", f"nn{os.sep}module.py"):
+                f"ops{os.sep}rnn.py", f"nn{os.sep}module.py",
+                f"ops{os.sep}control_flow.py", f"ops{os.sep}tensor_array.py",
+                f"static{os.sep}nested.py", f"static{os.sep}debugger.py",
+                f"layers{os.sep}io.py",
+                f"layers{os.sep}control_flow_classes.py", "reader.py",
+                f"dataio{os.sep}feeder.py", f"dataio{os.sep}pyreader.py",
+                "backward.py", f"models{os.sep}ptb_lm.py"):
         assert any(p.endswith(f"{os.sep}{mod}") for p in srcs), mod
     for path in srcs:
         with open(path) as f:
@@ -81,6 +87,17 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.nn.module, paddle_tpu_torch.lod_tensor\n"
         "import paddle_tpu_torch.core.lod, paddle_tpu_torch.ops.sequence\n"
         "import paddle_tpu_torch.ops.crf, paddle_tpu_torch.ops.rnn\n"
+        "import paddle_tpu_torch.ops.control_flow\n"
+        "import paddle_tpu_torch.ops.tensor_array\n"
+        "import paddle_tpu_torch.static.nested\n"
+        "import paddle_tpu_torch.static.debugger\n"
+        "import paddle_tpu_torch.layers.io\n"
+        "import paddle_tpu_torch.layers.control_flow_classes\n"
+        "import paddle_tpu_torch.reader, paddle_tpu_torch.dataio\n"
+        "import paddle_tpu_torch.dataio.feeder\n"
+        "import paddle_tpu_torch.dataio.pyreader\n"
+        "import paddle_tpu_torch.backward\n"
+        "import paddle_tpu_torch.models.ptb_lm\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -190,3 +207,28 @@ def test_default_device_raises_without_a_card(monkeypatch):
     params, state = init_fn(torch.Generator().manual_seed(0))
     assert state["step"].device == params["embed"]["word"].device == \
         torch.device("cpu")
+    # the control-flow slice: the Executor, the reader's staging, the
+    # DataFeeder and the ops that make a tensor from nothing ask for the
+    # card; tensor arrays and the eager loops stay on their tensors' device
+    from paddle_tpu_torch.dataio import DataFeeder, PyReader
+    from paddle_tpu_torch.models import ptb_lm
+    from paddle_tpu_torch.ops import tensor_array
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        paddle_tpu_torch.Executor()
+    lm = ptb_lm.build_train(paddle_tpu_torch, ptb_lm.lm_tiny())
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        lm["reader"].decorate_tensor_provider(lambda: iter([]))
+        iter(lm["reader"])
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        PyReader(capacity=2).decorate_batch_generator(lambda: iter([]))
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        DataFeeder(["x"])
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        paddle_tpu_torch.ops.fill_constant([2], "float32", 1.0)
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        tensor_array.create_array(2, (3,))
+    arr = tensor_array.create_array(2, (3,), device="cpu")
+    assert arr.write(0, torch.ones(3)).buffer.device == torch.device("cpu")
+    i, = paddle_tpu_torch.ops.while_loop(lambda i: i < 3, lambda i: [i + 1],
+                                         [torch.tensor(0)])
+    assert i.device == torch.device("cpu")

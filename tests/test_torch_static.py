@@ -385,17 +385,21 @@ def test_passes_on_and_off_agree():
     for n in final_on:
         np.testing.assert_allclose(final_on[n], final_off[n], atol=TOL,
                                    rtol=0)
-    (prog_on,) = exe_on._optimized.values()
-    assert [op.type for op in prog_on.global_block().ops].count(
+    (run_on,) = exe_on._runners.values()
+    assert [op.type for op in run_on.program.global_block().ops].count(
         "fused_matmul") == 2
-    assert not exe_off._optimized             # off: the program as built
+    (run_off,) = exe_off._runners.values()
+    assert "fused_matmul" not in [             # off: the program as built
+        op.type for op in run_off.program.global_block().ops]
     tpt.set_flags({"apply_ir_passes": False})
     try:
         losses_flag, _, exe_flag = _port_train(_build_word2vec, "sgd", s0,
                                                feeds)
     finally:
         tpt.set_flags({"apply_ir_passes": True})
-    assert not exe_flag._optimized
+    (run_flag,) = exe_flag._runners.values()
+    assert "fused_matmul" not in [
+        op.type for op in run_flag.program.global_block().ops]
     assert losses_flag == losses_off
 
 
@@ -475,8 +479,8 @@ def test_what_is_not_ported_raises(monkeypatch):
     with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
         tpt.set_flags({"check_nan_inf": True})
     exe = tpt.Executor(tpt.CPUPlace())
-    with pytest.raises(EnforceNotMet, match="queue 1 item 5"):
-        exe.prepare()
+    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
+        exe.feed_stage()
     with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
         exe.train_from_dataset()
     main, _, _ = _build_fit_a_line(tpt, tpt.unique_name, _OPTS["sgd"])
