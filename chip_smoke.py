@@ -49,7 +49,8 @@ Phases; any failure raises and the script exits non-zero:
    per parameter as the static path makes them and one over the list, and
    over BERT-base's 154 tensors; SGD over db_lstm's 67 with the rate on
    the card; momentum over ResNet-50's 267 tensors
-   (the image models' update), and the three rules with the rate read
+   (the image models' update) and over YOLOv3's 222 with the rate on the
+   card (phase 33's update), and the three rules with the rate read
    from a tensor on the card, as a learning-rate schedule gives it; the scatter-add (bench.py's CTR point
    [65536,256] with 4096 ids, BERT-base's word, position and token-type
    gradients with pretrain-512's 32768 ids into zeros, the merge's
@@ -253,7 +254,53 @@ Phases; any failure raises and the script exits non-zero:
    token; module 1's ops, the eager and static control flow (zero-trip
    loops) and the tensor arrays (tied lengths, a row of length 0) card
    against CPU within ``CF_OP_TOL``.
-31. Print one JSON line of every ported kernel (launches on the main paths,
+31. MobileNet-SSD training (train-ssd-mobilenet; ``models/ssd.py``) at
+   PaddleCV/ssd's pascalvoc config, nothing cut: 3x300x300, 21 classes,
+   batch 64, MobileNet v1 at scale 1.0 and ``multi_box_head`` over six maps
+   (1,917 priors), ``reduce_sum(ssd_loss(...))``, RMSProp 0.001 under
+   ``piecewise_decay`` with ``L2Decay(5e-5)``; ``Executor.prepare`` then
+   ``SSD_STEPS`` steps over 4 seeded synthetic batches (gt padded to 20
+   rows). No registered kernel launches (RMSProp has none); the loss
+   falls; step latency (median from step 5), images/s, the busy share,
+   peak memory, device events per step, and ``ssd_loss``'s forward and
+   backward timed alone on the step's tensors (its share of the step's
+   device time, its device events: the matching and mining loops), with
+   the card refusing any synchronisation while it runs.
+32. MobileNet-SSD inference over phase 31's scope (infer-ssd-mobilenet):
+   the ``clone(for_test=True)`` program with ``softmax`` and
+   ``detection_output(nms_threshold=0.45)`` at batch 32: latency,
+   images/s, peak memory; ``detection_output`` alone on the same tensors
+   (its 400-step NMS over 32 x 20 lanes) with synchronisation refused,
+   equal to the program's output, its device events and time and its
+   peak memory; the host time of ``detection_map`` (11point) against the
+   synthetic gt.
+33. YOLOv3 training (train-yolov3; ``models/yolov3.py``) at PaddleCV/yolov3's
+   config: DarkNet-53, 608^2, 80 classes, batch 8, three ``yolov3_loss``
+   levels with ``gt_score`` and label smoothing, Momentum 0.9 under
+   ``linear_lr_warmup(piecewise_decay(...))`` with ``L2Decay(5e-4)``;
+   ``prepare`` then ``YOLO_STEPS`` steps: exactly one ``fused_momentum``
+   per trainable tensor (222) a step and nothing else registered; the loss
+   falls; the records of phase 31 with ``yolov3_loss`` timed alone, and
+   ``resize_nearest`` (forward and backward at both routes) timed alone.
+34. YOLOv3 inference over phase 33's scope (infer-yolov3): ``yolo_box`` per
+   level, the scores transposed and concatenated, ``multiclass_nms``
+   (400 candidates, 100 kept, background -1) at batch 8: latency,
+   images/s, peak memory; ``multiclass_nms`` alone (400 steps over 8 x 80
+   lanes) with synchronisation refused, its device events and time.
+35. Detection correctness (detection-correctness): ``ssd_tiny`` and
+   ``yolo_tiny`` 3 steps on the card against the port on the CPU in fp32
+   with TF32 off and cuDNN's deterministic algorithms (YOLOv3 from one set
+   of weights: losses, first-step gradients, parameters within
+   ``DET_TOL``; MobileNet-SSD, whose small-batch training is chaotic in
+   fp32, each step from the same weights: the loss within
+   ``DET_TOL["ssd_loss_rel"]``), then each inference program from the same
+   weights: the networks' outputs and their decoding (``yolo_box``;
+   ``box_coder`` and the softmax) within ``DET_TOL["op"]``, and
+   ``multiclass_nms`` on the card from the CPU's decoding equal to the
+   CPU's; and the detection ops on the card against
+   the CPU at the tie cases (equal scores, all-zero ``yolo_box`` scores,
+   equal IoUs) and the last-writer ``yolov3_loss`` cases.
+36. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -4794,6 +4841,533 @@ def phase_control_flow_checks(K, pt, ops, ptb_lm, trained, card_out):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 31-35: the detection models
+# ---------------------------------------------------------------------------
+SSD_STEPS, YOLO_STEPS = 20, 10
+#: distinct synthetic batches each trainer cycles over
+DET_SEEDS = 4
+#: phase 35's limits, card against the port on the CPU in fp32 with TF32 off,
+#: set before the first card run: YOLOv3's as the CPU tests hold the port
+#: against the JAX package (tests/test_torch_ssd_yolo.py: 1e-5 of the
+#: largest magnitude, the gradients of the largest gradient); MobileNet-SSD's
+#: loss 1e-4 of itself (its own loss moves by up to 1.2e-5 under a one-ulp
+#: change of the images, the same file); NMS outputs and op results as the
+#: CPU tests hold them
+DET_TOL = {"loss_rel": 1e-5, "grad_gap_of_max": 1e-5, "param_gap_rel": 1e-5,
+           "ssd_loss_rel": 1e-4, "op": 1e-5}
+
+
+def no_sync(fn):
+    """``fn()`` with the card refusing every synchronisation (a host read of
+    a device value, a blocking copy): it raises if ``fn`` makes one."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def det_batches(mod, cfg, batch, keys, n, device="cuda"):
+    return [{k: torch.as_tensor(v, device=device)
+             for k, v in mod.synthetic_batch(cfg, batch, seed=s).items()
+             if k in keys} for s in range(n)]
+
+
+def phase_train_detection(K, pt, label, mod, cfg, steps, keys, want_of,
+                          card, probes):
+    """``steps`` steps of ``mod``'s training program through
+    ``Executor.prepare`` and ``Executor.run`` on the card, over
+    ``DET_SEEDS`` synthetic batches cycled, the launch counts set to 0 just
+    before and read just after: exactly ``want_of(trainable tensors)``
+    launches per step, nothing else registered; the loss finite and the
+    mean of the last five steps below the first five's. ``probes(exe,
+    built, scope, batch)`` adds the records of work timed alone. Returns
+    (record, (built, exe, scope))."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    built = mod.build_train(pt, cfg)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(built["startup"], scope=scope)
+    params = trainable(built["main"])
+    want = want_of(len(params))
+    batches = det_batches(mod, cfg, cfg.batch, keys, DET_SEEDS)
+    spec = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in batches[0].items()}
+    t0 = time.perf_counter()
+    check(exe.prepare(built["main"], feed=spec, fetch_list=[built["loss"]],
+                      scope=scope), f"{label}: prepare")
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        (loss,) = exe.run(built["main"], feed=batches[i % DET_SEEDS],
+                          fetch_list=[built["loss"]], scope=scope,
+                          return_numpy=False)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    for name, n in counts.items():
+        check(n == want.get(name, 0) * steps,
+              f"{label}: {n} {name} launches in {steps} steps, expected "
+              f"{want.get(name, 0)} per step")
+    check(exe.trace_count == 1, f"{label}: {exe.trace_count} runners built; "
+                                "prepare's should serve every step")
+    check(all(math.isfinite(x) for x in losses), f"{label}: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"{label}: loss {first} over the first 5 steps, "
+                        f"{last} over the last 5")
+    steady = statistics.median(step_ms[5:])
+    log_card(f"after {label}'s counted steps")
+    prof = op_breakdown(lambda: exe.run(
+        built["main"], feed=batches[0], fetch_list=[built["loss"]],
+        scope=scope, return_numpy=False), top=12, host_top=8)
+    rec = dict(
+        image_size=cfg.image_size, classes=cfg.num_classes, batch=cfg.batch,
+        steps=steps, params=len(params), prepare_ms=prepare_ms,
+        first_step_ms=step_ms[0], ms_per_step_steady=steady,
+        ms_per_step_quartiles=statistics.quantiles(step_ms[5:], n=4),
+        images_per_s=cfg.batch / steady * 1e3,
+        loss_first5_last5=[first, last], loss_first=losses[0],
+        loss_last=losses[-1], losses=losses,
+        launches_per_step={k: v // steps for k, v in counts.items() if v},
+        device_events_per_step=prof.get("launches"),
+        device_ms_per_step=prof.get("kernel_ms"),
+        device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                           if prof else None),
+        peak_gb=peak, card=card, profile=prof,
+        launches={k: v for k, v in counts.items() if v})
+    rec.update(probes(exe, built, scope, batches[0]))
+    if prof and rec.get("loss_op_ms"):
+        rec["loss_op_share"] = rec["loss_op_ms"] / prof["kernel_ms"]
+    log(f"{label}: {steps} steps at batch {cfg.batch}, loss {losses[0]:.3f}"
+        f" -> {losses[-1]:.3f}, {steady:.2f} ms/step, "
+        f"{rec['images_per_s']:.1f} images/s, peak {peak:.2f} GB [{card}]")
+    log(label.replace("-", "_") + " " + json.dumps(rec))
+    return rec, (built, exe, scope)
+
+
+def timed_alone(fn, label, refuse_sync=True):
+    """One call of ``fn`` with synchronisation refused (``refuse_sync``),
+    then its wall-clock ms per call (host clock to a synchronize, 3 calls)
+    and, from one profiled call, its device time (the sum of its kernels'
+    times: thousands of launches overrun the launch queue behind a spin,
+    so ``events_ms`` cannot hold them) and device events."""
+    if refuse_sync:
+        no_sync(fn)
+    wall = host_ms(fn, 3)
+    prof = op_breakdown(fn, top=6)
+    ms = prof.get("kernel_ms")
+    log(f"  {label}: {ms:.3f} ms of kernels, {prof.get('launches')} device "
+        f"events, {wall:.3f} ms wall-clock")
+    return dict(ms=ms, wall_ms=wall, device_events=prof.get("launches"),
+                profile=prof)
+
+
+def ssd_probes(ops):
+    def probes(exe, built, scope, batch):
+        locs, confs, box, var = exe.run(
+            built["infer"], feed={"image": batch["image"]},
+            fetch_list=[built["locs"], built["confs"], built["box"],
+                        built["box_var"]], scope=scope, return_numpy=False)
+        loc_p = locs.detach().requires_grad_()
+        conf_p = confs.detach().requires_grad_()
+
+        def loss_fb():
+            loss = ops.ssd_loss(loc_p, conf_p, batch["gt_box"],
+                                batch["gt_label"], box, var).sum()
+            return torch.autograd.grad(loss, [loc_p, conf_p])
+        r = timed_alone(loss_fb, "ssd_loss forward and backward")
+        return dict(loss_op_ms=r["ms"], loss_op_wall_ms=r["wall_ms"],
+                    loss_op_device_events=r["device_events"],
+                    loss_op_profile=r["profile"])
+    return probes
+
+
+def yolo_probes(ops, yolov3, cfg):
+    def probes(exe, built, scope, batch):
+        outs = exe.run(built["infer"], feed={"image": batch["image"],
+                                            "im_size": torch.full(
+                                                (cfg.batch, 2),
+                                                cfg.image_size,
+                                                dtype=torch.int32,
+                                                device="cuda")},
+                       fetch_list=built["outputs"], scope=scope,
+                       return_numpy=False)
+        xs = [o.detach().requires_grad_() for o in outs]
+
+        def loss_fb():
+            total = sum(ops.yolov3_loss(
+                x, batch["gt_box"], batch["gt_label"], list(yolov3.ANCHORS),
+                list(yolov3.ANCHOR_MASKS[i]), cfg.num_classes,
+                cfg.ignore_thresh, 32 // 2 ** i, gt_score=batch["gt_score"],
+                use_label_smooth=cfg.label_smooth).mean()
+                for i, x in enumerate(xs))
+            return torch.autograd.grad(total, xs)
+        r = timed_alone(loss_fb, "yolov3_loss x3 forward and backward")
+        rec = dict(loss_op_ms=r["ms"], loss_op_wall_ms=r["wall_ms"],
+                   loss_op_device_events=r["device_events"],
+                   loss_op_profile=r["profile"])
+        for c, hw in ((cfg.ch(256), cfg.image_size // 32),
+                      (cfg.ch(128), cfg.image_size // 16)):
+            route = torch.randn(cfg.batch, c, hw, hw, device="cuda",
+                                requires_grad=True)
+            dy = torch.randn(cfg.batch, c, 2 * hw, 2 * hw, device="cuda")
+
+            def up():
+                y = ops.resize_nearest(route, scale=2.0)
+                return torch.autograd.grad(y, route, dy)
+            rec[f"resize_nearest_ms_{c}x{hw}"] = timed_alone(
+                up, f"resize_nearest [{cfg.batch},{c},{hw},{hw}] x2 "
+                    "forward and backward", refuse_sync=False)["ms"]
+        return rec
+    return probes
+
+
+def phase_infer_detection(pt, label, built, scope, feed, nms_alone, card):
+    """The inference program over a trained scope: 5 timed runs after one
+    warm-up (host clock to the numpy result), peak memory, and the NMS
+    function alone on the same tensors (``nms_alone()`` returns the output
+    the program must equal, and the call to time)."""
+    exe = pt.Executor()
+
+    def run():
+        return exe.run(built["infer"], feed=feed, fetch_list=[built["nmsed"]],
+                       scope=scope)[0]
+    out = run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = run()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    b = out.shape[0]
+    check(out.ndim == 3 and out.shape[2] == 6, f"{label}: {out.shape}")
+    check(bool((out[..., 0] >= -1).all()) and (out[..., 0] >= 0).any(),
+          f"{label}: no detection kept")
+    want, call = nms_alone()
+    got = no_sync(call)
+    check(torch.equal(got[..., 0], want[..., 0])
+          and within(got, want, 1e-5, 1e-5),
+          f"{label}: NMS alone differs from the program's output")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base2 = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    nms_peak = (torch.cuda.max_memory_allocated() - base2) / 1e9
+    nms = timed_alone(call, f"{label}: NMS alone")
+    lat = statistics.median(ms)
+    rec = dict(batch=b, latency_ms=lat, latency_ms_all=ms,
+               images_per_s=b / lat * 1e3, peak_gb=peak,
+               kept_per_image=float((out[..., 0] >= 0).sum() / b),
+               nms_ms=nms["ms"], nms_device_events=nms["device_events"],
+               nms_wall_ms=nms["wall_ms"], nms_peak_gb=nms_peak,
+               nms_profile=nms["profile"], card=card)
+    log(f"{label}: batch {b} in {lat:.2f} ms, {rec['images_per_s']:.1f} "
+        f"images/s, NMS alone {nms['ms']:.2f} ms of kernels in "
+        f"{nms['device_events']} device events ({nms['wall_ms']:.2f} ms "
+        f"wall-clock), peak {peak:.2f} GB [{card}]")
+    return rec, out
+
+
+def phase_infer_ssd(pt, ops, ssd, card, trained):
+    built, _, scope = trained
+    cfg = ssd.mobilenet_ssd_voc()
+    (batch,) = det_batches(ssd, cfg, cfg.infer_batch,
+                           ("image", "gt_box", "gt_label"), 1)
+    feed = {"image": batch["image"]}
+
+    def nms_alone():
+        locs, confs, box, var, out = pt.Executor().run(
+            built["infer"], feed=feed,
+            fetch_list=[built["locs"], built["confs"], built["box"],
+                        built["box_var"], built["nmsed"]], scope=scope,
+            return_numpy=False)
+        probs = torch.softmax(confs, dim=-1)
+        return out, lambda: ops.detection_output(
+            locs, probs, box, var, nms_threshold=cfg.nms_threshold)
+    rec, out = phase_infer_detection(pt, "infer-ssd-mobilenet", built, scope,
+                                     feed, nms_alone, card)
+    gl = batch["gt_label"].cpu().numpy()
+    gb = batch["gt_box"].cpu().numpy()
+    t0 = time.perf_counter()
+    m = ops.detection_map(out, [r[r >= 0] for r in gl],
+                          [x[r >= 0] for x, r in zip(gb, gl)],
+                          cfg.num_classes, ap_type="11point")
+    rec.update(detection_map_host_ms=(time.perf_counter() - t0) * 1e3,
+               detection_map_11point=m)
+    log("infer_ssd_mobilenet " + json.dumps(rec))
+    return rec
+
+
+def phase_infer_yolo(pt, ops, yolov3, card, trained):
+    built, _, scope = trained
+    cfg = yolov3.yolov3_coco()
+    (batch,) = det_batches(yolov3, cfg, cfg.batch, ("image", "im_size"), 1)
+
+    def nms_alone():
+        res = pt.Executor().run(built["infer"], feed=batch,
+                                fetch_list=built["outputs"]
+                                + [built["nmsed"]], scope=scope,
+                                return_numpy=False)
+        boxes, scores = [], []
+        for i, x in enumerate(res[:3]):
+            anchors = [a for m in yolov3.ANCHOR_MASKS[i]
+                       for a in yolov3.ANCHORS[2 * m:2 * m + 2]]
+            bx, sc = ops.yolo_box(x, batch["im_size"], anchors,
+                                  cfg.num_classes, cfg.valid_thresh,
+                                  32 // 2 ** i)
+            boxes.append(bx)
+            scores.append(sc.transpose(1, 2))
+        bx, sc = torch.cat(boxes, 1), torch.cat(scores, 2)
+        return res[3], lambda: ops.multiclass_nms(
+            bx, sc, score_threshold=cfg.valid_thresh,
+            nms_top_k=cfg.nms_topk, keep_top_k=cfg.nms_posk,
+            nms_threshold=cfg.nms_thresh, background_label=-1)
+    rec, _ = phase_infer_detection(pt, "infer-yolov3", built, scope, batch,
+                                   nms_alone, card)
+    log("infer_yolov3 " + json.dumps(rec))
+    return rec
+
+
+def det_train_card_vs_cpu(K, pt, mod, cfg, keys, infer_keys, synced,
+                          pre_of, decode, nms):
+    """``mod``'s tiny config 3 steps on the card and on the CPU from one set
+    of weights (drawn on the CPU), fp32 with TF32 off: per step the loss,
+    the first step's gradients and the parameters after; with ``synced``
+    each step starts from the CPU's weights on both. Then the inference
+    program from the CPU's trained weights on both: the network's outputs
+    ``pre_of(built)`` and ``decode(those outputs, feed, device)`` (boxes
+    [B, M, 4], scores [B, C, M]) within the limit, and ``nms(boxes,
+    scores)`` on the card from the CPU's decoding, equal to the CPU's."""
+    import numpy as np
+    t = mod.build_train(pt, cfg)
+    cpu_exe, card_exe = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu_scope = pt.Scope()
+    cpu_exe.run(t["startup"], scope=cpu_scope)
+    names = [n for n, v in t["startup"].global_block().vars.items()
+             if v.persistable]
+
+    def snap(scope):
+        return {n: scope.find_var(n).cpu().numpy().copy() for n in names}
+    card_scope = pt.Scope.from_numpy(snap(cpu_scope), "cuda", t["startup"])
+    grads = [p + "@GRAD" for p in trainable(t["main"])]
+    losses, first = [], None
+    K.reset_launch_counts()
+    for step, batch in enumerate(det_batches(mod, cfg, cfg.batch, keys, 3,
+                                             "cpu")):
+        if synced:
+            card_scope = pt.Scope.from_numpy(snap(cpu_scope), "cuda",
+                                             t["startup"])
+        fetch = [t["loss"]] + (grads if step == 0 and not synced else [])
+        card = card_exe.run(t["main"], feed=batch, fetch_list=fetch,
+                            scope=card_scope)
+        cpu = cpu_exe.run(t["main"], feed=batch, fetch_list=fetch,
+                          scope=cpu_scope)
+        losses.append((float(card[0]), float(cpu[0])))
+        if len(fetch) > 1:
+            first = (card[1:], cpu[1:])
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    rec = dict(losses_card_cpu=losses, loss_gap_rel=max(
+        abs(a - b) / abs(b) for a, b in losses))
+    tol = DET_TOL["ssd_loss_rel"] if synced else DET_TOL["loss_rel"]
+    check(rec["loss_gap_rel"] <= tol, f"detection-correctness "
+          f"{mod.__name__}: losses card/cpu {losses}")
+    if not synced:
+        gmax = max(float(np.abs(g).max()) for g in first[1])
+        gap = max(float(np.abs(a - b).max()) for a, b in zip(*first))
+        pgap = max(float(np.abs(card_scope.find_var(n).cpu().numpy()
+                                - cpu_scope.find_var(n).numpy()).max())
+                   / max(1.0, float(np.abs(cpu_scope.find_var(n).numpy())
+                                    .max())) for n in names)
+        rec.update(grad_gap_of_max=gap / gmax, param_gap_rel=pgap)
+        check(gap <= DET_TOL["grad_gap_of_max"] * gmax,
+              f"detection-correctness {mod.__name__}: first-step gradients "
+              f"differ by {gap} (largest gradient {gmax})")
+        check(pgap <= DET_TOL["param_gap_rel"],
+              f"detection-correctness {mod.__name__}: parameters differ by "
+              f"{pgap}")
+    # inference from the CPU's trained weights on both: the network's
+    # outputs and their decoding (exp and sigmoid round differently on the
+    # card) within the limit, then NMS on the card from the CPU's decoded
+    # boxes and scores equal to the CPU's (near-tied scores one rounding
+    # apart would order differently)
+    card_scope = pt.Scope.from_numpy(snap(cpu_scope), "cuda", t["startup"])
+    (feed,) = det_batches(mod, cfg, cfg.batch, infer_keys, 1, "cpu")
+    heads = [exe.run(t["infer"], feed=feed, fetch_list=pre_of(t), scope=sc,
+                     return_numpy=False)
+             for exe, sc in ((card_exe, card_scope), (cpu_exe, cpu_scope))]
+    decoded = [decode(heads[0], feed, "cuda"), decode(heads[1], feed, "cpu")]
+    head_gap = max(max_err(a.cpu(), b) / max(1.0, b.abs().max().item())
+                   for a, b in zip(list(heads[0]) + list(decoded[0]),
+                                   list(heads[1]) + list(decoded[1])))
+    check(head_gap <= DET_TOL["op"], f"detection-correctness "
+          f"{mod.__name__}: network outputs or their decoding differ by "
+          f"{head_gap}")
+    outs = [nms(*(x.to(dev) for x in decoded[1])).cpu().numpy()
+            for dev in ("cuda", "cpu")]
+    check(np.array_equal(outs[0], outs[1]) and (outs[1][..., 0] >= 0).any(),
+          f"detection-correctness {mod.__name__}: NMS on the card differs "
+          f"from the CPU's at {int((outs[0] != outs[1]).any(-1).sum())} rows")
+    rec.update(head_gap=head_gap, nms_kept=int((outs[1][..., 0] >= 0).sum()),
+               launches=launches)
+    return rec
+
+
+def det_op_cases(ops, rng):
+    """The detection ops' tie and last-writer cases: (name, call) with
+    numpy inputs; each runs on the card and on the CPU."""
+    import numpy as np
+
+    def boxes(n, lead=(), size=1.0):
+        xy = rng.uniform(0, 0.6 * size, lead + (n, 2))
+        wh = rng.uniform(0.1 * size, 0.4 * size, lead + (n, 2))
+        return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    tie_sc = (np.round(rng.rand(2, 4, 30) * 4) / 4).astype(np.float32)
+    bx = boxes(30, (2,))
+    iou_tie = np.array([[[0.5, 0.5, 0.2, 0.5], [0.5, 0.5, 0.5, 0.1],
+                         [0.3, 0.5, 0.5, 0.5]]], np.float32)
+    x_yolo = (rng.randn(2, 3 * 9, 4, 4) * 2).astype(np.float32)
+    img = np.array([[64, 64], [64, 64]], np.int32)
+    anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+    cell00 = {
+        "alone": [[0.05, 0.06, 0.3, 0.25]],
+        "padded": [[0.05, 0.06, 0.3, 0.25], [0, 0, 0, 0], [0, 0, 0, 0]],
+        "first": [[0.07, 0.04, 0.12, 0.2], [0.05, 0.06, 0.3, 0.25]],
+        "second": [[0.05, 0.06, 0.3, 0.25], [0.07, 0.04, 0.12, 0.2]]}
+    pri = boxes(12)
+    gt_pad = np.concatenate([pri[[2, 7]][None],
+                             np.zeros((1, 3, 4), np.float32)], 1)
+    loc = (rng.randn(1, 12, 4) * 0.1).astype(np.float32)
+    conf = rng.randn(1, 12, 3).astype(np.float32)
+
+    def yolo_nms(t):
+        b, s = ops.yolo_box(t(x_yolo[:, :24]), t(img), anchors[:6], 3, 0.8,
+                            16)
+        return ops.multiclass_nms(b, s.transpose(1, 2), background_label=-1,
+                                  score_threshold=-1.0, nms_top_k=-1,
+                                  keep_top_k=-1)
+    cases = [
+        ("multiclass_nms tied scores", True, lambda t: ops.multiclass_nms(
+            t(bx), t(tie_sc), background_label=-1, score_threshold=0.2,
+            nms_top_k=20, keep_top_k=30)),
+        ("multiclass_nms tied scores, eta 0.9", True,
+         lambda t: ops.multiclass_nms(t(bx), t(tie_sc), background_label=1,
+                                      score_threshold=0.0, nms_top_k=-1,
+                                      nms_threshold=0.7, keep_top_k=-1,
+                                      nms_eta=0.9)),
+        ("multiclass_nms every score equal", True,
+         lambda t: ops.multiclass_nms(t(bx), t(np.full_like(tie_sc, 0.5)),
+                                      background_label=-1, nms_top_k=6,
+                                      keep_top_k=20)),
+        ("yolo_box all-zero scores then NMS", True, yolo_nms),
+        ("bipartite_match equal IoUs", False,
+         lambda t: ops.bipartite_match(t(iou_tie), "per_prediction", 0.4)),
+        ("ssd_loss padded gt", False, lambda t: ops.ssd_loss(
+            t(loc), t(conf), t(gt_pad),
+            t(np.array([[1, 2, -1, -1, -1]], np.int32)), t(pri))),
+        ("interpolate bilinear down", False, lambda t: ops.interpolate(
+            t(x_yolo), (3, 2), resample="BILINEAR", align_corners=False)),
+        ("interpolate nearest 2x", False, lambda t: ops.resize_nearest(
+            t(x_yolo), scale=2.0)),
+    ]
+    for key, rows in cell00.items():
+        gt = np.array([rows], np.float32)
+        lab = np.arange(len(rows), dtype=np.int32)[None] % 4
+        cases.append((f"yolov3_loss cell (0, 0), {key}", False,
+                      lambda t, gt=gt, lab=lab: ops.yolov3_loss(
+                          t(x_yolo[:1]), t(gt), t(lab), anchors, [0, 1, 2],
+                          4, 0.7, 8)))
+    return cases
+
+
+def phase_detection_checks(K, pt, ops, ssd, yolov3, card):
+    """Phase 35 (see the module docstring); returns the card's launches of
+    the tiny trainers."""
+    import numpy as np
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ycfg, scfg = yolov3.yolo_tiny(), ssd.ssd_tiny()
+
+        def yolo_decode(xs, feed, dev):
+            boxes, scores = [], []
+            for i, x in enumerate(xs):
+                anchors = [a for m in yolov3.ANCHOR_MASKS[i]
+                           for a in yolov3.ANCHORS[2 * m:2 * m + 2]]
+                b, sc = ops.yolo_box(x.to(dev), feed["im_size"].to(dev),
+                                     anchors, ycfg.num_classes,
+                                     ycfg.valid_thresh, 32 // 2 ** i)
+                boxes.append(b)
+                scores.append(sc.transpose(1, 2))
+            return torch.cat(boxes, 1), torch.cat(scores, 2)
+
+        def yolo_nms(boxes, scores):
+            return ops.multiclass_nms(
+                boxes, scores, score_threshold=ycfg.valid_thresh,
+                nms_top_k=ycfg.nms_topk, keep_top_k=ycfg.nms_posk,
+                nms_threshold=ycfg.nms_thresh, background_label=-1)
+
+        def ssd_decode(heads, feed, dev):
+            # detection_output's two stages: box_coder's decode and, on the
+            # softmax-ed scores, multiclass_nms
+            locs, confs, box, var = (h.to(dev) for h in heads)
+            return (ops.box_coder(box, var, locs, "decode_center_size"),
+                    torch.softmax(confs, -1).transpose(1, 2))
+
+        def ssd_nms(boxes, scores):
+            return ops.multiclass_nms(boxes, scores, score_threshold=0.01,
+                                      nms_top_k=400, keep_top_k=200,
+                                      nms_threshold=scfg.nms_threshold)
+        yolo = det_train_card_vs_cpu(
+            K, pt, yolov3, ycfg, ("image", "gt_box", "gt_label", "gt_score"),
+            ("image", "im_size"), False, lambda b: b["outputs"],
+            yolo_decode, yolo_nms)
+        ssd_rec = det_train_card_vs_cpu(
+            K, pt, ssd, scfg, ("image", "gt_box", "gt_label"), ("image",),
+            True, lambda b: [b["locs"], b["confs"], b["box"], b["box_var"]],
+            ssd_decode, ssd_nms)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    ops_rec = {}
+    for name, nms, call in det_op_cases(ops, np.random.RandomState(35)):
+        outs = [call(lambda a, d=d: torch.as_tensor(a, device=d))
+                for d in ("cuda", "cpu")]
+        got, want = [[o.detach().cpu() for o in (x if isinstance(
+            x, (tuple, list)) else [x])] for x in outs]
+        for g, w in zip(got, want):
+            if nms:
+                check(torch.equal(g[..., 0], w[..., 0]),
+                      f"detection-correctness: {name}: labels or kept set")
+            if not w.is_floating_point():
+                check(torch.equal(g, w), f"detection-correctness: {name}")
+            else:
+                scale = max(1.0, w.abs().max().item())
+                check(max_err(g, w) <= DET_TOL["op"] * scale,
+                      f"detection-correctness: {name}: {max_err(g, w)}")
+        ops_rec[name] = max((max_err(g, w) for g, w in zip(got, want)
+                             if w.is_floating_point()), default=0.0)
+    rec = dict(yolo_tiny=yolo, ssd_tiny=ssd_rec, ops_max_err=ops_rec,
+               card=card)
+    log("detection_correctness " + json.dumps(rec))
+    launches = dict(yolo["launches"])
+    for k, v in ssd_rec["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return dict(rec, launches=launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4806,7 +5380,8 @@ def main():
 
     from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import (
-        bert, deepfm, ptb_lm, resnet, se_resnext, transformer, vgg,
+        bert, deepfm, ptb_lm, resnet, se_resnext, ssd, transformer, vgg,
+        yolov3,
     )
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
@@ -5013,6 +5588,15 @@ def main():
                       for n in ptb_lm.param_names(lm)], "sgd", gen,
                   "the PTB LM's 7 tensors, one launch")
         del lm_main
+        # YOLOv3's 222 tensors with the schedule's rate read from the card,
+        # in one launch (phase 33 launches it once per tensor a step)
+        yolo_main = yolov3.build_train(pt, yolov3.yolov3_coco())["main"]
+        opt_main["momentum_yolo"] = check_sgd(
+            K, [tuple(yolo_main.global_block().var(n).shape)
+                for n in trainable(yolo_main)], "momentum", gen,
+            "YOLOv3's 222 tensors, lr on the card, one launch",
+            lr_on_card=True)
+        del yolo_main
         # the scatter-add: bench.py's CTR point; BERT-base's three
         # embedding gradients with pretrain-512's ids into zeros (phase
         # 10's word shape is the main one); the merge's inverse ids; bf16;
@@ -5195,6 +5779,33 @@ def main():
                                           lm_out)
     del lm_trained
     log(f"phases 0-30 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 31: MobileNet-SSD at 300^2, batch 64, through prepare and "
+        "Executor.run (train-ssd-mobilenet)")
+    ssd_cfg = ssd.mobilenet_ssd_voc()
+    ssd_train, ssd_trained = phase_train_detection(
+        K, pt, "train-ssd-mobilenet", ssd, ssd_cfg, SSD_STEPS,
+        ("image", "gt_box", "gt_label"), lambda n: {}, card, ssd_probes(ops))
+    log("phase 32: MobileNet-SSD inference, batch 32, detection_output "
+        "(infer-ssd-mobilenet)")
+    phase_infer_ssd(pt, ops, ssd, card, ssd_trained)
+    del ssd_trained
+    log("phase 33: YOLOv3 (DarkNet-53) at 608^2, batch 8 (train-yolov3)")
+    yolo_cfg = yolov3.yolov3_coco()
+    yolo_train, yolo_trained = phase_train_detection(
+        K, pt, "train-yolov3", yolov3, yolo_cfg, YOLO_STEPS,
+        ("image", "gt_box", "gt_label", "gt_score"),
+        lambda n: {"fused_momentum": n}, card,
+        yolo_probes(ops, yolov3, yolo_cfg))
+    check(yolo_train["params"] == 222, f"train-yolov3: "
+          f"{yolo_train['params']} trainable tensors, expected 222")
+    log("phase 34: YOLOv3 inference, batch 8, yolo_box and multiclass_nms "
+        "(infer-yolov3)")
+    phase_infer_yolo(pt, ops, yolov3, card, yolo_trained)
+    del yolo_trained
+    log("phase 35: the detection models and ops on the card against the "
+        "CPU (detection-correctness)")
+    det_checks = phase_detection_checks(K, pt, ops, ssd, yolov3, card)
+    log(f"phases 0-35 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -5221,6 +5832,9 @@ def main():
         "sequence-correctness": seq_checks["launches"],
         "train-ptb-lm": lm_train["launches"],
         "control-flow-correctness": cf_checks["launches"],
+        "train-ssd-mobilenet": ssd_train["launches"],
+        "train-yolov3": yolo_train["launches"],
+        "detection-correctness": det_checks["launches"],
     }
     kernels = []
     for name, main_rec in (

@@ -35,6 +35,14 @@ as non-trainable persistable parameters, which its op's ``MeanOut`` and
 ``VarianceOut`` overwrite; outside a Program its running stats would be
 module state, which it does not keep yet (queue 1 item 7d): it raises.
 
+The detection layers: every function of ``ops/detection.py`` but the eight
+that take or return lists or run on the host (``_DETECTION_HOST``: eager
+passthroughs, as the JAX package exposes them, layers/__init__.py:341-347
+and :382-390), the interpolation ops of ``ops/nn.py``, and
+``multi_box_head`` (its parameters named as the JAX layer names them). In
+a Program ``ssd_loss``'s ``prior_box_var`` and ``yolov3_loss``'s
+``gt_score``, given as Variables, ride the op's inputs.
+
 The sequence models' layers: the 17 sequence ops (``sequence_*``), the CRF
 (``linear_chain_crf`` with its ``crfw`` parameter, ``crf_decoding``), the
 recurrent ops (``lstm``, ``gru``, ``dynamic_lstm``, ``dynamic_lstmp``,
@@ -50,8 +58,10 @@ package's ``_append_static`` records them; the recurrent ops' op yields one
 Variable, the outputs (their final state is not an output of the op).
 """
 
+import contextlib
 import functools
 import inspect
+import math
 
 import torch
 
@@ -68,6 +78,7 @@ from paddle_tpu_torch.nn import module as _module
 from paddle_tpu_torch.ops import activation as _act
 from paddle_tpu_torch.ops import control_flow as _cf
 from paddle_tpu_torch.ops import crf as _crf
+from paddle_tpu_torch.ops import detection as _det
 from paddle_tpu_torch.ops import loss as _loss
 from paddle_tpu_torch.ops import math as _math
 from paddle_tpu_torch.ops import nn as _nn
@@ -87,6 +98,14 @@ from paddle_tpu_torch.static.program import (
 #: the op modules whose every function ``layers`` wraps (the JAX package
 #: wraps every exported op, layers/__init__.py:340-360)
 _WRAPPED = (_act, _math, _reduce, _tensor, _loss, _cf, _ta)
+#: the detection functions that run on the host or take lists: eager
+#: passthroughs, with no op (the JAX package's ``_EXCLUDE``)
+_DETECTION_HOST = ("rpn_target_assign", "generate_proposal_labels",
+                   "detection_map", "distribute_fpn_proposals",
+                   "collect_fpn_proposals", "retinanet_detection_output",
+                   "retinanet_target_assign", "generate_mask_labels")
+_INTERP = ("interpolate", "resize_nearest", "resize_bilinear",
+           "image_resize", "image_resize_short")
 
 __all__ = sorted(
     {"data", "fc", "embedding", "softmax", "conv2d", "pool2d", "batch_norm",
@@ -94,8 +113,9 @@ __all__ = sorted(
      "while_loop", "static_rnn", "While", "Switch", "IfElse", "StaticRNN",
      "DynamicRNN", "io", "py_reader", "create_py_reader_by_data",
      "read_file", "double_buffer", "batch", "shuffle", "load", "open_files",
-     "random_data_generator", "Preprocessor"}
+     "random_data_generator", "Preprocessor", "multi_box_head"}
     | {n for m in _WRAPPED for n in m.__all__}
+    | set(_det.__all__) | set(_INTERP)
     | set(_rnn.__all__) | set(_seq.__all__)) + [
     "learning_rate_scheduler", "noam_decay", "exponential_decay",
     "natural_exp_decay", "inverse_time_decay", "polynomial_decay",
@@ -124,15 +144,24 @@ _NARGS = {
     "prelu": 2, "conv2d": 2, "embedding": 2,
     "linear_chain_crf": 3, "crf_decoding": 2, "dice_loss": 2,
     "sampled_softmax_with_cross_entropy": 2,
+    # detection family
+    "iou_similarity": 2, "box_coder": 3, "prior_box": 2,
+    "density_prior_box": 2, "bipartite_match": 1, "target_assign": 2,
+    "multiclass_nms": 2, "detection_output": 4, "ssd_loss": 5,
+    "yolo_box": 2, "yolov3_loss": 3, "box_clip": 2,
+    "sigmoid_focal_loss": 3, "roi_align": 2, "roi_pool": 2,
+    "roi_perspective_transform": 2, "mine_hard_examples": 4,
+    "psroi_pool": 2, "generate_proposals": 5, "box_decoder_and_assign": 4,
 }
 #: ops whose first arg is a list of tensors
 _LIST_FIRST = {"concat", "sums", "stack", "multiplex"}
 #: a layer's arguments that never become op attrs
 _NOT_ATTRS = ("name", "device")
-#: ops that return (outputs, final state): in a Program the op's one output
-#: is the first (the JAX package's op count of 1 for them)
+#: ops that return (outputs, final state), and ``box_decoder_and_assign``:
+#: in a Program the op's one output is the first (the JAX package's op count
+#: of 1 for them, layers/__init__.py:117-124)
 _FIRST_OUT = {"lstm", "gru", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru",
-              "simple_rnn", "attention_lstm"}
+              "simple_rnn", "attention_lstm", "box_decoder_and_assign"}
 #: ops whose compute reaches a kernel: shape inference runs this plain body
 _SHAPE_BODIES = {"embedding": _nn.embedding_reference}
 _META = torch.device("meta")
@@ -315,6 +344,11 @@ for _n in _rnn.__all__:
     globals()[_n] = _dual(_n, getattr(_rnn, _n))
 for _n in _seq.__all__:
     globals()[_n] = _dual(_n, getattr(_seq, _n))
+for _n in _det.__all__:
+    globals()[_n] = (getattr(_det, _n) if _n in _DETECTION_HOST
+                     else _dual(_n, getattr(_det, _n)))
+for _n in _INTERP:
+    globals()[_n] = _dual(_n, getattr(_nn, _n))
 del _m, _n
 _register("linear_chain_crf", _crf.linear_chain_crf)
 _register("embedding", _nn.embedding)
@@ -548,6 +582,99 @@ def linear_chain_crf(input, label, param_attr=None, length=None):
             tensors.append(length)
         return _append_static("linear_chain_crf", tensors, {}, False)
     return _crf.linear_chain_crf(input, w, label, length)
+
+
+def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
+                   min_ratio=None, max_ratio=None, min_sizes=None,
+                   max_sizes=None, steps=None, step_w=None, step_h=None,
+                   offset=0.5, variance=(0.1, 0.1, 0.2, 0.2), flip=True,
+                   clip=False, kernel_size=1, pad=0, stride=1, name=None,
+                   min_max_aspect_ratios_order=False):
+    """SSD multi-box head (ref python/paddle/fluid/layers/detection.py:1737),
+    as the JAX layer builds it (layers/__init__.py:970-1077): per feature
+    map, ``prior_box`` and two convs predicting locations (P*4 channels)
+    and confidences (P*num_classes channels), transposed to NHWC and
+    flattened; everything concatenated across maps.
+
+    The convs' parameters are ``{tag}_loc{i}_w/_b`` and
+    ``{tag}_conf{i}_w/_b``: in a Program the tag is
+    ``unique_name.generate("multi_box_head")`` (or ``name``), in the module
+    context ``"mbh"`` under the frame scope ``multi_box_head``, so a scope
+    or a parameter dict of the JAX package's carries over.
+
+    Returns (mbox_locs [N, B, 4], mbox_confs [N, B, num_classes],
+    boxes [B, 4], variances [B, 4]) with B the total prior count.
+    """
+    if not isinstance(inputs, (list, tuple)):
+        raise EnforceNotMet("inputs should be a list or tuple")
+    num_layer = len(inputs)
+    if num_layer <= 2:
+        if min_sizes is None or max_sizes is None or \
+                len(min_sizes) != num_layer or len(max_sizes) != num_layer:
+            raise EnforceNotMet(
+                "with <=2 input layers, min_sizes/max_sizes must be "
+                "given per layer")
+    elif min_sizes is None and max_sizes is None:
+        min_sizes, max_sizes = [], []
+        step = int(math.floor((max_ratio - min_ratio) / (num_layer - 2)))
+        for ratio in range(min_ratio, max_ratio + 1, step):
+            min_sizes.append(base_size * ratio / 100.0)
+            max_sizes.append(base_size * (ratio + step) / 100.0)
+        min_sizes = [base_size * 0.10] + min_sizes
+        max_sizes = [base_size * 0.20] + max_sizes
+    if steps:
+        step_w = step_h = steps
+    if _module.in_module_ctx():
+        scope, tag = _module._frame().scope("multi_box_head"), name or "mbh"
+    else:
+        scope = contextlib.nullcontext()
+        tag = name or unique_name.generate("multi_box_head")
+    with scope:
+        return _multi_box_head_maps(
+            inputs, image, num_classes, aspect_ratios, min_sizes, max_sizes,
+            step_w, step_h, offset, variance, flip, clip, kernel_size, pad,
+            stride, min_max_aspect_ratios_order, tag)
+
+
+def _multi_box_head_maps(inputs, image, num_classes, aspect_ratios,
+                         min_sizes, max_sizes, step_w, step_h, offset,
+                         variance, flip, clip, kernel_size, pad, stride,
+                         min_max_aspect_ratios_order, tag):
+    locs, confs, boxes, variances = [], [], [], []
+    for i, inp in enumerate(inputs):
+        min_size, max_size = min_sizes[i], max_sizes[i]
+        if not isinstance(min_size, (list, tuple)):
+            min_size = [min_size]
+        if not isinstance(max_size, (list, tuple)):
+            max_size = [max_size]
+        ar = aspect_ratios[i] if aspect_ratios is not None else []
+        if not isinstance(ar, (list, tuple)):
+            ar = [ar]
+        step = (step_w[i] if step_w else 0.0, step_h[i] if step_h else 0.0)
+        box, var = prior_box(inp, image, list(min_size), list(max_size),
+                             list(ar), list(variance), flip, clip, step,
+                             offset, min_max_aspect_ratios_order)
+        boxes.append(box)
+        variances.append(var)
+        num_boxes = box.shape[2]           # priors per cell
+        for kind, width, out in (("loc", 4, locs),
+                                 ("conf", num_classes, confs)):
+            y = conv2d(inp, num_boxes * width, kernel_size, stride=stride,
+                       padding=pad,
+                       param_attr=ParamAttr(name=f"{tag}_{kind}{i}_w"),
+                       bias_attr=ParamAttr(name=f"{tag}_{kind}{i}_b"))
+            out.append(flatten(transpose(y, perm=[0, 2, 3, 1]), axis=1))
+    if len(boxes) == 1:
+        box, var, loc, conf = boxes[0], variances[0], locs[0], confs[0]
+    else:
+        box = concat([flatten(b, axis=3) for b in boxes])
+        var = concat([flatten(v, axis=3) for v in variances])
+        loc = concat(locs, axis=1)
+        conf = concat(confs, axis=1)
+    box = reshape(box, shape=[-1, 4])
+    var = reshape(var, shape=[-1, 4])
+    return (reshape(loc, shape=[0, -1, 4]),
+            reshape(conf, shape=[0, -1, num_classes]), box, var)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Structural ops of the static path: the port of ``paddle_tpu/ops/nn.py``'s
-``conv2d``, ``pool2d``, ``batch_norm``, ``dropout`` and ``embedding``.
+``conv2d``, ``pool2d``, ``batch_norm``, ``dropout`` and ``embedding``, and of
+its interpolation family (``interpolate``, ``resize_nearest``,
+``resize_bilinear``, ``image_resize``, ``image_resize_short``).
 
 ``embedding`` routes the gather to the ``embedding_gather`` kernel (a CUDA
 tensor launches it or raises; a CPU tensor takes its plain body);
@@ -13,6 +15,16 @@ functional``. Where PyTorch's semantics differ from the JAX op's, the
 difference is made explicit: XLA's SAME padding (odd pixel after), pooling
 padded with -inf (or 0) and counted as the JAX op counts, batch norm's
 running stats ``m*old + (1-m)*batch`` with the biased two-pass variance.
+
+The interpolation ops follow ``jax.image.resize``, as the JAX ``interpolate``
+does (ops/nn.py:459-481), not Fluid's interp ops nor ``F.interpolate``'s
+defaults: nearest takes source pixel ``floor((i + 0.5) * in / out)``
+(half-pixel centres, in fp32), and bilinear without ``align_corners`` is
+``scale_and_translate``'s triangle kernel, widened by ``in / out`` when it
+down-samples (antialiased), its weights normalised per output pixel; both
+are written out here as a gather and as one weight matrix per resized axis.
+Bilinear with ``align_corners`` is the JAX function's explicit gather over
+``jnp.linspace`` coordinates, computed as that ``linspace`` computes them.
 """
 
 import contextlib
@@ -23,7 +35,8 @@ import torch.nn.functional as F
 from paddle_tpu_torch.ops.kernels import embedding as _gather
 
 __all__ = ["conv2d", "pool2d", "batch_norm", "dropout", "embedding",
-           "embedding_reference"]
+           "embedding_reference", "interpolate", "resize_nearest",
+           "resize_bilinear", "image_resize", "image_resize_short"]
 
 
 def _pair(v, n=2):
@@ -203,3 +216,113 @@ def embedding_reference(ids, weight, padding_idx=None, name=None):
     """:func:`embedding` over the plain gather body."""
     return _embedding(_gather._embedding_gather_reference, ids, weight,
                       padding_idx)
+
+
+def _nearest_index(m, n, device):
+    """``jax.image.resize``'s nearest source index of each of ``n`` outputs
+    over ``m`` inputs: floor((i + 0.5) * m / n) in fp32."""
+    return torch.floor((torch.arange(n, dtype=torch.float32, device=device)
+                        + 0.5) * m / n).long()
+
+
+def _triangle_weights(m, n, device):
+    """``jax.image``'s ``compute_weight_mat`` for the triangle kernel with
+    antialiasing, scale n/m and no translation: [m, n] in fp32."""
+    inv = _f32(1.0 / (n / m))
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) \
+        * inv - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(
+        m, dtype=torch.float32, device=device)[:, None]) / kscale
+    w = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(torch.finfo(
+        torch.float32).eps), w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def _f32(v):
+    """A Python float rounded to fp32 (a JAX weak-typed scalar in an fp32
+    computation)."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def _linspace(stop, num, device):
+    """``jnp.linspace(0, stop, num)`` in fp32 as JAX computes it:
+    ``stop * (i / (num - 1))`` and the end point itself."""
+    if num == 1:
+        return torch.zeros(1, device=device)
+    step = torch.arange(num - 1, dtype=torch.float32, device=device) \
+        / (num - 1)
+    return torch.cat([0.0 * (1 - step) + float(stop) * step,
+                      torch.full((1,), float(stop), device=device)])
+
+
+def interpolate(x, out_shape=None, scale=None, resample="BILINEAR",
+                align_corners=True, data_format="NCHW", name=None):
+    """interpolate_op.cc parity as the JAX op computes it (nearest or
+    bilinear over NCHW; see the module docstring)."""
+    n, c, h, w = x.shape
+    if out_shape is None:
+        out_shape = (int(h * scale), int(w * scale))
+    oh, ow = (int(v) for v in out_shape)
+    if resample.upper() == "NEAREST":
+        if oh != h:
+            x = x[:, :, _nearest_index(h, oh, x.device)]
+        if ow != w:
+            x = x[:, :, :, _nearest_index(w, ow, x.device)]
+        return x
+    if not align_corners:
+        if oh != h:
+            x = torch.einsum("nchw,hH->ncHw", x,
+                             _triangle_weights(h, oh, x.device).to(x.dtype))
+        if ow != w:
+            x = torch.einsum("nchw,wW->nchW", x,
+                             _triangle_weights(w, ow, x.device).to(x.dtype))
+        return x
+    ys = _linspace(h - 1, oh, x.device)
+    xs = _linspace(w - 1, ow, x.device)
+    y0 = torch.floor(ys).long()
+    x0 = torch.floor(xs).long()
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    wy = (ys - y0)[None, None, :, None]
+    wx = (xs - x0)[None, None, None, :]
+
+    def g(yi, xi):
+        return x[:, :, yi][:, :, :, xi]
+    top = g(y0, x0) * (1 - wx) + g(y0, x1) * wx
+    bot = g(y1, x0) * (1 - wx) + g(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def resize_nearest(x, out_shape=None, scale=None, align_corners=True,
+                   name=None):
+    return interpolate(x, out_shape, scale, "NEAREST", align_corners)
+
+
+def resize_bilinear(x, out_shape=None, scale=None, align_corners=True,
+                    name=None):
+    return interpolate(x, out_shape, scale, "BILINEAR", align_corners)
+
+
+def image_resize(x, out_shape=None, scale=None, resample="BILINEAR",
+                 align_corners=True, name=None):
+    """fluid.layers.image_resize parity: the user-facing dispatcher over
+    interpolate_op.cc."""
+    if resample.upper() not in ("BILINEAR", "NEAREST"):
+        raise ValueError(
+            f"image_resize: resample must be BILINEAR or NEAREST, "
+            f"got {resample}")
+    return interpolate(x, out_shape, scale, resample.upper(), align_corners)
+
+
+def image_resize_short(x, out_short_len, resample="BILINEAR", name=None):
+    """fluid.layers.image_resize_short parity: resize so the short edge
+    becomes out_short_len, keeping the aspect ratio."""
+    n, c, h, w = x.shape
+    short = min(h, w)
+    oh = int(round(h * out_short_len / short))
+    ow = int(round(w * out_short_len / short))
+    return image_resize(x, (oh, ow), None, resample)

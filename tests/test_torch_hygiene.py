@@ -62,7 +62,9 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
                 f"layers{os.sep}io.py",
                 f"layers{os.sep}control_flow_classes.py", "reader.py",
                 f"dataio{os.sep}feeder.py", f"dataio{os.sep}pyreader.py",
-                "backward.py", f"models{os.sep}ptb_lm.py"):
+                "backward.py", f"models{os.sep}ptb_lm.py",
+                f"ops{os.sep}detection.py", f"models{os.sep}ssd.py",
+                f"models{os.sep}yolov3.py"):
         assert any(p.endswith(f"{os.sep}{mod}") for p in srcs), mod
     for path in srcs:
         with open(path) as f:
@@ -98,6 +100,8 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.dataio.pyreader\n"
         "import paddle_tpu_torch.backward\n"
         "import paddle_tpu_torch.models.ptb_lm\n"
+        "import paddle_tpu_torch.ops.detection\n"
+        "import paddle_tpu_torch.models.ssd, paddle_tpu_torch.models.yolov3\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

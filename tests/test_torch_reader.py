@@ -270,14 +270,17 @@ def test_batch_and_shuffle_chains_match_jax():
 
 
 def test_random_data_generator_and_preprocessor():
+    # each package names its reader vars from its own process-wide
+    # counter: fresh counters keep the two names equal whatever ran before
     main = tpt.Program()
-    with tpt.program_guard(main, tpt.Program()):
+    with tpt.program_guard(main, tpt.Program()), tpt.unique_name.guard():
         rdr = tpt.layers.random_data_generator(-1.0, 1.0, [[2, 3]], seed=4)
     jmain = jpt.Program()
-    with jpt.static.program_guard(jmain, jpt.Program()):
+    with jpt.static.program_guard(jmain, jpt.Program()), junique.guard():
         jrdr = jpt.layers.random_data_generator(-1.0, 1.0, [[2, 3]], seed=4)
     got = next(iter(rdr._source()))
     want = next(iter(jrdr._source()))
+    assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     # Preprocessor: the batch through a sub-program on the CPU
