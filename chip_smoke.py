@@ -300,7 +300,33 @@ Phases; any failure raises and the script exits non-zero:
    CPU's; and the detection ops on the card against
    the CPU at the tie cases (equal scores, all-zero ``yolo_box`` scores,
    equal IoUs) and the last-writer ``yolov3_loss`` cases.
-36. Print one JSON line of every ported kernel (launches on the main paths,
+36. CycleGAN training (train-cycle-gan; ``models/cycle_gan.py``) at
+   PaddleGAN's published config: 256^2, batch 1, two ResNet-9-block
+   generators (ngf 32) and two 70x70 PatchGAN discriminators (ndf 64),
+   fp32 with TF32 off, Adam 2e-4 (beta1 0.5) in each of the three programs;
+   ``prepare`` then ``CG_ITERS`` iterations of the source's loop on
+   synthetic images in [-1, 1] (G, the fakes to the host and through the
+   50-image pools, D_A, D_B): exactly one ``fused_adam`` per trainable
+   tensor a step (142 + 13 + 13 an iteration) and nothing else registered,
+   the losses finite; each program's host latency (median from iteration
+   3), device events, kernel time and busy share of one profiled run,
+   peak memory.
+37. Both generators of the ``clone(for_test=True)`` inference program over
+   phase 36's scope (infer-cycle-gan) at batch 1 and 8: latency (median of
+   10), time per translated image, device events, peak memory; the
+   outputs finite and within [-1, 1].
+38. nn-correctness: ``cyclegan_tiny``'s three programs 3 iterations on the
+   card against the port on the CPU from one set of weights and the same
+   pool draws, with cuDNN's deterministic algorithms (losses, the first
+   generator step's gradients, the persistables after, within ``CG_TOL``);
+   every op the slice ports (the rest of ``ops/nn.py`` and the metric
+   ops), value and input gradients, card against CPU at CycleGAN 256's
+   shapes where it has them (``conv2d_transpose`` at [1,128,64,64],
+   reflect ``pad2d`` at 256^2, instance norm at [1,128,64,64]) within
+   ``CG_TOL["op"]``, host metrics equal; the kink gradients of F9 on the
+   card equal to the CPU's (0.5 for ``relu`` at 0), and the conv2d + relu
+   program's bias at -0.375 after one SGD step on the card.
+39. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5368,6 +5394,467 @@ def phase_detection_checks(K, pt, ops, ssd, yolov3, card):
     return dict(rec, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phases 36-38: CycleGAN and the rest of ops/nn.py
+# ---------------------------------------------------------------------------
+CG_ITERS = 8
+#: phase 38's limits, set before the first card run: losses relative to the
+#: loss; first-iteration generator gradients against the largest; the
+#: parameters after 3 iterations at most 6 learning rates apart (each Adam
+#: step moves a value by about the rate, either way where a gradient within
+#: rounding of 0 changes sign) and no more than a 1e-3 share of them off by
+#: over 1e-5; the ops' values and input gradients relative to their largest
+#: value; the kink gradients within 1e-6 (``relu`` and ``abs`` exactly the
+#: JAX values)
+CG_TOL = {"loss_rel": 1e-4, "grad_gap_of_max": 1e-4, "param_gap": 1.2e-3,
+          "param_share_off": 1e-3, "op": 1e-4}
+
+
+def cg_programs(built):
+    """{program: (Program, feed names, fetch list)} of the three trainers."""
+    return {
+        "G": (built["main"], ("input_A", "input_B"),
+              [built["g_loss"], built["fake_A"], built["fake_B"]]),
+        "D_A": (built["d_a"], ("input_B", "fake_pool_B"),
+                [built["d_a_loss"]]),
+        "D_B": (built["d_b"], ("input_A", "fake_pool_A"),
+                [built["d_b_loss"]])}
+
+
+def cg_iteration(exe, built, scope, a, b, pools, ms):
+    """``cycle_gan.train_iteration`` with each program's host wall-clock to
+    its fetch appended to ``ms``; returns the three losses."""
+    progs = cg_programs(built)
+    t0 = time.perf_counter()
+    g_loss, fake_a, fake_b = exe.run(progs["G"][0], feed={
+        "input_A": a, "input_B": b}, fetch_list=progs["G"][2], scope=scope)
+    t1 = time.perf_counter()
+    pool_a, pool_b = pools["A"].pool_image(fake_a), pools["B"].pool_image(
+        fake_b)
+    t2 = time.perf_counter()
+    (d_a,) = exe.run(progs["D_A"][0], feed={"input_B": b,
+                                            "fake_pool_B": pool_b},
+                     fetch_list=progs["D_A"][2], scope=scope)
+    t3 = time.perf_counter()
+    (d_b,) = exe.run(progs["D_B"][0], feed={"input_A": a,
+                                            "fake_pool_A": pool_a},
+                     fetch_list=progs["D_B"][2], scope=scope)
+    t4 = time.perf_counter()
+    for k, dt in (("G", t1 - t0), ("D_A", t3 - t2), ("D_B", t4 - t3)):
+        ms[k].append(dt * 1e3)
+    return float(g_loss), float(d_a), float(d_b)
+
+
+def phase_train_cycle_gan(K, pt, cg, card):
+    """Phase 36 (see the module docstring). Returns (record, (built, exe,
+    scope))."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = cg.cyclegan_256()
+    t0 = time.perf_counter()
+    built = cg.build_train(pt, cfg)
+    build_s = time.perf_counter() - t0
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(built["startup"], scope=scope)
+    S = cfg.image_size
+    progs = cg_programs(built)
+    t0 = time.perf_counter()
+    for name, (prog, feeds, fetch) in progs.items():
+        check(exe.prepare(prog, feed={n: ((cfg.batch, 3, S, S), "float32")
+                                      for n in feeds},
+                          fetch_list=fetch, scope=scope),
+              f"train-cycle-gan: prepare {name}")
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    n_params = {k: len(built[f"{p}_params"]) for k, p in
+                (("G", "g"), ("D_A", "d_a"), ("D_B", "d_b"))}
+    want = sum(n_params.values())
+    check(n_params == {"G": 142, "D_A": 13, "D_B": 13},
+          f"train-cycle-gan: trainable tensors {n_params}")
+    images = [cg.synthetic_images(cfg, cfg.batch, seed=i)
+              for i in range(CG_ITERS)]
+    pools = {"A": cg.ImagePool(cfg.pool_size, seed=1),
+             "B": cg.ImagePool(cfg.pool_size, seed=2)}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    ms = {k: [] for k in progs}
+    losses = [cg_iteration(exe, built, scope, a, b, pools, ms)
+              for a, b in images]
+    counts = K.launch_counts()
+    peak = peak_since(base)
+    check({k: v for k, v in counts.items() if v} == {
+        "fused_adam": want * CG_ITERS},
+        f"train-cycle-gan: launches {counts} in {CG_ITERS} iterations, "
+        f"expected {want} fused_adam an iteration and nothing else")
+    check(exe.trace_count == 3, f"train-cycle-gan: {exe.trace_count} "
+                                "runners built; prepare's should serve")
+    check(all(math.isfinite(x) for row in losses for x in row),
+          f"train-cycle-gan: {losses}")
+    log_card("after train-cycle-gan's counted iterations")
+    a, b = images[0]
+    pa, pb = pools["A"].pool[0], pools["B"].pool[0]
+    feeds = {"G": {"input_A": a, "input_B": b},
+             "D_A": {"input_B": b, "fake_pool_B": pb},
+             "D_B": {"input_A": a, "fake_pool_A": pa}}
+    rec = dict(image_size=S, batch=cfg.batch, ngf=cfg.ngf, ndf=cfg.ndf,
+               blocks=cfg.n_blocks, iterations=CG_ITERS, build_s=build_s,
+               prepare_ms=prepare_ms, params=n_params,
+               param_values={k: cg.param_count(progs[k][0], built[
+                   f"{p}_params"]) for k, p in (("G", "g"), ("D_A", "d_a"),
+                                                ("D_B", "d_b"))},
+               losses=losses, peak_gb=peak, card=card,
+               launches_per_iteration={"fused_adam": want},
+               launches={k: v for k, v in counts.items() if v})
+    for name, (prog, _, fetch) in progs.items():
+        steady = statistics.median(ms[name][2:])
+        prof = op_breakdown(lambda prog=prog, fetch=fetch, feed=feeds[name]:
+                            exe.run(prog, feed=feed, fetch_list=fetch,
+                                    scope=scope, return_numpy=False),
+                            top=8, host_top=6)
+        rec[name] = dict(
+            first_ms=ms[name][0], ms_steady=steady, ms_all=ms[name],
+            fused_adam_per_step=n_params[name],
+            device_events=prof.get("launches"),
+            device_ms=prof.get("kernel_ms"),
+            device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                               if prof else None), profile=prof)
+    it_ms = sum(rec[k]["ms_steady"] for k in progs)
+    rec.update(iteration_ms=it_ms, images_per_s=cfg.batch / it_ms * 1e3)
+    log(f"train-cycle-gan: {CG_ITERS} iterations at {S}^2 batch "
+        f"{cfg.batch}: G {rec['G']['ms_steady']:.2f} ms, D_A "
+        f"{rec['D_A']['ms_steady']:.2f} ms, D_B {rec['D_B']['ms_steady']:.2f}"
+        f" ms, busy G {rec['G']['device_busy_share']}, {want} fused_adam an "
+        f"iteration, peak {peak:.2f} GB [{card}]")
+    log("train_cycle_gan " + json.dumps(rec))
+    return rec, (built, exe, scope)
+
+
+def phase_infer_cycle_gan(pt, cg, card, trained):
+    """Phase 37: both generators of the inference program over phase 36's
+    scope at batch 1 and 8: latency (median of 10 after 3 warm-up) and
+    time per image (two images translated per input pair)."""
+    built, exe, scope = trained
+    cfg = cg.cyclegan_256()
+    rec = dict(card=card)
+    for batch in (1, 8):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a, b = cg.synthetic_images(cfg, batch, seed=100 + batch)
+        feed = {"input_A": torch.as_tensor(a, device="cuda"),
+                "input_B": torch.as_tensor(b, device="cuda")}
+
+        def run(feed=feed):
+            return exe.run(built["infer"], feed=feed,
+                           fetch_list=[built["fake_A"], built["fake_B"]],
+                           scope=scope, return_numpy=False)
+        outs = run()
+        for o in outs:
+            check(tuple(o.shape) == (batch, 3, cfg.image_size,
+                                     cfg.image_size)
+                  and bool(torch.isfinite(o).all())
+                  and float(o.abs().max()) <= 1.0,
+                  f"infer-cycle-gan: batch {batch} output")
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(lat)
+        prof = op_breakdown(run, top=6)
+        rec[f"batch_{batch}"] = dict(
+            ms=med, ms_quartiles=statistics.quantiles(lat, n=4),
+            ms_per_image=med / (2 * batch), images_per_s=2 * batch / med * 1e3,
+            device_events=prof.get("launches"),
+            device_ms=prof.get("kernel_ms"),
+            device_busy_share=prof.get("kernel_ms", 0.0) / med if prof
+            else None, peak_gb=peak_since(base), profile=prof)
+        log(f"infer-cycle-gan: batch {batch}: {med:.2f} ms, "
+            f"{med / (2 * batch):.3f} ms an image [{card}]")
+    log("infer_cycle_gan " + json.dumps(rec))
+    return rec
+
+
+def nn_op_cases(ops, rng):
+    """(name, op, args, keyword args) of every op of the slice (ops/nn.py's
+    remaining 24 and the 5 metric ops), the args numpy arrays drawn once;
+    CycleGAN 256's shapes where it has them."""
+    import numpy as np
+
+    def f(*shape, lo=-2.0, hi=2.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+    x128, x5 = f(1, 128, 64, 64), f(2, 3, 5, 6, 6)
+    tied = np.round(rng.uniform(0, 2, (1, 2, 7, 9))).astype(np.float32)
+    scores = (np.round(rng.uniform(0, 1, (40, 6)) * 4) / 4).astype(
+        np.float32)
+    labels = rng.randint(0, 6, (40, 1))
+    tags = rng.randint(0, 7, 60)
+    return [
+        ("conv2d_transpose c4 [1,128,64,64]", ops.conv2d_transpose,
+         (x128, f(128, 64, 3, 3) * 0.05), dict(stride=2, padding=1)),
+        ("pad2d reflect [1,3,256,256]", ops.pad2d, (f(1, 3, 256, 256),),
+         dict(paddings=[3, 3, 3, 3], mode="reflect")),
+        ("pad2d [0,1,0,1] [1,64,127,127]", ops.pad2d, (f(1, 64, 127, 127),),
+         dict(paddings=[0, 1, 0, 1])),
+        ("pad2d edge", ops.pad2d, (f(2, 3, 5, 5),),
+         dict(paddings=[0, 2, 1, 3], mode="edge")),
+        ("instance_norm [1,128,64,64]", ops.instance_norm,
+         (x128, f(128), f(128)), {}),
+        ("layer_norm", ops.layer_norm, (f(4, 3, 8, 8), f(192), f(192)), {}),
+        ("group_norm", ops.group_norm, (f(2, 6, 8, 8), f(6), f(6)),
+         dict(groups=3)),
+        ("depthwise_conv2d", ops.depthwise_conv2d,
+         (f(2, 8, 16, 16), f(8, 1, 3, 3)), dict(padding=1)),
+        ("conv3d", ops.conv3d, (x5, f(4, 3, 3, 3, 3)), dict(padding="SAME")),
+        ("conv3d_transpose", ops.conv3d_transpose, (x5, f(3, 2, 3, 3, 3)),
+         dict(stride=2, padding=1)),
+        ("pool3d max", ops.pool3d, (x5,), dict(pool_size=2, pool_stride=2)),
+        ("pool3d avg padded", ops.pool3d, (x5,),
+         dict(pool_size=3, pool_type="avg", pool_stride=2, pool_padding=1)),
+        ("adaptive_pool2d avg windows", ops.adaptive_pool2d,
+         (f(2, 3, 7, 9),), dict(pool_size=(3, 4), pool_type="avg")),
+        ("adaptive_pool2d max ties", ops.adaptive_pool2d, (tied,),
+         dict(pool_size=(3, 4), pool_type="max")),
+        ("adaptive_pool3d", ops.adaptive_pool3d, (f(1, 2, 5, 7, 6),),
+         dict(pool_size=(2, 3, 4), pool_type="avg")),
+        ("sync_batch_norm", ops.sync_batch_norm,
+         (f(4, 3, 5, 5), f(3), f(3), f(3), f(3, lo=0.5)), {}),
+        ("data_norm", ops.data_norm,
+         (f(4, 3), np.full(3, 10.0, np.float32), f(3),
+          f(3, lo=30.0, hi=40.0)), {}),
+        ("one_hot", ops.one_hot, (rng.randint(-2, 7, (6, 1)),),
+         dict(depth=5)),
+        ("label_smooth", ops.label_smooth, (f(4, 5, lo=0, hi=1),),
+         dict(epsilon=0.2)),
+        ("lrn", ops.lrn, (f(2, 7, 4, 4),), dict(n=5, k=2.0, alpha=1e-2)),
+        ("pad", ops.pad, (f(2, 3, 4),),
+         dict(paddings=[1, 0, 0, 2, 3, 1], pad_value=0.5)),
+        ("pad_constant_like", ops.pad_constant_like,
+         (f(4, 5, 6), f(2, 3, 6)), dict(pad_value=1.5)),
+        ("pixel_shuffle", ops.pixel_shuffle, (f(2, 8, 3, 3),),
+         dict(upscale_factor=2)),
+        ("affine_channel", ops.affine_channel, (f(2, 3, 4, 4), f(3), f(3)),
+         {}),
+        ("unfold", ops.unfold, (f(2, 3, 6, 6),),
+         dict(kernel_sizes=3, strides=2, paddings=1)),
+        ("space_to_depth", ops.space_to_depth, (f(2, 3, 4, 6),),
+         dict(blocksize=2)),
+        ("shuffle_channel", ops.shuffle_channel, (f(2, 6, 3, 3),),
+         dict(group=3)),
+        ("fc_act", ops.fc_act, (f(3, 4),), dict(act="relu")),
+        ("accuracy top-3 ties", ops.accuracy, (scores, labels), dict(k=3)),
+        ("auc bin edges", ops.auc,
+         ((rng.randint(0, 9, 64) / 8).astype(np.float32),
+          rng.randint(0, 2, 64)), dict(num_thresholds=8)),
+        ("precision_recall", ops.precision_recall, (scores, labels),
+         dict(num_classes=6)),
+        ("chunk_eval", ops.chunk_eval, (tags, np.roll(tags, 1)),
+         dict(chunk_scheme="IOB", num_chunk_types=3)),
+        ("positive_negative_pair", ops.positive_negative_pair,
+         (np.round(rng.uniform(0, 1, 50) * 5) / 5, rng.randint(0, 3, 50),
+          rng.randint(0, 6, 50)), {}),
+    ]
+
+
+def kink_cases(ops):
+    """(name, op, args, keyword args) of F9's kink gradients: each input on
+    a kink of its op (relu, relu6, hard_sigmoid, hard_swish, clip,
+    clip_by_norm, abs, l1_norm and four losses)."""
+    import numpy as np
+
+    def a(*v):
+        return np.array(v, np.float32)
+    return [
+        ("relu", ops.relu, (a(0.0, 1.5, -2.0),), {}),
+        ("relu6", ops.relu6, (a(0.0, 6.0, 3.0),), {}),
+        ("hard_sigmoid", ops.hard_sigmoid, (a(2.0, -2.0, 0.0),),
+         dict(slope=0.25)),
+        ("hard_swish", ops.hard_swish, (a(-3.0, 3.0, 1.0),), {}),
+        ("clip", ops.clip, (a(-1.0, 2.0, 0.5),), dict(min=-1.0, max=2.0)),
+        ("clip_by_norm", ops.clip_by_norm, (a(3.0, 4.0),),
+         dict(max_norm=5.0)),
+        ("abs", ops.abs, (a(0.0, -1.0),), {}),
+        ("l1_norm", ops.l1_norm, (a(0.0, 1.0),), {}),
+        ("sigmoid_cross_entropy_with_logits",
+         ops.sigmoid_cross_entropy_with_logits,
+         (a(0.0, 0.0), a(0.0, 0.25)), {}),
+        ("teacher_student_sigmoid_loss", ops.teacher_student_sigmoid_loss,
+         (a(0.0, 15.0), a(1.0, 0.0)), {}),
+        ("hinge_loss", ops.hinge_loss, (a(1.0, -1.0), a(1.0, 0.0)), {}),
+        ("margin_rank_loss", ops.margin_rank_loss,
+         (a(1.0, -1.0), a(0.75, 1.0), a(0.5, 1.25)), dict(margin=0.25)),
+    ]
+
+
+def op_card_vs_cpu(fn, args, kw, cot_seed=None):
+    """``fn(*args, **kw)`` on the card and on the CPU, the float args
+    leaves: the outputs and the input gradients under one seeded cotangent
+    (ones without a seed: the gradient of the sum), as (card, cpu) lists of
+    CPU tensors; a host result (a metric's numbers) as it is."""
+    import numpy as np
+    res = []
+    for dev in ("cuda", "cpu"):
+        xs = [torch.as_tensor(v, device=dev) for v in args]
+        leaves = [x.requires_grad_() for x in xs if x.is_floating_point()]
+        out = fn(*xs, **kw)
+        if not isinstance(out, torch.Tensor) and not (
+                isinstance(out, (tuple, list)) and out
+                and isinstance(out[0], torch.Tensor)):
+            res.append([out])
+            continue
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        diff = [o for o in outs if o.requires_grad]
+        rs = np.random.RandomState(cot_seed)
+        cots = [torch.ones_like(o) if cot_seed is None else torch.as_tensor(
+            np.asarray(rs.randn(*o.shape), np.float32), device=dev)
+            for o in diff]
+        grads = (torch.autograd.grad(diff, leaves, cots, allow_unused=True)
+                 if diff else [])
+        res.append([o.detach().cpu() for o in outs]
+                   + [g.detach().cpu() for g in grads if g is not None])
+    return res
+
+
+def cg_tiny_card_vs_cpu(K, pt, cg):
+    """``cyclegan_tiny``'s three programs 3 iterations on the card and on
+    the CPU from one set of weights (the CPU startup's) and the same pool
+    draws, fp32 with TF32 off: losses, the first generator step's
+    gradients, the persistables after; the card's launches."""
+    import numpy as np
+    cfg = cg.cyclegan_tiny()
+    built = cg.build_train(pt, cfg)
+    cpu_exe, card_exe = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu_scope = pt.Scope()
+    cpu_exe.run(built["startup"], scope=cpu_scope)
+    names = [n for n, v in built["startup"].global_block().vars.items()
+             if v.persistable]
+    init = {n: cpu_scope.find_var(n).numpy().copy() for n in names}
+    card_scope = pt.Scope.from_numpy(init, "cuda", built["startup"])
+    a, b = cg.synthetic_images(cfg, cfg.batch, seed=0)
+    grads = [p + "@GRAD" for p in built["g_params"]]
+    # the first generator step's gradients, each device from the same
+    # weights in a scope of its own
+    first = [exe.run(built["main"], feed={"input_A": a, "input_B": b},
+                     fetch_list=grads,
+                     scope=pt.Scope.from_numpy(init, dev, built["startup"]))
+             for exe, dev in ((card_exe, "cuda"), (cpu_exe, "cpu"))]
+    gmax = max(float(np.abs(g).max()) for g in first[1])
+    ggap = max(float(np.abs(x - y).max()) for x, y in zip(*first))
+    pools = [{"A": cg.ImagePool(cfg.pool_size, seed=1),
+              "B": cg.ImagePool(cfg.pool_size, seed=2)} for _ in range(2)]
+    K.reset_launch_counts()
+    losses = []
+    for it in range(3):
+        a, b = cg.synthetic_images(cfg, cfg.batch, seed=it)
+        losses.append(tuple(
+            [float(v) for v in cg.train_iteration(exe, built, sc, a, b, p)]
+            for exe, sc, p in ((card_exe, card_scope, pools[0]),
+                               (cpu_exe, cpu_scope, pools[1]))))
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    gaps, off, total = [], 0, 0
+    for n in names:
+        c = card_scope.find_var(n).cpu().numpy()
+        w = cpu_scope.find_var(n).numpy()
+        d = np.abs(c - w) / max(1.0, float(np.abs(w).max()))
+        gaps.append(float(d.max()))
+        off += int((d > 1e-5).sum())
+        total += d.size
+    loss_gap = max(abs(x - y) / abs(y) for c, w in losses
+                   for x, y in zip(c, w))
+    n_upd = len(built["g_params"]) + len(built["d_a_params"]) + len(
+        built["d_b_params"])
+    rec = dict(losses_card_cpu=losses, loss_gap_rel=loss_gap,
+               grad_gap_of_max=ggap / gmax, param_gap=max(gaps),
+               param_share_off=off / total, launches=launches)
+    check(loss_gap <= CG_TOL["loss_rel"],
+          f"nn-correctness: cyclegan_tiny losses card/cpu {losses}")
+    check(ggap <= CG_TOL["grad_gap_of_max"] * gmax,
+          f"nn-correctness: cyclegan_tiny first G gradients differ by {ggap}"
+          f" (largest {gmax})")
+    check(max(gaps) <= CG_TOL["param_gap"]
+          and off / total <= CG_TOL["param_share_off"],
+          f"nn-correctness: cyclegan_tiny parameters {max(gaps)}, "
+          f"{off} of {total} off by over 1e-5")
+    check(launches == {"fused_adam": 3 * n_upd},
+          f"nn-correctness: cyclegan_tiny launches {launches}")
+    return rec
+
+
+def phase_nn_checks(K, pt, ops, cg, card):
+    """Phase 38 (see the module docstring); returns the card's launches of
+    the tiny trainers."""
+    import numpy as np
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        tiny = cg_tiny_card_vs_cpu(K, pt, cg)
+        ops_rec = {}
+        for i, (name, fn, args, kw) in enumerate(nn_op_cases(
+                ops, np.random.RandomState(38))):
+            got, want = op_card_vs_cpu(fn, args, kw, i)
+            check(len(got) == len(want), f"nn-correctness: {name}: outputs")
+            err = 0.0
+            for g, w in zip(got, want):
+                if not isinstance(w, torch.Tensor):
+                    check(g == w, f"nn-correctness: {name}: {g} vs {w}")
+                    continue
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"nn-correctness: {name}: {g.shape} {g.dtype}")
+                if not w.is_floating_point():
+                    check(torch.equal(g, w), f"nn-correctness: {name}")
+                    continue
+                scale = max(1.0, w.abs().max().item())
+                e = max_err(g, w) / scale
+                check(e <= CG_TOL["op"], f"nn-correctness: {name}: {e}")
+                err = max(err, e)
+            ops_rec[name] = err
+        kinks = {}
+        for i, (name, fn, args, kw) in enumerate(kink_cases(ops)):
+            got, want = op_card_vs_cpu(fn, args, kw)
+            for g, w in zip(got, want):
+                check(max_err(g, w) <= 1e-6 * max(1.0, w.abs().max().item()),
+                      f"nn-correctness: kink {name}: {g.tolist()} vs "
+                      f"{w.tolist()}")
+            kinks[name] = [x.tolist() for x in got[1:]]
+        check(kinks["relu"] == [[0.5, 1.0, 0.0]]
+              and kinks["abs"] == [[1.0, -1.0]],
+              f"nn-correctness: kink halves {kinks['relu']}")
+        # F9's program: one SGD step of conv2d(act="relu") over a zero and
+        # a ones image on the card takes the bias to -0.375
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            x = pt.data("x", [1, 1, 1], "float32")
+            y = pt.layers.conv2d(
+                x, 1, 2, padding=1, act="relu",
+                param_attr=pt.ParamAttr(
+                    name="w", initializer=pt.initializer.NumpyArrayInitializer(
+                        np.array([[[[1.0, -1.0], [-1.0, -1.0]]]]))),
+                bias_attr=pt.ParamAttr(
+                    name="b", initializer=pt.initializer.Constant(0.0)))
+            loss = pt.layers.mean(y)
+            pt.optimizer.SGD(1.0).minimize(loss)
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        exe.run(main, feed={"x": np.array([[[[0.0]]], [[[1.0]]]],
+                                          np.float32)},
+                fetch_list=[loss], scope=scope)
+        bias = scope.find_var("b").cpu().tolist()
+        check(bias == [-0.375], f"nn-correctness: conv2d+relu bias {bias}")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    rec = dict(cyclegan_tiny=tiny, ops_max_err_of_max=ops_rec,
+               kink_grads=kinks, relu_program_bias=bias, card=card)
+    log("nn_correctness " + json.dumps(rec))
+    return dict(rec, launches=tiny["launches"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5380,8 +5867,8 @@ def main():
 
     from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import (
-        bert, deepfm, ptb_lm, resnet, se_resnext, ssd, transformer, vgg,
-        yolov3,
+        bert, cycle_gan, deepfm, ptb_lm, resnet, se_resnext, ssd,
+        transformer, vgg, yolov3,
     )
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
@@ -5806,6 +6293,18 @@ def main():
         "CPU (detection-correctness)")
     det_checks = phase_detection_checks(K, pt, ops, ssd, yolov3, card)
     log(f"phases 0-35 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 36: CycleGAN at 256^2, batch 1: G, D_A and D_B through "
+        "Executor.run with the image pool (train-cycle-gan)")
+    cg_train, cg_trained = phase_train_cycle_gan(K, pt, cycle_gan, card)
+    log("phase 37: both CycleGAN generators at batch 1 and 8 "
+        "(infer-cycle-gan)")
+    phase_infer_cycle_gan(pt, cycle_gan, card, cg_trained)
+    del cg_trained
+    log("phase 38: the rest of ops/nn.py, the metric ops, the kink "
+        "gradients and cyclegan_tiny on the card against the CPU "
+        "(nn-correctness)")
+    nn_checks = phase_nn_checks(K, pt, ops, cycle_gan, card)
+    log(f"phases 0-38 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -5835,6 +6334,8 @@ def main():
         "train-ssd-mobilenet": ssd_train["launches"],
         "train-yolov3": yolo_train["launches"],
         "detection-correctness": det_checks["launches"],
+        "train-cycle-gan": cg_train["launches"],
+        "nn-correctness": nn_checks["launches"],
     }
     kernels = []
     for name, main_rec in (

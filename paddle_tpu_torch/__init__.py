@@ -20,7 +20,7 @@ module context of the eager path (``nn``) with the ragged-batch helpers
 
 import torch
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet
+from paddle_tpu_torch.core.enforce import EnforceNotMet, enforce, enforce_eq
 
 __version__ = "0.1.0"
 
@@ -34,7 +34,8 @@ __all__ = ["__version__", "NoCudaDeviceError", "default_device",
            "CPUPlace", "CUDAPlace", "ParamAttr", "unique_name",
            "CompiledProgram", "BuildStrategy", "get_flag", "set_flags",
            "append_backward", "backward", "dataio", "reader", "DataFeeder",
-           "batch"]
+           "batch", "Variable", "enforce", "enforce_eq", "inference",
+           "distributed", "monitor"]
 
 
 class NoCudaDeviceError(EnforceNotMet):
@@ -74,7 +75,9 @@ from paddle_tpu_torch.lod_tensor import (  # noqa: E402
     create_lod_tensor, create_random_int_lodtensor,
 )
 from paddle_tpu_torch.static import (  # noqa: E402
-    BuildStrategy, CompiledProgram, Executor, Program, Scope,
+    BuildStrategy, CompiledProgram, Executor, Program, Scope, Variable,
     append_backward, data, default_main_program, default_startup_program,
     disable_static, enable_static, global_scope, program_guard, scope_guard,
 )
+# bound on the root as the JAX package's imports bind them
+from paddle_tpu_torch import distributed, inference, monitor  # noqa: E402,F401

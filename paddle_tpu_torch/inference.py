@@ -34,7 +34,9 @@ from paddle_tpu_torch.core.dtypes import dtype_name
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.place import CPUPlace
 from paddle_tpu_torch.static import io as static_io
-from paddle_tpu_torch.static.executor import Executor, Scope, exec_op
+from paddle_tpu_torch.static.executor import (
+    Executor, Scope, _op_generator, exec_op,
+)
 from paddle_tpu_torch.static.serialize import raw_bytes
 
 __all__ = ["Config", "Predictor", "create_predictor", "ZeroCopyTensor",
@@ -49,14 +51,14 @@ def _build_pure_fn(program, feed_names, fetch_names):
     """``fn(params_tuple, feeds_tuple) -> fetches_tuple`` over a frozen
     (host-op-free) inference program, running its ops through ``exec_op``
     on the tensors it is given. The param order is the sorted state names
-    (recorded in the AOT index), the feed order the given one."""
+    (recorded in the AOT index), the feed order the given one. An op that
+    draws (``_needs_rng``: dropout) gets, on every call, the generator the
+    Executor gives it at its first run of the program, the counterpart of
+    the JAX function's step-0 keys: inference is stateless."""
     blk = program.global_block()
     ops = list(blk.ops)
     enforce(not any(op.attrs.get("_host") for op in ops),
             "an inference program must be host-op-free")
-    enforce(not any(op.attrs.get("_needs_rng") for op in ops),
-            "the port's inference path runs no random op (dropout is "
-            "ROADMAP queue 1 item 4)")
     constants = dict(program._constants)
     state_names = sorted(n for n, v in blk.vars.items()
                          if v.persistable and n not in constants)
@@ -70,7 +72,9 @@ def _build_pure_fn(program, feed_names, fetch_names):
         env.update(zip(state_names, params))
         env.update(zip(feed_names, feeds))
         for op in ops:
-            env.update(exec_op(op, env))
+            rng = (_op_generator(dev, program.random_seed, 1, op)
+                   if op.attrs.get("_needs_rng") else None)
+            env.update(exec_op(op, env, rng))
         return tuple(env[n] for n in fetch_names)
 
     return fn, state_names

@@ -1,23 +1,32 @@
-"""Parameter initializers: the port of ``paddle_tpu/initializer.py``'s
-``Constant``, ``Uniform``, ``Normal``, ``Xavier`` and ``MSRA``.
+"""Parameter initializers: the port of ``paddle_tpu/initializer.py``, every
+public name (``Constant``, ``Uniform``, ``Normal``, ``TruncatedNormal``,
+``Xavier``, ``MSRA``, ``Bilinear``, ``NumpyArrayInitializer``,
+``force_init_on_cpu`` and ``init_on_cpu``).
 
 An initializer is a callable ``(generator, shape, dtype) -> tensor`` that
 draws on the CPU from an explicit ``torch.Generator`` (the startup program's,
 seeded from ``program.random_seed``), so a seed gives the same weights on
 every device. The draws are not the JAX package's (``jax.random`` and torch
 generators differ): parity runs carry the JAX weights across instead
-(``Scope.from_numpy``).
+(``Scope.from_numpy``). ``TruncatedNormal`` keeps its draws within two
+standard deviations of ``loc``, as ``jax.random.truncated_normal(-2, 2)``
+does; ``Bilinear`` and ``NumpyArrayInitializer`` draw nothing and give the
+JAX package's values.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtypes import convert_dtype
 
 __all__ = ["Initializer", "Constant", "ConstantInitializer", "Uniform",
-           "UniformInitializer", "Normal", "NormalInitializer", "Xavier",
-           "XavierInitializer", "MSRA", "MSRAInitializer"]
+           "UniformInitializer", "Normal", "NormalInitializer",
+           "TruncatedNormal", "TruncatedNormalInitializer", "Xavier",
+           "XavierInitializer", "MSRA", "MSRAInitializer", "Bilinear",
+           "BilinearInitializer", "NumpyArrayInitializer",
+           "force_init_on_cpu", "init_on_cpu"]
 
 
 def _fans(shape):
@@ -69,6 +78,19 @@ class NormalInitializer(Initializer):
         return (self.loc + self.scale * z).to(convert_dtype(dtype))
 
 
+class TruncatedNormalInitializer(Initializer):
+    """``loc + scale * z`` with z a standard normal truncated to [-2, 2]."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, gen, shape, dtype=torch.float32):
+        z = torch.nn.init.trunc_normal_(
+            torch.empty(tuple(shape)), 0.0, 1.0, -2.0, 2.0,
+            generator=_generator(gen, self.seed))
+        return (self.loc + self.scale * z).to(convert_dtype(dtype))
+
+
 class XavierInitializer(Initializer):
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
         self.uniform, self.fan_in, self.fan_out, self.seed = \
@@ -104,9 +126,69 @@ class MSRAInitializer(Initializer):
             gen, shape, dtype)
 
 
+class BilinearInitializer(Initializer):
+    """The bilinear upsampling filter of a transposed convolution's 4-D
+    weight (initializer.py Bilinear), as the JAX package writes it: the
+    k x k filter on the diagonal (in, in) pairs when the two channel dims
+    are equal, else at out-channel 0."""
+
+    def __call__(self, gen, shape, dtype=torch.float32):
+        if len(shape) != 4:
+            raise ValueError("Bilinear initializer needs 4-D weight")
+        f = np.zeros(shape, np.float32)
+        k = shape[3]
+        factor = (k + 1) // 2
+        center = factor - 1.0 if k % 2 == 1 else factor - 0.5
+        og = np.ogrid[:k, :k]
+        filt = (1 - abs(og[0] - center) / factor) * \
+               (1 - abs(og[1] - center) / factor)
+        f[range(shape[0]), range(shape[1]) if shape[1] == shape[0] else 0] \
+            = filt
+        return torch.as_tensor(f).to(convert_dtype(dtype))
+
+
+class NumpyArrayInitializer(Initializer):
+    """The given array, cast and reshaped."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, gen, shape, dtype=torch.float32):
+        return torch.as_tensor(self.value).to(
+            convert_dtype(dtype)).reshape(tuple(shape))
+
+
 # fluid-style aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
+Bilinear = BilinearInitializer
+
+
+# force_init_on_cpu / init_on_cpu (ref python/paddle/fluid/initializer.py):
+# the port's initializers always draw on the CPU (the startup program's
+# generator), so the flag is kept for the API and read by nothing here
+_force_init_on_cpu_ = False
+
+
+def force_init_on_cpu():
+    return _force_init_on_cpu_
+
+
+class _InitOnCPU:
+    def __enter__(self):
+        global _force_init_on_cpu_
+        self._prev = _force_init_on_cpu_
+        _force_init_on_cpu_ = True
+
+    def __exit__(self, *a):
+        global _force_init_on_cpu_
+        _force_init_on_cpu_ = self._prev
+
+
+def init_on_cpu():
+    """Context manager: the flag of :func:`force_init_on_cpu` set inside."""
+    return _InitOnCPU()

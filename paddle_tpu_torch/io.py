@@ -1,8 +1,9 @@
 """fluid.io parity: model save/load (``paddle_tpu/io.py``'s re-exports of
-``static/io.py``) and ``batch``, the reader decorator. The eager checkpoints
-(``save_pytree``, ``save_dygraph``) and the data loaders are ROADMAP queue 1
-item 10."""
+``static/io.py``), ``PyReader`` (``dataio``'s) and ``batch``, the reader
+decorator. The eager checkpoints (``save_pytree``, ``save_dygraph``) and
+``DataLoader`` are ROADMAP queue 1 item 10."""
 
+from paddle_tpu_torch.dataio.pyreader import PyReader  # noqa: F401
 from paddle_tpu_torch.static.io import (  # noqa: F401
     load_inference_model, load_params, load_persistables, load_vars,
     save_inference_model, save_params, save_persistables, save_vars,
@@ -10,7 +11,7 @@ from paddle_tpu_torch.static.io import (  # noqa: F401
 
 __all__ = ["save_inference_model", "load_inference_model", "save_params",
            "load_params", "save_persistables", "load_persistables",
-           "save_vars", "load_vars", "batch"]
+           "save_vars", "load_vars", "batch", "PyReader"]
 
 
 def batch(reader, batch_size, drop_last=False):

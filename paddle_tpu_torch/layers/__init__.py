@@ -15,7 +15,8 @@ Every function works in both modes, as the JAX package's do:
   inferred through its plain body (``_SHAPE_BODIES``).
 
 Every function of the op modules ``activation``, ``math``, ``reduce``,
-``tensor_ops``, ``loss``, ``control_flow`` and ``tensor_array`` is wrapped
+``tensor_ops``, ``loss``, ``control_flow``, ``tensor_array`` and
+``selected_rows`` (its ``SelectedRows`` class too) is wrapped
 here as the JAX package wraps every exported op (layers/__init__.py:
 340-360), with its table of leading tensor arguments (``_NARGS``; 0 for
 the ops that make a tensor from nothing, which therefore compute at once
@@ -28,9 +29,9 @@ the control-flow classes (``While``, ``Switch``, ``IfElse``,
 Program: the ``while_block`` and ``scan_block`` ops of
 ``static/nested.py``) and the reader surface of ``layers/io.py``.
 
-``dropout`` is an op that draws (``_needs_rng``): the Executor hands it a
-generator on its device, seeded from the program's ``random_seed``, the run
-and the op. ``batch_norm`` in a Program keeps its moving mean and variance
+``dropout`` and ``sampled_softmax_with_cross_entropy`` are ops that draw
+(``_needs_rng``): the Executor hands each a generator on its device, seeded
+from the program's ``random_seed``, the run and the op. ``batch_norm`` in a Program keeps its moving mean and variance
 as non-trainable persistable parameters, which its op's ``MeanOut`` and
 ``VarianceOut`` overwrite; outside a Program its running stats would be
 module state, which it does not keep yet (queue 1 item 7d): it raises.
@@ -81,9 +82,11 @@ from paddle_tpu_torch.ops import crf as _crf
 from paddle_tpu_torch.ops import detection as _det
 from paddle_tpu_torch.ops import loss as _loss
 from paddle_tpu_torch.ops import math as _math
+from paddle_tpu_torch.ops import metric_ops as _metric
 from paddle_tpu_torch.ops import nn as _nn
 from paddle_tpu_torch.ops import reduce as _reduce
 from paddle_tpu_torch.ops import rnn as _rnn
+from paddle_tpu_torch.ops import selected_rows as _sr
 from paddle_tpu_torch.ops import sequence as _seq
 from paddle_tpu_torch.ops import tensor_array as _ta
 from paddle_tpu_torch.ops import tensor_ops as _tensor
@@ -97,7 +100,7 @@ from paddle_tpu_torch.static.program import (
 
 #: the op modules whose every function ``layers`` wraps (the JAX package
 #: wraps every exported op, layers/__init__.py:340-360)
-_WRAPPED = (_act, _math, _reduce, _tensor, _loss, _cf, _ta)
+_WRAPPED = (_act, _math, _reduce, _tensor, _loss, _cf, _ta, _sr)
 #: the detection functions that run on the host or take lists: eager
 #: passthroughs, with no op (the JAX package's ``_EXCLUDE``)
 _DETECTION_HOST = ("rpn_target_assign", "generate_proposal_labels",
@@ -106,6 +109,13 @@ _DETECTION_HOST = ("rpn_target_assign", "generate_proposal_labels",
                    "retinanet_target_assign", "generate_mask_labels")
 _INTERP = ("interpolate", "resize_nearest", "resize_bilinear",
            "image_resize", "image_resize_short")
+#: the functions of ``ops/nn.py`` whose layer is the op itself (the JAX
+#: auto-wrap; ``fc_act`` is left out, as the JAX ``_EXCLUDE`` leaves it)
+_NN_OPS = ("depthwise_conv2d", "pool3d", "adaptive_pool2d",
+           "adaptive_pool3d", "sync_batch_norm", "instance_norm",
+           "data_norm", "one_hot", "label_smooth", "lrn", "pad", "pad2d",
+           "pad_constant_like", "pixel_shuffle", "affine_channel", "unfold",
+           "space_to_depth", "shuffle_channel")
 
 __all__ = sorted(
     {"data", "fc", "embedding", "softmax", "conv2d", "pool2d", "batch_norm",
@@ -113,8 +123,11 @@ __all__ = sorted(
      "while_loop", "static_rnn", "While", "Switch", "IfElse", "StaticRNN",
      "DynamicRNN", "io", "py_reader", "create_py_reader_by_data",
      "read_file", "double_buffer", "batch", "shuffle", "load", "open_files",
-     "random_data_generator", "Preprocessor", "multi_box_head"}
+     "random_data_generator", "Preprocessor", "multi_box_head",
+     "conv2d_transpose", "conv3d", "conv3d_transpose", "layer_norm",
+     "group_norm"}
     | {n for m in _WRAPPED for n in m.__all__}
+    | set(_NN_OPS) | set(_metric.__all__)
     | set(_det.__all__) | set(_INTERP)
     | set(_rnn.__all__) | set(_seq.__all__)) + [
     "learning_rate_scheduler", "noam_decay", "exponential_decay",
@@ -135,13 +148,16 @@ _NARGS = {
     "cos_sim": 2, "modified_huber_loss": 2, "mse_loss": 2,
     "teacher_student_sigmoid_loss": 2, "npair_loss": 3,
     "gather": 2, "gather_nd": 2, "scatter": 3, "scatter_nd_add": 3,
-    "where": 3, "expand_as": 2,
+    "where": 3, "expand_as": 2, "pad_constant_like": 2,
+    "accuracy": 2, "auc": 2,
     "logical_and": 2, "logical_or": 2, "logical_xor": 2,
     "equal": 2, "not_equal": 2, "less_than": 2, "less_equal": 2,
     "greater_than": 2, "greater_equal": 2,
     "fill_constant": 0, "zeros": 0, "ones": 0, "eye": 0,
     "linspace": 0, "arange": 0, "create_tensor": 0,
-    "prelu": 2, "conv2d": 2, "embedding": 2,
+    "prelu": 2, "conv2d": 2, "conv2d_transpose": 2, "conv3d": 2,
+    "depthwise_conv2d": 2, "conv3d_transpose": 2, "embedding": 2,
+    "layer_norm_flex": 3, "group_norm_p": 3,
     "linear_chain_crf": 3, "crf_decoding": 2, "dice_loss": 2,
     "sampled_softmax_with_cross_entropy": 2,
     # detection family
@@ -156,12 +172,16 @@ _NARGS = {
 #: ops whose first arg is a list of tensors
 _LIST_FIRST = {"concat", "sums", "stack", "multiplex"}
 #: a layer's arguments that never become op attrs
-_NOT_ATTRS = ("name", "device")
-#: ops that return (outputs, final state), and ``box_decoder_and_assign``:
-#: in a Program the op's one output is the first (the JAX package's op count
-#: of 1 for them, layers/__init__.py:117-124)
+_NOT_ATTRS = ("name", "device", "rng")
+#: ops that draw: the Executor hands each its generator (``_needs_rng``),
+#: the JAX package's ``_NEEDS_RNG`` for the ported ops
+_NEEDS_RNG = {"dropout", "sampled_softmax_with_cross_entropy"}
+#: ops that return (outputs, final state), ``box_decoder_and_assign`` and
+#: ``sync_batch_norm``: in a Program the op's one output is the first (the
+#: JAX package's op count of 1 for them, layers/__init__.py:112-127)
 _FIRST_OUT = {"lstm", "gru", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru",
-              "simple_rnn", "attention_lstm", "box_decoder_and_assign"}
+              "simple_rnn", "attention_lstm", "box_decoder_and_assign",
+              "sync_batch_norm"}
 #: ops whose compute reaches a kernel: shape inference runs this plain body
 _SHAPE_BODIES = {"embedding": _nn.embedding_reference}
 _META = torch.device("meta")
@@ -282,8 +302,15 @@ def _append_static(name, tensor_vals, attrs, listy, tensor_params=None,
         if shape is None:
             v._shape_error = shape_error
         outs.append(v)
+    # the op's attrs in the JAX package's order: its own, then the
+    # Executor's marks
+    op_attrs = {k: v for k, v in attrs.items() if k != "_tensor_params"}
+    if name in _NEEDS_RNG:
+        op_attrs["_needs_rng"] = True
+    if "_tensor_params" in attrs:
+        op_attrs["_tensor_params"] = attrs["_tensor_params"]
     blk.append_op(type=name, inputs={"X": in_names},
-                  outputs={"Out": [v.name for v in outs]}, attrs=dict(attrs))
+                  outputs={"Out": [v.name for v in outs]}, attrs=op_attrs)
     return outs if multi else outs[0]
 
 
@@ -347,10 +374,15 @@ for _n in _seq.__all__:
 for _n in _det.__all__:
     globals()[_n] = (getattr(_det, _n) if _n in _DETECTION_HOST
                      else _dual(_n, getattr(_det, _n)))
-for _n in _INTERP:
+for _n in _INTERP + _NN_OPS:
     globals()[_n] = _dual(_n, getattr(_nn, _n))
+for _n in _metric.__all__:
+    globals()[_n] = _dual(_n, getattr(_metric, _n))
 del _m, _n
 _register("linear_chain_crf", _crf.linear_chain_crf)
+for _n in ("conv2d_transpose", "conv3d", "conv3d_transpose", "layer_norm",
+           "group_norm"):
+    _register(_n, getattr(_nn, _n))
 _register("embedding", _nn.embedding)
 _register("softmax", _act.softmax)
 _register("conv2d", _nn.conv2d)
@@ -486,17 +518,155 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         else (filter_size, filter_size)
     w = _make_param("conv2d_w", (num_filters, c_in // groups) + tuple(fs),
                     torch.float32, param_attr, I.MSRA(uniform=False))
-    attrs = dict(stride=stride, padding=padding, dilation=dilation,
-                 groups=groups, data_format=data_format)
+    out = _conv_layer("conv2d", input, w, dict(
+        stride=stride, padding=padding, dilation=dilation, groups=groups,
+        data_format=data_format))
+    return _bias_act(out, "conv2d", num_filters, bias_attr, act)
+
+
+def _conv_layer(op, input, w, attrs):
+    """The convolution op ``op`` over input and weight: appended to the
+    Program, or computed at once."""
     if in_static_mode() and isinstance(input, Variable):
-        out = _append_static("conv2d", [input, w], attrs, False)
-    else:
-        out = _nn.conv2d(input, w, **attrs)
+        return _append_static(op, [input, w], attrs, False)
+    return getattr(_nn, op)(input, w, **attrs)
+
+
+def _bias_act(out, prefix, num_filters, bias_attr, act):
+    """A bias ``{prefix}_b`` added on axis 1 (unless ``bias_attr`` is
+    False), then ``act``."""
     if bias_attr is not False:
-        b = _make_param("conv2d_b", (num_filters,), torch.float32, bias_attr,
-                        I.Constant(0.0))
+        b = _make_param(f"{prefix}_b", (num_filters,), torch.float32,
+                        bias_attr, I.Constant(0.0))
         out = elementwise_add(out, b, axis=1)
     return _apply_act(out, act)
+
+
+def _infer_transpose_fs(input, output_size, stride, padding, dilation, nd):
+    """A transposed convolution's filter size from ``output_size`` (ref
+    layers/nn.py conv2d_transpose): (output + 2 * pad - (in - 1) * stride
+    + dilation - 1) // dilation per dim."""
+    def per_dim(v):
+        return v if isinstance(v, (list, tuple)) else (v,) * nd
+    outs, sts, pds, dls = (per_dim(v) for v in (output_size, stride,
+                                                  padding, dilation))
+    return tuple((int(outs[i]) + 2 * pds[i]
+                  - (int(input.shape[2 + i]) - 1) * sts[i] + dls[i] - 1)
+                 // dls[i] for i in range(nd))
+
+
+def _conv_transpose(op, nd, input, num_filters, output_size, filter_size,
+                    stride, padding, dilation, groups, param_attr, bias_attr,
+                    act):
+    """conv2d_transpose / conv3d_transpose: an I O(/groups) k.. weight drawn
+    by ``Xavier()``, the op, a bias, then ``act`` (the JAX layers)."""
+    if filter_size is None:
+        if output_size is None:
+            raise EnforceNotMet(
+                f"{op}: one of output_size or filter_size is required "
+                "(layers/nn.py conv2d_transpose)")
+        filter_size = _infer_transpose_fs(input, output_size, stride,
+                                          padding, dilation, nd)
+    fs = filter_size if isinstance(filter_size, (list, tuple)) \
+        else (filter_size,) * nd
+    prefix = "conv2dT" if nd == 2 else "conv3dT"
+    w = _make_param(f"{prefix}_w",
+                    (int(input.shape[1]), num_filters // groups) + tuple(fs),
+                    torch.float32, param_attr, I.Xavier())
+    out = _conv_layer(op, input, w, dict(stride=stride, padding=padding,
+                                         dilation=dilation, groups=groups))
+    return _bias_act(out, prefix, num_filters, bias_attr, act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None,
+                     use_cudnn=True, name=None):
+    """fluid.layers.conv2d_transpose parity: an IOHW weight (Xavier), the
+    ``conv2d_transpose`` op, a bias on axis 1, then ``act``; the filter size
+    from ``output_size`` when only that is given."""
+    return _conv_transpose("conv2d_transpose", 2, input, num_filters,
+                           output_size, filter_size, stride, padding,
+                           dilation, groups, param_attr, bias_attr, act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None):
+    """fluid.layers.conv3d parity (NCDHW): an OIDHW weight drawn by
+    ``MSRA(uniform=False)``, the ``conv3d`` op, a bias, then ``act``."""
+    fs = filter_size if isinstance(filter_size, (list, tuple)) \
+        else (filter_size,) * 3
+    w = _make_param("conv3d_w",
+                    (num_filters, int(input.shape[1]) // groups) + tuple(fs),
+                    torch.float32, param_attr, I.MSRA(uniform=False))
+    out = _conv_layer("conv3d", input, w, dict(
+        stride=stride, padding=padding, dilation=dilation, groups=groups))
+    return _bias_act(out, "conv3d", num_filters, bias_attr, act)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None,
+                     use_cudnn=True, name=None):
+    """fluid.layers.conv3d_transpose parity: an IODHW weight (Xavier)."""
+    return _conv_transpose("conv3d_transpose", 3, input, num_filters,
+                           output_size, filter_size, stride, padding,
+                           dilation, groups, param_attr, bias_attr, act)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """fluid.layers.layer_norm parity: a flat scale (1) and shift (0) over
+    the normalized dims, as the JAX layer makes them, and one
+    ``layer_norm_flex`` op."""
+    flat = math.prod(int(d) for d in input.shape[begin_norm_axis:])
+    s = _make_param("ln_scale", (flat,), torch.float32, param_attr,
+                    I.Constant(1.0)) if scale else None
+    b = _make_param("ln_bias", (flat,), torch.float32, bias_attr,
+                    I.Constant(0.0)) if shift else None
+    tensors = [t for t in (input, s, b) if t is not None]
+    attrs = {"begin_norm_axis": begin_norm_axis, "epsilon": epsilon,
+             "has_scale": s is not None, "has_bias": b is not None}
+    if in_static_mode() and isinstance(input, Variable):
+        return _apply_act(_append_static("layer_norm_flex", tensors, attrs,
+                                         False), act)
+    return _apply_act(_ln_flex(*tensors, **attrs), act)
+
+
+def _ln_flex(*tensors, begin_norm_axis=1, epsilon=1e-5, has_scale=True,
+             has_bias=True):
+    it = iter(tensors)
+    x = next(it)
+    s = next(it) if has_scale else None
+    b = next(it) if has_bias else None
+    return _nn.layer_norm(x, s, b, begin_norm_axis, epsilon)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """fluid.layers.group_norm parity: per-channel scale (1) and bias (0)
+    and one ``group_norm_p`` op (NCHW)."""
+    c = int(input.shape[1])
+    s = _make_param("gn_scale", (c,), torch.float32, param_attr,
+                    I.Constant(1.0))
+    b = _make_param("gn_bias", (c,), torch.float32, bias_attr,
+                    I.Constant(0.0))
+    if in_static_mode() and isinstance(input, Variable):
+        return _apply_act(_append_static(
+            "group_norm_p", [input, s, b],
+            {"groups": groups, "epsilon": epsilon}, False), act)
+    return _apply_act(_gn_p(input, s, b, groups=groups, epsilon=epsilon),
+                      act)
+
+
+def _gn_p(x, s, b, groups=32, epsilon=1e-5):
+    return _nn.group_norm(x, s, b, groups, epsilon)
+
+
+_register("layer_norm_flex", _ln_flex)
+_register("group_norm_p", _gn_p)
 
 
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
@@ -561,8 +731,7 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
         return _append_static(
             "dropout", [x],
             {"dropout_prob": dropout_prob, "is_test": is_test,
-             "dropout_implementation": dropout_implementation,
-             "_needs_rng": True}, False)
+             "dropout_implementation": dropout_implementation}, False)
     return _nn.dropout(x, dropout_prob, is_test, seed,
                        dropout_implementation)
 

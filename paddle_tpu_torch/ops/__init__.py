@@ -11,6 +11,7 @@ from paddle_tpu_torch.ops.crf import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.detection import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.loss import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.math import *  # noqa: F401,F403
+from paddle_tpu_torch.ops.metric_ops import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.nn import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.reduce import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.rnn import *  # noqa: F401,F403
@@ -19,11 +20,12 @@ from paddle_tpu_torch.ops.sequence import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.tensor_array import *  # noqa: F401,F403
 from paddle_tpu_torch.ops.tensor_ops import *  # noqa: F401,F403
 from paddle_tpu_torch.ops import (  # noqa: F401
-    activation, control_flow, crf, detection, loss, math, nn, reduce, rnn,
-    selected_rows, sequence, tensor_array, tensor_ops,
+    activation, control_flow, crf, detection, loss, math, metric_ops, nn,
+    reduce, rnn, selected_rows, sequence, tensor_array, tensor_ops,
 )
 
 __all__ = (activation.__all__ + control_flow.__all__ + crf.__all__
-           + detection.__all__ + loss.__all__ + math.__all__ + nn.__all__ + reduce.__all__
+           + detection.__all__ + loss.__all__ + math.__all__
+           + metric_ops.__all__ + nn.__all__ + reduce.__all__
            + rnn.__all__ + selected_rows.__all__ + sequence.__all__
            + tensor_array.__all__ + tensor_ops.__all__)

@@ -6,11 +6,16 @@ gelu, tanh, tanh_shrink, softplus, softsign, brelu, leaky_relu, soft_relu,
 elu, relu6, stanh, hard_sigmoid, swish, thresholded_relu, hard_shrink...)
 plus softmax_op.cc, maxout_op.cc, prelu_op.cc, selu_op.cc, each with the
 JAX function's arithmetic (``softplus`` is ``logaddexp(x, 0)``, as
-``jax.nn.softplus``, with no linear threshold).
+``jax.nn.softplus``, with no linear threshold) and its gradient at the
+kinks: ``relu`` is ``jnp.maximum(x, 0)`` and the clipped ones ``jnp.clip``,
+whose gradient splits in half at a tie (0.5 for ``relu`` at 0), where
+``torch.relu`` and ``torch.clamp`` give 0 or 1.
 """
 
 import torch
 import torch.nn.functional as F
+
+from paddle_tpu_torch.ops.math import _clip, _maximum
 
 __all__ = [
     "relu", "relu6", "leaky_relu", "prelu", "elu", "selu", "gelu",
@@ -30,11 +35,11 @@ def _zero(x):
 
 
 def relu(x, name=None):
-    return torch.relu(_t(x))
+    return _maximum(_t(x), 0)
 
 
 def relu6(x, threshold=6.0, name=None):
-    return torch.clamp(_t(x), 0, threshold)
+    return _clip(_t(x), 0, threshold)
 
 
 def leaky_relu(x, alpha=0.02, name=None):
@@ -74,7 +79,7 @@ def logsigmoid(x, name=None):
 
 
 def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
-    return torch.clamp(slope * _t(x) + offset, 0.0, 1.0)
+    return _clip(slope * _t(x) + offset, 0.0, 1.0)
 
 
 def tanh(x, name=None):
@@ -108,11 +113,11 @@ def hard_shrink(x, threshold=0.5, name=None):
 
 
 def brelu(x, t_min=0.0, t_max=24.0, name=None):
-    return torch.clamp(_t(x), t_min, t_max)
+    return _clip(_t(x), t_min, t_max)
 
 
 def soft_relu(x, threshold=40.0, name=None):
-    return torch.log1p(torch.exp(torch.clamp(_t(x), -threshold, threshold)))
+    return torch.log1p(torch.exp(_clip(_t(x), -threshold, threshold)))
 
 
 def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
@@ -126,7 +131,7 @@ def swish(x, beta=1.0, name=None):
 
 def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
     x = _t(x)
-    return x * torch.clamp(x + offset, 0, threshold) / scale
+    return x * _clip(x + offset, 0, threshold) / scale
 
 
 def thresholded_relu(x, threshold=1.0, name=None):

@@ -45,6 +45,8 @@ arrays, and return numpy.
 import numpy as np
 import torch
 
+from paddle_tpu_torch.ops.math import _abs, _clip, _maximum, _minimum
+
 __all__ = [
     "iou_similarity", "box_coder", "prior_box", "density_prior_box",
     "anchor_generator", "bipartite_match", "target_assign",
@@ -99,29 +101,6 @@ def _c(v):
     """A Python float rounded to fp32, as a JAX weak-typed scalar enters an
     fp32 computation."""
     return float(np.float32(v))
-
-
-def _maximum(x, v):
-    """``jnp.maximum(x, v)`` for a scalar ``v``: the gradient splits at a
-    tie."""
-    return torch.maximum(x, x.new_full((), v))
-
-
-def _abs(x):
-    """``jnp.abs`` with its gradient: 1 at 0 (``torch.abs`` gives 0)."""
-    return torch.where(x >= 0, x, -x)
-
-
-def _minimum(x, v):
-    return torch.minimum(x, x.new_full((), v))
-
-
-def _clip(x, lo, hi):
-    """``jnp.clip``: ``minimum(hi, maximum(lo, x))``, with tensors or
-    scalars as bounds (the gradient splits at a tie, as in JAX)."""
-    lo = lo if isinstance(lo, torch.Tensor) else x.new_full((), lo)
-    hi = hi if isinstance(hi, torch.Tensor) else x.new_full((), hi)
-    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def _top_k(x, k):

@@ -9,10 +9,18 @@ margin_rank_loss_op.cc, rank_loss_op.cc, kldiv_loss_op.cc, bpr_loss_op.cc,
 cos_sim_op.cc, modified_huber_loss_op.cc, mse (square_error),
 teacher_student_sigmoid_loss_op.cc, npair_loss, dice_loss and
 sampled_softmax_with_cross_entropy (sample_logits_op.cc).
+
+At their kinks the losses take the JAX functions' gradients: ``jnp.maximum``
+and ``jnp.clip`` split a tie in half and ``jnp.abs`` has gradient 1 at 0,
+so ``sigmoid_cross_entropy_with_logits`` has gradient ``-label`` at logit 0
+(not the math's ``0.5 - label``) and ``hinge_loss`` half a unit at the
+hinge.
 """
 
 import torch
 import torch.nn.functional as F
+
+from paddle_tpu_torch.ops.math import _abs, _clip, _maximum
 
 __all__ = [
     "cross_entropy", "softmax_with_cross_entropy",
@@ -72,8 +80,8 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
 def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
                                       normalize=False, name=None):
     """sigmoid_cross_entropy_with_logits_op.cc parity."""
-    loss = (torch.clamp(x, min=0) - x * label
-            + torch.log1p(torch.exp(-torch.abs(x))))
+    loss = (_maximum(x, 0) - x * label
+            + torch.log1p(torch.exp(-_abs(x))))
     valid = label != ignore_index
     loss = torch.where(valid, loss, 0.0)
     if normalize:
@@ -117,11 +125,11 @@ def log_loss(input, label, epsilon=1e-4, name=None):
 
 
 def hinge_loss(input, label, name=None):
-    return torch.clamp(1.0 - input * (2 * label - 1), min=0.0)
+    return _maximum(1.0 - input * (2 * label - 1), 0.0)
 
 
 def margin_rank_loss(label, left, right, margin=0.1, name=None):
-    return torch.clamp(-label * (left - right) + margin, min=0.0)
+    return _maximum(-label * (left - right) + margin, 0.0)
 
 
 def rank_loss(label, left, right, name=None):
@@ -169,9 +177,9 @@ def modified_huber_loss(input, label, name=None):
 
 def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
                                  soft_max_lower_bound=-15.0, name=None):
-    x = torch.clamp(input, soft_max_lower_bound, soft_max_up_bound)
+    x = _clip(input, soft_max_lower_bound, soft_max_up_bound)
     z = torch.as_tensor(label)
-    sig = torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp(x, min=0.0)
+    sig = torch.log1p(torch.exp(-_abs(x))) + _maximum(x, 0.0)
     return sig - x * (z > 0.5).to(x.dtype)
 
 
@@ -225,7 +233,9 @@ def sampled_softmax_with_cross_entropy(logits, label, num_samples,
         if samples.dim() == 1:
             samples = samples[None, :].expand(b, samples.shape[0])
     else:
-        if rng is None:
+        if rng is None and logits.device.type != "meta":
+            # (a Program's shape inference runs on meta tensors, where no
+            # generator can be made; there the draw has only a shape)
             rng = torch.Generator(device=logits.device).manual_seed(seed)
         samples = torch.randint(0, v, (b, num_samples), generator=rng,
                                 device=logits.device)

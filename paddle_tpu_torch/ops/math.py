@@ -46,6 +46,31 @@ def _pair(x, y):
     return _t(x), _t(y)
 
 
+def _maximum(x, v):
+    """``jnp.maximum(x, v)`` for a scalar ``v``: at a tie the gradient
+    splits in half between the two sides (``torch.clamp`` gives it all to
+    x)."""
+    return torch.maximum(x, x.new_full((), v))
+
+
+def _minimum(x, v):
+    """``jnp.minimum(x, v)`` for a scalar ``v`` (the tie splits)."""
+    return torch.minimum(x, x.new_full((), v))
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, with tensors or
+    scalars as bounds; the gradient splits at either bound, as in JAX."""
+    lo = lo if isinstance(lo, torch.Tensor) else x.new_full((), lo)
+    hi = hi if isinstance(hi, torch.Tensor) else x.new_full((), hi)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _abs(x):
+    """``jnp.abs`` with its gradient: 1 at 0 (``torch.abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _align(x, y, axis=-1):
     """The reference broadcast rule: y's dims line up from x's ``axis``."""
     x, y = _pair(x, y)
@@ -165,14 +190,14 @@ def cumsum(x, axis=None, exclusive=False, reverse=False, name=None):
 
 
 def clip(x, min, max, name=None):
-    return torch.clamp(_t(x), min, max)
+    return _clip(_t(x), min, max)
 
 
 def clip_by_norm(x, max_norm, name=None):
     """clip_by_norm_op.cc parity: x * max_norm / max(norm, max_norm)."""
     x = _t(x)
     norm = torch.sqrt(torch.sum(torch.square(x)))
-    return x * (max_norm / torch.clamp(norm, min=max_norm))
+    return x * (max_norm / _maximum(norm, max_norm))
 
 
 def cast(x, dtype):
@@ -189,7 +214,7 @@ def isfinite(x, name=None):
 
 
 # -- simple unary (activation_op.cc registers several of these too) --------
-def abs(x, name=None): return torch.abs(_t(x))                    # noqa: E704
+def abs(x, name=None): return _abs(_t(x))                         # noqa: E704
 def _rounding(fn):
     """An integer input is already whole: it comes back as it is, in its
     dtype, as from ``jnp.ceil``."""

@@ -9,6 +9,8 @@ integers is float32, as ``jnp.mean`` gives it.
 
 import torch
 
+from paddle_tpu_torch.ops.math import _abs
+
 __all__ = [
     "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
     "reduce_all", "reduce_any", "mean", "squared_l2_norm", "l1_norm",
@@ -68,7 +70,7 @@ def squared_l2_norm(x, name=None):
 
 
 def l1_norm(x, name=None):
-    return torch.sum(torch.abs(_t(x)))
+    return torch.sum(_abs(_t(x)))
 
 
 def l2_normalize(x, axis=-1, epsilon=1e-12, name=None):

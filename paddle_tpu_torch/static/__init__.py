@@ -13,6 +13,10 @@ import paddle_tpu_torch.static.opt_passes  # noqa: F401,E402
 from paddle_tpu_torch.static.backward import (  # noqa: E402,F401
     append_backward, gradients,
 )
+from paddle_tpu_torch.static.io import (  # noqa: E402,F401
+    append_load_op, append_save_op, load_inference_model, load_params,
+    load_persistables, save_inference_model, save_params, save_persistables,
+)
 from paddle_tpu_torch.static.debugger import (  # noqa: E402,F401
     draw_graph, memory_usage, pprint_program,
 )

@@ -6,7 +6,6 @@ output vars. The Executor runs it as ``torch.autograd.grad`` of the summed
 loss over the interpreted prefix.
 """
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.static.program import Parameter
 
 __all__ = ["GRAD_SUFFIX", "append_backward", "gradients", "calc_gradient"]
@@ -18,11 +17,9 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append the autodiff marker and the grad vars; returns
     ``[(param, grad_var)]``. ``callbacks`` is ignored, as in the JAX
-    package; recompute ``checkpoints`` are not ported yet."""
-    if checkpoints:
-        raise EnforceNotMet(
-            "append_backward(checkpoints=...): recompute segments in the "
-            "static executor are not ported yet (ROADMAP queue 1 item 5)")
+    package; ``checkpoints`` only records ``"checkpoint": bool(checkpoints)``
+    in the op's attrs, as the JAX function does (nothing there reads it:
+    no recompute happens, and the gradients are the same)."""
     blk = loss.block.program.global_block()
     params = [p for p in blk.all_parameters()
               if isinstance(p, Parameter) and p.trainable]
@@ -40,7 +37,7 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         inputs={"Loss": [loss.name]},
         outputs={"Grads": [g.name for g in grad_vars]},
         attrs={"loss": loss.name, "params": [p.name for p in params],
-               "checkpoint": False})
+               "checkpoint": bool(checkpoints)})
     return list(zip(params, grad_vars))
 
 

@@ -25,7 +25,8 @@ plain bodies (on the CPU).
   new running stats too), the feeds and fetches are numpy arrays or
   (``return_numpy=False``) tensors on the device, and the scope's
   ``@step@`` counts the runs;
-- an op that draws (``_needs_rng``: ``dropout``) gets a generator on the
+- an op that draws (``_needs_rng``: ``dropout``,
+  ``sampled_softmax_with_cross_entropy``) gets a generator on the
   device seeded from ``program.random_seed``, the run's ``@step@`` and the
   op's first output name (the counterpart of the JAX executor's per-step
   fold, executor.py:1365-1510: the same seed gives the same masks in two

@@ -453,3 +453,53 @@ def test_variable_arithmetic_appends_the_jax_ops():
     x, y = feed["x"], feed["y"]
     for g, w in zip(got, [x + y, x - y, x * y, x / y, (x - y) * 2.0 / y]):
         np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
+
+
+def _sampled_program(pt, unique_name, samples):
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        logits = pt.data("logits", [50], "float32")
+        label = pt.data("label", [1], "int64")
+        kw = ({} if samples is None else
+              {"use_customized_samples": True, "customized_samples": samples})
+        loss = pt.layers.mean(pt.layers.sampled_softmax_with_cross_entropy(
+            logits, label, 5, **kw))
+    return main, loss
+
+
+def test_sampled_softmax_builds_and_draws_in_a_program():
+    """F13: ``layers.sampled_softmax_with_cross_entropy`` builds in a
+    Program (its shape inference makes no generator on the meta device) as
+    an op that draws (``_needs_rng``), as in the JAX package. With
+    customized samples the two packages' losses are equal; without, each
+    run draws new negatives, and the port's losses over 20 runs of one feed
+    lie within the JAX package's 20."""
+    rng = np.random.RandomState(13)
+    feed = {"logits": rng.randn(4, 50).astype(np.float32),
+            "label": rng.randint(0, 50, (4, 1)).astype(np.int64)}
+    samples = rng.randint(0, 50, 5).astype(np.int64)   # shared by the rows
+    samples[0] = feed["label"][0, 0]           # an accidental hit
+    losses = {}
+    for fixed in (samples, None):
+        tm, tl = _sampled_program(tpt, tpt.unique_name, fixed)
+        jm, jl = _sampled_program(jpt, junique, fixed)
+        (op,) = [o for o in tm.global_block().ops
+                 if o.type == "sampled_softmax_with_cross_entropy"]
+        assert op.attrs["_needs_rng"]
+        assert list(tm.global_block().var(op.output_names()[0]).shape) == [
+            -1, 1]
+        texe, tscope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+        jexe, jscope = jpt.static.Executor(jpt.CPUPlace()), \
+            jpt.static.Scope()
+        n = 1 if fixed is not None else 20
+        losses[fixed is None] = (
+            [float(texe.run(tm, feed=feed, fetch_list=[tl],
+                            scope=tscope)[0]) for _ in range(n)],
+            [float(jexe.run(jm, feed=feed, fetch_list=[jl],
+                            scope=jscope)[0]) for _ in range(n)])
+    (t_fixed,), (j_fixed,) = losses[False]
+    np.testing.assert_allclose(t_fixed, j_fixed, rtol=TOL, atol=TOL)
+    t_drawn, j_drawn = losses[True]
+    assert len(set(t_drawn)) > 10 and len(set(j_drawn)) > 10
+    assert min(j_drawn) <= np.mean(t_drawn) <= max(j_drawn)
+    assert min(t_drawn) <= np.mean(j_drawn) <= max(t_drawn)

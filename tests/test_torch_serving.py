@@ -221,10 +221,12 @@ def test_port_programs_write_the_jax_documents(opt):
 
 
 def test_documents_refuse_what_the_port_cannot_build(exports):
-    node = {"__obj__": "paddle_tpu.initializer:TruncatedNormalInitializer",
-            "state": {"loc": 0.0, "scale": 1.0, "seed": 0}}
+    # (a class the port does not have yet: WeightNormParamAttr, queue 1
+    # item 7d)
+    node = {"__obj__": "paddle_tpu.framework:WeightNormParamAttr",
+            "state": {"dim": None}}
     with pytest.raises(tser.SerializationError,
-                       match="TruncatedNormalInitializer.*queue 1 item 7"):
+                       match="WeightNormParamAttr.*queue 1 item 7"):
         tser.decode_value(node)
     for path in ("os:system", "paddle_tpu_torch.initializer:Constant",
                  "paddle_tpu.nosuchmodule:Thing"):
@@ -711,3 +713,60 @@ def test_what_is_not_ported_raises(exports):
                lambda: tpt.static.io.append_load_op(main, [out], "f")):
         with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
             fn()
+
+
+# ---------------------------------------------------------------------------
+# 7. an op that draws in a frozen program (F12)
+def test_dropout_program_exports_and_serves(tmp_path):
+    """F12: an fc -> dropout(0.5) -> fc model saved with
+    ``save_inference_model`` (its dropout frozen for inference, still an op
+    that draws): ``export_aot`` and the server take it, where the port
+    refused any ``_needs_rng`` op, and they agree with the port's and the
+    JAX package's ``Predictor`` on the same directory."""
+    d = str(tmp_path / "drop")
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup), tpt.unique_name.guard():
+        x = tpt.data("x", [8], "float32")
+        h = tpt.layers.dropout(tpt.layers.fc(x, 16, act="relu"), 0.5)
+        out = tpt.layers.fc(h, 4)
+    scope, exe = tpt.Scope(), tpt.Executor(tpt.CPUPlace())
+    exe.run(startup, scope=scope)
+    with tpt.scope_guard(scope):
+        tpt.io.save_inference_model(d, ["x"], [out], exe, main_program=main)
+    prog, feeds, fetches = tpt.io.load_inference_model(d, exe,
+                                                       scope=tpt.Scope())
+    drop = [op for op in prog.global_block().ops if op.type == "dropout"]
+    assert len(drop) == 1 and drop[0].attrs["_needs_rng"]
+    xb = np.random.RandomState(3).rand(3, 8).astype(np.float32)
+    entries = tinf.export_aot(d, prog, feeds, fetches, scope,
+                              [{"x": ((3, 8), "float32")}])
+    assert entries
+    want = tinf.create_predictor(_cpu_config(d)).run({"x": xb})[0]
+    with TServer(d, TConfig(max_batch=4, devices=[CPU])) as srv:
+        served = np.asarray(srv.infer({"x": xb}, timeout=60)[0])
+    np.testing.assert_array_equal(served, want)
+    jwant = jinf.create_predictor(jinf.Config(d)).run({"x": xb})[0]
+    np.testing.assert_allclose(want, np.asarray(jwant), rtol=0, atol=TOL)
+
+
+def test_pure_fn_draws_the_executors_first_run_mask():
+    """F12: in the AOT function a dropout that trains draws, on every call,
+    the mask the Executor draws at its first run of the program (the JAX
+    function's step-0 keys): calls agree with each other and with that run,
+    and the Executor's second run draws another."""
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup), tpt.unique_name.guard():
+        x = tpt.data("x", [64], "float32")
+        out = tpt.layers.dropout(x, 0.5)
+    xb = np.ones((4, 64), np.float32)
+    exe, scope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+    exe.run(startup, scope=scope)
+    runs = [exe.run(main, feed={"x": xb}, fetch_list=[out], scope=scope)[0]
+            for _ in range(2)]
+    fn, names = tinf._build_pure_fn(main, ["x"], [out.name])
+    calls = [fn(tuple(scope.find_var(n) for n in names),
+                (torch.from_numpy(xb),))[0].numpy() for _ in range(2)]
+    np.testing.assert_array_equal(calls[0], calls[1])
+    np.testing.assert_array_equal(calls[0], runs[0])
+    assert not np.array_equal(runs[0], runs[1])
+    assert 0.3 < (calls[0] == 0).mean() < 0.7

@@ -490,3 +490,43 @@ def test_what_is_not_ported_raises(monkeypatch):
     with pytest.raises(tpt.NoCudaDeviceError):
         tpt.Executor()
     assert tpt.Executor(tpt.CPUPlace()).device == torch.device("cpu")
+
+
+def _checkpointed(pt, unique_name, checkpoints):
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), unique_name.guard():
+        x = pt.data("x", [13], "float32")
+        y = pt.data("y", [1], "float32")
+        h = pt.layers.fc(x, 8, act="tanh")
+        loss = pt.layers.mean(pt.layers.square_error_cost(
+            pt.layers.fc(h, 1), y))
+        pg = pt.static.append_backward(
+            loss, checkpoints=[h] if checkpoints else None)
+    return main, startup, loss, [g.name for _, g in pg]
+
+
+@pytest.mark.parametrize("checkpoints", [False, True])
+def test_append_backward_checkpoints_match_jax(checkpoints):
+    """F11: ``append_backward(checkpoints=[...])`` records ``"checkpoint":
+    True`` in the autodiff op as the JAX function does (no recompute in
+    either package): the documents are equal, and so are the gradients,
+    with and without it, from the JAX startup's weights."""
+    from paddle_tpu.static import serialize as jser
+    from paddle_tpu_torch.static import serialize as tser
+    tm, ts, tl, tg = _checkpointed(tpt, tpt.unique_name, checkpoints)
+    jm, js, jl, jg = _checkpointed(jpt, junique, checkpoints)
+    assert tser.program_to_dict(tm) == jser.program_to_dict(jm)
+    assert tm.global_block().ops[-1].attrs["checkpoint"] is checkpoints
+    jscope, jexe = jpt.static.Scope(), jpt.static.Executor(jpt.CPUPlace())
+    jexe.run(js, scope=jscope)
+    names = [n for n, v in js.global_block().vars.items() if v.persistable]
+    tscope = tpt.Scope.from_numpy(
+        {n: np.array(jscope.find_var(n)) for n in names}, "cpu", ts)
+    rng = np.random.RandomState(11)
+    feed = {"x": rng.randn(6, 13).astype(np.float32),
+            "y": rng.randn(6, 1).astype(np.float32)}
+    want = jexe.run(jm, feed=feed, fetch_list=[jl] + jg, scope=jscope)
+    got = tpt.Executor(tpt.CPUPlace()).run(tm, feed=feed,
+                                           fetch_list=[tl] + tg, scope=tscope)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=TOL, atol=TOL)
