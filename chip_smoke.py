@@ -326,7 +326,35 @@ Phases; any failure raises and the script exits non-zero:
    ``CG_TOL["op"]``, host metrics equal; the kink gradients of F9 on the
    card equal to the CPU's (0.5 for ``relu`` at 0), and the conv2d + relu
    program's bias at -0.375 after one SGD step on the card.
-39. Print one JSON line of every ported kernel (launches on the main paths,
+39. CRNN-CTC training (train-crnn-ctc; ``models/crnn_ctc.py``) at
+   PaddleCV/ocr_recognition's config: grey 48x512 images, batch 32, four
+   conv groups with batch norm, ``im2sequence`` to 64 steps of 768, two
+   fcs of 600, a forward and a reverse ``dynamic_gru`` of 200, an fc of 96,
+   ``warpctc(blank=95, norm_by_times=True)``, Momentum(1e-3, 0.9) with
+   ``L2Decay(4e-4)``, fp32 with TF32 off; ``prepare`` then ``CRNN_STEPS``
+   steps over 4 synthetic batches (labels 1-24 long): exactly 2
+   ``fused_matmul`` (fc1 and fc2; the output fc over two inputs sums them
+   outside the kernel's contract) and one ``fused_momentum`` per trainable
+   tensor (43) a step; the losses finite
+   and falling; step latency (median from step 5), images/s, device events
+   and busy share of one profiled step, peak memory.
+40. CRNN-CTC's evaluation program over phase 39's scope (infer-crnn-ctc):
+   the ``clone(for_test=True)`` with ``ctc_greedy_decoder`` and
+   ``edit_distance`` at batch 32 and 1: latency (median of 10), time per
+   image, decoded lengths, the mean edit distance, device events, busy
+   share; exactly 2 ``fused_matmul`` a run.
+41. misc-correctness: ``crnn_ctc_tiny`` 3 Momentum steps on the card
+   against the port on the CPU from one set of weights with cuDNN's
+   deterministic algorithms (losses, first-step gradients, persistables
+   within ``CRNN_TOL``); every op of ``ops/misc.py`` and ``ops/ctc.py``,
+   value and input gradients, card against CPU at CRNN-CTC's shapes where
+   it has them (``im2sequence`` at [32,128,6,64], ``warpctc`` and the
+   decoder at [32,64,96], the edit distance of 32 rows of 64 against 24),
+   ties included, within ``CRNN_TOL["op"]``, integers equal;
+   ``lookup_table`` launching the gather (row 6) once; the random ops on
+   the card by range, moments, frequencies, windows, permutations and the
+   seed rules.
+42. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5855,6 +5883,495 @@ def phase_nn_checks(K, pt, ops, cg, card):
     return dict(rec, launches=tiny["launches"])
 
 
+# ---------------------------------------------------------------------------
+# phases 39-41: CRNN-CTC (models/crnn_ctc.py), the random ops, ops/misc.py
+# and the CTC ops
+# ---------------------------------------------------------------------------
+CRNN_STEPS = 16
+CRNN_BATCHES = 4
+#: phase 41's limits, set before the first card run: crnn_ctc_tiny's losses
+#: relative to the loss, its first-step gradients against the largest, its
+#: persistables after 3 Momentum steps against max(1, largest); the ops'
+#: values and input gradients relative to their largest value (integer
+#: outputs equal); the random ops' mean and variance within 5 standard
+#: errors of the analytic ones
+CRNN_TOL = {"loss_rel": 1e-5, "grad_gap_of_max": 1e-5, "param_gap": 1e-5,
+            "op": 1e-5, "sigmas": 5.0}
+#: the standard deviation of a standard normal truncated to [-2, 2]
+TRUNC_STD = 0.8796256610342398
+
+
+def crnn_fused_matmuls(built, fetch):
+    """(the ``fused_matmul`` ops of the main program after the pass
+    pipeline for ``fetch``, those inside the kernel's contract: one launch
+    each a forward). The output fc over [gru_fwd, gru_bwd] becomes a
+    ``mul`` and a ``fused_matmul`` whose addend is that ``mul``'s [B, T, 96]
+    output, not a bias vector: outside the contract, it runs the plain
+    composition."""
+    from paddle_tpu_torch.static import opt_passes
+    prog = opt_passes.optimize_for_execution(built["main"],
+                                             [v.name for v in fetch])
+    blk = prog.global_block()
+    fmm = [op for op in blk.ops if op.type == "fused_matmul"]
+    return len(fmm), sum(not op.attrs.get("has_bias")
+                         or len(blk.var(op.inputs["X"][2]).shape) == 1
+                         for op in fmm)
+
+
+def crnn_feed_spec(cfg, batch):
+    return {"pixel": ((batch, 1, cfg.height, cfg.width), "float32"),
+            "label": ((batch, cfg.max_label), "int32"),
+            "label_length": ((batch,), "int32")}
+
+
+def phase_train_crnn(K, pt, cr, card):
+    """Phase 39 (see the module docstring). Returns (record, (built, exe,
+    scope))."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = cr.crnn_ctc()
+    t0 = time.perf_counter()
+    built = cr.build_train(pt, cfg)
+    build_s = time.perf_counter() - t0
+    main, loss = built["main"], built["loss"]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(built["startup"], scope=scope)
+    t0 = time.perf_counter()
+    check(exe.prepare(main, feed=crnn_feed_spec(cfg, cfg.batch),
+                      fetch_list=[loss], scope=scope),
+          "train-crnn-ctc: prepare")
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    n_params = len(cr.param_names(main))
+    n_ops, n_fmm = crnn_fused_matmuls(built, [loss])
+    check(n_params == 43 and (n_ops, n_fmm) == (3, 2),
+          f"train-crnn-ctc: {n_params} trainable tensors, {n_ops} fused "
+          f"matmul ops, {n_fmm} inside the kernel's contract (expected 43, "
+          "3 and 2: fc1 and fc2 launch the kernel)")
+    feeds = [cr.feed_of(cr.synthetic_batch(cfg, cfg.batch, seed=i))
+             for i in range(CRNN_BATCHES)]
+
+    def step(feed):
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+
+    rec = seq_train(
+        K, "train-crnn-ctc", step, feeds, CRNN_STEPS,
+        {"fused_matmul": n_fmm, "fused_momentum": n_params}, card,
+        lambda f: cfg.batch, "images",
+        dict(image=[1, cfg.height, cfg.width], batch=cfg.batch,
+             time_steps=cfg.time_steps, classes=cfg.num_classes + 1,
+             hidden=cfg.hidden, params=n_params,
+             param_values=sum(math.prod(main.global_block().var(n).shape)
+                              for n in cr.param_names(main)),
+             fused_matmul_ops=n_ops, fused_matmul_launches=n_fmm,
+             build_s=build_s, prepare_ms=prepare_ms,
+             optimizer=f"Momentum({cfg.lr}, {cfg.momentum}), "
+                       f"L2Decay({cfg.l2})"))
+    check(exe.trace_count == 1, f"train-crnn-ctc: {exe.trace_count} "
+                                "runners built; prepare's should serve")
+    rec["peak_gb"] = peak_since(base)
+    log_card("after train-crnn-ctc's counted steps")
+    log("train_crnn_ctc " + json.dumps(rec))
+    return rec, (built, exe, scope)
+
+
+def phase_infer_crnn(K, pt, cr, card, trained):
+    """Phase 40: the evaluation program (the ``clone(for_test=True)``:
+    network, greedy decoder, edit distance) over phase 39's scope at batch
+    32 and 1: latency (median of 10 after 2 warm-up), time per image, the
+    decoded lengths, the mean edit distance, device events and busy share
+    of one profiled run; exactly 2 ``fused_matmul`` launches a run."""
+    built, exe, scope = trained
+    cfg = cr.crnn_ctc()
+    keys = ("decoded", "decoded_length", "distance")
+    fetch = [built[k] for k in keys]
+    rec = dict(card=card)
+    runs = 0
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for batch in (cfg.batch, 1):
+        feed = cr.feed_of(cr.synthetic_batch(cfg, batch, seed=100 + batch))
+        ms = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            dec, dlen, dist = exe.run(built["test"], feed=feed,
+                                      fetch_list=fetch, scope=scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs += 12
+        T = cfg.time_steps
+        check(dec.shape == (batch, T) and str(dec.dtype) == "int32"
+              and dlen.min() >= 0 and dlen.max() <= T
+              and all(math.isfinite(float(d)) and d >= 0 for d in dist),
+              f"infer-crnn-ctc: batch {batch}: {dec.shape} {dlen} {dist}")
+        prof = op_breakdown(lambda feed=feed: exe.run(
+            built["test"], feed=feed, fetch_list=fetch, scope=scope,
+            return_numpy=False), top=6, host_top=4)
+        runs += 2
+        steady = statistics.median(ms[2:])
+        rec[f"batch_{batch}"] = dict(
+            ms=steady, first_ms=ms[0], ms_all=ms, ms_per_image=steady / batch,
+            images_per_s=batch / steady * 1e3,
+            decoded_length_mean=float(dlen.mean()),
+            decoded_length_max=int(dlen.max()),
+            mean_edit_distance=float(dist.mean()),
+            device_events=prof.get("launches"),
+            device_ms=prof.get("kernel_ms"),
+            device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                               if prof else None), profile=prof)
+        log(f"infer-crnn-ctc: batch {batch}: {steady:.3f} ms, "
+            f"{steady / batch:.3f} ms an image, mean edit distance "
+            f"{float(dist.mean()):.4f}, decoded length mean "
+            f"{float(dlen.mean()):.2f} [{card}]")
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    check(counts == {"fused_matmul": 2 * runs},
+          f"infer-crnn-ctc: launches {counts} in {runs} runs, expected 2 "
+          "fused_matmul a run")
+    rec["launches"] = counts
+    log("infer_crnn_ctc " + json.dumps(rec))
+    return rec
+
+
+def misc_op_cases(ops, rng):
+    """(name, op, args, keyword args) of every op of the slice but
+    ``lookup_table`` (held on its own: it launches the gather) and the
+    random ops (held by distribution): ``ops/misc.py``'s 37 and the 5 CTC
+    ops, the args numpy arrays drawn once; CRNN-CTC's shapes where it has
+    them (im2sequence over [32,128,6,64], the loss and the decoder over
+    [32,64,96] with labels 1-24 long, the edit distance of 32 decoded rows
+    of 64 against 24). Tie cases: top_k, beam_search, max pooling and the
+    decoder's argmax on quantized values."""
+    import numpy as np
+
+    def f(*shape, lo=-2.0, hi=2.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def ints(lo, hi, *shape):
+        return rng.randint(lo, hi, shape).astype(np.int32)
+
+    def q(*shape):
+        return (np.round(rng.uniform(0, 1, shape) * 4) / 4).astype(
+            np.float32)
+    B, T, C, L = 32, 64, 96, 24
+    lens = rng.randint(1, L + 1, B).astype(np.int32)
+    labels = ints(0, C - 1, B, L) * (np.arange(L)[None] < lens[:, None])
+    labels[:4, 1] = labels[:4, 0]            # repeated labels
+    rois = np.array([[0, 1.3, 0.7, 6.2, 5.9], [1, 0.0, 2.1, 10.4, 8.6],
+                     [1, 4.5, 3.2, 12.0, 11.0]], np.float32)
+    return [
+        ("im2sequence [32,128,6,64] [6,1]", ops.im2sequence,
+         (f(B, 128, 6, 64),), dict(filter_size=[6, 1], stride=[1, 1])),
+        ("warpctc [32,64,96] blank 95 norm_by_times",
+         lambda x, lab, ll: ops.warpctc(x, lab, label_length=ll, blank=95,
+                                        norm_by_times=True),
+         (f(B, T, C), labels, lens), {}),
+        ("ctc_loss ragged logit lengths, empty label",
+         lambda x, lab, tl, ll: ops.ctc_loss(x, lab, tl, ll, blank=0),
+         (f(8, T, 12), ints(1, 12, 8, 10), np.array(
+             [64, 50, 33, 64, 10, 1, 64, 20], np.int32),
+          np.array([10, 4, 0, 7, 3, 1, 10, 2], np.int32)), {}),
+        ("ctc_greedy_decoder [32,64,96] ties",
+         lambda x: ops.ctc_greedy_decoder(x, blank=95), (q(B, T, C),), {}),
+        ("ctc_align ragged", ops.ctc_align,
+         (ints(0, 5, B, T), ints(0, T + 1, B)), dict(blank=0,
+                                                     padding_value=-1)),
+        ("edit_distance [32,64] vs [32,24]",
+         lambda h, r, hl, rl: ops.edit_distance(h, r, hl, rl),
+         (ints(0, C, B, T), labels, ints(0, T + 1, B), lens), {}),
+        ("edit_distance empty rows, not normalized",
+         lambda h, r, hl, rl: ops.edit_distance(h, r, hl, rl, False),
+         (ints(0, 4, 6, 9), ints(0, 4, 6, 7),
+          np.array([0, 9, 3, 0, 5, 9], np.int32),
+          np.array([7, 0, 0, 0, 2, 7], np.int32)), {}),
+        ("add_position_encoding", ops.add_position_encoding,
+         (f(4, 64, 200),), dict(alpha=0.5, beta=2.0)),
+        ("affine_grid", lambda t: ops.affine_grid(t, (2, 3, 16, 20)),
+         (f(2, 2, 3),), {}),
+        ("grid_sampler", ops.grid_sampler,
+         (f(2, 3, 16, 20), f(2, 8, 8, 2, lo=-1.2, hi=1.2)), {}),
+        ("bilinear_tensor_product", ops.bilinear_tensor_product,
+         (f(8, 16), f(8, 12), f(6, 16, 12), f(6)), {}),
+        ("conv_shift", ops.conv_shift, (f(8, 31), f(8, 5)), {}),
+        ("row_conv", ops.row_conv, (f(4, 64, 32), f(3, 32)), {}),
+        ("similarity_focus", lambda x: ops.similarity_focus(x, 1, [0, 2]),
+         (q(2, 3, 8, 9),), {}),
+        ("spectral_norm", ops.spectral_norm, (f(16, 3, 3, 3), f(16)),
+         dict(power_iters=3)),
+        ("spp", ops.spp, (f(2, 8, 13, 17),), dict(pyramid_height=3)),
+        ("spp avg", ops.spp, (f(2, 8, 13, 17),),
+         dict(pyramid_height=3, pool_type="avg")),
+        ("temporal_shift", ops.temporal_shift, (f(8, 16, 7, 7),),
+         dict(seg_num=4)),
+        ("max_pool2d_with_index ties", ops.max_pool2d_with_index,
+         (q(2, 8, 15, 15),), dict(pool_size=3, stride=2, padding=1)),
+        ("unpool2d collisions", lambda x, i: ops.unpool2d(x, i, (12, 12)),
+         (f(2, 4, 6, 6), ints(0, 144, 2, 4, 6, 6)), {}),
+        ("squared_l2_distance", ops.squared_l2_distance,
+         (f(16, 5, 4), f(16, 5, 4)), {}),
+        ("fsp_matrix", ops.fsp_matrix, (f(2, 8, 9, 9), f(2, 6, 9, 9)), {}),
+        ("hash_embedding_ids", lambda i: ops.hash_embedding_ids(i, 100003,
+                                                                2),
+         (ints(-2 ** 31, 2 ** 31 - 1, 64, 3),), {}),
+        ("cvm", ops.cvm, (f(16, 10, lo=0, hi=5),), {}),
+        ("tree_conv", ops.tree_conv,
+         (f(2, 10, 8), np.round(f(2, 10, 10, lo=0, hi=1)), f(3, 8, 6)),
+         {}),
+        ("nce", lambda x, w, b, lab, s: ops.nce(x, w, b, lab, s, 50),
+         (f(16, 32), f(50, 32), f(50), ints(0, 50, 16), ints(0, 50, 10)),
+         {}),
+        ("hierarchical_sigmoid",
+         lambda x, w, b, lab: ops.hierarchical_sigmoid(x, w, b, lab, 37),
+         (f(16, 32), f(36, 32), f(36), ints(0, 37, 16)), {}),
+        ("sample_logits", ops.sample_logits,
+         (f(16, 50), ints(0, 50, 16), ints(0, 50, 12)), {}),
+        ("gru_unit", ops.gru_unit,
+         (f(32, 600), f(32, 200), f(200, 400), f(200, 200), f(400),
+          f(200)), {}),
+        ("lstm_unit", ops.lstm_unit, (f(32, 800), f(32, 200), f(32, 200)),
+         {}),
+        ("sum", lambda a, b, c: ops.sum([a, b, c]),
+         (f(8, 9), f(8, 9), f(8, 9)), {}),
+        ("top_k ties", lambda x: ops.top_k(x, 5), (q(16, 40),), {}),
+        ("arg_max", lambda x: ops.arg_max(x, 1), (q(16, 40),), {}),
+        ("arg_min", lambda x: ops.arg_min(x, 0), (q(16, 40),), {}),
+        ("fill_any_like", lambda x: ops.fill_any_like(x, 2.5),
+         (f(8, 9),), {}),
+        ("fill_zeros_like", ops.fill_zeros_like, (f(8, 9),), {}),
+        ("assign_value", lambda ref: ops.assign_value(
+            [2, 3], "float32", [1.5, 2, 3, 4, 5, 6.25], device=ref.device),
+         (f(1),), {}),
+        ("smooth_l1_loss", ops.smooth_l1_loss, (f(16, 4), f(16, 4)),
+         dict(sigma=3.0)),
+        ("deformable_conv groups 2", lambda x, o, w: ops.deformable_conv(
+            x, o, w, 1, 1, 2), (f(2, 8, 12, 12), f(2, 36, 12, 12, lo=-1,
+                                                     hi=1), f(6, 8, 3, 3)),
+         {}),
+        ("deformable_conv modulated stride 2",
+         lambda x, o, w, m: ops.deformable_conv(x, o, w, 2, 0, 1, m),
+         (f(1, 3, 11, 11), f(1, 8, 5, 5, lo=-1.5, hi=1.5), f(4, 3, 2, 2),
+          f(1, 4, 5, 5, lo=0, hi=1)), {}),
+        ("average_accumulates", lambda p, a, b, c: ops.average_accumulates(
+            p, a, b, c, 3, 2, 6, average_window=5, max_average_window=4),
+         (f(64), f(64), f(64), f(64)), {}),
+        ("beam_search ties", lambda lp, sc, ids: ops.beam_search(
+            lp, sc, ids, 4, end_token=3, length_penalty=0.6, step=2),
+         (q(16, 9), q(16), ints(0, 9, 16, 3)), {}),
+        ("conv2d_fusion", lambda x, w, b, r: ops.conv2d_fusion(
+            x, w, b, r, padding=1), (f(2, 8, 12, 12), f(16, 8, 3, 3),
+                                     f(16), f(2, 16, 12, 12)), {}),
+        ("deformable_psroi_pooling",
+         lambda x, r, t: ops.deformable_psroi_pooling(
+             x, r, t, 2, 2, 2, part_size=2, sample_per_part=2),
+         (f(2, 8, 9, 11), rois, f(3, 2, 2, 2, lo=-1, hi=1)), {}),
+        ("deformable_roi_pooling",
+         lambda x, r, t: ops.deformable_roi_pooling(
+             x, r, t, pooled_height=3, pooled_width=3, sample_per_part=2),
+         (f(2, 3, 9, 11), rois, f(3, 2, 3, 3, lo=-1, hi=1)), {}),
+    ]
+
+
+def crnn_tiny_card_vs_cpu(K, pt, cr):
+    """``crnn_ctc_tiny`` 3 Momentum steps on the card and on the CPU from
+    one set of weights (the CPU startup's), fp32 with TF32 off: the first
+    step's gradients, the losses, the persistables after; the card's
+    launches (exactly 2 ``fused_matmul`` and one ``fused_momentum`` per
+    parameter a step)."""
+    import numpy as np
+    cfg = cr.crnn_ctc_tiny()
+    built = cr.build_train(pt, cfg)
+    main, startup, loss = built["main"], built["startup"], built["loss"]
+    cpu_exe, card_exe = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu_scope = pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    names = [n for n, v in startup.global_block().vars.items()
+             if v.persistable]
+    init = {n: cpu_scope.find_var(n).numpy().copy() for n in names}
+    card_scope = pt.Scope.from_numpy(init, "cuda", startup)
+    params = cr.param_names(main)
+    feeds = [cr.feed_of(cr.synthetic_batch(cfg, cfg.batch, seed=i))
+             for i in range(3)]
+    first = [exe.run(main, feed=feeds[0],
+                     fetch_list=[p + "@GRAD" for p in params],
+                     scope=pt.Scope.from_numpy(init, dev, startup))
+             for exe, dev in ((card_exe, "cuda"), (cpu_exe, "cpu"))]
+    gmax = max(float(np.abs(g).max()) for g in first[1])
+    ggap = max(float(np.abs(x - y).max()) for x, y in zip(*first))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses = []
+    for feed in feeds:
+        losses.append(tuple(
+            float(exe.run(main, feed=feed, fetch_list=[loss], scope=sc)[0])
+            for exe, sc in ((card_exe, card_scope), (cpu_exe, cpu_scope))))
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    gap = max(float(np.abs(card_scope.find_var(n).cpu().numpy()
+                           - cpu_scope.find_var(n).numpy()).max())
+              / max(1.0, float(np.abs(cpu_scope.find_var(n).numpy()).max()))
+              for n in names)
+    loss_gap = max(abs(c - w) / abs(w) for c, w in losses)
+    rec = dict(losses_card_cpu=losses, loss_gap_rel=loss_gap,
+               grad_gap_of_max=ggap / gmax, param_gap=gap,
+               launches=launches)
+    check(loss_gap <= CRNN_TOL["loss_rel"],
+          f"misc-correctness: crnn_ctc_tiny losses card/cpu {losses}")
+    check(ggap <= CRNN_TOL["grad_gap_of_max"] * gmax,
+          f"misc-correctness: crnn_ctc_tiny first gradients differ by "
+          f"{ggap} (largest {gmax})")
+    check(gap <= CRNN_TOL["param_gap"],
+          f"misc-correctness: crnn_ctc_tiny persistables differ by {gap}")
+    check(launches == {"fused_matmul": 2 * 3,
+                       "fused_momentum": 3 * len(params)},
+          f"misc-correctness: crnn_ctc_tiny launches {launches}")
+    return rec
+
+
+def moments_within(v, mean, std, label):
+    """The mean and variance of the draws ``v`` (on the card) within
+    ``CRNN_TOL["sigmas"]`` standard errors of ``mean`` and ``std``^2 (the
+    variance's error with a fourth moment of at most 3 std^4)."""
+    v = v.double()
+    n, k = v.numel(), CRNN_TOL["sigmas"]
+    m, var = float(v.mean()), float(v.var(unbiased=False))
+    check(abs(m - mean) <= k * std / math.sqrt(n)
+          and abs(var - std ** 2) <= k * math.sqrt(2.0 / n) * std ** 2
+          * 1.3, f"misc-correctness: {label}: mean {m} (want {mean}), "
+                 f"variance {var} (want {std ** 2}) over {n}")
+    return [m, var]
+
+
+def random_card_checks(ops, pt):
+    """The random ops on the card, 10^6 draws each: range, moments,
+    frequencies, windows and permutations; the same op seed gives the same
+    draws, a given generator beats the seed, seed 0 advances the global
+    counter and ``seed(s)`` restarts it."""
+    dev, n = torch.device("cuda"), 1_000_000
+    rec = {}
+    g = ops.gaussian_random((n,), 1.5, 0.5, seed=7, device=dev)
+    check(g.device.type == "cuda" and g.dtype == torch.float32,
+          "misc-correctness: gaussian_random on the card")
+    rec["gaussian"] = moments_within(g, 1.5, 0.5, "gaussian_random")
+    check(torch.equal(g, ops.gaussian_random((n,), 1.5, 0.5, seed=7,
+                                             device=dev)),
+          "misc-correctness: the same seed gives the same draws")
+    u = ops.uniform_random((n,), min=-3.0, max=5.0, seed=1,
+                           rng=torch.Generator(device=dev).manual_seed(3))
+    check(torch.equal(u, ops.uniform_random(
+        (n,), min=-3.0, max=5.0, seed=2,
+        rng=torch.Generator(device=dev).manual_seed(3))),
+        "misc-correctness: the generator beats the seed")
+    check(float(u.min()) >= -3.0 and float(u.max()) < 5.0,
+          "misc-correctness: uniform_random's range")
+    rec["uniform"] = moments_within(u, 1.0, 8.0 / math.sqrt(12.0),
+                                    "uniform_random")
+    t = ops.truncated_gaussian_random((n,), -1.0, 2.0, seed=4, device=dev)
+    check(float(t.min()) >= -5.0 - 1e-5 and float(t.max()) <= 3.0 + 1e-5,
+          "misc-correctness: truncated_gaussian_random's range")
+    rec["truncated"] = moments_within(t, -1.0, 2.0 * TRUNC_STD,
+                                      "truncated_gaussian_random")
+    r = ops.randint(3, 9, (n,), seed=5, device=dev)
+    check(r.dtype == torch.int64 and torch.equal(
+        torch.unique(r).cpu(), torch.arange(3, 9)),
+        "misc-correctness: randint's range and dtype")
+    rec["randint"] = moments_within(r, 5.5, math.sqrt(35 / 12.0), "randint")
+    p = torch.tensor([0.1, 0.0, 0.6, 0.3], device=dev).repeat(n // 4, 1)
+    sid = ops.sampling_id(p, seed=6)
+    freq = torch.bincount(sid, minlength=4).double() / sid.numel()
+    want = torch.tensor([0.1, 0.0, 0.6, 0.3], dtype=torch.float64,
+                        device=dev)
+    check(float(freq[1]) == 0 and float((freq - want).abs().max())
+          <= CRNN_TOL["sigmas"] * math.sqrt(0.25 / sid.numel()),
+          f"misc-correctness: sampling_id's frequencies {freq.tolist()}")
+    rec["sampling_id"] = freq.tolist()
+    x = torch.arange(2 * 3 * 6 * 7, dtype=torch.float32,
+                     device=dev).reshape(2, 3, 6, 7)
+    seen = set()
+    for s in range(1, 41):
+        out = ops.random_crop(x, (4, 5), seed=s)
+        y0, x0 = int(out[0, 0, 0, 0]) // 7, int(out[0, 0, 0, 0]) % 7
+        check(torch.equal(out, x[:, :, y0:y0 + 4, x0:x0 + 5]),
+              "misc-correctness: random_crop's window")
+        seen.add((y0, x0))
+    check(len(seen) == 9, f"misc-correctness: random_crop's starts {seen}")
+    perm = ops.shuffle_batch(torch.arange(4096, device=dev), seed=8)
+    check(torch.equal(torch.sort(perm).values,
+                      torch.arange(4096, device=dev))
+          and not torch.equal(perm, torch.arange(4096, device=dev)),
+          "misc-correctness: shuffle_batch permutes")
+    like = ops.gaussian_random_batch_size_like(torch.zeros(300, 2,
+                                                           device=dev),
+                                               [-1, 1000], seed=9)
+    check(like.shape == (300, 1000) and like.device.type == "cuda",
+          "misc-correctness: the batch_size_like draws")
+    pt.core.random.seed(11)
+    a = [ops.uniform_random((8,), device=dev) for _ in range(2)]
+    pt.core.random.seed(11)
+    b = [ops.uniform_random((8,), device=dev) for _ in range(2)]
+    check(not torch.equal(a[0], a[1]) and torch.equal(a[0], b[0])
+          and torch.equal(a[1], b[1]),
+          "misc-correctness: the global counter and seed()")
+    return rec
+
+
+def phase_misc_checks(K, pt, ops, cr, card):
+    """Phase 41 (see the module docstring); returns the card's launches of
+    the counted runs (crnn_ctc_tiny's steps and the ``lookup_table``
+    call)."""
+    import numpy as np
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        tiny = crnn_tiny_card_vs_cpu(K, pt, cr)
+        ops_rec = {}
+        for i, (name, fn, args, kw) in enumerate(misc_op_cases(
+                ops, np.random.RandomState(41))):
+            got, want = op_card_vs_cpu(fn, args, kw, i)
+            check(len(got) == len(want), f"misc-correctness: {name}: "
+                                         "outputs")
+            err = 0.0
+            for g, w in zip(got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"misc-correctness: {name}: {g.shape} {g.dtype}")
+                if not w.is_floating_point():
+                    check(torch.equal(g, w), f"misc-correctness: {name}")
+                    continue
+                scale = max(1.0, w.abs().max().item())
+                e = max_err(g, w) / scale
+                check(e <= CRNN_TOL["op"], f"misc-correctness: {name}: {e}")
+                err = max(err, e)
+            ops_rec[name] = err
+        # lookup_table is ops/nn.embedding: one gather launch on the card
+        rng = np.random.RandomState(6)
+        table = rng.randn(5000, 64).astype(np.float32)
+        ids = rng.randint(0, 5000, (32, 24, 1))
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        got = ops.lookup_table(torch.as_tensor(ids, device="cuda"),
+                               torch.as_tensor(table, device="cuda"), 3)
+        torch.cuda.synchronize()
+        lookup = {k: v for k, v in K.launch_counts().items() if v}
+        check(lookup == {"embedding_gather": 1},
+              f"misc-correctness: lookup_table launched {lookup}")
+        want = ops.lookup_table(torch.as_tensor(ids), torch.as_tensor(table),
+                                3)
+        check(torch.equal(got.cpu(), want),
+              "misc-correctness: lookup_table card vs CPU")
+        rand = random_card_checks(ops, pt)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    launches = dict(tiny["launches"])
+    launches["embedding_gather"] = lookup["embedding_gather"]
+    rec = dict(crnn_ctc_tiny=tiny, ops_max_err_of_max=ops_rec,
+               lookup_table_launches=lookup, random=rand, card=card)
+    log(f"misc-correctness: {len(ops_rec)} op cases within "
+        f"{max(ops_rec.values()):.3g} of their largest value; "
+        f"crnn_ctc_tiny losses {tiny['loss_gap_rel']:.3g}, parameters "
+        f"{tiny['param_gap']:.3g} [{card}]")
+    log("misc_correctness " + json.dumps(rec))
+    return dict(rec, launches=launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5867,7 +6384,7 @@ def main():
 
     from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import (
-        bert, cycle_gan, deepfm, ptb_lm, resnet, se_resnext, ssd,
+        bert, crnn_ctc, cycle_gan, deepfm, ptb_lm, resnet, se_resnext, ssd,
         transformer, vgg, yolov3,
     )
     from paddle_tpu_torch.ops import kernels as K
@@ -6305,6 +6822,17 @@ def main():
         "(nn-correctness)")
     nn_checks = phase_nn_checks(K, pt, ops, cycle_gan, card)
     log(f"phases 0-38 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 39: CRNN-CTC at 48x512, batch 32, through prepare and "
+        "Executor.run (train-crnn-ctc)")
+    crnn_train, crnn_trained = phase_train_crnn(K, pt, crnn_ctc, card)
+    log("phase 40: CRNN-CTC's evaluation program at batch 32 and 1 "
+        "(infer-crnn-ctc)")
+    crnn_infer = phase_infer_crnn(K, pt, crnn_ctc, card, crnn_trained)
+    del crnn_trained
+    log("phase 41: the random ops, ops/misc.py, the CTC ops and "
+        "crnn_ctc_tiny on the card against the CPU (misc-correctness)")
+    misc_checks = phase_misc_checks(K, pt, ops, crnn_ctc, card)
+    log(f"phases 0-41 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -6336,6 +6864,9 @@ def main():
         "detection-correctness": det_checks["launches"],
         "train-cycle-gan": cg_train["launches"],
         "nn-correctness": nn_checks["launches"],
+        "train-crnn-ctc": crnn_train["launches"],
+        "infer-crnn-ctc": crnn_infer["launches"],
+        "misc-correctness": misc_checks["launches"],
     }
     kernels = []
     for name, main_rec in (

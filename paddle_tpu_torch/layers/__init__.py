@@ -29,9 +29,19 @@ the control-flow classes (``While``, ``Switch``, ``IfElse``,
 Program: the ``while_block`` and ``scan_block`` ops of
 ``static/nested.py``) and the reader surface of ``layers/io.py``.
 
-``dropout`` and ``sampled_softmax_with_cross_entropy`` are ops that draw
-(``_needs_rng``): the Executor hands each a generator on its device, seeded
-from the program's ``random_seed``, the run and the op. ``batch_norm`` in a Program keeps its moving mean and variance
+The random ops (``ops/random_ops.py``), the long-tail ops of
+``ops/misc.py`` and the CTC ops (``ops/ctc.py``) are wrapped the same way,
+with the JAX tables' entries: the four random ops that take only a shape
+have ``_NARGS`` 0 (in a Program they draw at once, a constant); the misc
+ops that return a tuple give one Variable, the first output
+(``_FIRST_OUT``); ``layers.sum`` over a list of Variables raises TypeError,
+as the JAX wrapper does.
+
+``dropout``, ``sampled_softmax_with_cross_entropy`` and the random ops are
+ops that draw (``_needs_rng``): the Executor hands each a generator on its
+device, seeded from the program's ``random_seed``, the run and the op (the
+op's own ``seed`` attr is ignored there, as the JAX ``_key`` ignores it
+when given a key). ``batch_norm`` in a Program keeps its moving mean and variance
 as non-trainable persistable parameters, which its op's ``MeanOut`` and
 ``VarianceOut`` overwrite; outside a Program its running stats would be
 module state, which it does not keep yet (queue 1 item 7d): it raises.
@@ -79,11 +89,14 @@ from paddle_tpu_torch.nn import module as _module
 from paddle_tpu_torch.ops import activation as _act
 from paddle_tpu_torch.ops import control_flow as _cf
 from paddle_tpu_torch.ops import crf as _crf
+from paddle_tpu_torch.ops import ctc as _ctc
 from paddle_tpu_torch.ops import detection as _det
 from paddle_tpu_torch.ops import loss as _loss
 from paddle_tpu_torch.ops import math as _math
 from paddle_tpu_torch.ops import metric_ops as _metric
+from paddle_tpu_torch.ops import misc as _misc
 from paddle_tpu_torch.ops import nn as _nn
+from paddle_tpu_torch.ops import random_ops as _random
 from paddle_tpu_torch.ops import reduce as _reduce
 from paddle_tpu_torch.ops import rnn as _rnn
 from paddle_tpu_torch.ops import selected_rows as _sr
@@ -100,7 +113,8 @@ from paddle_tpu_torch.static.program import (
 
 #: the op modules whose every function ``layers`` wraps (the JAX package
 #: wraps every exported op, layers/__init__.py:340-360)
-_WRAPPED = (_act, _math, _reduce, _tensor, _loss, _cf, _ta, _sr)
+_WRAPPED = (_act, _math, _reduce, _tensor, _loss, _cf, _ta, _sr, _random,
+            _misc, _ctc)
 #: the detection functions that run on the host or take lists: eager
 #: passthroughs, with no op (the JAX package's ``_EXCLUDE``)
 _DETECTION_HOST = ("rpn_target_assign", "generate_proposal_labels",
@@ -155,11 +169,15 @@ _NARGS = {
     "greater_than": 2, "greater_equal": 2,
     "fill_constant": 0, "zeros": 0, "ones": 0, "eye": 0,
     "linspace": 0, "arange": 0, "create_tensor": 0,
+    "gaussian_random": 0, "uniform_random": 0,
+    "truncated_gaussian_random": 0, "randint": 0,
     "prelu": 2, "conv2d": 2, "conv2d_transpose": 2, "conv3d": 2,
     "depthwise_conv2d": 2, "conv3d_transpose": 2, "embedding": 2,
     "layer_norm_flex": 3, "group_norm_p": 3,
     "linear_chain_crf": 3, "crf_decoding": 2, "dice_loss": 2,
     "sampled_softmax_with_cross_entropy": 2,
+    "ctc_loss": 2, "warpctc": 2, "edit_distance": 2,
+    "hierarchical_sigmoid": 4, "deformable_roi_pooling": 3,
     # detection family
     "iou_similarity": 2, "box_coder": 3, "prior_box": 2,
     "density_prior_box": 2, "bipartite_match": 1, "target_assign": 2,
@@ -175,15 +193,26 @@ _LIST_FIRST = {"concat", "sums", "stack", "multiplex"}
 _NOT_ATTRS = ("name", "device", "rng")
 #: ops that draw: the Executor hands each its generator (``_needs_rng``),
 #: the JAX package's ``_NEEDS_RNG`` for the ported ops
-_NEEDS_RNG = {"dropout", "sampled_softmax_with_cross_entropy"}
-#: ops that return (outputs, final state), ``box_decoder_and_assign`` and
-#: ``sync_batch_norm``: in a Program the op's one output is the first (the
-#: JAX package's op count of 1 for them, layers/__init__.py:112-127)
+_NEEDS_RNG = {"dropout", "sampled_softmax_with_cross_entropy",
+              "gaussian_random", "uniform_random",
+              "truncated_gaussian_random", "randint", "sampling_id",
+              "random_crop", "shuffle_batch",
+              "uniform_random_batch_size_like",
+              "gaussian_random_batch_size_like"}
+#: ops that return (outputs, final state), ``box_decoder_and_assign``,
+#: ``sync_batch_norm`` and the misc ops that return a tuple: in a Program
+#: the op's one output is the first (the JAX package's op count of 1 for
+#: them, layers/__init__.py:112-127)
 _FIRST_OUT = {"lstm", "gru", "dynamic_lstm", "dynamic_lstmp", "dynamic_gru",
               "simple_rnn", "attention_lstm", "box_decoder_and_assign",
-              "sync_batch_norm"}
+              "sync_batch_norm", "top_k", "max_pool2d_with_index",
+              "spectral_norm", "average_accumulates", "beam_search",
+              "sample_logits", "lstm_unit"}
 #: ops whose compute reaches a kernel: shape inference runs this plain body
-_SHAPE_BODIES = {"embedding": _nn.embedding_reference}
+_SHAPE_BODIES = {
+    "embedding": _nn.embedding_reference,
+    "lookup_table": lambda ids, table, padding_idx=None:
+        _nn.embedding_reference(ids, table, padding_idx)}
 _META = torch.device("meta")
 #: op name -> its op function (the eager body of its layer)
 _OPS = {}
@@ -256,6 +285,12 @@ def _append_static(name, tensor_vals, attrs, listy, tensor_params=None,
             had_dyn |= bool(tv.shape) and any(s in (-1, None)
                                               for s in tv.shape)
         else:
+            if isinstance(tv, (list, tuple)) and _has_variable(tv):
+                # the JAX package turns the list into an array and fails
+                # the same way (``layers.sum`` of Variables)
+                raise TypeError(
+                    f"{name}: a list of Variables where the op takes one "
+                    "tensor")
             arr = torch.as_tensor(tv)
             cname = unique_name.generate(f"const_{name}")
             blk.create_var(name=cname, shape=arr.shape, dtype=arr.dtype)
@@ -264,7 +299,10 @@ def _append_static(name, tensor_vals, attrs, listy, tensor_params=None,
             probes2.append(arr.to(_META))
             probes3.append(arr.to(_META))
 
-    fn_attrs = {k: v for k, v in attrs.items()
+    # a tensor given in an attribute position (a constant such as
+    # ``assign_value``'s) is probed on meta too
+    fn_attrs = {k: v.to(_META) if isinstance(v, torch.Tensor) else v
+                for k, v in attrs.items()
                 if not k.startswith("_") or k == "_tensor_params"}
 
     def infer(xs):

@@ -48,9 +48,10 @@ SPEC = os.path.join(_TOOLS, "api_spec.txt")
 #: functions and the 5 interpolation functions under ``ops`` and ``layers``
 #: and ``layers.multi_box_head`` (71), 1096 with the 21 names of the F10
 #: repair, the rest of ``ops/nn.py`` under ``ops`` and ``layers`` (47), the
-#: metric ops under both (10) and the rest of ``initializer`` (5); only
-#: rises
-RESOLVED_FLOOR = 1096
+#: metric ops under both (10) and the rest of ``initializer`` (5), 1200
+#: with the random ops, ``ops/misc.py`` and the CTC ops under ``ops`` and
+#: ``layers`` (52 each); only rises
+RESOLVED_FLOOR = 1200
 SKIPPED = ("paddle_tpu.serving.Replica", "paddle_tpu.serving.ReplicaPool")
 _STUB = re.compile(r"^\((self, )?\*args, \*\*kwargs\)$")
 
