@@ -34,8 +34,9 @@ Phases; any failure raises and the script exits non-zero:
    each activation at both word2vec fc shapes, those at 8192 rows, the
    serving MLP's fp32 buckets [1|8,256]x[256,256] relu and [1|8,256]x
    [256,10], word2vec's fc 2 with a bf16 weight, inf, -inf and NaN in x
-   and w through each activation, and BERT's FFN [4096,768]x[768,3072]
-   relu in fp32 and bf16; the fp32 operations bound is three TF32 passes
+   and w through each activation, MobileNetV1's classifier fc
+   [256,1024]x[1024,1000] fp32 with its bias (phase 42), and BERT's FFN
+   [4096,768]x[768,3072] relu in fp32 and bf16; the fp32 operations bound is three TF32 passes
    at 495 TFLOP/s, the least time an fp32-accurate product takes), the int8
    fused matmul on the same tensor-core kernel (the serving MLP's
    [1|8,256]x[256,256] relu and [8,256]x[256,10], word2vec's two fcs at 64
@@ -50,7 +51,8 @@ Phases; any failure raises and the script exits non-zero:
    over BERT-base's 154 tensors; SGD over db_lstm's 67 with the rate on
    the card; momentum over ResNet-50's 267 tensors
    (the image models' update) and over YOLOv3's 222 with the rate on the
-   card (phase 33's update), and the three rules with the rate read
+   card (phase 33's update) and over MobileNetV1's 83 (phase 42's), and
+   the three rules with the rate read
    from a tensor on the card, as a learning-rate schedule gives it; the scatter-add (bench.py's CTR point
    [65536,256] with 4096 ids, BERT-base's word, position and token-type
    gradients with pretrain-512's 32768 ids into zeros, the merge's
@@ -354,7 +356,47 @@ Phases; any failure raises and the script exits non-zero:
    ``lookup_table`` launching the gather (row 6) once; the random ops on
    the card by range, moments, frequencies, windows, permutations and the
    seed rules.
-42. Print one JSON line of every ported kernel (launches on the main paths,
+42. MobileNetV1 under quantization-aware training (train-qat-mobilenet;
+   ``models/mobilenet_v1.py``) at PaddleCV/image_classification's
+   ``mobilenet.py``, scale 1.0: 3x224x224 images, batch 256, 1000 classes,
+   27 convs with batch norm, the fc; Momentum(1e-3, 0.9) with
+   ``L2Decay(4e-5)``, then ``QuantizeTranspiler`` (56 fake
+   quant-dequant ops, abs-max 8 bits), fp32 with TF32 off; ``prepare``
+   then ``QAT_STEPS`` steps over 2 synthetic batches: exactly 1
+   ``fused_matmul`` (the fc, over two quant-dequant outputs) and 83
+   ``fused_momentum`` (one per trainable tensor) a step; the losses finite
+   and falling; step latency (median from step 5), images/s, first step,
+   device events and busy share of one profiled step, peak memory.
+43. The int8 deployment of phase 42's model (infer-int8-mobilenet):
+   ``calibrate_activations`` over 4 synthetic batches of 256, then
+   ``QuantizationFreezePass`` on the ``clone(for_test=True)``: 27
+   ``quantized_conv2d`` and 1 ``quantized_mul`` over int8 weights on the
+   card, exact integer sums (fp64 products of the integer values); latency
+   at batch 256 and 1 (median of 10), time per image, device events, busy
+   share; no registered kernel launched; the device time of one
+   ``quantized_conv2d``'s and the ``quantized_mul``'s integer products
+   (fp64, beside ``torch._int_mm``'s IMMA as a yardstick, whose int32 sums
+   must equal them); the frozen program through ``save_inference_model``,
+   ``load_inference_model`` and a ``Predictor``, the logits equal.
+44. quant-correctness: ``mobilenet_v1_tiny`` 3 QAT Momentum steps on the
+   card against the port on the CPU, each from the CPU's persistables,
+   with cuDNN's deterministic algorithms (every fake-quant output's flips
+   counted at every step and checked to be one step at a half integer;
+   losses, gradients, the momentum update against the gradients' gap and
+   the batch statistics within ``QUANT_TOL``), calibration on both
+   devices, the freeze with the same scales (op lists and int8 weights
+   equal, logits within ``QUANT_TOL``); every op of ``ops/quantize.py``
+   and ``ops/aliases.py`` and ``layers``' ``hash`` and
+   ``continuous_value_model``, value and input gradients, card against
+   CPU at MobileNetV1's shapes where it has them, the abs-max ties and a K
+   of 4608 included: integers and the integer products' results equal,
+   values within ``QUANT_TOL["op_ulps"]``, gradients within
+   ``QUANT_TOL["op"]`` (the abs-max scale's over a whole activation
+   within ``QUANT_TOL["op_scale_grad"]``); ``py_func`` and ``delete_var``
+   on the card; four programs of the new passes (scale chains,
+   transposes, reshapes, casts) with the op lists equal on both devices
+   and the outputs within ``QUANT_TOL["op"]``.
+45. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5718,13 +5760,15 @@ def kink_cases(ops):
     ]
 
 
-def op_card_vs_cpu(fn, args, kw, cot_seed=None):
+def op_card_vs_cpu(fn, args, kw, cot_seed=None, count_outputs=False):
     """``fn(*args, **kw)`` on the card and on the CPU, the float args
     leaves: the outputs and the input gradients under one seeded cotangent
     (ones without a seed: the gradient of the sum), as (card, cpu) lists of
-    CPU tensors; a host result (a metric's numbers) as it is."""
+    CPU tensors; a host result (a metric's numbers) as it is.
+    ``count_outputs``: the number of outputs (the gradients follow them)
+    comes third."""
     import numpy as np
-    res = []
+    res, n_out = [], 1
     for dev in ("cuda", "cpu"):
         xs = [torch.as_tensor(v, device=dev) for v in args]
         leaves = [x.requires_grad_() for x in xs if x.is_floating_point()]
@@ -5735,6 +5779,7 @@ def op_card_vs_cpu(fn, args, kw, cot_seed=None):
             res.append([out])
             continue
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        n_out = len(outs)
         diff = [o for o in outs if o.requires_grad]
         rs = np.random.RandomState(cot_seed)
         cots = [torch.ones_like(o) if cot_seed is None else torch.as_tensor(
@@ -5744,7 +5789,7 @@ def op_card_vs_cpu(fn, args, kw, cot_seed=None):
                  if diff else [])
         res.append([o.detach().cpu() for o in outs]
                    + [g.detach().cpu() for g in grads if g is not None])
-    return res
+    return (*res, n_out) if count_outputs else res
 
 
 def cg_tiny_card_vs_cpu(K, pt, cg):
@@ -5901,13 +5946,13 @@ CRNN_TOL = {"loss_rel": 1e-5, "grad_gap_of_max": 1e-5, "param_gap": 1e-5,
 TRUNC_STD = 0.8796256610342398
 
 
-def crnn_fused_matmuls(built, fetch):
+def fused_matmuls_after_passes(built, fetch):
     """(the ``fused_matmul`` ops of the main program after the pass
     pipeline for ``fetch``, those inside the kernel's contract: one launch
-    each a forward). The output fc over [gru_fwd, gru_bwd] becomes a
-    ``mul`` and a ``fused_matmul`` whose addend is that ``mul``'s [B, T, 96]
-    output, not a bias vector: outside the contract, it runs the plain
-    composition."""
+    each a forward). A fused op whose addend is not a bias vector (CRNN's
+    output fc over [gru_fwd, gru_bwd] becomes a ``mul`` and a
+    ``fused_matmul`` adding that ``mul``'s [B, T, 96] output) is outside
+    the contract: it runs the plain composition."""
     from paddle_tpu_torch.static import opt_passes
     prog = opt_passes.optimize_for_execution(built["main"],
                                              [v.name for v in fetch])
@@ -5943,7 +5988,7 @@ def phase_train_crnn(K, pt, cr, card):
           "train-crnn-ctc: prepare")
     prepare_ms = (time.perf_counter() - t0) * 1e3
     n_params = len(cr.param_names(main))
-    n_ops, n_fmm = crnn_fused_matmuls(built, [loss])
+    n_ops, n_fmm = fused_matmuls_after_passes(built, [loss])
     check(n_params == 43 and (n_ops, n_fmm) == (3, 2),
           f"train-crnn-ctc: {n_params} trainable tensors, {n_ops} fused "
           f"matmul ops, {n_fmm} inside the kernel's contract (expected 43, "
@@ -6372,6 +6417,578 @@ def phase_misc_checks(K, pt, ops, cr, card):
     return dict(rec, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phases 42-44: MobileNetV1 under quantization-aware training
+# (models/mobilenet_v1.py), its int8 deployment, the quantization ops,
+# ops/aliases.py, layers' own functions and the three new passes
+# ---------------------------------------------------------------------------
+QAT_STEPS = 10
+QAT_BATCHES = 2
+QAT_CALIB = 4
+#: phase 44's limits, set before the first card run. A fake-quant round
+#: turns an ulp of difference before it into a whole step (scale / 127)
+#: where the pre-round value lies within rounding of a half integer (a
+#: flip), and batch norm's batch statistics spread a flip over its channel:
+#: so the tiny model's quantized integers (each device's from its own
+#: scale) are held equal at every step but for a share (``flip_share``)
+#: that differ by one step, the first at a pre-round value within
+#: ``half_int`` of a half integer; its losses within ``loss_rel``; its
+#: gradients within ``grad_gap_of_max`` of the largest at a step without a
+#: flip, and within ``grad_flip_of_max`` at one (against the JAX package on
+#: the CPU one flip moved conv1's gradient by 2.2 % of the largest
+#: gradient: tools/qat_flip_probe.py); each step runs from the CPU's
+#: persistables, and the momentum update, flips or not, moves the card's
+#: velocities and parameters off the CPU's by exactly the gradients' gap
+#: (v' = mu v + g + l2 p, p' = p - lr v'), within ``update_ulps`` roundings
+#: of the terms (4 a side); the batch statistics within ``param_gap`` of
+#: max(1, largest) at a step without a flip, and their moves within
+#: ``grad_flip_of_max`` of the largest at one; the calibration scales
+#: within ``scale_rel``; the frozen logits (same int8 weights and scales on
+#: both devices) within ``logit_of_max`` of the largest (a float op's ulp
+#: before a quantize_linear flips an integer too). The ops: integers equal;
+#: float values within ``op_ulps`` units in the last place (each is a few
+#: elementwise products or a maximum on each device); the values of
+#: ``continuous_value_model`` (a difference of two logarithms, whose
+#: rounding differs between the devices' libraries) and the input
+#: gradients within ``op`` of their largest value, but for the abs-max scale's
+#: gradient over a whole activation (``QUANT_SCALE_GRAD_CASES``, 401,408
+#: terms at conv5's, summed in other orders on the two devices: 1.3e-5 on
+#: an earlier run), within ``op_scale_grad``.
+QUANT_TOL = {"op": 1e-5, "op_ulps": 1.0, "op_scale_grad": 1e-4,
+             "flip_share": 0.01, "half_int": 1e-3, "loss_rel": 1e-5,
+             "grad_gap_of_max": 1e-5, "grad_flip_of_max": 0.1,
+             "update_ulps": 8, "param_gap": 1e-5, "scale_rel": 1e-5,
+             "logit_of_max": 0.02}
+#: the op cases whose input gradient carries a scale's gradient summed over
+#: a whole [4,512,14,14] activation
+QUANT_SCALE_GRAD_CASES = frozenset({
+    "fake_quantize_abs_max", "fake_quantize_dequantize_abs_max",
+    "fake_quantize_range_abs_max", "moving_average_abs_max_scale",
+    "fake_quantize_moving_average_abs_max",
+    "fake_quantize_dequantize_moving_average_abs_max"})
+
+
+def qat_feed_spec(cfg, batch):
+    s = cfg.image_size
+    return {"image": ((batch, 3, s, s), "float32"),
+            "label": ((batch, 1), "int64")}
+
+
+def phase_train_qat(K, pt, mb, card):
+    """Phase 42 (see the module docstring). Returns (record, (built, exe,
+    scope))."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = mb.mobilenet_v1()
+    t0 = time.perf_counter()
+    built = mb.build_qat(pt, cfg)
+    build_s = time.perf_counter() - t0
+    main, loss = built["main"], built["loss"]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(built["startup"], scope=scope)
+    t0 = time.perf_counter()
+    check(exe.prepare(main, feed=qat_feed_spec(cfg, cfg.batch),
+                      fetch_list=[loss], scope=scope),
+          "train-qat-mobilenet: prepare")
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    n_params = len(mb.param_names(main))
+    types = [op.type for op in main.global_block().ops]
+    n_fq = types.count("fake_quantize_dequantize_abs_max")
+    n_ops, n_fmm = fused_matmuls_after_passes(built, [loss])
+    check(n_params == 83 and n_fq == 56 and types.count("conv2d") == 27
+          and (n_ops, n_fmm) == (1, 1),
+          f"train-qat-mobilenet: {n_params} trainable tensors, {n_fq} "
+          f"fake-quant ops, {types.count('conv2d')} convs, {n_ops} fused "
+          f"matmul ops ({n_fmm} in the kernel's contract); expected 83, 56, "
+          "27 and 1 (the fc over two quant-dequant outputs)")
+    feeds = [mb.synthetic_batch(cfg, cfg.batch, seed=i)
+             for i in range(QAT_BATCHES)]
+
+    def step(feed):
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+
+    rec = seq_train(
+        K, "train-qat-mobilenet", step, feeds, QAT_STEPS,
+        {"fused_matmul": n_fmm, "fused_momentum": n_params}, card,
+        lambda f: cfg.batch, "images",
+        dict(image=[3, cfg.image_size, cfg.image_size], batch=cfg.batch,
+             classes=cfg.num_classes, params=n_params,
+             param_values=sum(math.prod(main.global_block().var(n).shape)
+                              for n in mb.param_names(main)),
+             fake_quant_ops=n_fq, fused_matmul_ops=n_ops,
+             fused_matmul_launches=n_fmm, build_s=build_s,
+             prepare_ms=prepare_ms,
+             optimizer=f"Momentum({cfg.lr}, {cfg.momentum}), "
+                       f"L2Decay({cfg.l2})"))
+    check(exe.trace_count == 1, f"train-qat-mobilenet: {exe.trace_count} "
+                                "runners built; prepare's should serve")
+    rec["peak_gb"] = peak_since(base)
+    log_card("after train-qat-mobilenet's counted steps")
+    log("train_qat_mobilenet " + json.dumps(rec))
+    return rec, (built, exe, scope)
+
+
+def int_product_times(cfg, gen):
+    """Device ms of the exact integer products the frozen program runs: one
+    ``quantized_conv2d``'s fp64 convolution (conv5_1_sep: [B,512,14,14] x
+    [512,512,1,1], the widest K of the 1x1 convs but conv6's) and the
+    ``quantized_mul``'s fp64 product ([B,1024] x [1024,1000]), beside
+    ``torch._int_mm`` on the same int8 values (cuBLAS's IMMA, a yardstick:
+    its int32 sums must equal the fp64 ones) and the whole op with its
+    on-the-fly activation quantization."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import quantize as Q
+    B = cfg.batch
+    q = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda",
+                                 dtype=torch.int8)
+    xc, wc = q(B, 512, 14, 14), q(512, 512, 1, 1)
+    xm, wm = q(B, 1024), q(1024, 1000)
+    xcd, wcd, xmd, wmd = (t.double() for t in (xc, wc, xm, wm))
+    conv = F.conv2d(xcd, wcd)
+    mm = xmd @ wmd
+    ref = torch._int_mm(xm, wm)
+    check(torch.equal(mm.to(torch.int32), ref),
+          "infer-int8-mobilenet: the fp64 product and _int_mm's int32 "
+          "sums differ")
+    xf = torch.rand(B, 512, 14, 14, generator=gen, device="cuda") * 4
+    xf2 = torch.rand(B, 1024, generator=gen, device="cuda") * 4
+    rec = dict(
+        conv_fp64_ms=device_ms(lambda: F.conv2d(xcd, wcd), 10),
+        conv_op_ms=device_ms(lambda: Q.quantized_conv2d(xf, wc, 4.0, 0.5),
+                             10),
+        mul_fp64_ms=device_ms(lambda: xmd @ wmd, 20),
+        mul_int_mm_ms=device_ms(lambda: torch._int_mm(xm, wm), 20),
+        mul_op_ms=device_ms(lambda: Q.quantized_mul(xf2, wm, 4.0, 0.5), 20),
+        conv_shape=[B, 512, 14, 14, 512], mul_shape=[B, 1024, 1000],
+        conv_max_abs_acc=float(conv.abs().max()))
+    return rec
+
+
+def phase_infer_int8(K, pt, mb, card, trained):
+    """Phase 43 (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch import inference
+    built, exe, scope = trained
+    cfg = mb.mobilenet_v1()
+    test, logits = built["test"], built["logits"]
+    calib = [mb.synthetic_batch(cfg, cfg.batch, seed=100 + i)
+             for i in range(QAT_CALIB)]
+    t0 = time.perf_counter()
+    scales, wscales = mb.freeze(pt, exe, scope, test, calib)
+    freeze_s = time.perf_counter() - t0
+    types = [op.type for op in test.global_block().ops]
+    check(types.count("quantized_conv2d") == 27
+          and types.count("quantized_mul") == 1
+          and not {"conv2d", "mul", "fake_quantize_dequantize_abs_max"}
+          & set(types) and len(scales) == 28 and len(wscales) == 28,
+          f"infer-int8-mobilenet: frozen ops {sorted(set(types))}, "
+          f"{len(scales)} activation and {len(wscales)} weight scales")
+    check(all(scope.find_var(n).dtype == torch.int8
+              and scope.find_var(n).is_cuda for n in wscales),
+          "infer-int8-mobilenet: the frozen weights are not int8 on the card")
+    rec = dict(card=card, freeze_s=freeze_s, calibration_batches=QAT_CALIB,
+               act_scale_range=[min(scales.values()), max(scales.values())])
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    runs, outs = 0, {}
+    for batch in (cfg.batch, 1):
+        feed = mb.synthetic_batch(cfg, batch, seed=200 + batch)
+        ms = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            (out,) = exe.run(test, feed=feed, fetch_list=[logits],
+                             scope=scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs += 12
+        check(out.shape == (batch, cfg.num_classes)
+              and bool(np.isfinite(out).all()),
+              f"infer-int8-mobilenet: batch {batch}: {out.shape}")
+        outs[batch] = (feed, out)
+        prof = op_breakdown(lambda feed=feed: exe.run(
+            test, feed=feed, fetch_list=[logits], scope=scope,
+            return_numpy=False), top=6, host_top=4)
+        runs += 1
+        steady = statistics.median(ms[2:])
+        rec[f"batch_{batch}"] = dict(
+            ms=steady, first_ms=ms[0], ms_all=ms, ms_per_image=steady / batch,
+            images_per_s=batch / steady * 1e3,
+            device_events=prof.get("launches"),
+            device_ms=prof.get("kernel_ms"),
+            device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                               if prof else None), profile=prof)
+        log(f"infer-int8-mobilenet: batch {batch}: {steady:.3f} ms, "
+            f"{steady / batch:.4f} ms an image, busy "
+            f"{rec[f'batch_{batch}']['device_busy_share']} [{card}]")
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    check(counts == {}, f"infer-int8-mobilenet: launches {counts} in {runs} "
+                        "runs; the frozen program launches no registered "
+                        "kernel (its fc is a quantized_mul)")
+    rec["launches"] = counts
+    rec["int_products"] = int_product_times(
+        cfg, torch.Generator(device="cuda").manual_seed(43))
+    log("infer-int8-mobilenet: integer products " + json.dumps(
+        rec["int_products"]))
+    feed, want = outs[cfg.batch]
+    with tempfile.TemporaryDirectory() as d:
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(d, ["image"], [logits], exe,
+                                       main_program=test)
+        prog, feeds, fetches = pt.io.load_inference_model(
+            d, exe, scope=pt.Scope())
+        predictor = inference.create_predictor(inference.Config(d))
+        (pred,) = predictor.run({"image": feed["image"]})
+    (again,) = exe.run(test, feed=feed, fetch_list=[logits], scope=scope)
+    check(np.array_equal(pred, want) and np.array_equal(again, want)
+          and feeds == ["image"] and len(fetches) == 1,
+          "infer-int8-mobilenet: the Predictor's logits differ from the "
+          f"frozen program's by {float(np.abs(pred - want).max())}")
+    rec["predictor_equal"] = True
+    log("infer_int8_mobilenet " + json.dumps(rec))
+    return rec
+
+
+def quant_op_cases(ops, rng):
+    """(name, op, args, keyword args) of every op of the slice's ops
+    modules (``ops/quantize.py``'s 14, ``ops/aliases.py``'s but ``range``
+    and ``delete_var``, held on their own) and ``layers``' ``hash`` and
+    ``continuous_value_model``, the args numpy arrays drawn once;
+    MobileNetV1's shapes where it has them (conv5_1_sep's activation
+    [4,512,14,14] and weight, the fc's [4,1024] x [1024,1000]); the tie
+    case of the abs-max gradient; a K of 4608 (3x3x512) for the integer
+    products."""
+    import numpy as np
+    from paddle_tpu_torch import layers
+
+    def f(*shape, lo=-2.0, hi=2.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def q(*shape):
+        return rng.randint(-127, 128, shape).astype(np.int8)
+    act = np.maximum(f(4, 512, 14, 14), 0)
+    ties = np.array([0.3, -1.0, 0.77, 1.0, 0.1], np.float32)
+    ids = rng.randint(0, 8, (6, 4)).astype(np.int32)
+    parents = rng.randint(0, 4, (6, 4)).astype(np.int32)
+    ids[3, 1] = 2
+    return [
+        ("fake_quantize_abs_max", ops.fake_quantize_abs_max, [act], {}),
+        ("fake_quantize_dequantize_abs_max",
+         ops.fake_quantize_dequantize_abs_max, [act], {}),
+        ("fake_quantize_dequantize_abs_max ties",
+         ops.fake_quantize_dequantize_abs_max, [ties], {}),
+        ("fake_channel_wise_quantize_abs_max",
+         ops.fake_channel_wise_quantize_abs_max, [f(512, 512, 1, 1)], {}),
+        ("fake_channel_wise_quantize_dequantize_abs_max",
+         ops.fake_channel_wise_quantize_dequantize_abs_max,
+         [f(512, 1, 3, 3)], {}),
+        ("fake_quantize_range_abs_max", ops.fake_quantize_range_abs_max,
+         [act, np.float32(1.5), np.int32(3)], {"window_size": 4}),
+        ("moving_average_abs_max_scale", ops.moving_average_abs_max_scale,
+         [act, np.float32(1.2), np.float32(0.5)], {}),
+        ("fake_quantize_moving_average_abs_max",
+         ops.fake_quantize_moving_average_abs_max,
+         [act, np.float32(1.2), np.float32(0.5)], {}),
+        ("fake_quantize_dequantize_moving_average_abs_max",
+         ops.fake_quantize_dequantize_moving_average_abs_max,
+         [act, np.float32(1.2), np.float32(0.5)], {}),
+        ("fake_dequantize_max_abs", ops.fake_dequantize_max_abs,
+         [q(4, 1024).astype(np.float32), np.float32(0.7)], {"max_range": 127}),
+        ("fake_channel_wise_dequantize_max_abs",
+         ops.fake_channel_wise_dequantize_max_abs,
+         [q(64, 32).astype(np.float32)],
+         {"scales": [np.abs(f(64)) + 0.1, 0.8], "quant_bits": (8, 8)}),
+        ("quantize_linear", ops.quantize_linear, [act], {"scale": 1.7}),
+        ("dequantize_linear", ops.dequantize_linear, [q(4, 1024)],
+         {"scale": 1.7}),
+        ("quantized_mul", ops.quantized_mul, [f(4, 1024), q(1024, 1000)],
+         {"x_scale": 2.0, "w_scale": 0.3}),
+        ("quantized_mul K=4608", ops.quantized_mul,
+         [f(32, 4608), q(4608, 64)], {"x_scale": 2.0, "w_scale": 0.3}),
+        ("quantized_conv2d", ops.quantized_conv2d,
+         [act, q(512, 512, 1, 1)], {"x_scale": 2.0, "w_scale": 0.3}),
+        ("quantized_conv2d 3x3x512", ops.quantized_conv2d,
+         [act, q(64, 512, 3, 3)],
+         {"x_scale": 2.0, "w_scale": 0.3, "padding": 1}),
+        ("quantized_conv2d depthwise", ops.quantized_conv2d,
+         [act, q(512, 1, 3, 3)],
+         {"x_scale": 2.0, "w_scale": 0.3, "stride": 2, "padding": 1,
+          "groups": 512}),
+        ("alloc_continuous_space", lambda a, b: ops.alloc_continuous_space(
+            [a, b])[0], [f(4, 8), f(16)], {}),
+        ("rnn_memory_helper", ops.rnn_memory_helper, [f(4, 8)], {}),
+        ("beam_search_decode", ops.beam_search_decode, [ids, parents],
+         {"end_token": 2}),
+        ("hash", layers.hash, [rng.randint(0, 1000, (8, 4)).astype(
+            np.int32)], {"hash_size": 97, "num_hash": 2}),
+        ("continuous_value_model", layers.continuous_value_model,
+         [np.abs(f(8, 6))], {}),
+    ]
+
+
+def qat_tiny_card_vs_cpu(K, pt, mb):
+    """``mobilenet_v1_tiny`` 3 QAT Momentum steps on the card and on the
+    CPU, each from the CPU's persistables before it (the flips of a step
+    count and act only within it), with the flips of every fake-quant
+    output counted at every step and the momentum update held to the
+    gradients' gap; then calibration on both devices, and the freeze of
+    each from the CPU's trained weights
+    with the CPU's scales: the frozen op lists, int8 weights and logits.
+    The card's launches: exactly 1 ``fused_matmul`` and one
+    ``fused_momentum`` per parameter a step."""
+    import numpy as np
+    cfg = mb.mobilenet_v1_tiny()
+    built = mb.build_qat(pt, cfg)
+    main, startup, loss = built["main"], built["startup"], built["loss"]
+    cpu_exe, card_exe = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu_scope = pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    names = [n for n, v in startup.global_block().vars.items()
+             if v.persistable]
+    params = mb.param_names(main)
+    stats = [n for n in names
+             if n not in params and not n.endswith("@velocity")]
+    _, fq_names = mb.fake_quant_fetch(main)
+    fetch = [loss.name] + [p + "@GRAD" for p in params] + fq_names
+    n = 1 + len(params)
+    u = QUANT_TOL["update_ulps"] * 2.0 ** -24
+    losses, flips_of, ggaps, upd_gap, stat_gap = [], [], [], 0.0, 0.0
+    launches = {}
+    for step in range(3):
+        feed = mb.synthetic_batch(cfg, cfg.batch, seed=step)
+        before = {k: cpu_scope.find_var(k).numpy().copy() for k in names}
+        card_scope = pt.Scope.from_numpy(before, "cuda", startup)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        got = card_exe.run(main, feed=feed, fetch_list=fetch,
+                           scope=card_scope)
+        torch.cuda.synchronize()
+        for k, v in K.launch_counts().items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+        want = cpu_exe.run(main, feed=feed, fetch_list=fetch,
+                           scope=cpu_scope)
+        losses.append((float(got[0]), float(want[0])))
+        flips, total, fault = mb.check_flips(
+            mb.quant_flips(got[n:], want[n:]), QUANT_TOL["flip_share"],
+            QUANT_TOL["half_int"])
+        check(fault is None, f"quant-correctness: step {step}: {fault}")
+        flips_of.append(flips)
+        gmax = max(float(np.abs(g).max()) for g in want[1:n])
+        ggap = max(float(np.abs(x - y).max())
+                   for x, y in zip(got[1:n], want[1:n]))
+        ggaps.append(ggap / gmax)
+        check(ggap <= QUANT_TOL["grad_flip_of_max" if flips else
+                                "grad_gap_of_max"] * gmax,
+              f"quant-correctness: step {step} gradients differ by {ggap} "
+              f"(largest {gmax}, {flips} flips)")
+        # the update from the same p and v, flips or not: v' = mu v + g +
+        # l2 p, p' = p - lr v', so the velocities differ by the gradients'
+        # gap and the parameters by -lr times that, within update_ulps
+        # roundings of the terms
+        for p, g, w in zip(params, got[1:n], want[1:n]):
+            g, w = g.astype(np.float64), w.astype(np.float64)
+            p0, v0 = (before[k].astype(np.float64)
+                      for k in (p, p + "@velocity"))
+            pc, vc = (card_scope.find_var(k).cpu().numpy().astype(np.float64)
+                      for k in (p, p + "@velocity"))
+            pw, vw = (cpu_scope.find_var(k).numpy().astype(np.float64)
+                      for k in (p, p + "@velocity"))
+            rv = np.abs((vc - vw) - (g - w)) / (u * (
+                cfg.momentum * np.abs(v0) + np.abs(w) + cfg.l2 * np.abs(p0)
+                + np.abs(vw)) + 1e-45)
+            rp = np.abs((pc - pw) + cfg.lr * (vc - vw)) / (u * (
+                np.abs(p0) + cfg.lr * np.abs(vw) + np.abs(pw)) + 1e-45)
+            worst = max(float(rv.max()), float(rp.max()))
+            upd_gap = max(upd_gap, worst)
+            check(worst <= 1.0, f"quant-correctness: step {step}: {p}'s "
+                                f"update off the gradients' gap by {worst} "
+                                "of its limit")
+        # the batch statistics (and the step counter): with a flip, their
+        # moves within grad_flip_of_max of the largest, as the gradients
+        for k in stats:
+            c = card_scope.find_var(k).cpu().numpy()
+            w = cpu_scope.find_var(k).numpy()
+            gap = float(np.abs(c - w).max())
+            lim = (QUANT_TOL["grad_flip_of_max"]
+                   * float(np.abs(w - before[k]).max()) if flips else
+                   QUANT_TOL["param_gap"] * max(1.0, float(np.abs(w).max())))
+            stat_gap = max(stat_gap, gap / max(1.0, float(np.abs(w).max())))
+            check(gap <= lim, f"quant-correctness: step {step}: {k} "
+                              f"differs by {gap} ({flips} flips)")
+    loss_gap = max(abs(c - w) / abs(w) for c, w in losses)
+    check(loss_gap <= QUANT_TOL["loss_rel"],
+          f"quant-correctness: mobilenet_v1_tiny losses card/cpu {losses}")
+    check(launches == {"fused_matmul": 3, "fused_momentum": 3 * len(params)},
+          f"quant-correctness: mobilenet_v1_tiny launches {launches}")
+    # calibration on both devices; the freeze of each from the CPU's weights
+    calib = [mb.synthetic_batch(cfg, cfg.batch, seed=10 + i)
+             for i in range(2)]
+    trained = {n: cpu_scope.find_var(n).numpy().copy() for n in names}
+    frozen = []
+    for exe, dev in ((card_exe, "cuda"), (cpu_exe, "cpu")):
+        b = mb.build_qat(pt, cfg)
+        sc = pt.Scope.from_numpy(trained, dev, startup)
+        q = mb._quant(pt)
+        sc_scales = q.calibrate_activations(exe, b["test"], calib, scope=sc)
+        frozen.append((exe, sc, b, sc_scales))
+    scale_gap = max(abs(frozen[0][3][k] - v) / v
+                    for k, v in frozen[1][3].items())
+    check(scale_gap <= QUANT_TOL["scale_rel"] and set(frozen[0][3]) == set(
+        frozen[1][3]), f"quant-correctness: calibration scales differ by "
+                       f"{scale_gap}")
+    outs = []
+    feed = mb.synthetic_batch(cfg, 3, seed=99)
+    for exe, sc, b, _ in frozen:
+        fp = mb._quant(pt).QuantizationFreezePass(scope=sc,
+                                                  act_scales=frozen[1][3])
+        fp.apply(b["test"])
+        outs.append(([op.type for op in b["test"].global_block().ops],
+                     {w: sc.find_var(w).cpu() for w in fp.weight_scales},
+                     exe.run(b["test"], feed=feed, fetch_list=[b["logits"]],
+                             scope=sc)[0]))
+    check(outs[0][0] == outs[1][0] and all(
+        torch.equal(outs[0][1][w], outs[1][1][w]) for w in outs[1][1]),
+          "quant-correctness: the frozen programs or int8 weights differ")
+    lmax = float(np.abs(outs[1][2]).max())
+    lgap = float(np.abs(outs[0][2] - outs[1][2]).max())
+    check(lgap <= QUANT_TOL["logit_of_max"] * lmax,
+          f"quant-correctness: frozen logits differ by {lgap} (largest "
+          f"{lmax})")
+    return dict(losses_card_cpu=losses, loss_gap_rel=loss_gap,
+                flips=flips_of, quantized_values=total,
+                grad_gap_of_max=ggaps, update_gap_of_limit=upd_gap,
+                stat_gap=stat_gap,
+                scale_gap_rel=scale_gap, frozen_logit_gap_of_max=lgap / lmax,
+                launches=launches)
+
+
+def pass_programs(pt):
+    """Four programs of the three new passes' families, each with its feed
+    and fetch names: scale chains, identity and inverse transposes and
+    reshapes, same-dtype casts, a constant operand folded, fcs."""
+    import numpy as np
+    L = pt.layers
+    progs = []
+    for k in range(4):
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), \
+                pt.framework.unique_name.guard():
+            x = pt.data("x", [8], "float32")
+            h = L.scale(L.scale(x, scale=2.0, bias=0.5), scale=0.25,
+                        bias=-1.0, bias_after_scale=k % 2 == 0)
+            h = L.transpose(L.transpose(h, [1, 0]), [1, 0])
+            h = L.reshape(L.reshape(h, [-1, 2, 4]), [-1, 8])
+            h = L.cast(L.cast(h, "float32"), "float32")
+            c = L.elementwise_add(L.fill_constant([1, 8], "float32", 0.5),
+                                  np.ones((1, 8), np.float32))
+            h = L.elementwise_mul(h, c)
+            out = L.fc(h, 4 + k, act="relu" if k < 2 else None)
+        feed = {"x": np.random.RandomState(k).randn(3, 8).astype(
+            np.float32)}
+        progs.append((main, startup, feed, [out.name]))
+    return progs
+
+
+def passes_card_vs_cpu(pt):
+    """The pass programs through each device's Executor: the op lists its
+    prepared runner interprets equal on both devices and shorter than the
+    program, the outputs within ``QUANT_TOL["op"]`` of their largest."""
+    import numpy as np
+    rec = []
+    for main, startup, feed, fetch in pass_programs(pt):
+        got = []
+        for exe in (pt.Executor(), pt.Executor(pt.CPUPlace())):
+            sc = pt.Scope()
+            exe.run(startup, scope=sc)
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=sc)[0]
+            (runner,) = exe._runners.values()
+            got.append(([op.type for op in runner.ops], out))
+        (card_ops, card_out), (cpu_ops, cpu_out) = got
+        n = len(main.global_block().ops)
+        err = float(np.abs(card_out - cpu_out).max()) / max(
+            1.0, float(np.abs(cpu_out).max()))
+        check(card_ops == cpu_ops and len(cpu_ops) < n
+              and err <= QUANT_TOL["op"],
+              f"quant-correctness: pass program {card_ops} / {cpu_ops} "
+              f"(from {n} ops), outputs {err}")
+        rec.append(dict(ops_before=n, ops_after=cpu_ops, max_err=err))
+    return rec
+
+
+def phase_quant_checks(K, pt, ops, mb, card):
+    """Phase 44 (see the module docstring); returns the card's launches of
+    the counted runs (mobilenet_v1_tiny's steps)."""
+    import numpy as np
+    from paddle_tpu_torch import layers
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        tiny = qat_tiny_card_vs_cpu(K, pt, mb)
+        ops_rec = {}
+        for i, (name, fn, args, kw) in enumerate(quant_op_cases(
+                ops, np.random.RandomState(44))):
+            got, want, n_out = op_card_vs_cpu(fn, args, kw, i,
+                                              count_outputs=True)
+            check(len(got) == len(want), f"quant-correctness: {name}: "
+                                         "outputs")
+            ulps, err = 0.0, 0.0
+            for j, (g, w) in enumerate(zip(got, want)):
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"quant-correctness: {name}: {g.shape} {g.dtype}")
+                if not w.is_floating_point() or name.startswith("quantized"):
+                    # integers, and the exact integer products' results
+                    check(torch.equal(g, w), f"quant-correctness: {name}")
+                elif j < n_out and name != "continuous_value_model":
+                    # a value: within op_ulps units in the last place
+                    wn = w.numpy()
+                    e = float((np.abs(g.numpy() - wn)
+                               / np.spacing(np.abs(wn))).max())
+                    check(e <= QUANT_TOL["op_ulps"],
+                          f"quant-correctness: {name}: output {j} {e} ulps")
+                    ulps = max(ulps, e)
+                else:
+                    lim = QUANT_TOL["op_scale_grad" if name in
+                                    QUANT_SCALE_GRAD_CASES else "op"]
+                    e = max_err(g, w) / max(1.0, w.abs().max().item())
+                    check(e <= lim, f"quant-correctness: {name}: "
+                                    f"tensor {j} {e}")
+                    err = max(err, e)
+            ops_rec[name] = dict(value_ulps=ulps, grad_err_of_max=err)
+        check(torch.equal(ops.range(3, 40, 3, device="cuda").cpu(),
+                          ops.range(3, 40, 3, device="cpu")),
+              "quant-correctness: range")
+        x = torch.randn(4, 8, device="cuda", requires_grad=True)
+        (y,) = layers.py_func(lambda a: [a * 2.0], x, [None])
+        check(y.is_cuda and y.dtype == torch.float32 and not y.requires_grad
+              and torch.equal(y, x.detach() * 2.0),
+              "quant-correctness: py_func on the card")
+        scope = pt.Scope()
+        scope.set_var("a", x)
+        layers.delete_var(scope, "a")
+        check(scope.find_var("a") is None, "quant-correctness: delete_var")
+        passes = passes_card_vs_cpu(pt)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    rec = dict(mobilenet_v1_tiny=tiny, ops_max_err_of_max=ops_rec,
+               passes=passes, card=card)
+    log(f"quant-correctness: {len(ops_rec)} op cases, values within "
+        f"{max(r['value_ulps'] for r in ops_rec.values()):.3g} ulps, "
+        f"gradients within "
+        f"{max(r['grad_err_of_max'] for r in ops_rec.values()):.3g} of "
+        f"their largest; mobilenet_v1_tiny losses "
+        f"{tiny['loss_gap_rel']:.3g}, flips by step {tiny['flips']}, "
+        f"updates within {tiny['update_gap_of_limit']:.3g} of their limit, "
+        f"batch statistics {tiny['stat_gap']:.3g}, frozen logits "
+        f"{tiny['frozen_logit_gap_of_max']:.3g} [{card}]")
+    log("quant_correctness " + json.dumps(rec))
+    return dict(rec, launches=tiny["launches"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6384,8 +7001,8 @@ def main():
 
     from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import (
-        bert, crnn_ctc, cycle_gan, deepfm, ptb_lm, resnet, se_resnext, ssd,
-        transformer, vgg, yolov3,
+        bert, crnn_ctc, cycle_gan, deepfm, mobilenet_v1, ptb_lm, resnet,
+        se_resnext, ssd, transformer, vgg, yolov3,
     )
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
@@ -6532,6 +7149,11 @@ def main():
         # the PTB LM's softmax fc (phase 28): [700,650]x[650,10000] fp32
         check_fused_matmul(K, lm.batch * lm.num_steps, lm.hidden, lm.vocab,
                            None, torch.float32, gen)
+        # MobileNetV1's classifier fc (phase 42): [256,1024]x[1024,1000]
+        # fp32 with its bias, no act
+        mbc = mobilenet_v1.mobilenet_v1()
+        check_fused_matmul(K, mbc.batch, int(1024 * mbc.scale),
+                           mbc.num_classes, None, torch.float32, gen)
         # the static BERT trunk's FFN (bench.py:485)
         for dt in (torch.float32, torch.bfloat16):
             check_fused_matmul(K, 4096, 768, 3072, "relu", dt, gen)
@@ -6601,6 +7223,15 @@ def main():
             "YOLOv3's 222 tensors, lr on the card, one launch",
             lr_on_card=True)
         del yolo_main
+        # MobileNetV1's 83 tensors (phase 42 launches it once per tensor a
+        # step), one launch
+        mb_main = mobilenet_v1.build_qat(pt, mbc)["main"]
+        mb_shapes = [tuple(mb_main.global_block().var(n).shape)
+                     for n in mobilenet_v1.param_names(mb_main)]
+        check(len(mb_shapes) == 83, f"{len(mb_shapes)} MobileNetV1 tensors")
+        check_sgd(K, mb_shapes, "momentum", gen,
+                  "MobileNetV1's 83 tensors, one launch")
+        del mb_main
         # the scatter-add: bench.py's CTR point; BERT-base's three
         # embedding gradients with pretrain-512's ids into zeros (phase
         # 10's word shape is the main one); the merge's inverse ids; bf16;
@@ -6833,6 +7464,19 @@ def main():
         "crnn_ctc_tiny on the card against the CPU (misc-correctness)")
     misc_checks = phase_misc_checks(K, pt, ops, crnn_ctc, card)
     log(f"phases 0-41 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 42: MobileNetV1 under quantization-aware training at 224^2, "
+        "batch 256, through prepare and Executor.run (train-qat-mobilenet)")
+    qat_train, qat_trained = phase_train_qat(K, pt, mobilenet_v1, card)
+    log("phase 43: calibration, the int8 freeze and the frozen program at "
+        "batch 256 and 1, through save/load_inference_model and a Predictor "
+        "(infer-int8-mobilenet)")
+    phase_infer_int8(K, pt, mobilenet_v1, card, qat_trained)
+    del qat_trained
+    log("phase 44: the quantization ops, ops/aliases.py, layers' own "
+        "functions, mobilenet_v1_tiny and the three new passes on the card "
+        "against the CPU (quant-correctness)")
+    quant_checks = phase_quant_checks(K, pt, ops, mobilenet_v1, card)
+    log(f"phases 0-44 done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -6867,6 +7511,8 @@ def main():
         "train-crnn-ctc": crnn_train["launches"],
         "infer-crnn-ctc": crnn_infer["launches"],
         "misc-correctness": misc_checks["launches"],
+        "train-qat-mobilenet": qat_train["launches"],
+        "quant-correctness": quant_checks["launches"],
     }
     kernels = []
     for name, main_rec in (

@@ -15,7 +15,10 @@ The package root carries the Fluid surface of the static path (``Program``,
 ``program_guard``, ``data``, ``layers``, ``optimizer``, ``Executor``, ...),
 so a fluid script runs with ``import paddle_tpu_torch as pt``, and the
 module context of the eager path (``nn``) with the ragged-batch helpers
-(``create_lod_tensor``).
+(``create_lod_tensor``). The dtype constants (``float32`` ... ``uint8``,
+``bool_``) are torch dtypes; the place helpers are ``core/place.py``'s;
+``flags`` reads the flags by attribute; ``in_dygraph_mode()`` is True
+outside static mode.
 """
 
 import torch
@@ -35,7 +38,18 @@ __all__ = ["__version__", "NoCudaDeviceError", "default_device",
            "CompiledProgram", "BuildStrategy", "get_flag", "set_flags",
            "append_backward", "backward", "dataio", "reader", "DataFeeder",
            "batch", "Variable", "enforce", "enforce_eq", "inference",
-           "distributed", "monitor"]
+           "distributed", "monitor", "contrib", "float32", "float64",
+           "float16", "bfloat16", "int8", "int16", "int32", "int64", "bool_",
+           "uint8", "Place", "CUDAPinnedPlace", "TPUPlace", "default_place",
+           "is_compiled_with_tpu", "is_compiled_with_cuda", "device_count",
+           "set_device", "get_device", "cpu_places", "cuda_places",
+           "cuda_pinned_places", "tpu_places", "flags", "ExecutionStrategy",
+           "in_dygraph_mode"]
+
+float32, float64, float16, bfloat16 = (torch.float32, torch.float64,
+                                       torch.float16, torch.bfloat16)
+int8, int16, int32, int64 = torch.int8, torch.int16, torch.int32, torch.int64
+bool_, uint8 = torch.bool, torch.uint8
 
 
 class NoCudaDeviceError(EnforceNotMet):
@@ -68,16 +82,29 @@ from paddle_tpu_torch import io, lod_tensor, nets, nn  # noqa: E402,F401
 from paddle_tpu_torch import backward, dataio, reader  # noqa: E402,F401
 from paddle_tpu_torch.dataio.feeder import DataFeeder  # noqa: E402
 from paddle_tpu_torch.io import batch  # noqa: E402
-from paddle_tpu_torch.core.flags import get_flag, set_flags  # noqa: E402
-from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: E402
+from paddle_tpu_torch.core.flags import flags, get_flag, set_flags  # noqa: E402,I001
+from paddle_tpu_torch.core.place import (  # noqa: E402
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, Place, TPUPlace, cpu_places,
+    cuda_pinned_places, cuda_places, default_place, device_count,
+    get_device, is_compiled_with_cuda, is_compiled_with_tpu, set_device,
+    tpu_places,
+)
 from paddle_tpu_torch.framework import ParamAttr, unique_name  # noqa: E402
 from paddle_tpu_torch.lod_tensor import (  # noqa: E402
     create_lod_tensor, create_random_int_lodtensor,
 )
 from paddle_tpu_torch.static import (  # noqa: E402
-    BuildStrategy, CompiledProgram, Executor, Program, Scope, Variable,
+    BuildStrategy, CompiledProgram, ExecutionStrategy, Executor, Program,
+    Scope, Variable, in_static_mode,
     append_backward, data, default_main_program, default_startup_program,
     disable_static, enable_static, global_scope, program_guard, scope_guard,
 )
 # bound on the root as the JAX package's imports bind them
 from paddle_tpu_torch import distributed, inference, monitor  # noqa: E402,F401
+from paddle_tpu_torch import contrib  # noqa: E402,F401
+
+
+def in_dygraph_mode():
+    """fluid.in_dygraph_mode parity: True when no static program is being
+    built (eager is the default)."""
+    return not in_static_mode()

@@ -1,12 +1,26 @@
 """fluid.compiler: the port of ``paddle_tpu/compiler.py``'s
-``CompiledProgram`` and ``BuildStrategy.apply_ir_passes``, the on/off lever
-of the pass pipeline per program. Data parallelism and mesh sharding are not
-ported yet (ROADMAP queue 1 item 9): they raise.
+``CompiledProgram``, ``BuildStrategy.apply_ir_passes``, the on/off lever
+of the pass pipeline per program, and ``ExecutionStrategy``, recorded for
+inspection only as in the JAX package. Data parallelism and mesh sharding
+are not ported yet (ROADMAP queue 1 item 9): they raise.
 """
 
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 
-__all__ = ["CompiledProgram", "BuildStrategy"]
+__all__ = ["CompiledProgram", "ExecutionStrategy", "BuildStrategy"]
+
+
+class ExecutionStrategy:
+    """execution_strategy.h parity: the SSA executors' thread and scope
+    knobs. The port's Executor interprets one program on one device, so
+    they are recorded for inspection only (compiler.py:36-46)."""
+
+    def __init__(self):
+        self.num_threads = 0
+        self.num_iteration_per_drop_scope = 1
+        self.num_iteration_per_run = 1
+        self.allow_op_delay = False
+        self.use_thread_barrier = True
 
 
 class BuildStrategy:

@@ -12,7 +12,7 @@ import threading
 
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 
-__all__ = ["define_flag", "get_flag", "set_flags"]
+__all__ = ["define_flag", "get_flag", "set_flags", "flags"]
 
 _lock = threading.Lock()
 _REGISTRY = {}
@@ -63,3 +63,15 @@ def set_flags(flags_dict):
         else:
             _REGISTRY[name].value = _REGISTRY[name].type(v)
 
+
+class _FlagsView:
+    """Attribute access to the flags: ``flags.apply_ir_passes``."""
+
+    def __getattr__(self, name):
+        try:
+            return get_flag(name)
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+flags = _FlagsView()

@@ -65,15 +65,34 @@ computes at once. In a Program, an optional tensor argument given as a
 Variable in an attribute position (``dynamic_lstm``'s ``w_hh``, ``bias``
 and ``lengths``, ``crf_decoding``'s ``length``) rides the op's inputs, its
 parameter names recorded in the ``_tensor_params`` attr, as the JAX
-package's ``_append_static`` records them; the recurrent ops' op yields one
-Variable, the outputs (their final state is not an output of the op).
+package's ``_append_static`` records them; a list in an attribute position
+that holds a Variable (``fake_channel_wise_dequantize_max_abs``'s
+``scales``) is flattened into the inputs, its non-Variable members program
+constants, and recorded as ``(name, count)`` so that the op regroups it
+(paddle_tpu/layers/__init__.py:130, :196-206). The recurrent ops' op yields
+one Variable, the outputs (their final state is not an output of the op).
+
+The quantization ops (``ops/quantize.py``) and ``ops/aliases.py`` are
+wrapped the same way, with the JAX tables' entries (the quantizers give 2
+or 4 Variables); ``delete_var`` and ``alloc_continuous_space`` are plain
+passthroughs (the JAX ``_EXCLUDE``). ``layers``' own functions of the JAX
+package: ``hsigmoid``, ``hash``, ``continuous_value_model``,
+``create_global_var``, ``autoincreased_step_counter`` (a persistable
+``@STEP_COUNTER@`` that an ``increment_inplace`` op moves on every run),
+``Print`` (the ``print`` op: the identity, logging to stderr) and
+``py_func`` (a host op: the Executor calls ``func`` on numpy values; its
+outputs carry no gradient), ``register_op_init_param`` and
+``OP_REGISTRY``.
 """
 
+import builtins
 import contextlib
 import functools
 import inspect
 import math
+import sys
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch import initializer as I
@@ -87,6 +106,7 @@ from paddle_tpu_torch.layers.learning_rate_scheduler import (
 )
 from paddle_tpu_torch.nn import module as _module
 from paddle_tpu_torch.ops import activation as _act
+from paddle_tpu_torch.ops import aliases as _aliases
 from paddle_tpu_torch.ops import control_flow as _cf
 from paddle_tpu_torch.ops import crf as _crf
 from paddle_tpu_torch.ops import ctc as _ctc
@@ -96,6 +116,7 @@ from paddle_tpu_torch.ops import math as _math
 from paddle_tpu_torch.ops import metric_ops as _metric
 from paddle_tpu_torch.ops import misc as _misc
 from paddle_tpu_torch.ops import nn as _nn
+from paddle_tpu_torch.ops import quantize as _quantize
 from paddle_tpu_torch.ops import random_ops as _random
 from paddle_tpu_torch.ops import reduce as _reduce
 from paddle_tpu_torch.ops import rnn as _rnn
@@ -107,14 +128,17 @@ from paddle_tpu_torch.layers.control_flow_classes import (
     DynamicRNN, IfElse, StaticRNN, Switch, While,
 )
 from paddle_tpu_torch.static.program import (
-    Variable, default_main_program, default_startup_program,
+    OP_REGISTRY, Variable, default_main_program, default_startup_program,
     in_static_mode, data, register_op,
 )
 
 #: the op modules whose every function ``layers`` wraps (the JAX package
 #: wraps every exported op, layers/__init__.py:340-360)
 _WRAPPED = (_act, _math, _reduce, _tensor, _loss, _cf, _ta, _sr, _random,
-            _misc, _ctc)
+            _misc, _ctc, _quantize, _aliases)
+#: the functions of the wrapped modules that take a scope or return a list:
+#: eager passthroughs, with no op (the JAX package's ``_EXCLUDE``)
+_PASSTHROUGH = ("delete_var", "alloc_continuous_space")
 #: the detection functions that run on the host or take lists: eager
 #: passthroughs, with no op (the JAX package's ``_EXCLUDE``)
 _DETECTION_HOST = ("rpn_target_assign", "generate_proposal_labels",
@@ -139,7 +163,9 @@ __all__ = sorted(
      "read_file", "double_buffer", "batch", "shuffle", "load", "open_files",
      "random_data_generator", "Preprocessor", "multi_box_head",
      "conv2d_transpose", "conv3d", "conv3d_transpose", "layer_norm",
-     "group_norm"}
+     "group_norm", "hsigmoid", "hash", "continuous_value_model",
+     "create_global_var", "autoincreased_step_counter", "Print", "py_func",
+     "register_op_init_param", "OP_REGISTRY"}
     | {n for m in _WRAPPED for n in m.__all__}
     | set(_NN_OPS) | set(_metric.__all__)
     | set(_det.__all__) | set(_INTERP)
@@ -178,6 +204,14 @@ _NARGS = {
     "sampled_softmax_with_cross_entropy": 2,
     "ctc_loss": 2, "warpctc": 2, "edit_distance": 2,
     "hierarchical_sigmoid": 4, "deformable_roi_pooling": 3,
+    # quantization family
+    "fake_quantize_range_abs_max": 3,
+    "fake_quantize_moving_average_abs_max": 3,
+    "fake_quantize_dequantize_moving_average_abs_max": 3,
+    "moving_average_abs_max_scale": 3,
+    "fake_dequantize_max_abs": 2, "quantize_linear": 2,
+    "dequantize_linear": 2, "fake_channel_wise_dequantize_max_abs": 1,
+    "quantized_mul": 2, "quantized_conv2d": 2,
     # detection family
     "iou_similarity": 2, "box_coder": 3, "prior_box": 2,
     "density_prior_box": 2, "bipartite_match": 1, "target_assign": 2,
@@ -218,6 +252,21 @@ _META = torch.device("meta")
 _OPS = {}
 
 
+def _bind_tensor_params(tparams, xs):
+    """{parameter: tensor, or list of tensors} from the flat input list: a
+    ``(name, count)`` entry regroups a list (layers/__init__.py:130)."""
+    out, i = {}, 0
+    for entry in tparams:
+        if isinstance(entry, tuple):
+            name, cnt = entry
+            out[name] = list(xs[i:i + cnt])
+            i += cnt
+        else:
+            out[entry] = xs[i]
+            i += 1
+    return out
+
+
 def _call(fn, xs, attrs, listy):
     """``fn`` over an op's inputs: a list first, by parameter name (an op
     with promoted tensor arguments: its ``_tensor_params`` attr names its
@@ -227,7 +276,7 @@ def _call(fn, xs, attrs, listy):
     if listy:
         return fn(list(xs), **attrs)
     if tparams is not None:
-        return fn(**attrs, **dict(zip(tparams, xs)))
+        return fn(**attrs, **_bind_tensor_params(tparams, xs))
     return fn(*xs, **attrs)
 
 
@@ -264,9 +313,10 @@ def _append_static(name, tensor_vals, attrs, listy, tensor_params=None,
     literal (non-Variable) operand becomes a program constant; attrs whose
     name starts with ``_`` are the Executor's (``_needs_rng``) and do not
     reach the op's function here. ``promoted`` is an ordered {parameter:
-    Variable} of tensors found in attribute positions: they join the
-    inputs after ``tensor_params`` (the leading tensor parameters' names),
-    and the ``_tensor_params`` attr records all their names in order."""
+    Variable or list} of tensors found in attribute positions: they join
+    the inputs after ``tensor_params`` (the leading tensor parameters'
+    names), a list flattened, and the ``_tensor_params`` attr records all
+    their names in order, a list's as ``(name, count)``."""
     program = default_main_program()
     blk = program.global_block()
     fn = _SHAPE_BODIES.get(name, _OPS[name])
@@ -274,9 +324,16 @@ def _append_static(name, tensor_vals, attrs, listy, tensor_params=None,
     had_dyn = False
     flat = list(tensor_vals[0] if listy else tensor_vals)
     if promoted:
-        flat += list(promoted.values())
+        params = list(tensor_params)
+        for pname, pval in promoted.items():
+            if isinstance(pval, (list, tuple)):
+                flat.extend(pval)
+                params.append((pname, len(pval)))
+            else:
+                flat.append(pval)
+                params.append(pname)
         attrs = {k: v for k, v in attrs.items() if k not in promoted}
-        attrs["_tensor_params"] = tuple(tensor_params) + tuple(promoted)
+        attrs["_tensor_params"] = tuple(params)
     for tv in flat:
         if isinstance(tv, Variable):
             in_names.append(tv.name)
@@ -383,12 +440,7 @@ def _dual(name, fn):
                  if p in vals and p not in _NOT_ATTRS}
         if in_static_mode():
             promoted = {p: v for p, v in attrs.items()
-                        if isinstance(v, Variable)}
-            if any(isinstance(v, (list, tuple)) and _has_variable(v)
-                   for v in attrs.values()):
-                raise EnforceNotMet(
-                    f"{name}: a list of Variables in an attribute position "
-                    "is not ported yet (ROADMAP queue 1 item 4)")
+                        if _has_variable([v])}
             if promoted or _has_variable(
                     tensor_vals[0] if listy else tensor_vals):
                 return _append_static(name, tensor_vals, attrs, listy,
@@ -401,7 +453,9 @@ def _dual(name, fn):
 
 for _m in _WRAPPED:
     for _n in _m.__all__:
-        if _n != "softmax":
+        if _n in _PASSTHROUGH:
+            globals()[_n] = getattr(_m, _n)
+        elif _n != "softmax":
             globals()[_n] = _dual(_n, getattr(_m, _n))
 pool2d = _dual("pool2d", _nn.pool2d)
 crf_decoding = _dual("crf_decoding", _crf.crf_decoding)
@@ -471,13 +525,22 @@ def _make_param(prefix, shape, dtype, attr, default_init, trainable=True):
 
 def _init_param_compute(ins, attrs):
     """The startup program's initializer op; ``rng`` is the executor's
-    generator (ops without ``_needs_rng``, constants, draw nothing)."""
+    generator (ops without ``_needs_rng``, constants, draw nothing). An
+    int64 parameter (a step counter, a global var) holds int32 values, as
+    the JAX package (x64 off) holds them; its document keeps int64."""
+    dtype = convert_dtype(attrs["dtype"])
+    if dtype == torch.int64:
+        dtype = torch.int32
     return {"Out": [attrs["initializer"](attrs.get("rng"),
-                                         tuple(attrs["shape"]),
-                                         convert_dtype(attrs["dtype"]))]}
+                                         tuple(attrs["shape"]), dtype)]}
 
 
-register_op("init_param", _init_param_compute)
+def register_op_init_param():
+    """(Re-)register the startup program's ``init_param`` op."""
+    register_op("init_param", _init_param_compute)
+
+
+register_op_init_param()
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,
@@ -590,7 +653,7 @@ def _infer_transpose_fs(input, output_size, stride, padding, dilation, nd):
                                                   padding, dilation))
     return tuple((int(outs[i]) + 2 * pds[i]
                   - (int(input.shape[2 + i]) - 1) * sts[i] + dls[i] - 1)
-                 // dls[i] for i in range(nd))
+                 // dls[i] for i in builtins.range(nd))
 
 
 def _conv_transpose(op, nd, input, num_filters, output_size, filter_size,
@@ -824,7 +887,7 @@ def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
     elif min_sizes is None and max_sizes is None:
         min_sizes, max_sizes = [], []
         step = int(math.floor((max_ratio - min_ratio) / (num_layer - 2)))
-        for ratio in range(min_ratio, max_ratio + 1, step):
+        for ratio in builtins.range(min_ratio, max_ratio + 1, step):
             min_sizes.append(base_size * ratio / 100.0)
             max_sizes.append(base_size * (ratio + step) / 100.0)
         min_sizes = [base_size * 0.10] + min_sizes
@@ -906,6 +969,189 @@ def static_rnn(step_fn, inputs, initial_state):
         from paddle_tpu_torch.static.nested import static_rnn_block
         return static_rnn_block(step_fn, inputs, initial_state)
     return _cf.static_rnn(step_fn, inputs, initial_state)
+
+
+# ---------------------------------------------------------------------------
+# layers' own functions (paddle_tpu/layers/__init__.py:539-567, 874-968,
+# 1135-1198)
+# ---------------------------------------------------------------------------
+def create_global_var(shape, value, dtype="float32", persistable=False,
+                      force_cpu=False, name=None):
+    """fluid.layers.create_global_var parity: a non-trainable parameter
+    holding ``value`` (a Constant initializer)."""
+    return _make_param(name or "gvar", tuple(shape), convert_dtype(dtype),
+                       ParamAttr(name=name, trainable=False),
+                       I.Constant(value), trainable=False)
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """fluid.layers.hsigmoid parity (hierarchical_sigmoid_op.cc): the
+    internal nodes' weight ``hsigmoid_w`` [C - 1, D] (Xavier) and bias
+    ``hsigmoid_b`` [C - 1] (0), then ``hierarchical_sigmoid`` over the
+    default complete binary tree; [B, 1] losses. A custom tree
+    (``path_table``/``path_code``) is not supported, as in the JAX
+    package."""
+    if is_custom or path_table is not None or path_code is not None:
+        raise NotImplementedError("hsigmoid: default complete tree only")
+    dim = int(input.shape[-1])
+    w = _make_param("hsigmoid_w", (num_classes - 1, dim), torch.float32,
+                    param_attr, I.Xavier())
+    if bias_attr is not False:
+        b = _make_param("hsigmoid_b", (num_classes - 1,), torch.float32,
+                        bias_attr, I.Constant(0.0))
+    else:
+        b = torch.zeros((num_classes - 1,), device=(
+            None if isinstance(input, Variable) else input.device))
+    lab = reshape(label, shape=[-1])       # the op walks flat [B] leaf ids
+    out = hierarchical_sigmoid(input, w, b, lab, num_classes)
+    return reshape(out, shape=[-1, 1])
+
+
+def hash(input, hash_size, num_hash=1, name=None):  # noqa: A001
+    """fluid.layers.hash parity (hash_op.cc) over ``hash_embedding_ids``:
+    ``num_hash`` hashes of the ids modulo ``hash_size``."""
+    return hash_embedding_ids(input, hash_size, num_hash=num_hash)
+
+
+def continuous_value_model(input, cvm_input=None, use_cvm=True):
+    """fluid.layers.continuous_value_model parity (cvm_op.cc): the show and
+    click columns are the input's first two, as the op kernel reads them."""
+    return cvm(input, use_cvm=use_cvm)
+
+
+def _increment_inplace_compute(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x + torch.as_tensor(attrs.get("value", 1)).to(
+        x.device, x.dtype)]}
+
+
+register_op("increment_inplace", _increment_inplace_compute)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """fluid.layers.autoincreased_step_counter parity (layers/nn.py): a
+    persistable counter ``@STEP_COUNTER@`` that starts at ``begin - 1``, and
+    an ``increment_inplace`` op adding ``step`` that writes the counter
+    itself, so the Executor puts it back in the scope after every run (the
+    first run reads ``begin - 1 + step``). Each call appends one more
+    increment, as in the JAX package. The int64 request is kept in the
+    document; the value is int32 (``init_param``), as the JAX package (x64
+    off) holds it."""
+    name = counter_name or "@STEP_COUNTER@"
+    blk = default_main_program().global_block()
+    if blk.has_var(name):
+        counter = blk.var(name)
+    else:
+        counter = create_global_var([1], float(begin - 1), dtype="int64",
+                                    persistable=True, name=name)
+    blk.append_op(type="increment_inplace", inputs={"X": [name]},
+                  outputs={"Out": [name]}, attrs={"value": step})
+    return counter
+
+
+def _host_array(v):
+    """A numpy copy of a tensor (bf16 as fp32) or an array-like."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach()
+        return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+    return np.asarray(v)
+
+
+def _print_cb(msg, summarize, counter, first_n, arr):
+    """One ``Print`` line on stderr, as the JAX package's ``_print_cb``
+    formats it (from a numpy copy)."""
+    counter["n"] += 1
+    if first_n and first_n > 0 and counter["n"] > first_n:
+        return
+    arr = _host_array(arr)
+    flat = arr.reshape(-1)[:summarize] if summarize and summarize > 0 \
+        else arr.reshape(-1)
+    print(f"{msg}shape={arr.shape} dtype={arr.dtype} "
+          f"data={np.array2string(flat, precision=6)}", file=sys.stderr)
+
+
+def _print_compute(ins, attrs):
+    """The ``print`` op: logs its input (at most ``first_n`` runs) and
+    returns it, the identity for autodiff (print_op.cc's grad forwards the
+    gradient)."""
+    x = ins["X"][0]
+    _print_cb(attrs.get("message", ""), attrs.get("summarize", 20),
+              attrs["_counter"], attrs.get("first_n", -1), x)
+    return {"Out": [x]}
+
+
+register_op("print", _print_compute)
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=False,
+          print_phase="both"):
+    """fluid.layers.Print parity (operators/print_op.cc): in a Program a
+    ``print`` op that logs the tensor on every run (at most ``first_n``
+    times) and passes it through; outside one, the line at once."""
+    msg = (message + " ") if message else ""
+    counter = {"n": 0}
+    if in_static_mode() and isinstance(input, Variable):
+        blk = input.block
+        out = blk.create_var(shape=input.shape, dtype=input.dtype)
+        blk.append_op("print", inputs={"X": [input.name]},
+                      outputs={"Out": [out.name]},
+                      attrs={"message": msg, "summarize": summarize,
+                             "first_n": first_n, "_counter": counter})
+        return out
+    _print_cb(msg, summarize, counter, -1, input)
+    return input
+
+
+#: the JAX package's dtypes with x64 off
+_CANONICAL = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+              np.dtype(np.uint64): np.uint32,
+              np.dtype(np.complex128): np.complex64}
+
+
+def _py_func_compute(ins, attrs):
+    """The ``py_func`` host op: ``func`` on numpy copies of the inputs; its
+    outputs as tensors on the inputs' device, in the dtypes ``jnp.asarray``
+    gives with x64 off (float64 becomes float32, int64 int32). They carry
+    no gradient."""
+    xs = ins["X"]
+    device = next((x.device for x in xs if isinstance(x, torch.Tensor)),
+                  torch.device("cpu"))
+    outs = attrs["func"](*[_host_array(x) for x in xs])
+    if not isinstance(outs, (list, tuple)):
+        outs = [outs]
+    res = []
+    for o in outs:
+        a = np.asarray(o)
+        a = a.astype(_CANONICAL.get(a.dtype, a.dtype), copy=False)
+        res.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return {"Out": res}
+
+
+register_op("py_func", _py_func_compute)
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """fluid.layers.py_func parity (operators/py_func_op.cc): run a Python
+    callable on host values mid-program. In a Program a host op (``_host``)
+    that the Executor runs between the device ops; ``backward_func`` is
+    taken for the API and not used: the outputs carry no gradient, and a
+    py_func that a differentiated value reaches before the loss raises, as
+    in the JAX package. Outside a Program, the call at once."""
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    if in_static_mode() and all(isinstance(v, Variable) for v in xs):
+        blk = xs[0].block
+        blk.append_op("py_func", inputs={"X": [v.name for v in xs]},
+                      outputs={"Out": [o.name for o in outs]},
+                      attrs={"func": func, "_host": True})
+        return outs if isinstance(out, (list, tuple)) else outs[0]
+    res = _py_func_compute({"X": list(xs)}, {"func": func})["Out"]
+    return res if isinstance(out, (list, tuple)) else res[0]
 
 
 # fluid.layers.io surface (reader builders; see layers/io.py)

@@ -35,6 +35,8 @@ import dataclasses
 
 import numpy as np
 
+from paddle_tpu_torch.models.mobilenet_v1 import conv_bn
+
 __all__ = ["SSDConfig", "mobilenet_ssd_voc", "ssd_tiny", "build_train",
            "build_infer", "synthetic_batch"]
 
@@ -85,13 +87,10 @@ def ssd_tiny(**kw):
 
 
 def _conv_bn(pt, x, k, c, stride, pad, groups=1, act="relu"):
-    L = pt.layers
-    conv = L.conv2d(x, c, k, stride=stride, padding=pad, groups=groups,
-                    param_attr=pt.ParamAttr(
-                        learning_rate=0.1,
-                        initializer=pt.initializer.MSRA()),
-                    bias_attr=False)
-    return L.batch_norm(conv, act=act)
+    """MobileNet's conv_bn (``models/mobilenet_v1.py``), unnamed, its
+    convs learning at 0.1 as in mobilenet_ssd.py."""
+    return conv_bn(pt, x, k, c, stride, pad, groups=groups, act=act,
+                   learning_rate=0.1)
 
 
 def _depthwise_separable(pt, cfg, x, c1, c2, groups, stride):

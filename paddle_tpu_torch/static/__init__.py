@@ -5,7 +5,8 @@ append_backward, the pass pipeline, the control-flow blocks
 from paddle_tpu_torch.static.program import (  # noqa: F401
     OP_REGISTRY, Block, Operator, Parameter, Program, Variable, data,
     default_main_program, default_startup_program, disable_static,
-    enable_static, in_static_mode, program_guard, register_op,
+    enable_static, in_static_mode, name_scope, program_guard, register_op,
+    static_mode_guard,
 )
 # registers the fused_matmul compute: an optimized program must run
 # without the pass pipeline having run in this process
@@ -25,5 +26,5 @@ from paddle_tpu_torch.static.executor import (  # noqa: E402
     Executor, Scope, global_scope, scope_guard,
 )
 from paddle_tpu_torch.compiler import (  # noqa: E402,F401
-    BuildStrategy, CompiledProgram,
+    BuildStrategy, CompiledProgram, ExecutionStrategy,
 )

@@ -49,9 +49,12 @@ vars the feed does not give (``layers.py_reader``'s start/reset protocol;
 through a ``while_block`` is refused, as ``lax.while_loop`` refuses reverse-mode
 differentiation; a ``scan_block`` is differentiated through its steps.
 
-Not ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item:
-host segments (ops marked ``_host``: parameter-server send/recv, queue 1
-item 9), prefetch (``device_prefetch``, ``background_prefetch``,
+Host ops (marked ``_host``): ``py_func`` runs between the device ops, its
+function called on numpy copies and its outputs put back on the device; a
+host op that a differentiated value reaches before the ``autodiff`` op
+raises, as in the JAX package (gradients cannot cross the host). Not
+ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item: the
+other host ops (parameter-server send/recv, queue 1 item 9), prefetch (``device_prefetch``, ``background_prefetch``,
 ``Executor.feed_stage``) and ``train_from_dataset`` /
 ``infer_from_dataset`` (item 10), the persistent compile cache
 (``PADDLE_TPU_CACHE_DIR``; item 10), mesh specs
@@ -94,21 +97,34 @@ _STEP = "@step@"
 
 
 class Scope:
-    """Name -> value store (framework/scope.h parity)."""
+    """Name -> value store (framework/scope.h parity). ``version`` counts
+    changes of the name set (a var created or dropped), not value updates
+    (static/executor.py:116-148)."""
 
     def __init__(self):
         self._vars = {}
+        self._version = 0
+
+    @property
+    def version(self):
+        return self._version
 
     def var(self, name):
+        if name not in self._vars:
+            self._version += 1
         return self._vars.setdefault(name, None)
 
     def find_var(self, name):
         return self._vars.get(name)
 
     def set_var(self, name, value):
+        if name not in self._vars:
+            self._version += 1
         self._vars[name] = value
 
     def drop_var(self, name):
+        if name in self._vars:
+            self._version += 1
         self._vars.pop(name, None)
 
     def names(self):
@@ -189,11 +205,15 @@ def background_prefetch(*args, **kwargs):
     _not_ported("background_prefetch", "10 (dataio)")
 
 
+#: the host ops (``_host``) the port runs
+_HOST_OPS = frozenset({"py_func"})
+
+
 def exec_op(op, env, rng=None):
     """Run one op through ``OP_REGISTRY``: bind its inputs from ``env``,
     return {output name: value}. ``rng`` is the generator of an op marked
     ``_needs_rng``."""
-    if op.attrs.get("_host"):
+    if op.attrs.get("_host") and op.type not in _HOST_OPS:
         _not_ported(f"host op {op.type!r} (a host segment)",
                     "9 (parameter server)")
     ins = {slot: [env[n] for n in names] for slot, names in op.inputs.items()}
@@ -327,6 +347,25 @@ def _refuse_grad_through_while(ops):
         live.update(op.output_names())
 
 
+def _refuse_host_in_grad(ops):
+    """A host op before the ``autodiff`` op whose outputs are not only
+    parameters would cut the gradient of everything upstream of it: raise,
+    as the JAX Executor does (executor.py:1455-1473)."""
+    ad = next((i for i, op in enumerate(ops) if op.type == "autodiff"), None)
+    if ad is None:
+        return
+    roots = set(ops[ad].attrs["params"])
+    for i, op in enumerate(ops[:ad]):
+        outs = set(op.output_names())
+        if op.attrs.get("_host") and (not outs or not outs <= roots):
+            raise EnforceNotMet(
+                f"host op {op.type!r} at position {i} feeds the "
+                f"differentiated forward region — gradients cannot flow "
+                f"through a host boundary, so every parameter upstream of "
+                f"it would silently stop training. Move it after the "
+                f"loss/backward, or use a differentiable op instead")
+
+
 class _Runner:
     """One prepared (program, version, feed signature, fetch list,
     passes): the program to interpret (the pass pipeline's optimized clone,
@@ -340,6 +379,7 @@ class _Runner:
         self.state_names = [n for n, v in blk.vars.items() if v.persistable]
         self.kernel_libraries = sorted(kernel_libraries)
         _refuse_grad_through_while(self.ops)
+        _refuse_host_in_grad(self.ops)
 
 
 class Executor:

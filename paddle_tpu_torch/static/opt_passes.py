@@ -1,14 +1,21 @@
 """Program-level optimization passes and the default pipeline: the port of
-``paddle_tpu/static/opt_passes.py``'s ``fused_matmul`` op,
-``FuseMatmulBiasActPass``, ``DeadOpEliminationPass`` and the entry points
-``optimize_program`` / ``optimize_for_execution``.
+``paddle_tpu/static/opt_passes.py``: the ``fused_matmul`` op, the five
+passes (``ConstantFoldingPass``, ``FoldScaleCastChainPass``,
+``CancelTransposeReshapePass``, ``FuseMatmulBiasActPass``,
+``DeadOpEliminationPass``, run in that order by ``default_pipeline``) and
+the entry points ``optimize_program`` / ``optimize_for_execution``.
 
 The Executor runs the pipeline on a clone of each main program it executes
 (``FLAGS_apply_ir_passes``, on by default, or ``BuildStrategy.
 apply_ir_passes``), against the step's fetch list. The caller's program is
 never mutated. A rewrite fires only when the matched vars are written once,
 the intermediates have one consumer and are neither fetched, persistable nor
-fed, and the chain stays inside one autodiff region.
+fed, and the chain crosses neither a host op nor the autodiff op. Constant
+folding evaluates, on the CPU, the ops whose inputs are all program
+constants (``Program._constants``) and records their outputs as constants;
+it skips ops that draw, host ops, ops with side effects (``print``,
+``py_func``, ...), control-flow ops (a sub-Program in an attr), ops writing
+a persistable var, and results over ``max_elements``.
 
 The ``fused_matmul`` op's compute calls ``try_fused_matmul``, the kernels'
 path (``ops/kernels/matmul.py``): inside the kernels' contract it runs the
@@ -29,15 +36,17 @@ import time
 
 import torch
 
+from paddle_tpu_torch.core.dtypes import convert_dtype
 from paddle_tpu_torch.core.enforce import EnforceNotMet, enforce
 from paddle_tpu_torch.ops import activation as _act
 from paddle_tpu_torch.ops import math as _m
 from paddle_tpu_torch.ops.kernels import try_fused_matmul
 from paddle_tpu_torch.static.passes import PassManager, ProgramPass
-from paddle_tpu_torch.static.program import Operator, register_op
+from paddle_tpu_torch.static.program import Operator, Program, register_op
 
-__all__ = ["FUSED_MATMUL", "FuseMatmulBiasActPass", "DeadOpEliminationPass",
-           "default_pipeline", "optimize_program", "optimize_for_execution",
+__all__ = ["FUSED_MATMUL", "ConstantFoldingPass", "FoldScaleCastChainPass",
+           "CancelTransposeReshapePass", "FuseMatmulBiasActPass",
+           "DeadOpEliminationPass", "default_pipeline", "optimize_program", "optimize_for_execution",
            "optimize_inference", "PipelineReport", "QUANT_SCALE_SUFFIX",
            "QUANT_BINS", "plan_weight_quant", "apply_weight_quant",
            "quantize_weight_values"]
@@ -49,6 +58,9 @@ FUSED_MATMUL = "fused_matmul"
 QUANT_SCALE_SUFFIX = "@quant_scale"
 #: int8 bins: q = round(w / scale * 127)
 QUANT_BINS = 127
+
+#: ops kept whatever reaches them (side effects without the _host attr)
+_SIDE_EFFECT_TYPES = frozenset({"print", "py_func"})
 
 #: activations the matmul fusion absorbs (attr-free unary ops)
 _FUSABLE_ACTS = frozenset({"relu", "sigmoid", "tanh", "gelu"})
@@ -120,17 +132,34 @@ def _written_between(widx, name, lo, hi):
 
 
 def _regions(ops):
-    """Region id per op index: the autodiff marker is a barrier (fusing
-    across it would move work in or out of the differentiated prefix)."""
+    """Region id per op index: host ops and the autodiff marker are
+    barriers (fusing across one would move work across the host or in or
+    out of the differentiated prefix)."""
     rid, out = 0, []
     for op in ops:
-        barrier = op.type == "autodiff"
+        barrier = op.type == "autodiff" or bool(op.attrs.get("_host"))
         if barrier:
             rid += 1
         out.append(rid)
         if barrier:
             rid += 1
     return out
+
+
+def _has_program_attr(op):
+    """Control-flow ops hold sub-Programs in attrs: opaque to value
+    rewrites."""
+    return any(isinstance(v, Program) for v in op.attrs.values())
+
+
+def _rewire(block, old, new, skip_ops=()):
+    """Point every reader of var ``old`` at ``new``."""
+    for op in block.ops:
+        if op in skip_ops:
+            continue
+        for slot, names in op.inputs.items():
+            if old in names:
+                op.inputs[slot] = [new if n == old else n for n in names]
 
 
 def _protected_names(block, targets):
@@ -160,9 +189,243 @@ def _attrs_nontrivial(op):
     return any(k != "name" and v is not None for k, v in op.attrs.items())
 
 
+def _last_read(cons, name, at):
+    return max((k for k, _ in cons.get(name, ())), default=at)
+
+
 # ---------------------------------------------------------------------------
 # passes
 # ---------------------------------------------------------------------------
+class ConstantFoldingPass(ProgramPass):
+    """Evaluate the ops whose inputs are all program constants (literals or
+    earlier folds) and record their outputs as constants
+    (opt_passes.py:246-311). ``targets`` is taken for the pipeline's
+    uniformity: a folded fetch target is still fetched, from the run's
+    constants."""
+
+    name = "constant_fold"
+
+    def __init__(self, targets=(), max_elements=1 << 22):
+        self.targets = set(targets)
+        self.max_elements = int(max_elements)
+
+    def apply(self, program):
+        from paddle_tpu_torch.static.executor import exec_op
+        blk = program.global_block()
+        consts = dict(program._constants)
+        wcounts = _write_counts(blk)
+        kept = []
+        for op in blk.ops:
+            if (op.type == "autodiff" or op.attrs.get("_host")
+                    or op.attrs.get("_needs_rng")
+                    or op.type in _SIDE_EFFECT_TYPES
+                    or _has_program_attr(op)):
+                kept.append(op)
+                continue
+            ins, outs = op.input_names(), op.output_names()
+            if (not outs or not all(n in consts for n in ins)
+                    or any(wcounts.get(n, 0) != 1 for n in outs)
+                    or any(blk.has_var(n) and blk.vars[n].persistable
+                           for n in outs)):
+                kept.append(op)
+                continue
+            try:
+                with torch.no_grad():
+                    bound = exec_op(op, consts, None)
+            except Exception:
+                kept.append(op)       # not evaluable at once: leave it
+                continue
+            bound = {n: torch.as_tensor(v) for n, v in bound.items()}
+            if sum(v.numel() for v in bound.values()) > self.max_elements:
+                kept.append(op)
+                continue
+            consts.update(bound)
+        if len(kept) != len(blk.ops):
+            blk.ops = kept
+            program._constants = consts
+            program._bump()
+        return program
+
+
+class FoldScaleCastChainPass(ProgramPass):
+    """scale -> scale chains compose into one scale op; identity scales
+    (x * 1 + 0) and identity casts (to the input var's dtype) drop, their
+    readers rewired (opt_passes.py:314-402)."""
+
+    name = "fold_scale_cast"
+
+    def __init__(self, targets=()):
+        self.targets = set(targets)
+
+    @staticmethod
+    def _affine(attrs):
+        """(a, c) with y = a * x + c for one scale op."""
+        s = float(attrs.get("scale", 1.0))
+        b = float(attrs.get("bias", 0.0))
+        if attrs.get("bias_after_scale", True):
+            return s, b
+        return s, b * s
+
+    def apply(self, program):
+        blk = program.global_block()
+        prot = _protected_names(blk, self.targets)
+        changed = True
+        while changed:
+            changed = False
+            wcounts = _write_counts(blk)
+            cons = _consumer_map(blk)
+            widx = _write_indices(blk)
+            drop = set()
+            for i, op in enumerate(blk.ops):
+                if id(op) in drop or op.type not in ("scale", "cast"):
+                    continue
+                src, out = op.inputs["X"][0], op.outputs["Out"][0]
+                if op.type == "scale":
+                    nxt = _single_consumer(cons, out, wcounts)
+                    if (nxt is not None and nxt[1].type == "scale"
+                            and out not in prot and id(nxt[1]) not in drop
+                            and not _written_between(widx, src, i, nxt[0])):
+                        a1, c1 = self._affine(op.attrs)
+                        a2, c2 = self._affine(nxt[1].attrs)
+                        nxt[1].inputs["X"] = list(op.inputs["X"])
+                        nxt[1].attrs = {"scale": a1 * a2,
+                                        "bias": c1 * a2 + c2,
+                                        "bias_after_scale": True}
+                        drop.add(id(op))
+                        changed = True
+                        continue
+                    a, c = self._affine(op.attrs)
+                    if (a == 1.0 and c == 0.0 and out not in prot
+                            and wcounts.get(out, 0) == 1
+                            and not _written_between(
+                                widx, src, i, _last_read(cons, out, i))):
+                        _rewire(blk, out, src, skip_ops=(op,))
+                        drop.add(id(op))
+                        changed = True
+                    continue
+                v = blk.vars.get(src)
+                if (v is None or v.dtype is None or out in prot
+                        or wcounts.get(out, 0) != 1
+                        or _written_between(widx, src, i,
+                                            _last_read(cons, out, i))):
+                    continue
+                try:
+                    same = convert_dtype(op.attrs.get("dtype")) == v.dtype
+                except Exception:
+                    continue
+                if same:
+                    _rewire(blk, out, src, skip_ops=(op,))
+                    drop.add(id(op))
+                    changed = True
+            if drop:
+                blk.ops = [o for o in blk.ops if id(o) not in drop]
+                program._bump()
+        return program
+
+
+class CancelTransposeReshapePass(ProgramPass):
+    """transpose o transpose and reshape o reshape chains cancel or
+    collapse; identity transposes (perm == iota) and identity reshapes (a
+    static target shape equal to the static input shape) drop
+    (opt_passes.py:405-510)."""
+
+    name = "cancel_transpose_reshape"
+
+    def __init__(self, targets=()):
+        self.targets = set(targets)
+
+    def apply(self, program):
+        blk = program.global_block()
+        prot = _protected_names(blk, self.targets)
+        changed = True
+        while changed:
+            changed = False
+            wcounts = _write_counts(blk)
+            cons = _consumer_map(blk)
+            widx = _write_indices(blk)
+            drop = set()
+            for i, op in enumerate(blk.ops):
+                if id(op) in drop:
+                    continue
+                if op.type == "transpose":
+                    changed |= self._transpose(blk, i, op, prot, wcounts,
+                                               cons, widx, drop)
+                elif op.type == "reshape":
+                    changed |= self._reshape(blk, i, op, prot, wcounts,
+                                             cons, widx, drop)
+            if drop:
+                blk.ops = [o for o in blk.ops if id(o) not in drop]
+                program._bump()
+        return program
+
+    @staticmethod
+    def _transpose(blk, i, op, prot, wcounts, cons, widx, drop):
+        src, out = op.inputs["X"][0], op.outputs["Out"][0]
+        perm = [int(p) for p in op.attrs.get("perm", [])]
+        if out in prot or wcounts.get(out, 0) != 1:
+            return False
+        if perm == list(range(len(perm))):
+            if _written_between(widx, src, i, _last_read(cons, out, i)):
+                return False
+            _rewire(blk, out, src, skip_ops=(op,))
+            drop.add(id(op))
+            return True
+        nxt = _single_consumer(cons, out, wcounts)
+        if nxt is None or nxt[1].type != "transpose" or id(nxt[1]) in drop:
+            return False
+        perm2 = [int(p) for p in nxt[1].attrs.get("perm", [])]
+        out2 = nxt[1].outputs["Out"][0]
+        if len(perm2) != len(perm) or out2 in prot \
+                or wcounts.get(out2, 0) != 1:
+            return False
+        composed = [perm[p] for p in perm2]
+        if composed == list(range(len(perm))):
+            # both cancel: the readers of out2 read src
+            if _written_between(widx, src, i,
+                                _last_read(cons, out2, nxt[0])):
+                return False
+            _rewire(blk, out2, src, skip_ops=(op, nxt[1]))
+            drop.add(id(op))
+            drop.add(id(nxt[1]))
+        else:
+            # one transpose at the second op's place, reading src there
+            if _written_between(widx, src, i, nxt[0]):
+                return False
+            nxt[1].inputs["X"] = [src]
+            nxt[1].attrs = dict(nxt[1].attrs)
+            nxt[1].attrs["perm"] = composed
+            drop.add(id(op))
+        return True
+
+    @staticmethod
+    def _reshape(blk, i, op, prot, wcounts, cons, widx, drop):
+        src, out = op.inputs["X"][0], op.outputs["Out"][0]
+        if out in prot or wcounts.get(out, 0) != 1:
+            return False
+        v_in = blk.vars.get(src)
+        shape = [int(s) for s in op.attrs.get("shape", [])]
+        if (v_in is not None and v_in.shape is not None
+                and all(d not in (-1, None) for d in v_in.shape)
+                and shape == [int(d) for d in v_in.shape]):
+            # an identity reshape (static on both sides)
+            if _written_between(widx, src, i, _last_read(cons, out, i)):
+                return False
+            _rewire(blk, out, src, skip_ops=(op,))
+            drop.add(id(op))
+            return True
+        nxt = _single_consumer(cons, out, wcounts)
+        if nxt is None or nxt[1].type != "reshape" or id(nxt[1]) in drop \
+                or _written_between(widx, src, i, nxt[0]):
+            return False
+        # a 0 in the second shape copies ITS input's dim: collapsing would
+        # re-anchor it on another input
+        if any(int(s) == 0 for s in nxt[1].attrs.get("shape", [])):
+            return False
+        nxt[1].inputs["X"] = [src]
+        drop.add(id(op))
+        return True
+
+
 class FuseMatmulBiasActPass(ProgramPass):
     """mul|matmul -> elementwise_add(bias) -> [relu|sigmoid|tanh|gelu]
     chains (``layers.fc``'s emission) collapse into one ``fused_matmul``
@@ -251,7 +514,8 @@ class FuseMatmulBiasActPass(ProgramPass):
 
 class DeadOpEliminationPass(ProgramPass):
     """Drop ops whose outputs reach neither a fetch target, persistable
-    state, nor the autodiff marker (opt_passes.py:623-660)."""
+    state, a host or side-effect op, nor the autodiff marker
+    (opt_passes.py:623-660)."""
 
     name = "dead_op_elim"
 
@@ -263,7 +527,8 @@ class DeadOpEliminationPass(ProgramPass):
         needed = set(self.targets)
         kept = []
         for op in reversed(blk.ops):
-            keep = (op.type == "autodiff"
+            keep = (op.type == "autodiff" or bool(op.attrs.get("_host"))
+                    or op.type in _SIDE_EFFECT_TYPES
                     or any(blk.has_var(n) and blk.vars[n].persistable
                            for n in op.output_names())
                     or any(n in needed for n in op.output_names()))
@@ -291,18 +556,21 @@ class PipelineReport:
     def ops_removed(self):
         return self.ops_before - self.ops_after
 
+    def as_dict(self):
+        return {"ops_before": self.ops_before, "ops_after": self.ops_after,
+                "ops_removed": self.ops_removed(),
+                "per_pass": [dict(p) for p in self.per_pass]}
+
 
 def default_pipeline(targets=()):
-    """The port's pass order: fusion, then dead-op elimination (which sweeps
-    what the fusion orphaned).
-
-    The JAX package's pipeline runs three more passes first, not ported
-    yet (ROADMAP queue 1 item 6): constant folding, scale/cast chain
-    folding and transpose/reshape cancelling. On the programs this port
-    runs (fc stacks with embeddings, softmax and losses) they rewrite
-    nothing; tests/test_torch_static.py pins that the op lists still match.
-    """
-    return PassManager([FuseMatmulBiasActPass(targets),
+    """The JAX package's pass order (opt_passes.py:682-693): folding first
+    (it orphans producers), the scale/cast and transpose/reshape cleanups
+    next (they expose adjacent chains), fusion on the canonical chains,
+    dead-op elimination last (it sweeps what the others orphaned)."""
+    return PassManager([ConstantFoldingPass(targets),
+                        FoldScaleCastChainPass(targets),
+                        CancelTransposeReshapePass(targets),
+                        FuseMatmulBiasActPass(targets),
                         DeadOpEliminationPass(targets)])
 
 
@@ -315,12 +583,13 @@ def optimize_program(program, targets=(), pipeline=None, record=True,
     ``record`` is accepted and has nothing to do: the JAX package publishes
     per-pass evidence to its cost monitor, which is not ported (ROADMAP
     queue 1 item 10), so nothing is published either way. ``cost_probe``
-    (the analytical cost of each pass) is not ported yet (ROADMAP queue 1
-    item 6): anything but None raises."""
+    (the analytical cost of each pass) needs that cost monitor too: anything
+    but None raises."""
     if cost_probe is not None:
         raise EnforceNotMet(
-            "optimize_program(cost_probe=...): the per-pass cost probe is "
-            "not ported yet (ROADMAP queue 1 item 6)")
+            "optimize_program(cost_probe=...): the per-pass cost probe "
+            "needs the cost monitor, not ported yet (ROADMAP queue 1 item "
+            "10)")
     prog = program.clone()
     pm = pipeline or default_pipeline(targets)
     report = PipelineReport()

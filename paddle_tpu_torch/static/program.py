@@ -18,7 +18,8 @@ from paddle_tpu_torch.core.enforce import EnforceNotMet, enforce
 __all__ = ["OP_REGISTRY", "register_op", "Variable", "Parameter",
            "Operator", "Block", "Program", "default_main_program",
            "default_startup_program", "program_guard", "in_static_mode",
-           "enable_static", "disable_static", "data"]
+           "enable_static", "disable_static", "static_mode_guard",
+           "name_scope", "data"]
 
 #: op type -> fn(ins: {slot: [tensor]}, attrs: dict) -> {slot: [tensor]}
 OP_REGISTRY = {}
@@ -274,6 +275,24 @@ def program_guard(main_program, startup_program=None):
 
 def in_static_mode():
     return _state().static_mode
+
+
+@contextlib.contextmanager
+def static_mode_guard(on=True):
+    """Static mode on (or off) inside the block, as it was after."""
+    st = _state()
+    old = st.static_mode
+    st.static_mode = on
+    try:
+        yield
+    finally:
+        st.static_mode = old
+
+
+@contextlib.contextmanager
+def name_scope(prefix):
+    """fluid.name_scope parity: cosmetic, as in the JAX package."""
+    yield
 
 
 def enable_static():

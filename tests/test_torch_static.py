@@ -280,20 +280,28 @@ def test_programs_and_passes_match_jax(build, n_before, n_after):
     for n in jvars:
         assert tvars[n].shape == jvars[n].shape, n
         assert tvars[n].persistable == jvars[n].persistable, n
-    jo, _ = jpasses.optimize_program(jm, targets=(jl.name,), record=False)
+    jo, jreport = jpasses.optimize_program(jm, targets=(jl.name,),
+                                           record=False)
     to, report = tpasses.optimize_program(tm, targets=(tl.name,))
     assert _op_list(to) == _op_list(jo) and len(_op_list(to)) == n_after
     assert report.ops_removed() == n_before - n_after
     for a, b in zip(to.global_block().ops, jo.global_block().ops):
         if a.type == "fused_matmul":
             assert a.attrs == b.attrs
-    # the JAX pipeline's three passes the port leaves for later rewrite
-    # nothing on these programs
-    for cls in (jpasses.ConstantFoldingPass, jpasses.FoldScaleCastChainPass,
-                jpasses.CancelTransposeReshapePass):
-        prog = jm.clone()
-        cls((jl.name,)).apply(prog)
-        assert _op_list(prog) == _op_list(jm), cls.__name__
+    # the whole JAX pipeline, pass by pass: the same passes in the same
+    # order, each removing the same ops
+    assert [(r["pass"], r["ops_removed"]) for r in report.per_pass] == \
+        [(r["pass"], r["ops_removed"]) for r in jreport.per_pass]
+    for tcls, jcls in ((tpasses.ConstantFoldingPass,
+                        jpasses.ConstantFoldingPass),
+                       (tpasses.FoldScaleCastChainPass,
+                        jpasses.FoldScaleCastChainPass),
+                       (tpasses.CancelTransposeReshapePass,
+                        jpasses.CancelTransposeReshapePass)):
+        tprog, jprog = tm.clone(), jm.clone()
+        tcls((tl.name,)).apply(tprog)
+        jcls((jl.name,)).apply(jprog)
+        assert _op_list(tprog) == _op_list(jprog), tcls.__name__
 
 
 def test_gelu_keeps_its_op_as_in_jax():

@@ -6,7 +6,9 @@ and the repairs of ROADMAP queue 3 (F1-F3, F5-F7) hold.
 A signature matches when the port's parameters, ``self`` dropped, start
 with the reference's (names, kinds and defaults, as ``inspect`` prints
 them); the port may add trailing parameters with defaults (``device=``),
-since a call written for the reference still binds. Skipped: the port's
+since a call written for the reference still binds; a torch dtype at the
+root stands for the JAX dtype constant (a numpy scalar type, printed as
+its constructor). Skipped: the port's
 ``(*args, **kwargs)`` stubs of what is not ported yet (they raise
 ``EnforceNotMet`` naming their ROADMAP item) and the internal
 ``serving.Replica`` / ``ReplicaPool``, whose constructors take the port's
@@ -50,9 +52,18 @@ SPEC = os.path.join(_TOOLS, "api_spec.txt")
 #: repair, the rest of ``ops/nn.py`` under ``ops`` and ``layers`` (47), the
 #: metric ops under both (10) and the rest of ``initializer`` (5), 1200
 #: with the random ops, ``ops/misc.py`` and the CTC ops under ``ops`` and
-#: ``layers`` (52 each); only rises
-RESOLVED_FLOOR = 1200
+#: ``layers`` (52 each), 1296 with ``ops/quantize.py`` and
+#: ``ops/aliases.py`` under ``ops`` and ``layers`` (19 each), ``layers``'
+#: own functions and ``OP_REGISTRY`` (9), ``contrib.quant`` (12), the three
+#: passes and ``PipelineReport.as_dict`` (7), the root's dtypes, places,
+#: ``flags``, ``ExecutionStrategy`` and ``in_dygraph_mode`` (26) and
+#: ``static``'s ``ExecutionStrategy``, ``name_scope``,
+#: ``static_mode_guard`` and ``Scope.version`` (4); only rises
+RESOLVED_FLOOR = 1296
 SKIPPED = ("paddle_tpu.serving.Replica", "paddle_tpu.serving.ReplicaPool")
+#: the spec's text of a JAX dtype constant (a numpy scalar type's
+#: constructor), which the port's torch dtype stands for
+_JAX_SCALAR_TYPE = "(self, /, *args, **kwargs)"
 _STUB = re.compile(r"^\((self, )?\*args, \*\*kwargs\)$")
 
 
@@ -107,6 +118,8 @@ def _params(text):
 
 
 def _port_text(obj):
+    if isinstance(obj, torch.dtype):
+        return _JAX_SCALAR_TYPE, None
     if isinstance(obj, property):
         return " [property]", None
     if isinstance(obj, (staticmethod, classmethod)):
@@ -152,7 +165,8 @@ PORTED_MODULES = ("paddle_tpu", "paddle_tpu.layers", "paddle_tpu.ops",
                   "paddle_tpu.serving", "paddle_tpu.clip",
                   "paddle_tpu.regularizer", "paddle_tpu.monitor",
                   "paddle_tpu.distributed", "paddle_tpu.reader",
-                  "paddle_tpu.backward", "paddle_tpu.dataio")
+                  "paddle_tpu.backward", "paddle_tpu.dataio",
+                  "paddle_tpu.contrib.quant")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -344,7 +358,7 @@ def test_export_aot_takes_platforms(tmp_path):
 
 def test_optimize_program_takes_record_and_refuses_cost_probe():
     """F3: ``record`` has nothing to publish to in the port; a cost probe
-    raises naming queue-1 item 6."""
+    raises naming queue-1 item 10 (the cost monitor)."""
     from paddle_tpu_torch.static import opt_passes
     main, _, pred, _ = _fc_program()
     a, _ = opt_passes.optimize_program(main, targets=(pred.name,),
@@ -352,9 +366,9 @@ def test_optimize_program_takes_record_and_refuses_cost_probe():
     b, _ = opt_passes.optimize_program(main, targets=(pred.name,))
     assert [op.type for op in a.global_block().ops] == \
         [op.type for op in b.global_block().ops]
-    with pytest.raises(EnforceNotMet, match="queue 1 item 6"):
+    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
         opt_passes.optimize_program(main, cost_probe=lambda p: None)
-    with pytest.raises(EnforceNotMet, match="queue 1 item 6"):
+    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
         opt_passes.optimize_for_execution(main, [pred.name],
                                           cost_probe=lambda p: None)
     assert opt_passes.optimize_for_execution(main, [pred.name],
