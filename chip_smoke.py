@@ -35,14 +35,16 @@ Phases; any failure raises and the script exits non-zero:
    serving MLP's fp32 buckets [1|8,256]x[256,256] relu and [1|8,256]x
    [256,10], word2vec's fc 2 with a bf16 weight, inf, -inf and NaN in x
    and w through each activation, MobileNetV1's classifier fc
-   [256,1024]x[1024,1000] fp32 with its bias (phase 42), and BERT's FFN
+   [256,1024]x[1024,1000] fp32 with its bias (phase 42) and at the served
+   top bucket [32,1024]x[1024,1000] (phase 45), and BERT's FFN
    [4096,768]x[768,3072] relu in fp32 and bf16; the fp32 operations bound is three TF32 passes
    at 495 TFLOP/s, the least time an fp32-accurate product takes), the int8
    fused matmul on the same tensor-core kernel (the serving MLP's
    [1|8,256]x[256,256] relu and [8,256]x[256,10], word2vec's two fcs at 64
    rows, with bf16 x too at the wider, BERT's FFN shape, also held against
-   an fp64 product of the dequantized weight, and a ragged [33,70,130] tanh
-   without bias; its bound is three bf16 passes for fp32 x, one for bf16
+   an fp64 product of the dequantized weight, MobileNetV1's served fc
+   [32,1024]x[1024,1000] with its bias (phase 45's v2 and v3), and a ragged
+   [33,70,130] tanh without bias; its bound is three bf16 passes for fp32 x, one for bf16
    x, the int8 weight being exact in bf16;
    ``addmm`` on the weight dequantized beforehand is timed beside it as a
    yardstick of other work), and SGD and
@@ -396,7 +398,41 @@ Phases; any failure raises and the script exits non-zero:
    on the card; four programs of the new passes (scale chains,
    transposes, reshapes, casts) with the op lists equal on both devices
    and the outputs within ``QUANT_TOL["op"]``.
-45. Print one JSON line of every ported kernel (launches on the main paths,
+45. serve-http-swap-mobilenet: MobileNetV1 at 224^2 (``models/
+   mobilenet_v1.py``'s ``build_train`` and ``export_served``): v1 fp32 at
+   the seed's weights, v2 int8 after 5 Momentum steps at batch 32 on
+   synthetic images, v3 int8 after 5 more (exactly 83 ``fused_momentum`` a
+   step), a NaN version and a v2 copy with one byte of its int8 sidecar
+   flipped. ``InferenceServer(ServingConfig(max_batch=32, replicas=1))``
+   (ladder 1-32 warmed on the card) behind ``HttpFrontDoor``, with
+   ``trace.enable(dirname=)`` armed; 8 ``WireClient`` threads (tenants a
+   and b) POST one pre-encoded image a request (a body of ~3 MB of JSON).
+   After 100 responses ``server.swap(v2)`` (the default canary,
+   ``watchdog_ms=500``), its stage milliseconds, the standby's projection
+   and warm boot, the card's allocated bytes and the ledger's resident
+   params sampled through the window; then ``watch_dir(poll_ms=200)`` and
+   v3 published into the watched directory (index last). The JSON encode
+   and decode of one request on the host; latency p50/p99 before, across
+   and after the hand swap; the device's busy share over a profiled burst;
+   launches exact: 1 ``fused_matmul`` per v1 micro-batch, 1
+   ``fused_matmul_int8`` per v2/v3 micro-batch, per standby warm-up bucket
+   and per canary request.
+46. swap-refusals, on the same server under the same load: the flipped
+   byte (``gate_failed``), ``hbm_limit_bytes`` one byte under the
+   projection (``SwapFailedError(stage="admission")``, ``refused_memory``,
+   no pool built, the ledger unchanged), the NaN version by hand and then
+   published into the watched directory (``canary_failed`` once each; the
+   watcher skips it over the next polls and takes the next published
+   version).
+47. serving-correctness: every one of the >= 400 responses 200, each within
+   ``HTTP_TOL["own"]`` of the largest logit of the version it names (that
+   version's served program run alone on the card), and at least 10x that
+   far from the other versions; v1 on the card against the CPU, v2 int8
+   against its fp32 Predictor, v1's Predictor against its served program;
+   the merged trace file's kept requests each with its tenant and every
+   stage span; after the last drain the card's allocated bytes within 10%
+   of v1's footprint plus the change in params.
+48. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -6989,6 +7025,621 @@ def phase_quant_checks(K, pt, ops, mb, card):
     return dict(rec, launches=tiny["launches"])
 
 
+# ---------------------------------------------------------------------------
+# phases 45-47: MobileNetV1 served over HTTP and hot-swapped
+# ---------------------------------------------------------------------------
+HTTP_CLIENTS = 8                # WireClient threads, tenants a and b
+HTTP_REQUESTS = 400             # at least this many requests in all
+HTTP_SWAP_AFTER = 100           # responses before server.swap(v2)
+HTTP_PUBLISH_AFTER = 220        # responses before v3 is published
+HTTP_V3_MIN = 40                # responses v3 must serve before the stop
+HTTP_IMAGES = 16                # distinct 224^2 images the clients send
+SWAP_TRAIN_BATCH, SWAP_TRAIN_STEPS = 32, 5
+SWAP_MAX_BATCH = 32
+SWAP_WATCHDOG_MS, SWAP_POLL_MS = 500.0, 200.0
+#: phase 47's limits: a response against its version's program run alone
+#: on the card (fp32 with TF32 off, the same kernels, another batch:
+#: other summation orders), relative to the largest logit; the other
+#: versions at least 10x as far; phase 13's fp32 card-vs-CPU limit and
+#: phase 9's int8-vs-fp32 limit
+HTTP_TOL = dict(own=1e-4, other_x=10.0, card_cpu=1e-3, int8_fp32=0.02)
+
+
+def publish_version(src, dst):
+    """Copy an export over the watched directory ``dst``, its AOT index
+    last, so a poll sees the new version only once every file it names is
+    in place."""
+    import shutil
+    idx = os.path.join("__aot__", "index.json")
+    for base, _dirs, files in os.walk(src):
+        rel = os.path.relpath(base, src)
+        os.makedirs(os.path.join(dst, rel), exist_ok=True)
+        for f in files:
+            if os.path.normpath(os.path.join(rel, f)) != idx:
+                shutil.copy2(os.path.join(base, f), os.path.join(dst, rel, f))
+    shutil.copy2(os.path.join(src, idx), os.path.join(dst, idx))
+
+
+def export_mobilenet_versions(K, pt, mb, root):
+    """v1 (fp32, the seed's weights), v2 (int8, after SWAP_TRAIN_STEPS
+    Momentum steps), v3 (int8, after as many more), a NaN version (v2's
+    weights with conv1's filled with NaN, int8) and v2 with one byte of its
+    int8 sidecar flipped, all of MobileNetV1 at 224^2 through
+    ``models/mobilenet_v1.py``'s ``export_served``. The training launches
+    are counted (83 ``fused_momentum`` a step)."""
+    import shutil
+
+    import numpy as np
+    cfg = mb.mobilenet_v1()
+    built = mb.build_train(pt, cfg)
+    exe, scope = pt.Executor(), pt.Scope()
+    pt.core.random.seed(45)
+    exe.run(built["startup"], scope=scope)
+    dirs = {k: os.path.join(root, k) for k in ("v1", "v2", "v3", "nan",
+                                               "flip")}
+    t0 = time.perf_counter()
+    mb.export_served(pt, exe, scope, built, dirs["v1"])
+    n_params = len(mb.param_names(built["main"]))
+    feeds = [mb.synthetic_batch(cfg, SWAP_TRAIN_BATCH, seed=450 + i)
+             for i in range(2 * SWAP_TRAIN_STEPS)]
+    K.reset_launch_counts()
+    losses = []
+    for v, steps in (("v2", feeds[:SWAP_TRAIN_STEPS]),
+                     ("v3", feeds[SWAP_TRAIN_STEPS:])):
+        for f in steps:
+            (loss,) = exe.run(built["main"], feed=f,
+                              fetch_list=[built["loss"]], scope=scope)
+            losses.append(float(np.asarray(loss)))
+        if v == "v2":
+            counts = {k: n for k, n in K.launch_counts().items() if n}
+            mb.export_served(pt, exe, scope, built, dirs["v2"],
+                             quantize="int8")
+            w = scope.find_var("conv1_weights")
+            keep = w.clone()
+            w.fill_(float("nan"))
+            mb.export_served(pt, exe, scope, built, dirs["nan"],
+                             quantize="int8")
+            w.copy_(keep)
+            K.reset_launch_counts()
+        else:
+            for k, n in K.launch_counts().items():
+                counts[k] = counts.get(k, 0) + n
+            mb.export_served(pt, exe, scope, built, dirs["v3"],
+                             quantize="int8")
+    shutil.copytree(dirs["v2"], dirs["flip"])
+    aot = os.path.join(dirs["flip"], "__aot__")
+    side = next(f for f in os.listdir(aot) if f.startswith("quant."))
+    with open(os.path.join(aot, side), "r+b") as f:
+        blob = bytearray(f.read())
+        blob[len(blob) // 2] ^= 0xFF
+        f.seek(0)
+        f.write(bytes(blob))
+    check(counts.get("fused_momentum") == 2 * SWAP_TRAIN_STEPS * n_params
+          and n_params == 83 and all(math.isfinite(x) for x in losses),
+          f"serve-http-swap: training the versions launched {counts} over "
+          f"{2 * SWAP_TRAIN_STEPS} steps of {n_params} tensors, losses "
+          f"{losses}; expected 83 fused_momentum a step and finite losses")
+    rec = dict(export_train_s=time.perf_counter() - t0,
+               train_batch=SWAP_TRAIN_BATCH, steps=2 * SWAP_TRAIN_STEPS,
+               losses=losses, launches=counts, params=n_params)
+    del exe, scope, built
+    return dirs, rec
+
+
+def run_version(d, images, device):
+    """Each image alone (one row) through the served program of the export
+    ``d`` (the server's own load path: ``_load_bundle``, the int8 sidecar
+    folded in), on ``device``. Returns [N, classes] numpy."""
+    import numpy as np
+    from paddle_tpu_torch.serving.server import _load_bundle
+    b = _load_bundle(d)
+    params = tuple(p.to(device) for p in b.params)
+    with torch.inference_mode():
+        outs = [b.pure_fn(params, (torch.from_numpy(im[None]).to(device),)
+                          )[0].cpu().numpy() for im in images]
+    del params
+    return np.concatenate(outs)
+
+
+class HttpLoad:
+    """HTTP_CLIENTS WireClient threads, each with its own connection, each
+    POSTing one pre-encoded 224^2 image a request until ``stop`` is set;
+    every response is recorded (send and receive times, status, version,
+    logits, trace id, image index, tenant)."""
+
+    def __init__(self, port, bodies):
+        import threading
+        self.port, self.bodies = port, bodies
+        self.lock = threading.Lock()
+        self.rows = []
+        self.stop = threading.Event()
+        self.threads = [threading.Thread(target=self._client, args=(i,),
+                                         daemon=True)
+                        for i in range(HTTP_CLIENTS)]
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _client(self, i):
+        import numpy as np
+        from paddle_tpu_torch.serving import WireClient
+        tenant = "a" if i < HTTP_CLIENTS // 2 else "b"
+        c = WireClient("127.0.0.1", self.port, timeout_s=120)
+        k = 0
+        while not self.stop.is_set():
+            img = (i * 7 + k) % len(self.bodies)
+            k += 1
+            t0 = time.perf_counter()
+            try:
+                st, _h, payload = c.request(
+                    "POST", "/v1/infer", self.bodies[img],
+                    {"X-Tenant": tenant})
+            except Exception as e:          # recorded, judged by the check
+                st, payload = -1, {"error": f"{type(e).__name__}: {e}"}
+            t1 = time.perf_counter()
+            row = dict(t0=t0, t1=t1, status=st, image=img, tenant=tenant,
+                       version=(payload or {}).get("model_version"),
+                       trace_id=(payload or {}).get("trace_id"),
+                       error=(payload or {}).get("error") if st != 200
+                       else None,
+                       out=np.asarray(payload["outputs"][0], np.float32)
+                       if st == 200 else None)
+            with self.lock:
+                self.rows.append(row)
+        c.close()
+
+    def done(self):
+        with self.lock:
+            return len(self.rows)
+
+    def wait_for(self, n, timeout=600.0):
+        t_end = time.monotonic() + timeout
+        while self.done() < n:
+            check(time.monotonic() < t_end,
+                  f"serve-http-swap: {self.done()} responses, waited for {n}")
+            time.sleep(0.01)
+
+    def finish(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(300)
+        return self.rows
+
+
+def latency_ms(rows):
+    lat = sorted((r["t1"] - r["t0"]) * 1e3 for r in rows)
+    if not lat:
+        return None
+    return dict(n=len(lat), p50_ms=lat[len(lat) // 2],
+                p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                max_ms=lat[-1])
+
+
+def params_in_ledger(memory):
+    return int(sum(b for e, b in memory.ledger("serving/").items()
+                   if e.endswith("/params")))
+
+
+def swap_sampled(srv, memory, fn):
+    """Run ``fn()`` (a swap) while a thread samples the card's allocated
+    bytes and the ledger's resident params every 2 ms; returns (fn's
+    result, peak allocated sampled, peak ledger params)."""
+    import threading
+    peak = {"alloc": 0, "params": 0}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak["alloc"] = max(peak["alloc"], torch.cuda.memory_allocated())
+            peak["params"] = max(peak["params"], params_in_ledger(memory))
+            time.sleep(0.002)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        t.join(10)
+    return out, peak["alloc"], peak["params"]
+
+
+def wait_drained(srv, timeout=300.0):
+    ctl = srv._swap_ctl()
+    t_end = time.monotonic() + timeout
+    while True:
+        with ctl._drain_lock:
+            busy = list(ctl._drain_threads) + list(ctl._standby_threads)
+        if not busy:
+            return
+        check(time.monotonic() < t_end,
+              "serve-http-swap: a retired pool did not drain")
+        time.sleep(0.02)
+
+
+def wait_swapped(srv, label, want, reg, ok0, timeout=120.0):
+    """Wait until ``watch_dir``'s swap to ``want`` has returned: the
+    version is live (set at the cutover), the ok count has moved (after
+    the watchdog window) and the swap lock is free again (released just
+    after the count)."""
+    lock = srv._swap_ctl()._swap_lock
+    t_end = time.monotonic() + timeout
+    while label.get(srv.model_version) != want or \
+            swaps_total(reg)["ok"] <= ok0 or lock.locked():
+        check(time.monotonic() < t_end,
+              f"serve-http-swap: watch_dir did not deploy {want}")
+        time.sleep(0.01)
+
+
+def swaps_total(reg):
+    m = reg.get("serving_swaps_total")
+    return {o: m.value(outcome=o) if m else 0.0
+            for o in ("ok", "gate_failed", "refused_memory",
+                      "canary_failed", "rolled_back")}
+
+
+def phase_serve_http_swap(K, pt, mb, card):
+    """Phases 45-47 (see the module docstring). Returns the record; its
+    ``launches`` are those of the served window (counts set to 0 just
+    before the clients start and read just after they stop)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.monitor import memory, trace
+    from paddle_tpu_torch.monitor.registry import REGISTRY
+    from paddle_tpu_torch.serving import (
+        FrontDoorConfig, HttpFrontDoor, InferenceServer, ServingConfig,
+        SwapFailedError,
+    )
+    from paddle_tpu_torch.serving import replica as replica_mod
+    from paddle_tpu_torch.serving.server import _load_bundle
+
+    t_phase = time.perf_counter()
+    cfg = mb.mobilenet_v1()
+    root = tempfile.mkdtemp(prefix="serve_http_swap_")
+    rec = dict(card=card, clients=HTTP_CLIENTS, max_batch=SWAP_MAX_BATCH)
+    try:
+        dirs, rec["versions"] = export_mobilenet_versions(K, pt, mb, root)
+        live_dir = os.path.join(root, "live")
+        shutil.copytree(dirs["v2"], live_dir)
+        label = {inference.read_aot_version(dirs[k]): k
+                 for k in ("v1", "v2", "v3", "nan")}
+        images = [mb.synthetic_batch(cfg, 1, seed=4700 + i)["image"][0]
+                  for i in range(HTTP_IMAGES)]
+        # the wire's host cost: one request's JSON encode (tolist + dumps)
+        # and decode (loads + asarray), the front door's own work
+        enc, dec = [], []
+        for im in images[:5]:
+            t0 = time.perf_counter()
+            body = json.dumps({"feeds": {"image": im[None].tolist()}}
+                              ).encode()
+            enc.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            back = np.asarray(json.loads(body)["feeds"]["image"])
+            dec.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(back.astype(np.float32), im[None]),
+                  "serve-http-swap: the JSON round trip changed an image")
+        bodies = [json.dumps({"feeds": {"image": im[None].tolist()}}
+                             ).encode() for im in images]
+        rec["json"] = dict(body_bytes=len(bodies[0]),
+                           floats=int(images[0].size),
+                           encode_ms=statistics.median(enc),
+                           decode_ms=statistics.median(dec),
+                           encode_ms_all=enc, decode_ms_all=dec)
+        log("serve-http-swap json " + json.dumps(rec["json"]))
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        memory.reset()
+        base = torch.cuda.memory_allocated()
+        tdir = os.path.join(root, "traces")
+        old_tracer = trace.TRACER
+        trace.enable(tdir, sample_rate=0.05)
+        t0 = time.perf_counter()
+        srv = InferenceServer(dirs["v1"], ServingConfig(
+            max_batch=SWAP_MAX_BATCH, replicas=1, max_queue=256,
+            default_deadline_ms=120_000.0))
+        rec["boot_s"] = time.perf_counter() - t0
+        pools = {"v1": srv.pool}
+        torch.cuda.synchronize()
+        v1_alloc = torch.cuda.memory_allocated() - base
+        mem = dict(v1_alone=dict(
+            allocated=v1_alloc, params=params_in_ledger(memory),
+            pool_param_bytes=srv.pool.resident_param_bytes(),
+            projected=srv.pool.projected_bytes()))
+        door = HttpFrontDoor(srv, FrontDoorConfig(socket_timeout_s=60.0))
+        door.start()
+        swaps0 = swaps_total(REGISTRY)
+        attempts = []               # (label, outcome, canary launches)
+        try:
+            K.reset_launch_counts()
+            load = HttpLoad(door.port, bodies).start()
+            load.wait_for(HTTP_SWAP_AFTER)
+
+            # phase 45: v1 -> v2 by hand, mid-traffic
+            t_swap0 = time.perf_counter()
+            report, peak_alloc, peak_params = swap_sampled(
+                srv, memory, lambda: srv.swap(
+                    live_dir, watchdog_ms=SWAP_WATCHDOG_MS))
+            t_swap1 = time.perf_counter()
+            attempts.append(("v2", "ok", 2))
+            pools["v2"] = srv.pool
+            check(report["outcome"] == "ok"
+                  and label.get(report["model_version"]) == "v2"
+                  and report["quantized"] == "int8",
+                  f"serve-http-swap: swap report {report}")
+            mem["both_pools"] = dict(
+                params=peak_params, allocated_peak_sampled=peak_alloc - base,
+                max_memory_allocated=torch.cuda.max_memory_allocated()
+                - base)
+            rec["swap"] = dict(
+                report=report, stage_ms=report["stage_ms"],
+                standby_warm_boot_s=report["stage_ms"]["standby"] / 1e3,
+                live_projected_bytes=mem["v1_alone"]["projected"],
+                standby_projected_bytes=srv.pool.projected_bytes(),
+                window_s=t_swap1 - t_swap0)
+            log("serve-http-swap swap " + json.dumps(rec["swap"]))
+            wait_drained(srv)
+            torch.cuda.synchronize()
+            mem["v2_after_drain_under_load"] = dict(
+                allocated=torch.cuda.memory_allocated() - base,
+                params=params_in_ledger(memory))
+
+            # v3 through the watched directory
+            srv.watch_dir(poll_ms=SWAP_POLL_MS,
+                          watchdog_ms=SWAP_WATCHDOG_MS)
+            load.wait_for(HTTP_PUBLISH_AFTER)
+            ok0 = swaps_total(REGISTRY)["ok"]
+            t_pub = time.perf_counter()
+            publish_version(dirs["v3"], live_dir)
+            wait_swapped(srv, label, "v3", REGISTRY, ok0)
+            t_v3 = time.perf_counter()
+            attempts.append(("v3", "ok", 2))
+            pools["v3"] = srv.pool
+            rec["watch_deploy_s"] = t_v3 - t_pub
+
+            # phase 46: three refusals on the live server under load
+            refusals = {}
+            before = swaps_total(REGISTRY)
+            try:
+                srv.swap(dirs["flip"])
+                check(False, "swap-refusals: the flipped byte was served")
+            except SwapFailedError as e:
+                refusals["gate"] = dict(stage=e.stage, retryable=e.retryable,
+                                        error=str(e)[:200])
+            attempts.append(("flip", "gate_failed", 0))
+            standby_params = int(sum(p.numel() * p.element_size()
+                                     for p in _load_bundle(dirs["v2"]).params))
+            projection = srv.pool.projected_bytes() + standby_params
+            srv.config.hbm_limit_bytes = projection - 1
+            ledger0 = memory.ledger()
+            seq0 = next(replica_mod._POOL_SEQ)
+            alloc0 = torch.cuda.memory_allocated()
+            try:
+                srv.swap(dirs["v2"])
+                check(False, "swap-refusals: admission let the swap through")
+            except SwapFailedError as e:
+                refusals["admission"] = dict(
+                    stage=e.stage, retryable=e.retryable,
+                    projection=projection, limit=projection - 1,
+                    error=str(e)[:300])
+            finally:
+                srv.config.hbm_limit_bytes = None
+            seq1 = next(replica_mod._POOL_SEQ)
+            refusals["admission"].update(
+                pools_built_between=seq1 - seq0 - 1,
+                ledger_unchanged=memory.ledger() == ledger0,
+                allocated_before=alloc0 - base,
+                allocated_after=torch.cuda.memory_allocated() - base)
+            attempts.append(("memory", "refused_memory", 0))
+            try:
+                srv.swap(dirs["nan"])
+                check(False, "swap-refusals: the NaN version was served")
+            except SwapFailedError as e:
+                refusals["canary"] = dict(stage=e.stage,
+                                          retryable=e.retryable,
+                                          error=str(e)[:200])
+            attempts.append(("nan", "canary_failed", 1))
+            cf0 = swaps_total(REGISTRY)["canary_failed"]
+            publish_version(dirs["nan"], live_dir)
+            t_end = time.monotonic() + 60
+            while swaps_total(REGISTRY)["canary_failed"] == cf0:
+                check(time.monotonic() < t_end,
+                      "swap-refusals: watch_dir never tried the NaN version")
+                time.sleep(0.01)
+            attempts.append(("nan (watch_dir)", "canary_failed", 1))
+            time.sleep(5 * SWAP_POLL_MS / 1e3)
+            refusals["watch_dir_retries"] = \
+                swaps_total(REGISTRY)["canary_failed"] - cf0 - 1
+            check(label.get(srv.model_version) == "v3",
+                  f"swap-refusals: serving {srv.model_version} after the "
+                  "refusals")
+            # a different version published: the watcher takes it
+            ok0 = swaps_total(REGISTRY)["ok"]
+            publish_version(dirs["v2"], live_dir)
+            wait_swapped(srv, label, "v2", REGISTRY, ok0)
+            attempts.append(("v2 again", "ok", 2))
+            pools["v2 again"] = srv.pool
+            after = swaps_total(REGISTRY)
+            refusals["outcomes"] = {o: after[o] - before[o] for o in after}
+            check(refusals["gate"]["stage"] == "gate"
+                  and not refusals["gate"]["retryable"]
+                  and "integrity" in refusals["gate"]["error"]
+                  and refusals["admission"]["stage"] == "admission"
+                  and refusals["admission"]["pools_built_between"] == 0
+                  and refusals["admission"]["ledger_unchanged"]
+                  and refusals["canary"]["stage"] == "canary"
+                  and refusals["watch_dir_retries"] == 0
+                  and refusals["outcomes"] == {
+                      "ok": 1, "gate_failed": 1, "refused_memory": 1,
+                      "canary_failed": 2, "rolled_back": 0},
+                  f"swap-refusals: {refusals}")
+            rec["refusals"] = refusals
+            log("swap-refusals " + json.dumps(refusals))
+
+            # the last stretch on the final version, then stop
+            n_now = load.done()
+            load.wait_for(max(HTTP_REQUESTS, n_now + HTTP_V3_MIN))
+            rows = load.finish()
+            counts = {k: v for k, v in K.launch_counts().items() if v}
+            srv._swap_ctl().stop_watch()
+            wait_drained(srv)
+            # the card at rest after the last drain, the final version
+            # alone: v1's footprint plus the change in params
+            torch.cuda.synchronize()
+            p1 = mem["v1_alone"]["pool_param_bytes"]
+            p_last = srv.pool.resident_param_bytes()
+            mem["final_alone"] = dict(
+                allocated=torch.cuda.memory_allocated() - base,
+                params=params_in_ledger(memory), pool_param_bytes=p_last,
+                want=v1_alloc + (p_last - p1))
+            batches = {k: sum(r.batches_run for r in p.replicas)
+                       for k, p in pools.items()}
+            ladder = len(srv.ladder)
+            want_i8 = (sum(n for k, n in batches.items() if k != "v1")
+                       + sum(ladder + c for _lab, out, c in attempts
+                             if out in ("ok", "canary_failed")))
+            rec["launches"] = counts
+            rec["micro_batches"] = batches
+            check(counts.get("fused_matmul", 0) == batches["v1"]
+                  and counts.get("fused_matmul_int8", 0) == want_i8
+                  and set(counts) <= {"fused_matmul", "fused_matmul_int8"},
+                  f"serve-http-swap: launches {counts} over micro-batches "
+                  f"{batches} and swap attempts {attempts} (ladder of "
+                  f"{ladder}): expected 1 fused_matmul per v1 batch and 1 "
+                  f"fused_matmul_int8 per int8 batch, warm-up run and "
+                  f"canary request ({want_i8})")
+            # the device's busy share over a burst of requests
+            def burst():
+                b = HttpLoad(door.port, bodies).start()
+                b.wait_for(4 * HTTP_CLIENTS)
+                b.finish()
+
+            prof = op_breakdown(burst, top=6, host_top=6)
+            rec["profile"] = prof
+            rec["device_busy_share"] = (prof.get("kernel_ms", 0.0)
+                                        / prof["host_ms_profiled"]
+                                        if prof else None)
+        finally:
+            door.stop()
+            closed = srv.close(timeout=300)
+            trace.disable()
+            trace.TRACER = old_tracer
+        check(closed, "serve-http-swap: the server did not close")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem["closed_allocated"] = torch.cuda.memory_allocated() - base
+
+        # phases 45 and 47: every request answered, by its version
+        bad = [r for r in rows if r["status"] != 200]
+        check(len(rows) >= HTTP_REQUESTS and not bad,
+              f"serve-http-swap: {len(rows)} requests, {len(bad)} failed: "
+              f"{[(r['status'], r['error']) for r in bad[:3]]}")
+        ref = {k: run_version(dirs[k], images, "cuda")
+               for k in ("v1", "v2", "v3")}
+        served = {}
+        dist = {"own": 0.0, "other": math.inf}
+        for r in rows:
+            v = label.get(r["version"])
+            check(v in ref, f"serving-correctness: a response names "
+                            f"{r['version']}")
+            served[v] = served.get(v, 0) + 1
+            want = ref[v][r["image"]]
+            m = float(np.abs(want).max())
+            own = float(np.abs(r["out"] - want).max()) / m
+            other = min(float(np.abs(r["out"] - ref[o][r["image"]]).max())
+                        / m for o in ref if o != v)
+            dist["own"] = max(dist["own"], own)
+            dist["other"] = min(dist["other"], other)
+        check(dist["own"] <= HTTP_TOL["own"]
+              and dist["other"] >= HTTP_TOL["other_x"] * HTTP_TOL["own"]
+              and served.get("v3", 0) >= HTTP_V3_MIN,
+              f"serving-correctness: responses {dist} from their versions "
+              f"(relative to the largest logit), served {served}")
+        cpu_v1 = run_version(dirs["v1"], images, "cpu")
+        card_cpu = float(np.abs(ref["v1"] - cpu_v1).max()
+                         / np.abs(cpu_v1).max())
+        fp32_v2 = np.concatenate([inference.create_predictor(
+            inference.Config(dirs["v2"])).run({"image": im[None]})[0]
+            for im in images])
+        int8_fp32 = float(np.abs(ref["v2"] - fp32_v2).max()
+                          / np.abs(fp32_v2).max())
+        pred_v1 = np.concatenate([inference.create_predictor(
+            inference.Config(dirs["v1"])).run({"image": im[None]})[0]
+            for im in images])
+        pred_v1_diff = float(np.abs(pred_v1 - ref["v1"]).max()
+                             / np.abs(pred_v1).max())
+        check(card_cpu <= HTTP_TOL["card_cpu"]
+              and int8_fp32 <= HTTP_TOL["int8_fp32"]
+              and pred_v1_diff <= HTTP_TOL["own"],
+              f"serving-correctness: v1 card vs CPU {card_cpu}, v2 int8 vs "
+              f"fp32 {int8_fp32}, v1 Predictor vs the served program "
+              f"{pred_v1_diff}")
+        # the merged trace: every kept request is a whole tree with its
+        # tenant
+        merged = trace.merge_rank_traces(tdir, os.path.join(root,
+                                                            "trace.json"))
+        with open(merged) as f:
+            events = json.load(f)["traceEvents"]
+        roots = [e for e in events if e.get("cat") == "root"]
+        names = {}
+        for e in events:
+            if e.get("ph") == "X":
+                names.setdefault(e["args"]["trace"], set()).add(e["name"])
+        stages = {"serving/queue_wait", "serving/batch_form",
+                  "serving/dispatch_wait", "serving/execute",
+                  "serving/deliver"}
+        whole = [e for e in roots
+                 if e["args"].get("tenant") in ("a", "b")
+                 and e["args"].get("transport") == "http"
+                 and stages <= names[e["args"]["trace"]]]
+        slowest = max(rows, key=lambda r: r["t1"] - r["t0"])
+        check(roots and len(whole) == len(roots),
+              f"serving-correctness: {len(roots)} kept traces, "
+              f"{len(whole)} with the tenant and every stage span")
+        rec["correctness"] = dict(
+            requests=len(rows), served=served, own_max=dist["own"],
+            other_min=dist["other"], v1_card_vs_cpu=card_cpu,
+            v2_int8_vs_fp32=int8_fp32, v1_predictor_vs_served=pred_v1_diff,
+            kept_traces=len(roots),
+            slowest_request_kept=slowest["trace_id"] in names,
+            tol=HTTP_TOL)
+        log("serving-correctness " + json.dumps(rec["correctness"]))
+
+        # latency before, across and after the hand swap
+        rec["latency"] = dict(
+            before=latency_ms([r for r in rows if r["t1"] < t_swap0]),
+            across=latency_ms([r for r in rows if r["t0"] < t_swap1
+                               and r["t1"] > t_swap0]),
+            after=latency_ms([r for r in rows if r["t0"] > t_swap1
+                              and r["t1"] < t_pub]),
+            all=latency_ms(rows),
+            qps=len(rows) / (max(r["t1"] for r in rows)
+                             - min(r["t0"] for r in rows)))
+        rec["memory"] = mem
+        log("serve-http-swap memory " + json.dumps(mem))
+        fin = mem["final_alone"]
+        check(abs(fin["allocated"] - fin["want"]) <= 0.1 * fin["want"]
+              and fin["params"] == p_last
+              and mem["v2_after_drain_under_load"]["params"] == p_last
+              and mem["both_pools"]["params"] == p1 + p_last,
+              f"serve-http-swap: the card's allocated bytes and resident "
+              f"params {mem}; expected v1's footprint plus the change in "
+              f"params within 10% once the retired pools drained")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log("serve_http_swap " + json.dumps(
+        {k: v for k, v in rec.items() if k != "profile"}))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7154,6 +7805,11 @@ def main():
         mbc = mobilenet_v1.mobilenet_v1()
         check_fused_matmul(K, mbc.batch, int(1024 * mbc.scale),
                            mbc.num_classes, None, torch.float32, gen)
+        # the served classifier fc (phase 45) at its top bucket:
+        # [32,1024]x[1024,1000] fp32 with its bias (v1), and with the int8
+        # weight below (v2, v3)
+        served_fc = check_fused_matmul(K, SWAP_MAX_BATCH, 1024, 1000, None,
+                                       torch.float32, gen)
         # the static BERT trunk's FFN (bench.py:485)
         for dt in (torch.float32, torch.bfloat16):
             check_fused_matmul(K, 4096, 768, 3072, "relu", dt, gen)
@@ -7174,6 +7830,10 @@ def main():
         check_fused_matmul_int8(K, 64, W2V_HIDDEN, W2V_VOCAB, None, gen,
                                 dtype=torch.bfloat16)
         check_fused_matmul_int8_accuracy(K, 4096, 768, 3072, gen)
+        served_fc8 = check_fused_matmul_int8(K, SWAP_MAX_BATCH, 1024, 1000,
+                                             None, gen)
+        log("served fc (phase 45) " + json.dumps(dict(
+            fp32=served_fc, int8=served_fc8)))
         w2v_shapes = [(W2V_VOCAB, W2V_EMBED), (4 * W2V_EMBED, W2V_HIDDEN),
                       (W2V_HIDDEN,), (W2V_HIDDEN, W2V_VOCAB), (W2V_VOCAB,)]
         opt_main = {}
@@ -7477,6 +8137,14 @@ def main():
         "against the CPU (quant-correctness)")
     quant_checks = phase_quant_checks(K, pt, ops, mobilenet_v1, card)
     log(f"phases 0-44 done at {time.perf_counter() - t_start:.1f} s")
+    log("phases 45-47: MobileNetV1 at 224^2 served over HTTP, hot-swapped "
+        "from fp32 to int8 by hand and by watch_dir, three refusals under "
+        "load, every response held against its version "
+        "(serve-http-swap-mobilenet, swap-refusals, serving-correctness)")
+    t45 = time.perf_counter()
+    http_swap = phase_serve_http_swap(K, pt, mobilenet_v1, card)
+    log(f"phases 45-47 took {time.perf_counter() - t45:.1f} s; phases 0-47 "
+        f"done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -7513,6 +8181,8 @@ def main():
         "misc-correctness": misc_checks["launches"],
         "train-qat-mobilenet": qat_train["launches"],
         "quant-correctness": quant_checks["launches"],
+        "train-mobilenet-versions": http_swap["versions"]["launches"],
+        "serve-http-swap-mobilenet": http_swap["launches"],
     }
     kernels = []
     for name, main_rec in (

@@ -71,8 +71,11 @@ def _build_pure_fn(program, feed_names, fetch_names):
         env = dict(on_device[dev])
         env.update(zip(state_names, params))
         env.update(zip(feed_names, feeds))
+        # a shape-only run on the meta device draws nothing: any generator
+        # does, and torch makes none for meta
+        gdev = torch.device("cpu") if dev.type == "meta" else dev
         for op in ops:
-            rng = (_op_generator(dev, program.random_seed, 1, op)
+            rng = (_op_generator(gdev, program.random_seed, 1, op)
                    if op.attrs.get("_needs_rng") else None)
             env.update(exec_op(op, env, rng))
         return tuple(env[n] for n in fetch_names)

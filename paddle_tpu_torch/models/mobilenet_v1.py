@@ -48,8 +48,9 @@ import importlib
 import numpy as np
 
 __all__ = ["MobileNetConfig", "mobilenet_v1", "mobilenet_v1_tiny",
-           "conv_bn", "mobilenet", "build_qat", "freeze", "synthetic_batch",
-           "param_names", "fake_quant_fetch", "quant_flips", "check_flips"]
+           "conv_bn", "mobilenet", "build_qat", "build_train", "freeze",
+           "export_served", "synthetic_batch", "param_names",
+           "fake_quant_fetch", "quant_flips", "check_flips"]
 
 #: the depthwise-separable blocks: (in width, out width, groups, stride,
 #: name), before the width multiplier
@@ -146,6 +147,47 @@ def build_qat(pt, cfg):
     _quant(pt).QuantizeTranspiler().transpile(main)
     return dict(main=main, startup=startup, test=test, logits=logits,
                 loss=loss)
+
+
+def build_train(pt, cfg):
+    """The plain (float) training program: the network, the loss and
+    Momentum(``cfg.lr``, ``cfg.momentum``) with no weight decay and no
+    quantization, and the ``clone(for_test=True)`` taken before
+    ``minimize`` that serving exports. Returns a dict: main, startup, test,
+    logits, loss."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.framework.unique_name.guard():
+        image = pt.data("image", [3, cfg.image_size, cfg.image_size],
+                        "float32")
+        label = pt.data("label", [1], "int64")
+        logits = mobilenet(pt, cfg, image)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        test = main.clone(for_test=True)
+        pt.optimizer.Momentum(learning_rate=cfg.lr,
+                              momentum=cfg.momentum).minimize(loss)
+    return dict(main=main, startup=startup, test=test, logits=logits,
+                loss=loss)
+
+
+def export_served(pt, exe, scope, built, dirname, quantize=None):
+    """Deploy the evaluation program of :func:`build_train` (or
+    :func:`build_qat`) with ``scope``'s weights: ``save_inference_model``
+    (feed ``image``, fetch the logits), then ``export_aot`` of the loaded
+    program, which stamps the manifest's ``model_version`` and, with
+    ``quantize="int8"``, writes the int8 fc weight the server folds into
+    its matmul. ``pt`` is either package. Returns ``dirname``."""
+    inference = importlib.import_module(pt.__name__ + ".inference")
+    s = int(built["test"].global_block().var("image").shape[-1])
+    with pt.static.scope_guard(scope):
+        pt.io.save_inference_model(dirname, ["image"], [built["logits"]],
+                                   exe, main_program=built["test"])
+        prog, feeds, fetches = pt.io.load_inference_model(
+            dirname, exe, scope=pt.static.Scope())
+    inference.export_aot(dirname, prog, feeds, fetches, scope,
+                         [{"image": ((1, 3, s, s), "float32")}],
+                         quantize=quantize)
+    return dirname
 
 
 def freeze(pt, exe, scope, test_prog, calib_feeds):

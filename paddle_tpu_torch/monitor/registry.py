@@ -17,8 +17,8 @@ Design constraints, in order:
 
 Metric names follow Prometheus conventions (``snake_case``, counters end in
 ``_total``, unit suffix like ``_ms`` on histograms). The exporter and the
-registry's snapshot readers (``collect``, ``samples``) are not ported yet
-(ROADMAP queue 1 item 10); a metric is read with ``value``/``count``.
+registry's ``collect`` are not ported yet (ROADMAP queue 1 item 10); a
+metric is read with ``value``/``count``/``sum`` or its ``samples()``.
 """
 
 import bisect
@@ -73,6 +73,17 @@ class _ThreadShards:
     def shards(self):
         with self._lock:
             return [sd for _t, sd in self._entries]
+
+
+def _snap_items(d):
+    """``list(d.items())`` robust to a concurrent writer inserting a new key
+    mid-iteration (the RuntimeError is only the resize guard, so retrying
+    converges as soon as one pass sees no insert)."""
+    while True:
+        try:
+            return list(d.items())
+        except RuntimeError:
+            continue
 
 
 def _fold_cells(acc, shard):
@@ -142,6 +153,15 @@ class Counter(_Metric):
         key = self._labelkey(labels)
         return sum(s.get(key, 0.0) for s in self._all_shards())
 
+    def samples(self):
+        """{labelvalues tuple: merged value}."""
+        out = {}
+        for s in self._all_shards():
+            for k, v in _snap_items(s):
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+
 class Gauge(_Metric):
     """Point-in-time value; single locked store (last write wins)."""
 
@@ -156,10 +176,23 @@ class Gauge(_Metric):
         with self._lock:
             self._values[key] = float(value)
 
+    def inc(self, amount=1.0, **labels):
+        key = self._labelkey(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def dec(self, amount=1.0, **labels):
+        self.inc(-amount, **labels)
+
     def value(self, **labels):
         key = self._labelkey(labels)
         with self._lock:
             return self._values.get(key, 0.0)
+
+    def clear(self):
+        """Drop every labeled series (a superseded object's gauges)."""
+        with self._lock:
+            self._values.clear()
 
     def remove(self, **labels):
         """Drop ONE labeled series — for gauges whose label values
@@ -168,6 +201,10 @@ class Gauge(_Metric):
         key = self._labelkey(labels)
         with self._lock:
             self._values.pop(key, None)
+
+    def samples(self):
+        with self._lock:
+            return dict(self._values)
 
 
 class Histogram(_Metric):
@@ -197,9 +234,37 @@ class Histogram(_Metric):
         cell[-2] += value
         cell[-1] += 1
 
+    def _merged(self):
+        out = {}
+        nb = len(self.buckets) + 3
+        for s in self._all_shards():
+            for k, cell in _snap_items(s):
+                acc = out.get(k)
+                if acc is None:
+                    acc = out[k] = [0] * (nb - 2) + [0.0, 0]
+                for i in range(nb):
+                    acc[i] += cell[i]
+        return out
+
+    def samples(self):
+        """{labelvalues: (cumulative bucket counts incl +Inf, sum,
+        count)}."""
+        out = {}
+        for k, cell in self._merged().items():
+            cum, running = [], 0
+            for c in cell[:-2]:
+                running += c
+                cum.append(running)
+            out[k] = (cum, cell[-2], cell[-1])
+        return out
+
     def count(self, **labels):
         key = self._labelkey(labels)
         return sum(s.get(key, [0.0, 0])[-1] for s in self._all_shards())
+
+    def sum(self, **labels):
+        key = self._labelkey(labels)
+        return sum(s.get(key, [0.0, 0])[-2] for s in self._all_shards())
 
 
 class Registry:

@@ -19,6 +19,7 @@ through :meth:`Kernel.count_launch` once per launch that CUDA accepted,
 so a run can show that its main path went through the kernel.
 """
 
+import contextlib
 import threading
 
 import torch
@@ -28,6 +29,7 @@ from paddle_tpu_torch.core.enforce import EnforceNotMet
 __all__ = [
     "Kernel", "register_kernel", "get_kernel", "list_kernels", "get_body",
     "selected_body", "dispatch", "launch_counts", "reset_launch_counts",
+    "meta_shapes",
 ]
 
 _REGISTRY = {}
@@ -88,16 +90,36 @@ def get_body(name, which):
 
 def selected_body(name, device):
     """Which body a dispatch of ``name`` on ``device`` runs: 'reference'
-    for the CPU, 'kernel' for CUDA. Any other device raises."""
+    for the CPU, 'kernel' for CUDA; 'reference' for the ``meta`` device
+    only inside :func:`meta_shapes`. Any other device raises."""
     _REGISTRY[name]  # unknown names raise KeyError like get_kernel
     device = torch.device(device)
-    if device.type == "cpu":
+    if device.type == "cpu" or (device.type == "meta"
+                                and getattr(_probe, "on", False)):
         return "reference"
     if device.type == "cuda":
         return "kernel"
     raise EnforceNotMet(
         f"kernel {name!r} has no body for device {device}: the port runs "
         "on 'cuda' (hand-written kernels) or 'cpu' (plain PyTorch)")
+
+
+_probe = threading.local()
+
+
+@contextlib.contextmanager
+def meta_shapes():
+    """Within this block (on this thread), a dispatch on ``meta`` tensors
+    runs the plain body, which computes shapes and no values: the port's
+    ``jax.eval_shape`` of a whole served function (the serving
+    fetch-contract check). Outside it, meta raises as any foreign device
+    does."""
+    prev = getattr(_probe, "on", False)
+    _probe.on = True
+    try:
+        yield
+    finally:
+        _probe.on = prev
 
 
 def dispatch(name, x, *args, **kwargs):

@@ -26,11 +26,20 @@ against the already-resident params after a capped exponential backoff.
 the slot. If every slot retires, the supervisor keeps draining the batch
 queue and failing riders so no request ever hangs.
 
-Not ported yet: the memory-ledger publication of the pool's residency and
-the compile-time peak projections (ROADMAP queue 1 item 10), and the
-standby role, promotion and release that the hot swap drives (item 8).
+**Two pools** coexist during a hot swap (``swap.py``): a pool has a
+``role``, ``"live"`` or ``"standby"``, and only the live one publishes the
+pool gauges; ``promote``/``demote`` hand them over at cutover and
+``release`` drops a drained pool's device params. Each pool attributes its
+residency in the memory ledger (``monitor/memory.py``) under its own tag,
+and ``projected_bytes`` is what the swap's admission projects: on the card,
+the params plus the largest transient peak a bucket's warm-up run measured
+(the JAX package reads XLA's compile-time estimate there; the port
+measures). Replica threads and a standby's warm-up share the device's
+default stream, so a standby warming beside the live pool queues its copies
+and kernels behind the live batches instead of racing them.
 """
 
+import itertools
 import queue
 import threading
 import time
@@ -39,6 +48,7 @@ import torch
 
 from paddle_tpu_torch.core.dtypes import convert_dtype
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.monitor import memory as _memory
 from paddle_tpu_torch.monitor.registry import counter, gauge, histogram
 from paddle_tpu_torch.serving.resilience import ReplicaLostError, _log
 
@@ -65,11 +75,16 @@ _m_respawns = counter(
     "stall or thread death (against the already-resident params)")
 _m_param_bytes = gauge(
     "serving_param_bytes",
-    "Device-resident model-parameter bytes per replica device (weight-"
-    "quantized serving shrinks this ~4x for int8, 2x for bf16)")
+    "Device-resident model-parameter bytes per replica device of the "
+    "LIVE pool (weight-quantized serving shrinks this ~4x for int8, 2x "
+    "for bf16)")
 
 #: batch-queue sentinel, one per live replica at shutdown
 _STOP = object()
+
+#: monotonic pool tags scoping memory-ledger entities: two pools coexist
+#: during a hot swap, so the role alone cannot name residency
+_POOL_SEQ = itertools.count()
 
 #: replica lifecycle states (the serving_replica_state vocabulary)
 _UP, _QUARANTINED, _RETIRED = "up", "quarantined", "retired"
@@ -94,7 +109,7 @@ class Replica:
     queue."""
 
     def __init__(self, index, device, fn, params, ladder, feed_names,
-                 batch_queue):
+                 batch_queue, pool=None):
         self.index = index
         self.device = device
         self._fn = fn
@@ -102,6 +117,9 @@ class Replica:
         self._ladder = tuple(ladder)
         self._feed_names = tuple(feed_names)
         self._q = batch_queue
+        #: owning pool (None when built alone): a batch failed HERE counts
+        #: against THIS pool, which the hot-swap watchdog reads
+        self._pool = pool
         self._thread = threading.Thread(
             target=self._loop, daemon=True,
             name=f"serving-replica-{index}")
@@ -121,6 +139,9 @@ class Replica:
     def start(self):
         self._thread.start()
         return self
+
+    def join(self, timeout=None):
+        self._thread.join(timeout)
 
     def is_alive(self):
         return self._thread.is_alive()
@@ -178,6 +199,7 @@ class Replica:
             except Exception as e:
                 # deliver the failure to the batch's requests and keep
                 # serving: one poisoned batch must not kill the replica
+                self._note_failure()
                 mb.fail(e)
                 self._idle()
                 if self._abandoned:
@@ -185,12 +207,15 @@ class Replica:
                 continue
             if stamped:
                 mb.t_exec = time.perf_counter()
+            if self._pool is not None and hasattr(mb, "model_version"):
+                mb.model_version = self._pool.model_version
             try:
                 mb.complete(outs)
             except Exception as e:
                 # complete() itself failed (e.g. the program returned
                 # a wrong leading dim): sweep the undelivered requests
                 # with the error (first-wins delivery) and keep serving
+                self._note_failure()
                 mb.fail(e)
                 self._idle()
                 if self._abandoned:
@@ -206,15 +231,26 @@ class Replica:
         self.current = None
         self.busy_since = None
 
+    def _note_failure(self):
+        if self._pool is not None:
+            self._pool._note_batch_failures()
+
     def run_batch(self, bucket, feeds):
         """Run one padded batch dict for ``bucket`` on this replica's
         device; returns host arrays in fetch order."""
         enforce(bucket in self._ladder,
                 f"replica {self.index} was not warmed for bucket {bucket} "
                 f"(ladder {self._ladder})")
-        fd = tuple(torch.from_numpy(feeds[n]).to(self.device)
-                   for n in self._feed_names)
-        return [o.cpu().numpy() for o in self._fn(self._params, fd)]
+        try:
+            fd = tuple(torch.from_numpy(feeds[n]).to(self.device)
+                       for n in self._feed_names)
+            return [o.cpu().numpy() for o in self._fn(self._params, fd)]
+        except Exception as e:
+            if _memory.is_oom_error(e):
+                # a typed postmortem instead of the allocator's traceback;
+                # it flows through _drain's failure handling to mb.fail
+                _memory.handle_oom(e, f"serving.replica/bucket{bucket}")
+            raise
 
 
 class ReplicaPool:
@@ -232,12 +268,20 @@ class ReplicaPool:
     this is a wedge (quarantine + respawn); ``max_consecutive_stalls`` —
     losses with no successful batch in between before the slot retires;
     ``respawn_backoff_ms`` — base of the capped (5 s) exponential respawn
-    backoff; ``supervise=False`` runs no supervisor thread."""
+    backoff; ``supervise=False`` runs no supervisor thread.
+
+    ``role`` makes two pools coexist for the hot swap: only the ``"live"``
+    pool publishes the ``serving_replicas`` / ``serving_replica_state`` /
+    ``serving_param_bytes`` gauges; a ``"standby"`` pool warm-boots and
+    drains its own queue silently (its supervisor still heals it), and
+    ``promote()`` / ``demote()`` hand gauge ownership over at cutover. A
+    demoted pool's ``close()`` never zeroes the gauges the new live pool
+    owns."""
 
     def __init__(self, pure_fn, params, feed_names, sample_specs,
                  ladder, n_replicas=1, devices=None, queue_depth=None,
                  replica_stall_ms=30_000.0, max_consecutive_stalls=3,
-                 respawn_backoff_ms=100.0, supervise=True):
+                 respawn_backoff_ms=100.0, supervise=True, role="live"):
         from paddle_tpu_torch import default_device
 
         enforce(n_replicas >= 1, f"n_replicas < 1 ({n_replicas})")
@@ -250,6 +294,12 @@ class ReplicaPool:
         enforce(respawn_backoff_ms >= 0,
                 f"respawn_backoff_ms must be >= 0, got "
                 f"{respawn_backoff_ms!r}")
+        enforce(role in ("live", "standby"),
+                f"role must be 'live' or 'standby', got {role!r}")
+        self.role = role
+        #: the manifest model_version this pool serves (``_boot_pool``
+        #: sets it); stamped on every batch it completes
+        self.model_version = None
         self._fn = pure_fn
         self._feed_names = tuple(feed_names)
         self.ladder = tuple(ladder)
@@ -266,11 +316,23 @@ class ReplicaPool:
         self._param_bytes = int(sum(_nbytes(p) for p in params))
         self._by_device = {}        # device -> resident params
         self.warm_shapes = {}       # bucket -> output shapes
+        #: bucket -> the largest transient bytes (feeds, activations,
+        #: outputs) its warm-up run allocated over the resident params, as
+        #: measured on the first card; empty on the CPU
+        self._bucket_peak = {}
+        self._pool_tag = f"pool{next(_POOL_SEQ)}"
+        self._ledger_entities = ()
         with torch.inference_mode():
             for dev in {devices[i % len(devices)]: None
                         for i in range(n_replicas)}:
                 resident = tuple(p.to(dev) for p in params)
                 for bucket in self.ladder:
+                    measure = dev.type == "cuda" and \
+                        bucket not in self._bucket_peak
+                    if measure:
+                        torch.cuda.synchronize(dev)
+                        torch.cuda.reset_peak_memory_stats(dev)
+                        before = torch.cuda.memory_allocated(dev)
                     zeros = tuple(
                         torch.zeros((bucket,) + tuple(shape),
                                     dtype=convert_dtype(dtype), device=dev)
@@ -279,13 +341,25 @@ class ReplicaPool:
                     outs = pure_fn(resident, zeros)
                     self.warm_shapes[bucket] = [tuple(o.shape)
                                                 for o in outs]
+                    if measure:
+                        torch.cuda.synchronize(dev)
+                        self._bucket_peak[bucket] = int(
+                            torch.cuda.max_memory_allocated(dev) - before)
+                    del zeros, outs
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 self._by_device[dev] = resident
+        self._ledger_publish()
         self._stopped = False
         #: True only after a TRUE close finished its final sweep — the
         #: dispatch() post-put sweep keys on it (see dispatch)
         self._closed_done = False
+        #: batches this pool delivered as typed FAILURES (execution or
+        #: complete errors, supervisor-failed in-flight batches, dead-pool
+        #: and close sweeps): the hot-swap watchdog's per-pool attribution;
+        #: deadline expiries are load symptoms and do not count
+        self.batch_failures = 0
+        self._fail_lock = threading.Lock()
         self._stall_s = replica_stall_ms / 1e3
         self._max_stalls = int(max_consecutive_stalls)
         self._backoff_s = respawn_backoff_ms / 1e3
@@ -301,7 +375,7 @@ class ReplicaPool:
         self.replicas = [
             Replica(i, self._slot_device[i], pure_fn,
                     self._by_device[self._slot_device[i]], self.ladder,
-                    self._feed_names, self.batch_queue)
+                    self._feed_names, self.batch_queue, pool=self)
             for i in range(n_replicas)]
         for r in self.replicas:
             r.start()
@@ -316,6 +390,10 @@ class ReplicaPool:
 
     # -- supervision -------------------------------------------------------
     def _publish_states(self):
+        if self.role != "live":
+            # a standby pool coexists with the live one during a hot swap:
+            # publishing its counts would overwrite the live pool's truth
+            return
         counts = {_UP: 0, _QUARANTINED: 0, _RETIRED: 0}
         for s in self._states:
             counts[s] += 1
@@ -325,6 +403,83 @@ class ReplicaPool:
         # count actually draining the queue, not the count booted
         _m_replicas.set(counts[_UP])
         _m_param_bytes.set(self._param_bytes)
+
+    def projected_bytes(self):
+        """Per-device bytes this pool needs to co-reside, the number the
+        hot swap's admission projects before booting a standby: the params
+        plus the largest transient peak a bucket's warm-up run allocated
+        over them on the card (``torch.cuda.reset_peak_memory_stats`` and
+        ``max_memory_allocated`` around the run). A measurement, where the
+        JAX package takes XLA's compile-time estimate; a warm-up beside a
+        serving pool on the same card counts that pool's transients too, so
+        the projection errs high. On the CPU, the param bytes alone."""
+        return int(self._param_bytes
+                   + max(self._bucket_peak.values(), default=0))
+
+    def _ledger_publish(self):
+        """Attribute this pool's residency in the memory ledger: params
+        (summed across the pool's devices) and each bucket's measured
+        peak, under the pool's own tag (two pools coexist during a swap).
+        Never fatal: telemetry must not fail a boot or a cutover."""
+        try:
+            self._ledger_drop()
+            ndev = max(1, len(self._by_device))
+            pre = f"serving/{self._pool_tag}:{self.role}"
+            entities = {f"{pre}/params": self._param_bytes * ndev}
+            for bucket, peak in self._bucket_peak.items():
+                entities[f"{pre}/bucket{bucket}"] = peak
+            for e, b in entities.items():
+                _memory.ledger_set(e, b)
+            self._ledger_entities = tuple(entities)
+        except Exception:
+            pass
+
+    def _ledger_drop(self):
+        try:
+            for e in getattr(self, "_ledger_entities", ()):
+                _memory.ledger_remove(e)
+            self._ledger_entities = ()
+        except Exception:
+            pass
+
+    def promote(self):
+        """Standby -> live at hot-swap cutover: take gauge ownership and
+        publish this pool's states (under the pool lock, see ``demote``)."""
+        with self._lock:
+            self.role = "live"
+            self._publish_states()
+            self._ledger_publish()
+
+    def demote(self):
+        """Live -> draining out at cutover (or rollback of a freshly
+        promoted standby): stop publishing gauges while the replicas drain
+        the batches already dispatched here. Under the pool lock, so a
+        supervisor mid-``_publish_states`` finishes before the role flips
+        and cannot land its publish after the new owner's."""
+        with self._lock:
+            self.role = "standby"
+            # the residency is real until release(): re-attribute it
+            self._ledger_publish()
+
+    def release(self):
+        """Drop the device-resident params after a TRUE close: the hot
+        swap's two-pool window ends here. Empties the caching allocator's
+        free blocks so the card's reserve shrinks with the allocation. A
+        released pool cannot respawn; call only once close() returned
+        True."""
+        self._ledger_drop()
+        cards = [d for d in self._by_device if d.type == "cuda"]
+        self._by_device.clear()
+        for r in self.replicas:
+            r._params = ()
+        if cards:
+            for d in cards:
+                torch.cuda.synchronize(d)
+            torch.cuda.empty_cache()
+
+    def _note_batch_failures(self, n=1):
+        with self._fail_lock:
+            self.batch_failures += n
 
     def _supervise(self):
         """Detect wedged/dead replicas, quarantine, respawn (capped
@@ -381,6 +536,7 @@ class ReplicaPool:
                 dead_pool = all(s == _RETIRED for s in self._states)
             for mb, exc in to_fail:
                 if mb is not None and hasattr(mb, "fail"):
+                    self._note_batch_failures()
                     mb.fail(exc)
             if dead_pool:
                 self._drain_dead_pool()
@@ -425,7 +581,7 @@ class ReplicaPool:
         self._respawn_due.pop(i, None)
         dev = self._slot_device[i]
         nr = Replica(i, dev, self._fn, self._by_device[dev], self.ladder,
-                     self._feed_names, self.batch_queue)
+                     self._feed_names, self.batch_queue, pool=self)
         self.replicas[i] = nr
         self._states[i] = _UP
         nr.start()
@@ -443,6 +599,7 @@ class ReplicaPool:
             except queue.Empty:
                 return
             if mb is not _STOP and hasattr(mb, "fail"):
+                self._note_batch_failures()
                 mb.fail(ReplicaLostError(why))
 
     def _drain_dead_pool(self):
@@ -494,6 +651,7 @@ class ReplicaPool:
             if not r.is_alive():
                 if not r._exited_clean and r.current is not None \
                         and hasattr(r.current, "fail"):
+                    self._note_batch_failures()
                     r.current.fail(ReplicaLostError(
                         f"serving replica {r.index} thread died "
                         f"during shutdown with this batch in flight; "
@@ -505,6 +663,7 @@ class ReplicaPool:
                     and now - t > self._stall_s:
                 r._abandoned = True
                 if hasattr(mb, "fail"):
+                    self._note_batch_failures()
                     mb.fail(ReplicaLostError(
                         f"serving replica {r.index} wedged "
                         f"mid-dispatch during shutdown; its in-flight "
@@ -562,10 +721,14 @@ class ReplicaPool:
         # and sweeps itself — either way its riders get a typed error,
         # never silence.
         self._closed_done = True
+        self._ledger_drop()
         self._fail_queued(
             "serving pool closed with this batch undispatched (no "
             "live replica remained to run it)")
-        # gauge truth on the way out: a closed pool has nothing up,
-        # nothing awaiting respawn, nothing newly retired
-        zero_pool_gauges()
+        if self.role == "live":
+            # gauge truth on the way out: a closed pool has nothing up,
+            # nothing awaiting respawn, nothing newly retired. A DEMOTED
+            # pool draining out after a cutover skips this: the promoted
+            # pool owns the gauges now
+            zero_pool_gauges()
         return True

@@ -159,7 +159,7 @@ class PendingResult:
     delivery, so read it after ``result()``."""
 
     __slots__ = ("_event", "_outs", "_error", "t_done", "trace_id",
-                 "_claim")
+                 "_claim", "model_version")
 
     def __init__(self):
         self._event = threading.Event()
@@ -167,6 +167,11 @@ class PendingResult:
         self._error = None
         self.t_done = None          # perf_counter at completion
         self.trace_id = None        # monitor.trace id (kept traces)
+        #: the model version of the pool whose replica computed the
+        #: result (None where the dispatch target names none): across a
+        #: hot-swap cutover the server's current version may already be
+        #: the next one
+        self.model_version = None
         self._claim = threading.Lock()
 
     def done(self):
@@ -295,6 +300,9 @@ class MicroBatch:
         for n in self._TRACE_STAMPS:
             setattr(self, n, None)
         self.rows = sum(r.rows for r in self.requests)
+        #: the version of the pool that ran the batch (its replica stamps
+        #: it before ``complete``)
+        self.model_version = None
         enforce(self.rows <= self.bucket,
                 f"batch of {self.rows} rows formed for bucket "
                 f"{self.bucket}")
@@ -356,6 +364,7 @@ class MicroBatch:
             if r.pending.claim():
                 if hint is not None:
                     self._finish_trace(r, lat_ms, now, hint=hint)
+                r.pending.model_version = self.model_version
                 r.pending._deliver(outs=sliced, claimed=True)
                 _m_requests.inc(outcome="ok")
                 _m_latency.observe(lat_ms)

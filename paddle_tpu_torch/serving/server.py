@@ -13,19 +13,25 @@ bucket), and only then accepts requests:
     outs = server.infer({"x": batch})          # blocking convenience
     pending = server.submit({"x": batch})      # pipelined
     outs = pending.result(timeout=5)
+    server.swap(new_model_dir)                 # zero-downtime deploy
     server.close()                             # drains, then stops
 
 Request contract: every feed carries a leading batch dim (1..max_batch
 rows); outputs come back in fetch order, sliced to the request's rows, as
 numpy arrays. Devices: ``ServingConfig.devices`` (default: the card).
 
-Not ported yet (ROADMAP queue 1 item 8): the hot model swap
-(``swap``, ``watch_dir``, which raise) and the HTTP front door.
+Deploying a new model version is a supervised operation: ``swap(model_dir)``
+runs the staged gate -> memory admission -> standby warm boot -> canary ->
+atomic cutover -> watchdog pipeline (``swap.py``), and ``watch_dir()`` keeps
+doing it as training publishes new ``export_aot`` outputs. Loading is split
+from the warm boot (``_load_bundle`` / ``_boot_pool``) so the swap can build
+a SECOND pool beside the live one. ``frontdoor.HttpFrontDoor`` puts HTTP in
+front of ``submit``.
 """
 
 import numpy as np
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet, enforce
+from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.serving import swap as _swap
 from paddle_tpu_torch.serving.replica import ReplicaPool, zero_pool_gauges
 from paddle_tpu_torch.serving.resilience import ShedController, _log
@@ -59,12 +65,16 @@ class ServingConfig:
     - ``shed_mode``: ``"off"`` (default) or ``"adaptive"`` (brownout
       shedding with ``OverloadedError``; requires ``default_deadline_ms``),
       with ``shed_enter_frac`` / ``shed_exit_frac`` as its hysteresis.
-    - ``shed_hbm_frac``: the adaptive controller's HBM-pressure input; it
-      reads the memory monitor, which is not ported yet: anything but None
-      raises at boot.
-    - ``hbm_limit_bytes``: the HBM capacity the hot swap's memory-aware
-      admission projects against; the swap is not ported yet (ROADMAP
-      queue 1 item 8): anything but None raises here.
+    - ``hbm_limit_bytes``: per-device memory capacity the hot swap's
+      memory-aware admission projects against (a standby that cannot
+      co-reside with the live pool under it is refused before it boots).
+      None falls back to the card's total memory /
+      ``PADDLE_TPU_HBM_LIMIT_BYTES``; with neither (the CPU), admission is
+      advisory.
+    - ``shed_hbm_frac``: optional HBM-pressure shed input: the worst card's
+      utilization at or above this fraction sheds new admissions
+      (``reason="hbm_pressure"``); it reads the memory poller
+      (``monitor.memory.enable()``). None disables.
     """
 
     def __init__(self, max_batch=8, max_wait_ms=5.0, max_queue=256,
@@ -75,11 +85,6 @@ class ServingConfig:
                  shed_mode="off", shed_enter_frac=0.5,
                  shed_exit_frac=0.25, hbm_limit_bytes=None,
                  shed_hbm_frac=None):
-        if hbm_limit_bytes is not None:
-            raise EnforceNotMet(
-                "ServingConfig(hbm_limit_bytes=...): the hot swap's "
-                "memory-aware admission is not ported yet (ROADMAP queue 1 "
-                "item 8)")
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.max_queue = max_queue
@@ -126,7 +131,8 @@ def _infer_sample_specs(program, feed_names, overrides):
 class _ModelBundle:
     """Everything one model version needs to serve, loaded but not yet on
     a device: the served program, its feed/fetch contract, the pure fn and
-    its params (CPU tensors), and the manifest's ``model_version``."""
+    its params (CPU tensors), and the manifest's ``model_version``. The
+    server boots from one; the swap loads a SECOND one for the standby."""
 
     __slots__ = ("model_dir", "program", "feed_names", "fetch_names",
                  "sample_specs", "pure_fn", "params", "version",
@@ -186,12 +192,30 @@ def _load_bundle(model_dir, feed_specs=None, verify=True):
                         quantized=quant["mode"] if quant else None)
 
 
-def _check_fetch_contract(bundle, pool):
+def _check_fetch_contract(bundle, ladder):
     """Micro-batched serving requires every fetch to be per-row (leading
-    dim = batch). The warm boot ran the top bucket; its output shapes
-    decide, so a batch-reduced fetch fails at boot, naming the fetch."""
-    top = pool.ladder[-1]
-    for name, shape in zip(bundle.fetch_names, pool.warm_shapes[top]):
+    dim = batch). The served function runs once at the top bucket on the
+    ``meta`` device (shapes only, no data, no device memory: the port's
+    ``jax.eval_shape``; the kernels' plain bodies compute the shapes), so a
+    batch-reduced fetch fails at load and at the swap gate, before any warm
+    boot, naming the fetch."""
+    import torch
+    from paddle_tpu_torch.core.dtypes import convert_dtype
+    from paddle_tpu_torch.ops.kernels.registry import meta_shapes
+
+    top = ladder[-1]
+    meta = torch.device("meta")
+    with torch.inference_mode(), meta_shapes():
+        params = tuple(torch.empty(p.shape, dtype=p.dtype, device=meta)
+                       for p in bundle.params)
+        feeds = tuple(
+            torch.empty((top,) + tuple(shape), dtype=convert_dtype(dt),
+                        device=meta)
+            for shape, dt in (bundle.sample_specs[n]
+                              for n in bundle.feed_names))
+        outs = bundle.pure_fn(params, feeds)
+    for name, o in zip(bundle.fetch_names, outs):
+        shape = tuple(o.shape)
         enforce(len(shape) >= 1 and int(shape[0]) == top,
                 f"fetch {name!r} has output shape {shape} for a batch of "
                 f"{top}: not per-row, so micro-batched results cannot be "
@@ -199,17 +223,22 @@ def _check_fetch_contract(bundle, pool):
                 f"served graph or use the single-request Predictor")
 
 
-def _boot_pool(bundle, config):
+def _boot_pool(bundle, config, role="live"):
     """Warm-boot a replica pool for one model bundle: params onto each
-    device, every bucket run once."""
-    return ReplicaPool(
+    device, every bucket run once. A hot-swap standby passes
+    ``role="standby"`` so the live pool keeps gauge ownership while both
+    are resident. The pool carries the bundle's version, which its
+    replicas stamp on every result they compute."""
+    pool = ReplicaPool(
         bundle.pure_fn, bundle.params, bundle.feed_names,
         bundle.sample_specs, ladder=bucket_ladder(config.max_batch),
         n_replicas=config.replicas, devices=config.devices,
         replica_stall_ms=config.replica_stall_ms,
         max_consecutive_stalls=config.max_consecutive_stalls,
         respawn_backoff_ms=config.respawn_backoff_ms,
-        supervise=config.supervise)
+        supervise=config.supervise, role=role)
+    pool.model_version = bundle.version
+    return pool
 
 
 class InferenceServer:
@@ -217,7 +246,8 @@ class InferenceServer:
 
     Construction performs the full warm boot (load, verify, warm every
     bucket on every replica device, start the workers); when ``__init__``
-    returns the server is serving."""
+    returns the server is serving. ``swap()`` / ``watch_dir()`` replace the
+    served model version with zero downtime."""
 
     def __init__(self, model_dir, config=None):
         self.config = config = config or ServingConfig()
@@ -237,14 +267,11 @@ class InferenceServer:
                 hbm_high_frac=config.shed_hbm_frac)
         bundle = _load_bundle(model_dir, config.feed_specs,
                               verify=config.verify_aot)
-        self._bundle = bundle
-        self.model_dir = bundle.model_dir
-        self._program = bundle.program
-        self._feed_names = bundle.feed_names
-        self._fetch_names = bundle.fetch_names
-        self._sample_specs = bundle.sample_specs
+        self._apply_bundle(bundle)
         # the scheduler validates its knobs before the warm boot, so a bad
-        # knob fails in microseconds
+        # knob fails in microseconds; dispatch targets the live pool through
+        # one attribute read (_dispatch_batch), and the hot-swap cutover
+        # rebinds it (scheduler.set_dispatch)
         self.scheduler = MicroBatchScheduler(
             dispatch=self._dispatch_batch,
             feed_names=self._feed_names,
@@ -254,19 +281,31 @@ class InferenceServer:
             sample_specs=self._sample_specs,
             default_deadline_ms=config.default_deadline_ms,
             shed=shed)
-        self.pool = _boot_pool(bundle, config)
-        try:
-            _check_fetch_contract(bundle, self.pool)
-        except EnforceNotMet:
-            self.pool.close()
-            raise
+        _check_fetch_contract(bundle, bucket_ladder(config.max_batch))
+        self.pool = _boot_pool(bundle, config, role="live")
+        self._swap_controller = None
+        self._closing = False
         _swap.publish_model_version(self.model_version)
         _log(f"serving model version "
              f"{self.model_version or 'unversioned'} from {model_dir} "
              f"(boot)")
         self.scheduler.start()
 
+    def _apply_bundle(self, bundle):
+        """Point the server's introspection at one model bundle: at boot
+        and at every hot-swap cutover and rollback (the gate guarantees the
+        feed/fetch/spec contract is unchanged, so requests validated under
+        the previous bundle stay valid)."""
+        self._bundle = bundle
+        self.model_dir = bundle.model_dir
+        self._program = bundle.program
+        self._feed_names = bundle.feed_names
+        self._fetch_names = bundle.fetch_names
+        self._sample_specs = bundle.sample_specs
+
     def _dispatch_batch(self, mb):
+        # one read of self.pool per formed batch: the cutover rebinds the
+        # scheduler's dispatch directly, so this path carries boot traffic
         self.pool.dispatch(mb)
 
     # -- introspection -----------------------------------------------------
@@ -317,22 +356,50 @@ class InferenceServer:
         return flipped
 
     # -- hot model swap ----------------------------------------------------
+    def _swap_ctl(self):
+        if self._swap_controller is None:
+            self._swap_controller = _swap.SwapController(self)
+            if self._closing:
+                # a controller made lazily AFTER close() inherits the
+                # closed state: a swap on a closed server must not boot
+                # and promote a pool nothing will ever close
+                self._swap_controller._closed = True
+        return self._swap_controller
+
     def swap(self, model_dir, **kwargs):
-        """Not ported yet: raises."""
-        raise EnforceNotMet("InferenceServer.swap (the hot model swap) is "
-                            "not ported yet (ROADMAP queue 1 item 8)")
+        """Zero-downtime hot model swap: gate (integrity + compatibility) ->
+        memory admission -> standby warm boot beside the live pool ->
+        canary -> atomic cutover at a batch boundary -> post-cutover
+        watchdog, with automatic rollback to the still-resident old version
+        on any failure (a typed ``SwapFailedError`` naming the stage).
+        Returns the swap report dict. Keyword knobs: ``canary_feeds``,
+        ``canary_check``, ``parity_rtol`` / ``parity_atol``,
+        ``standby_timeout_ms``, ``watchdog_ms``, ``watchdog_max_errors``,
+        ``watchdog_latency_x`` (see ``swap.SwapController``)."""
+        return self._swap_ctl().swap(model_dir, **kwargs)
 
     def watch_dir(self, model_dir=None, poll_ms=1000.0, **swap_kwargs):
-        """Not ported yet: raises."""
-        raise EnforceNotMet("InferenceServer.watch_dir (continuous deploy "
-                            "by hot swap) is not ported yet (ROADMAP queue "
-                            "1 item 8)")
+        """Continuous deploy: poll ``model_dir`` (default: the directory
+        being served) for a new manifest ``model_version`` and ``swap`` to
+        it; a failed version is skipped until a different one is
+        published. Returns the ``SwapController``; ``stop_watch()`` or
+        ``close()`` ends it."""
+        return self._swap_ctl().watch_dir(model_dir, poll_ms=poll_ms,
+                                          **swap_kwargs)
 
     def close(self, timeout=None):
         """Graceful shutdown: stop admission, drain every accepted request
-        through the replicas, stop the workers. Returns True when fully
+        through the replicas, stop the workers, and wait out an in-flight
+        swap and its background pool drains. Returns True when fully
         stopped; with a ``timeout`` that expires mid-drain, False (the
         drain keeps running; call close() again). Idempotent."""
+        # the swap machinery brackets the close: the fast half first (no
+        # new swap starts, an in-flight one aborts before its cutover, the
+        # watcher stops), and the flag survives for a controller made
+        # lazily after this close (_swap_ctl)
+        self._closing = True
+        if self._swap_controller is not None:
+            self._swap_controller.begin_shutdown()
         # the scheduler drains its request queue into the batch queue
         # first, THEN the pool's per-replica sentinels land behind every
         # formed batch
@@ -340,8 +407,16 @@ class InferenceServer:
             return False
         if not self.pool.close(timeout):
             return False
+        # the slow half last: a False here means swap machinery is still
+        # running, and "fully stopped" over it would be a lie
+        if self._swap_controller is not None and \
+                not self._swap_controller.finish_shutdown(timeout):
+            return False
         if self.scheduler._shed is not None:
             self.scheduler._shed.shutdown()
+        # gauge truth is the SERVER's on a true close: a rollback racing it
+        # can leave the pool just closed demoted (its role-gated zeroing
+        # skipped)
         zero_pool_gauges()
         _swap.clear_model_version(self.model_version)
         return True

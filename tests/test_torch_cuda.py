@@ -1437,3 +1437,42 @@ def test_optimizer_rule_on_card_matches_cpu(cuda, rule):
     for k in p0:
         torch.testing.assert_close(out["cuda"][k], out["cpu"][k], rtol=tol,
                                    atol=tol, msg=k)
+
+
+@pytest.mark.cuda
+def test_memory_monitor_on_card(cuda):
+    """The device-memory monitor reads the card: ``hbm_limit_bytes`` is its
+    total memory, ``device_usage`` its allocated bytes (a 64 MiB tensor
+    moves it by that), and a real ``torch.cuda.OutOfMemoryError`` becomes
+    the typed ``OutOfDeviceMemoryError`` with a postmortem."""
+    from paddle_tpu_torch.monitor import memory
+    memory.reset()
+    total = torch.cuda.mem_get_info(cuda)[1]
+    assert memory.hbm_limit_bytes(cuda) == total
+    assert memory.hbm_limit_bytes(0) == total
+    before = memory.device_usage()["cuda:0"]
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    assert memory.device_usage()["cuda:0"] - before == 64 << 20
+    usage = memory.sample_now()
+    assert usage["cuda:0"] >= 64 << 20
+    assert memory.high_water("cuda:0") >= 64 << 20
+    assert 0.0 < memory.hbm_utilization_max() < 1.0
+    memory.ledger_set("test/x", x.numel())
+    assert any(b["nbytes"] >= 64 << 20 for b in memory.top_live_buffers(4))
+    with pytest.raises(memory.OutOfDeviceMemoryError) as ei:
+        try:
+            torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+        except Exception as e:
+            assert isinstance(e, torch.cuda.OutOfMemoryError)
+            assert memory.is_oom_error(e)
+            memory.handle_oom(e, "test/alloc")
+    pm = ei.value.postmortem
+    assert pm["where"] == "test/alloc"
+    assert pm["hbm_bytes_limit"] == total
+    assert pm["ledger"][0] == ("test/x", float(64 << 20))
+    assert pm["peak_bytes"]["cuda:0"] >= 64 << 20
+    assert isinstance(ei.value.__cause__, torch.cuda.OutOfMemoryError)
+    ok, projected, limit = memory.admission_headroom(1, limit=None)
+    assert limit == total and ok
+    del x
+    memory.reset()

@@ -58,8 +58,13 @@ SPEC = os.path.join(_TOOLS, "api_spec.txt")
 #: passes and ``PipelineReport.as_dict`` (7), the root's dtypes, places,
 #: ``flags``, ``ExecutionStrategy`` and ``in_dygraph_mode`` (26) and
 #: ``static``'s ``ExecutionStrategy``, ``name_scope``,
-#: ``static_mode_guard`` and ``Scope.version`` (4); only rises
-RESOLVED_FLOOR = 1296
+#: ``static_mode_guard`` and ``Scope.version`` (4), 1358 with the rest of
+#: ``serving`` (42: the hot swap, the front door, the swap watchdog, the
+#: tenant fair share, ``Replica.join``) and ``monitor``'s
+#: ``ThreadedHTTPServerBase``, ``OutOfDeviceMemoryError``,
+#: ``merge_rank_traces``, the registry's readers and the rest of ``Tracer``
+#: (20); only rises
+RESOLVED_FLOOR = 1358
 SKIPPED = ("paddle_tpu.serving.Replica", "paddle_tpu.serving.ReplicaPool")
 #: the spec's text of a JAX dtype constant (a numpy scalar type's
 #: constructor), which the port's torch dtype stands for
@@ -330,12 +335,12 @@ def test_apply_gradients_takes_param_meta():
 
 
 def test_serving_config_takes_hbm_limit_bytes():
-    """F3: the default is accepted; a limit raises (the hot swap's
-    admission is queue-1 item 8)."""
+    """F3: the default is accepted, and so is a limit now that the hot
+    swap's memory-aware admission is ported (its refusal against the JAX
+    package is in tests/test_torch_swap.py)."""
     from paddle_tpu_torch.serving import ServingConfig
     assert ServingConfig(hbm_limit_bytes=None).hbm_limit_bytes is None
-    with pytest.raises(EnforceNotMet, match="queue 1 item 8"):
-        ServingConfig(hbm_limit_bytes=1 << 30)
+    assert ServingConfig(hbm_limit_bytes=1 << 30).hbm_limit_bytes == 1 << 30
 
 
 def test_export_aot_takes_platforms(tmp_path):
@@ -395,17 +400,19 @@ def test_monitor_re_exports_its_names():
     assert all(hasattr(monitor, n) for n in monitor.__all__)
 
 
-def test_tracer_takes_the_reference_signatures():
+def test_tracer_takes_the_reference_signatures(tmp_path):
     """F6: ``Tracer(capacity, sample_rate, ...)``, ``enable(dirname=None,
-    **kwargs)`` and ``start_trace(..., current=False)``."""
+    **kwargs)`` and ``start_trace(..., current=False)``; the slow reservoir's
+    knobs and the trace file writer are ported (their behaviour against the
+    JAX package is in tests/test_torch_trace.py)."""
     from paddle_tpu_torch.monitor import trace
     t = trace.Tracer(1024)
     assert t.capacity == 1024 and t._ring.maxlen == 1024
     assert t.sample_rate == 0.05
     for kw in ({"slow_keep": 4}, {"slow_window_s": 5.0},
                {"exemplar_factor": 1.0}):
-        with pytest.raises(EnforceNotMet, match="queue 1 item 8"):
-            trace.Tracer(**kw)
+        (k, v), = kw.items()
+        assert getattr(trace.Tracer(**kw), k) == v
     ctx = t.start_trace("step", current=True)
     assert t._tls.current is ctx
     other = t.start_trace("request")
@@ -416,17 +423,19 @@ def test_tracer_takes_the_reference_signatures():
     assert getattr(t._tls, "current", None) is None
 
     old = trace.TRACER
+    old_writer = old._writer
     try:
-        with pytest.raises(EnforceNotMet, match="queue 1 item 8"):
-            trace.enable("/tmp/x")
-        assert trace.enable() is old and trace.is_enabled()
+        assert trace.enable(str(tmp_path)) is old and trace.is_enabled()
+        assert old._writer.path == str(tmp_path / "rank0.trace.jsonl")
         new = trace.enable(capacity=16, sample_rate=1.0)
         assert trace.TRACER is new and new.capacity == 16
         ctx = trace.start_trace("step", current=True)
         assert new._tls.current is ctx
         trace.end_trace(ctx)
+        assert new._writer is old._writer
     finally:
         trace.disable()
+        old._writer = old_writer
         trace.TRACER = old
 
 
