@@ -23,8 +23,12 @@ Phases; any failure raises and the script exits non-zero:
    the fused QKV projection's head views and views the wrapper copies, and
    the fp32 SIMT instantiation at the same edges),
    the multi-tensor Adam over BERT-base's parameter list, over
-   Transformer-big's 258 tensors (~243 M values) and over the GRU
-   encoder-decoder's 10 (phase 25); and the static
+   Transformer-big's 258 tensors (~243 M values), over the GRU
+   encoder-decoder's 10 (phase 25) and over the dygraph Transformer-base's
+   list (49,485,824 values) with the Noam rate read from the card (phase
+   48); the gather at that model's word table [10000,512] with 4096 ids in
+   fp32 and bf16, and momentum over the dygraph ResNet-50's 161 tensors
+   with its rate on the card (phase 49); and the static
    path's kernels: the embedding gather (word2vec's table with 100 and
    8192 ids, BERT-base's word table with 64x512 ids, and the sequence
    models' tables at their batches' ids: IMDB's 5147 words with 128x512,
@@ -432,7 +436,40 @@ Phases; any failure raises and the script exits non-zero:
    the merged trace file's kept requests each with its tenant and every
    stage span; after the last drain the card's allocated bytes within 10%
    of v1's footprint plus the change in params.
-48. Print one JSON line of every ported kernel (launches on the main paths,
+48. train-dygraph-transformer: the dygraph Transformer-base of Fluid
+   1.5's examples (``models/dygraph_transformer.py``: d_model 512, 8
+   heads, 6 + 6 layers, d_inner 2048, vocabularies of 10,000 sharing one
+   word table, dropouts 0.1, label smoothing 0.1) at 64 x 64 tokens a
+   side, built from ``nn`` Layers and ``layers`` calls and trained
+   eagerly (``pt.grad`` of the average cost, then Adam's
+   ``apply_gradients`` under ``dygraph.NoamDecay(512, 8000, 2.0)``): 10
+   counted fp32 steps (TF32 off), then 10 from the same weights under
+   ``amp.decorate(use_bf16=True)``, each after one warm-up step; exactly 4
+   ``embedding_gather`` and 1 ``fused_adam`` a step; step ms, tokens/s,
+   MFU (bf16 against 989 TFLOP/s, fp32 against the 67 of SIMT fp32), the
+   busy share of a profiled step, peak memory; then an evaluation pass
+   under ``no_grad`` with dropout off (4 gathers).
+49. train-dygraph-resnet50: Fluid 1.5's dygraph ResNet-50
+   (``models/dygraph_resnet.py``: ConvBNLayer, BottleneckBlock, Pool2D,
+   FC) at 224^2, batch 32, 102 classes, fp32 with TF32 off: 10 counted
+   Momentum steps (piecewise decay from 0.1, L2 1e-4), the batch norms'
+   running stats carried as ``nn`` state (every one moves), exactly one
+   ``fused_momentum`` a step; images/s, busy share, peak memory; then an
+   evaluation batch with ``is_test`` under ``no_grad`` (the state kept, no
+   kernel) scored by ``metrics.Accuracy`` on the host.
+50. dygraph-correctness: ``transformer_tiny`` and ``resnet_tiny`` 3 steps
+   on the card against the CPU from the same weights (losses, params,
+   slots, running stats, the evaluation's softmax), every Layer class of
+   ``nn/layers.py`` (outputs, state, the gradients through ``pt.grad``),
+   all within ``DY_TOL`` (cuDNN's deterministic algorithms, TF32 off);
+   Dropout's rate on the card; ``amp`` under the fp16 policy with a
+   ``LossScaler``: inf and NaN gradients injected, each
+   ``apply_gradients`` with the card refusing every synchronisation, a
+   skipped step's params, slots and step counter bitwise unchanged, the
+   scale following the JAX rule step for step; the distributions' draws
+   on the card against their closed forms; ``save_dygraph`` on the card,
+   ``load_dygraph`` on the CPU, bit for bit.
+51. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1057,13 +1094,17 @@ def check_adam(K, shapes, t, gen, lr_on_card=False, label="BERT-base"):
     return rec
 
 
-def check_embedding(K, h, d, dtype, n, gen, edge_ids=True):
+def check_embedding(K, h, d, dtype, n, gen, edge_ids=True, ids=None):
     """The gather kernel against its plain body on a [h, d] table and n
-    ids; with ``edge_ids``, the ids include negative ones (wrap once) and
-    ones outside [-h, h) (NaN rows). Timed on n valid ids, the main path's
-    kind, beside ``F.embedding`` on the same table and ids."""
+    ids (``ids`` when given, else uniform in [0, h)); with ``edge_ids``, the
+    ids include negative ones (wrap once) and ones outside [-h, h) (NaN
+    rows). Timed on n valid ids, the main path's kind, beside
+    ``F.embedding`` on the same table and ids. The bound reads the ids,
+    each distinct row once and writes the n rows."""
     table = torch.randn(h, d, generator=gen, device="cuda").to(dtype)
-    ids = torch.randint(0, h, (n,), generator=gen, device="cuda")
+    if ids is None:
+        ids = torch.randint(0, h, (n,), generator=gen, device="cuda")
+    check(ids.numel() == n, f"embedding_gather: {ids.numel()} ids, not {n}")
     kern = K.get_body("embedding_gather", "kernel")
     plain = K.get_body("embedding_gather", "reference")
     test_ids = ids.clone()
@@ -1077,11 +1118,13 @@ def check_embedding(K, h, d, dtype, n, gen, edge_ids=True):
     check(ok, f"embedding_gather [{h},{d}] {dtype} n={n}: kernel disagrees "
               f"with plain: {err}")
     row = d * table.element_size()
-    b_ms, b_by = bound(n * 8 + 2 * n * row, 0, torch.float32)
+    rows_read = int(torch.unique(ids).numel())
+    b_ms, b_by = bound(n * 8 + (rows_read + n) * row, 0, torch.float32)
     ms = device_ms(lambda: kern(table, ids), 50)
     plain_ms = device_ms(lambda: plain(table, ids), 20)
     lib_ms = device_ms(lambda: torch.nn.functional.embedding(ids, table), 50)
-    rec = dict(table=[h, d], dtype=str(dtype), ids=n, max_abs_err=err,
+    rec = dict(table=[h, d], dtype=str(dtype), ids=n, rows_read=rows_read,
+               max_abs_err=err,
                tol="exact (NaN rows where the plain body has them)", ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms,
                library="torch.nn.functional.embedding", bound_ms=b_ms,
@@ -5084,6 +5127,11 @@ def phase_train_detection(K, pt, label, mod, cfg, steps, keys, want_of,
     return rec, (built, exe, scope)
 
 
+#: the labels of the probes whose device time the profiler did not record
+#: (``timed_alone``'s "not measured"), listed in the last line
+UNMEASURED = []
+
+
 def timed_alone(fn, label, refuse_sync=True):
     """One call of ``fn`` with synchronisation refused (``refuse_sync``),
     then its wall-clock ms per call (host clock to a synchronize, 3 calls)
@@ -5093,10 +5141,19 @@ def timed_alone(fn, label, refuse_sync=True):
     if refuse_sync:
         no_sync(fn)
     wall = host_ms(fn, 3)
-    prof = op_breakdown(fn, top=6)
+    # the profiler at times records no device time for a short call: up to
+    # three profiled calls, then "not measured"
+    for _ in range(3):
+        prof = op_breakdown(fn, top=6)
+        if prof:
+            break
     ms = prof.get("kernel_ms")
-    log(f"  {label}: {ms:.3f} ms of kernels, {prof.get('launches')} device "
-        f"events, {wall:.3f} ms wall-clock")
+    if ms is None:
+        UNMEASURED.append(label)
+    kernels = ("no device time recorded by the profiler (not measured)"
+               if ms is None else f"{ms:.3f} ms of kernels")
+    log(f"  {label}: {kernels}, {prof.get('launches')} device events, "
+        f"{wall:.3f} ms wall-clock")
     return dict(ms=ms, wall_ms=wall, device_events=prof.get("launches"),
                 profile=prof)
 
@@ -5205,7 +5262,7 @@ def phase_infer_detection(pt, label, built, scope, feed, nms_alone, card):
                nms_wall_ms=nms["wall_ms"], nms_peak_gb=nms_peak,
                nms_profile=nms["profile"], card=card)
     log(f"{label}: batch {b} in {lat:.2f} ms, {rec['images_per_s']:.1f} "
-        f"images/s, NMS alone {nms['ms']:.2f} ms of kernels in "
+        f"images/s, NMS alone {nms['ms']} ms of kernels in "
         f"{nms['device_events']} device events ({nms['wall_ms']:.2f} ms "
         f"wall-clock), peak {peak:.2f} GB [{card}]")
     return rec, out
@@ -7640,6 +7697,576 @@ def phase_serve_http_swap(K, pt, mb, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 48-50: the eager (dygraph) surface
+# ---------------------------------------------------------------------------
+DY_STEPS = 10                   # counted steps of each precision (48, 49)
+#: card against CPU, of the largest magnitude (at least 1): fp32 with TF32
+#: off (and cuDNN's deterministic algorithms for the convolutions); the
+#: draws' moments within this many standard errors
+DY_TOL = {"card_cpu": 1e-5, "sigmas": 5.0}
+#: the SIMT fp32 peak the fp32 steps' MFU is taken against (TF32 is off,
+#: so cuBLAS's fp32 products run there; NVIDIA data sheet, H100 SXM)
+FP32_SIMT_OPS_PER_S = 67e12
+#: launches a step: the four embedding lookups (source and target words
+#: through ``layers.embedding``, their positions through ``nn.Embedding``)
+#: and one Adam update; the ResNet's one momentum update
+DY_TRANSFORMER_WANT = {"embedding_gather": 4, "fused_adam": 1}
+DY_RESNET_WANT = {"fused_momentum": 1}
+
+
+def dygraph_init(pt, dt, dr):
+    """The two eager trainers at their published configs, initialised on
+    the card (from a seeded generator, with one batch each): (transformer
+    model, params), (resnet model, params, state)."""
+    from paddle_tpu_torch.ops.nn import no_tf32
+    tcfg, rcfg = dt.transformer_base(), dr.resnet50_flowers()
+    b = dt.synthetic_batch(tcfg, 480, batch=2)
+    images, labels = dr.synthetic_batch(rcfg, 490, batch=2)
+    tm, rm = dt.build(pt, tcfg), dr.build(pt, rcfg)
+    with no_tf32():
+        tp, _ = tm.init(torch.Generator(device="cuda").manual_seed(48),
+                        *[torch.as_tensor(b[k], device="cuda")
+                          for k in dt.INPUTS])
+        rp, rs = rm.init(torch.Generator(device="cuda").manual_seed(49),
+                         torch.as_tensor(images, device="cuda"),
+                         torch.as_tensor(labels, device="cuda"))
+    check(dt.param_count(tp) == 49_485_824,
+          f"dygraph Transformer-base: {dt.param_count(tp)} values")
+    check(len(rp) == 161 and len(rs) == 106,
+          f"dygraph ResNet-50: {len(rp)} tensors, {len(rs)} state")
+    return (tm, tp), (rm, rp, rs)
+
+
+def dy_counted_steps(K, label, step, want, steps=DY_STEPS):
+    """``steps`` calls of ``step()`` (each returns a 0-d loss and ends in a
+    synchronize), the launch counts set to 0 just before and read just
+    after: exactly ``want`` a step, nothing else registered. Returns (the
+    losses, ms per step, the counts)."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    for name, n in counts.items():
+        check(n == want.get(name, 0) * steps,
+              f"{label}: {n} {name} launches in {steps} steps, expected "
+              f"{want.get(name, 0)} a step")
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"{label}: {losses}")
+    return losses, ms, {k: v for k, v in counts.items() if v}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_train_dygraph_transformer(K, pt, dt, card, init):
+    """The dygraph Transformer-base (``models/dygraph_transformer.py``) at
+    its published widths, 64 x 64 tokens a side, eagerly: ``pt.grad`` of
+    the average cost, then ``apply_gradients`` of Adam under
+    ``dygraph.NoamDecay``; 1 warm-up step, then ``DY_STEPS`` counted fp32
+    steps (TF32 off), then the same from the same weights under
+    ``amp.decorate(..., use_bf16=True)``; then an evaluation pass under
+    ``no_grad`` with dropout off. Exactly 4 gathers and 1 ``fused_adam``
+    a step, 4 gathers in the evaluation."""
+    from paddle_tpu_torch.ops.nn import no_tf32
+    model, params0 = init
+    cfg = dt.transformer_base()
+    batch = dt.synthetic_batch(cfg, 48)
+    inputs = [torch.as_tensor(batch[k], device="cuda") for k in dt.INPUTS]
+    tokens = cfg.batch * cfg.seq_len
+    flops = dt.flops_per_step(cfg, cfg.batch, cfg.seq_len, cfg.seq_len)
+    rng = torch.Generator(device="cuda").manual_seed(481)
+    total, rec = {}, dict(batch=cfg.batch, src_len=cfg.seq_len,
+                          tgt_len=cfg.seq_len, values=dt.param_count(params0),
+                          tflop_per_step=flops / 1e12, card=card)
+    with no_tf32():
+        for label, amp in (("fp32", False), ("bf16", True)):
+            params = {k: v.clone() for k, v in params0.items()}
+            opt = dt.make_optimizer(pt, cfg)
+            if amp:
+                opt = pt.amp.decorate(opt, use_bf16=True)
+            ostate = opt.init(params)
+
+            def step():
+                loss, _, _ = dt.train_step(pt, model, opt, params, {},
+                                           ostate, inputs, rng, amp=amp)
+                return loss.detach()
+
+            warm = float(step())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, counts = dy_counted_steps(
+                K, f"train-dygraph-transformer {label}", step,
+                DY_TRANSFORMER_WANT)
+            peak = torch.cuda.max_memory_allocated()
+            add_counts(total, counts)
+            ln_v = math.log(cfg.trg_vocab)
+            check(all(0.5 * ln_v < x < 2 * ln_v for x in losses),
+                  f"train-dygraph-transformer {label}: losses {losses}")
+            check(not torch.equal(params["transformer/word_emb_table"],
+                                  params0["transformer/word_emb_table"]),
+                  f"train-dygraph-transformer {label}: Adam moved nothing")
+            steady = statistics.median(ms)
+            prof = op_breakdown(step, top=10, host_top=6)
+            peak_rate = (PEAK_OPS_PER_S[torch.bfloat16] if amp
+                         else FP32_SIMT_OPS_PER_S)
+            rec[label] = dict(
+                warmup_loss=warm, losses=losses, ms_per_step=steady,
+                ms_per_step_quartiles=statistics.quantiles(ms, n=4),
+                target_tokens_per_s=tokens / steady * 1e3,
+                tokens_per_s_both_sides=2 * tokens / steady * 1e3,
+                mfu=flops / (steady * 1e-3) / peak_rate,
+                mfu_against_tflops=peak_rate / 1e12,
+                device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                                   if prof else None),
+                device_events_per_step=prof.get("launches"),
+                peak_gb=peak / 1e9, launches=counts, profile=prof)
+            log(f"train-dygraph-transformer {label}: loss {warm:.4f} -> "
+                f"{losses[-1]:.4f}, {steady:.3f} ms/step, "
+                f"{rec[label]['target_tokens_per_s']:.0f} target tokens/s, "
+                f"MFU {rec[label]['mfu']:.3f} of {peak_rate / 1e12:.0f} "
+                f"TFLOP/s, busy {rec[label]['device_busy_share']} [{card}]")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with pt.no_grad():
+            (sum_cost, avg, predict, _), _ = model.apply(
+                params, {}, None, *inputs, is_test=True)
+        avg = float(avg)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+    check(counts.get("embedding_gather") == 4 and not any(
+        v for k, v in counts.items() if k != "embedding_gather"),
+        f"train-dygraph-transformer eval: launches {counts}")
+    check(math.isfinite(avg) and not predict.requires_grad
+          and tuple(predict.shape) == (tokens, cfg.trg_vocab),
+          f"train-dygraph-transformer eval: loss {avg}, logits "
+          f"{tuple(predict.shape)}")
+    add_counts(total, {k: v for k, v in counts.items() if v})
+    rec["eval"] = dict(loss=avg, ms=eval_ms, launches=counts)
+    rec["launches"] = total
+    log("train_dygraph_transformer " + json.dumps(rec))
+    return rec
+
+
+def phase_train_dygraph_resnet(K, pt, dr, card, init):
+    """The dygraph ResNet-50 (``models/dygraph_resnet.py``) at 224^2,
+    batch 32, 102 classes, fp32 with TF32 off: ``DY_STEPS`` counted eager
+    Momentum steps (piecewise decay from 0.1, L2 1e-4) after 1 warm-up,
+    the batch norms' running stats carried as ``nn`` state; exactly one
+    ``fused_momentum`` a step. Then an evaluation batch with ``is_test``
+    under ``no_grad``, scored by ``metrics.Accuracy`` on the host (no
+    kernel launches)."""
+    from paddle_tpu_torch.ops.nn import no_tf32
+    model, params0, state0 = init
+    cfg = dr.resnet50_flowers()
+    images, labels = dr.synthetic_batch(cfg, 49)
+    x = torch.as_tensor(images, device="cuda")
+    y = torch.as_tensor(labels, device="cuda")
+    params = {k: v.clone() for k, v in params0.items()}
+    holder = {"state": {k: v.clone() for k, v in state0.items()}}
+    opt = dr.make_optimizer(pt, cfg)
+    ostate = opt.init(params)
+
+    def step():
+        loss, _, _, holder["state"], _ = dr.train_step(
+            pt, model, opt, params, holder["state"], ostate, x, y)
+        return loss.detach()
+
+    with no_tf32():
+        warm = float(step())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, counts = dy_counted_steps(
+            K, "train-dygraph-resnet50", step, DY_RESNET_WANT)
+        peak = torch.cuda.max_memory_allocated()
+        state = holder["state"]
+        moved = sum(not torch.equal(state[k], state0[k]) for k in state)
+        check(moved == len(state), f"train-dygraph-resnet50: {moved} of "
+                                   f"{len(state)} running stats moved")
+        steady = statistics.median(ms)
+        prof = op_breakdown(step, top=10, host_top=6)
+        ev_images, ev_labels = dr.synthetic_batch(cfg, 490)
+        metric = pt.metrics.Accuracy()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        before = {k: v.clone() for k, v in holder["state"].items()}
+        ev_loss, ev_acc, out = dr.evaluate(
+            pt, model, params, holder["state"],
+            torch.as_tensor(ev_images, device="cuda"),
+            torch.as_tensor(ev_labels, device="cuda"))
+        metric.update(ev_acc, weight=cfg.batch)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        ev_counts = K.launch_counts()
+    check(not any(ev_counts.values()), f"train-dygraph-resnet50 eval: "
+                                       f"launches {ev_counts}")
+    check(all(torch.equal(before[k], holder["state"][k]) for k in before)
+          and not out.requires_grad and math.isfinite(float(ev_loss)),
+          "train-dygraph-resnet50 eval: the state moved or the loss is "
+          f"{float(ev_loss)}")
+    acc = metric.eval()
+    check(0.0 <= acc <= 1.0, f"train-dygraph-resnet50 eval accuracy {acc}")
+    rec = dict(batch=cfg.batch, image_size=cfg.image_size,
+               classes=cfg.class_dim, tensors=len(params),
+               warmup_loss=warm, losses=losses, ms_per_step=steady,
+               ms_per_step_quartiles=statistics.quantiles(ms, n=4),
+               images_per_s=cfg.batch / steady * 1e3,
+               device_busy_share=(prof.get("kernel_ms", 0.0) / steady
+                                  if prof else None),
+               device_events_per_step=prof.get("launches"),
+               peak_gb=peak / 1e9, eval=dict(loss=float(ev_loss),
+                                             accuracy=acc, ms=eval_ms),
+               launches=counts, profile=prof, card=card)
+    log(f"train-dygraph-resnet50: loss {warm:.4f} -> {losses[-1]:.4f}, "
+        f"{steady:.3f} ms/step, {rec['images_per_s']:.1f} images/s, busy "
+        f"{rec['device_busy_share']} [{card}]")
+    log("train_dygraph_resnet50 " + json.dumps(rec))
+    return rec
+
+
+def dy_close(label, card, cpu, tol=None):
+    """``card`` (any device) within ``tol`` (``DY_TOL["card_cpu"]``) of the
+    largest magnitude of ``cpu`` (at least 1); returns the error."""
+    tol = DY_TOL["card_cpu"] if tol is None else tol
+    card, cpu = card.detach().float().cpu(), cpu.detach().float().cpu()
+    check(card.shape == cpu.shape, f"{label}: shapes {tuple(card.shape)} "
+                                   f"and {tuple(cpu.shape)}")
+    err = max_err(card, cpu)
+    scale = max(1.0, cpu.abs().max().item()) if cpu.numel() else 1.0
+    check(err <= tol * scale, f"dygraph-correctness: {label}: card - cpu "
+                              f"{err} > {tol} x {scale}")
+    return err
+
+
+def dy_models_card_vs_cpu(pt, dt, dr):
+    """Both tiny configs 3 steps on the card and on the CPU from the same
+    initial weights (the CPU init's), fp32: losses, parameters, optimizer
+    slots and running stats within ``DY_TOL``. Returns the largest
+    errors."""
+    errs = {}
+    cfg = dt.transformer_tiny()
+    batch = dt.synthetic_batch(cfg, 50)
+    model = dt.build(pt, cfg)
+    p0, _ = model.init(torch.Generator().manual_seed(50),
+                       *[torch.as_tensor(batch[k]) for k in dt.INPUTS])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ins = [torch.as_tensor(batch[k], device=dev) for k in dt.INPUTS]
+        p = {k: v.to(dev, copy=True) for k, v in p0.items()}
+        opt = dt.make_optimizer(pt, cfg)
+        ost = opt.init(p)
+        losses = []
+        for _ in range(3):
+            loss, p, ost = dt.train_step(pt, model, opt, p, {}, ost, ins)
+            losses.append(loss.detach())
+        runs[dev] = (torch.stack(losses), p, ost)
+    errs["transformer_loss"] = dy_close("transformer_tiny losses",
+                                        runs["cuda"][0], runs["cpu"][0])
+    errs["transformer_params"] = max(
+        dy_close(f"transformer_tiny {k}", runs["cuda"][1][k],
+                 runs["cpu"][1][k]) for k in p0)
+    errs["transformer_slots"] = max(
+        dy_close(f"transformer_tiny {k} {s}", runs["cuda"][2]["slots"][k][s],
+                 runs["cpu"][2]["slots"][k][s])
+        for k in p0 for s in ("moment1", "moment2"))
+    rcfg = dr.resnet_tiny()
+    images, labels = dr.synthetic_batch(rcfg, 51)
+    rmodel = dr.build(pt, rcfg)
+    rp0, rs0 = rmodel.init(torch.Generator().manual_seed(51),
+                           torch.as_tensor(images), torch.as_tensor(labels))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        x, y = (torch.as_tensor(a, device=dev) for a in (images, labels))
+        p = {k: v.to(dev, copy=True) for k, v in rp0.items()}
+        s = {k: v.to(dev, copy=True) for k, v in rs0.items()}
+        opt = dr.make_optimizer(pt, rcfg)
+        ost = opt.init(p)
+        losses = []
+        for _ in range(3):
+            loss, _, p, s, ost = dr.train_step(pt, rmodel, opt, p, s, ost,
+                                               x, y)
+            losses.append(loss.detach())
+        ev = dr.evaluate(pt, rmodel, p, s, x, y)[2]
+        runs[dev] = (torch.stack(losses), p, s, ev)
+    errs["resnet_loss"] = dy_close("resnet_tiny losses", runs["cuda"][0],
+                                   runs["cpu"][0])
+    errs["resnet_params"] = max(
+        dy_close(f"resnet_tiny {k}", runs["cuda"][1][k], runs["cpu"][1][k])
+        for k in rp0)
+    errs["resnet_state"] = max(
+        dy_close(f"resnet_tiny state {k}", runs["cuda"][2][k],
+                 runs["cpu"][2][k]) for k in rs0)
+    errs["resnet_eval"] = dy_close("resnet_tiny eval softmax",
+                                   runs["cuda"][3], runs["cpu"][3])
+    return errs
+
+
+def dy_nn_cases(nn):
+    """Every Layer class of ``nn/layers.py`` at a small size: (label,
+    layer, input arrays, indices of the inputs differentiated)."""
+    import numpy as np
+    rs = np.random.RandomState(52)
+
+    def f(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    L = nn.layers
+    return [
+        ("Linear", L.Linear(16, 8, act="relu"), [f(4, 16)], (0,)),
+        ("FC", L.FC(8, num_flatten_dims=2, act="tanh"), [f(2, 3, 16)], (0,)),
+        ("Conv2D", L.Conv2D(3, 8, 3, padding=1, act="relu"),
+         [f(2, 3, 12, 12)], (0,)),
+        ("Conv2DTranspose", L.Conv2DTranspose(3, 4, 3, stride=2, padding=1),
+         [f(2, 3, 7, 7)], (0,)),
+        ("Conv3D", L.Conv3D(2, 4, 2), [f(1, 2, 5, 5, 5)], (0,)),
+        ("Conv3DTranspose", L.Conv3DTranspose(2, 3, 2, stride=2),
+         [f(1, 2, 3, 3, 3)], (0,)),
+        ("Pool2D", L.Pool2D(pool_size=3, pool_type="max", pool_stride=2,
+                            pool_padding=1), [f(2, 3, 9, 9)], (0,)),
+        ("BatchNorm", L.BatchNorm(4, act="relu"), [f(6, 4, 5, 5)], (0,)),
+        ("LayerNorm", L.LayerNorm(16), [f(2, 5, 16)], (0,)),
+        ("GroupNorm", L.GroupNorm(8, 4), [f(2, 8, 4, 4)], (0,)),
+        ("InstanceNorm", L.InstanceNorm(3), [f(2, 3, 6, 6)], (0,)),
+        ("Embedding", L.Embedding((50, 16), padding_idx=0),
+         [rs.randint(0, 50, (4, 7)).astype(np.int64)], ()),
+        ("PRelu", L.PRelu(mode="channel", channel=3), [f(2, 3, 4, 4)], (0,)),
+        ("GRUUnit", L.GRUUnit(24), [f(4, 24), f(4, 8)], (0, 1)),
+        ("LSTMCell", L.LSTMCell(8, 6), [f(4, 6), f(4, 8), f(4, 8)],
+         (0, 1, 2)),
+        ("GRUCell", L.GRUCell(8, 6), [f(4, 6), f(4, 8)], (0, 1)),
+        ("SpectralNorm", L.SpectralNorm((8, 6), power_iters=3),
+         [f(8, 6)], (0,)),
+        ("NCE", L.NCE(40, 8, num_neg_samples=5),
+         [f(6, 8), rs.randint(0, 40, (6, 1)).astype(np.int64),
+          rs.randint(0, 40, (6, 5)).astype(np.int64)], (0,)),
+        ("BilinearTensorProduct", L.BilinearTensorProduct(5, 6, 3),
+         [f(4, 5), f(4, 6)], (0, 1)),
+        ("RowConv", L.RowConv(8, 2), [f(2, 9, 8)], (0,)),
+        ("TreeConv", L.TreeConv(8, 4, num_filters=2),
+         [f(2, 6, 8), (rs.rand(2, 6, 6) > 0.6).astype(np.float32)], (0,)),
+    ]
+
+
+def dy_nn_card_vs_cpu(pt):
+    """Every Layer class on the card against the CPU from the same
+    parameters (the CPU init's): outputs, state and the gradients of the
+    outputs' product with a seeded cotangent (parameters and float
+    inputs, through ``pt.grad``) within ``DY_TOL``; Dropout by its rate
+    on the card (2^20 draws) and its inference output exactly."""
+    import numpy as np
+    errs = {}
+    for label, layer, arrays, diff in dy_nn_cases(pt.nn):
+        p0, s0 = layer.init(torch.Generator().manual_seed(53),
+                            *[torch.as_tensor(a) for a in arrays])
+        res = {}
+        for dev in ("cuda", "cpu"):
+            xs = [torch.as_tensor(a, device=dev) for a in arrays]
+            p = {k: v.to(dev, copy=True) for k, v in p0.items()}
+            s = {k: v.to(dev, copy=True) for k, v in s0.items()}
+            holder = {}
+
+            def loss(p, *d):
+                full = list(xs)
+                for i, x in zip(diff, d):
+                    full[i] = x
+                out, st = layer.apply(p, s, None, *full)
+                outs = out if isinstance(out, tuple) else (out,)
+                cots = [torch.as_tensor(np.random.RandomState(54 + i).randn(
+                    *o.shape).astype(np.float32), device=dev)
+                    for i, o in enumerate(outs)]
+                holder["out"], holder["state"] = outs, st
+                return sum(torch.sum(o * c) for o, c in zip(outs, cots))
+
+            grads = pt.grad(loss, argnums=tuple(range(1 + len(diff))))(
+                p, *[xs[i] for i in diff])
+            res[dev] = (holder["out"], holder["state"], grads)
+        e = [dy_close(f"{label} out", a, b)
+             for a, b in zip(res["cuda"][0], res["cpu"][0])]
+        e += [dy_close(f"{label} state {k}", res["cuda"][1][k],
+                       res["cpu"][1][k]) for k in s0]
+        e += [dy_close(f"{label} grad {k}", res["cuda"][2][0][k],
+                       res["cpu"][2][0][k]) for k in p0]
+        e += [dy_close(f"{label} input grad", a, b)
+              for a, b in zip(res["cuda"][2][1:], res["cpu"][2][1:])]
+        errs[label] = max(e)
+    p, n = 0.3, 1 << 20
+    x = torch.rand(n, device="cuda") + 1.0
+    drop = pt.nn.Dropout(p)
+    out, _ = drop.apply({}, {}, torch.Generator(device="cuda").manual_seed(5),
+                        x)
+    rate = float((out == 0).float().mean())
+    check(abs(rate - p) <= DY_TOL["sigmas"] * math.sqrt(p * (1 - p) / n),
+          f"dygraph-correctness: Dropout rate {rate}, want {p}")
+    check(torch.equal(out[out != 0], x[out != 0]),
+          "dygraph-correctness: Dropout changed a kept value")
+    test_out, _ = drop.apply({}, {}, None, x, is_test=True)
+    check(torch.equal(test_out.cpu(), x.cpu() * (1 - p)),
+          "dygraph-correctness: Dropout's inference output")
+    errs["Dropout_rate"] = rate
+    return errs
+
+
+def loss_scale_rule(state, finite, incr_every_n, decr_every_n,
+                    incr_ratio=2.0, decr_ratio=0.5):
+    """The JAX package's dynamic loss-scale rule (amp/__init__.py:83-96) on
+    Python numbers: (scale, good, bad) after one step."""
+    scale, good, bad = state
+    good, bad = (good + 1, 0) if finite else (0, bad + 1)
+    if good >= incr_every_n:
+        scale, good = scale * incr_ratio, 0
+    if bad >= decr_every_n:
+        scale, bad = max(scale * decr_ratio, 1.0), 0
+    return scale, good, bad
+
+
+def dy_amp_checks(pt):
+    """fp16 with a ``LossScaler`` on the card over Adam under a Noam
+    schedule: inf and NaN gradients injected; each ``apply_gradients`` runs
+    with the card refusing every synchronisation (``no_sync``); a
+    non-finite step leaves params, slots and step counter bitwise as they
+    were; the scale, good and bad counts follow the JAX rule step for
+    step."""
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    params = {"w": torch.randn(64, 64, generator=gen, device="cuda"),
+              "b": [torch.randn(64, generator=gen, device="cuda")]}
+    scaler = pt.amp.LossScaler(8.0, incr_every_n_steps=2,
+                               decr_every_n_nan_or_inf=2)
+    opt = pt.amp.OptimizerWithMixedPrecision(
+        pt.optimizer.Adam(learning_rate=pt.dygraph.NoamDecay(64, 10)),
+        pt.amp.float16_policy(), scaler)
+    st = opt.init(params)
+    rule = (8.0, 0, 0)
+    pattern = ("ok", "inf", "nan", "ok", "ok", "ok", "inf", "ok", "inf",
+               "inf", "ok")
+    skipped = 0
+    for i, kind in enumerate(pattern):
+        grads = {"w": torch.randn(64, 64, generator=gen, device="cuda") * 8,
+                 "b": [torch.randn(64, generator=gen, device="cuda") * 8]}
+        if kind != "ok":
+            grads["w"][3, 5] = math.inf if kind == "inf" else math.nan
+        written = [params["w"], params["b"][0], st["opt"]["step"],
+                   *st["opt"]["slots"]["w"].values(),
+                   *st["opt"]["slots"]["b"][0].values()]
+        before = [t.clone() for t in written]
+        no_sync(lambda: opt.apply_gradients(params, grads, st))
+        rule = loss_scale_rule(rule, kind == "ok", 2, 2)
+        got = tuple(st["loss_scale"][k].item()
+                    for k in ("scale", "good", "bad"))
+        check(got == rule, f"dygraph-correctness: amp step {i} ({kind}): "
+                           f"loss scale state {got}, the JAX rule {rule}")
+        if kind != "ok":
+            skipped += 1
+            check(all(torch.equal(a, b) for a, b in zip(written, before)),
+                  f"dygraph-correctness: amp step {i} ({kind}) changed "
+                  "params, slots or the step counter")
+        else:
+            check(not torch.equal(written[0], before[0]),
+                  f"dygraph-correctness: amp step {i} did not update")
+    check(st["opt"]["step"].item() == len(pattern) - skipped,
+          f"dygraph-correctness: amp step counter {st['opt']['step']}")
+    return dict(steps=len(pattern), skipped=skipped, scale=rule[0])
+
+
+def dy_distribution_checks(pt):
+    """Samples on the card against the closed forms: Uniform, Normal,
+    MultivariateNormalDiag by their moments (2^20 draws), Categorical by
+    its frequencies; the same seed gives the same draws."""
+    d, n, k = pt.distributions, 1 << 20, DY_TOL["sigmas"]
+    out = {}
+    u = d.Uniform(torch.tensor(-1.0, device="cuda"),
+                  torch.tensor(3.0, device="cuda"))
+    s = u.sample([n], seed=3)
+    check(s.is_cuda and torch.equal(s, u.sample([n], seed=3))
+          and float(s.min()) >= -1.0 and float(s.max()) < 3.0,
+          "dygraph-correctness: Uniform draws")
+    std = 4.0 / math.sqrt(12.0)
+    check(abs(float(s.mean()) - 1.0) <= k * std / math.sqrt(n),
+          f"dygraph-correctness: Uniform mean {float(s.mean())}")
+    out["uniform_mean"] = float(s.mean())
+    for name, dist, mean, sd in (
+            ("Normal", d.Normal(torch.tensor([0.5, -2.0], device="cuda"),
+                                torch.tensor([1.0, 3.0], device="cuda")),
+             [0.5, -2.0], [1.0, 3.0]),
+            ("MultivariateNormalDiag", d.MultivariateNormalDiag(
+                torch.tensor([1.0, 0.0, -1.0], device="cuda"),
+                torch.tensor([0.5, 2.0, 1.0], device="cuda")),
+             [1.0, 0.0, -1.0], [0.5, 2.0, 1.0])):
+        x = dist.sample([n], seed=4).double()
+        m, v = x.mean(0).tolist(), x.var(0, unbiased=False).tolist()
+        for j in range(len(mean)):
+            check(abs(m[j] - mean[j]) <= k * sd[j] / math.sqrt(n)
+                  and abs(v[j] - sd[j] ** 2) <= k * math.sqrt(2.0 / n)
+                  * sd[j] ** 2 * 1.3,
+                  f"dygraph-correctness: {name} moments {m[j]}, {v[j]}")
+        out[name] = [m, v]
+    probs = torch.tensor([0.1, 0.6, 0.3], device="cuda")
+    c = d.Categorical(torch.log(probs)).sample([n], seed=6)
+    freq = (torch.bincount(c, minlength=3).double() / n).tolist()
+    for j, pj in enumerate(probs.tolist()):
+        check(abs(freq[j] - pj) <= k * math.sqrt(pj * (1 - pj) / n),
+              f"dygraph-correctness: Categorical frequency {freq}")
+    out["categorical"] = freq
+    return out
+
+
+def phase_dygraph_checks(K, pt, dt, dr, card):
+    """Phase 50 (dygraph-correctness): the tiny trainers and every Layer
+    class on the card against the CPU, ``amp``'s skipped steps with no
+    host read, the distributions' draws, and ``save_dygraph`` on the card
+    loaded on the CPU bit for bit; the card's launches counted over the
+    phase."""
+    import tempfile
+    from paddle_tpu_torch.ops.nn import no_tf32
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    try:
+        with no_tf32():
+            models = dy_models_card_vs_cpu(pt, dt, dr)
+            layers = dy_nn_card_vs_cpu(pt)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = cudnn
+    amp = dy_amp_checks(pt)
+    dists = dy_distribution_checks(pt)
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    tree = {"w": torch.randn(33, 7, generator=gen, device="cuda"),
+            "stats": [torch.randn(7, generator=gen, device="cuda"),
+                      torch.arange(5, device="cuda", dtype=torch.int32)],
+            "step": 3}
+    with tempfile.TemporaryDirectory() as d:
+        pt.io.save_dygraph(tree, os.path.join(d, "m"))
+        back, _ = pt.io.load_dygraph(os.path.join(d, "m"), device="cpu")
+    check(back["step"] == 3 and all(
+        torch.equal(a.cpu(), b) and b.device.type == "cpu"
+        for a, b in ((tree["w"], back["w"]),
+                     (tree["stats"][0], back["stats"][0]),
+                     (tree["stats"][1], back["stats"][1]))),
+        "dygraph-correctness: save_dygraph on the card, load_dygraph on "
+        "the CPU")
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    check(counts.get("embedding_gather", 0) > 0
+          and counts.get("fused_adam", 0) > 0
+          and counts.get("fused_momentum", 0) > 0,
+          f"dygraph-correctness: launches {counts}")
+    rec = dict(models=models, layers=layers, amp=amp, distributions=dists,
+               tol=DY_TOL, launches=counts, card=card)
+    log("dygraph_correctness " + json.dumps(rec))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7652,8 +8279,9 @@ def main():
 
     from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import (
-        bert, crnn_ctc, cycle_gan, deepfm, mobilenet_v1, ptb_lm, resnet,
-        se_resnext, ssd, transformer, vgg, yolov3,
+        bert, crnn_ctc, cycle_gan, deepfm, dygraph_resnet, dygraph_transformer,
+        mobilenet_v1, ptb_lm, resnet, se_resnext, ssd, transformer, vgg,
+        yolov3,
     )
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
@@ -7746,6 +8374,16 @@ def main():
     adam_nmt = check_adam(K, nmt_shapes, 1, gen, label="Transformer-big")
     check_adam(K, list(gru_nmt_shapes(NMT).values()), 1, gen,
                label="the GRU encoder-decoder")
+    # the eager trainers of phases 48 and 49 at their published configs:
+    # Adam over the dygraph Transformer-base's list with the Noam rate read
+    # from the card (phase 48's update), momentum over the dygraph
+    # ResNet-50's 161 tensors below
+    dy_transformer, dy_resnet = dygraph_init(pt, dygraph_transformer,
+                                             dygraph_resnet)
+    adam_dy = check_adam(K, [tuple(v.shape) for v in
+                             dy_transformer[1].values()], 1, gen,
+                         lr_on_card=True,
+                         label="the dygraph Transformer-base")
     # the static path's kernels: the word2vec step's shapes at batch 100
     # (the main path) and 8192, and BERT-base's shapes beside them
     with torch.inference_mode():
@@ -7892,6 +8530,26 @@ def main():
         check_sgd(K, mb_shapes, "momentum", gen,
                   "MobileNetV1's 83 tensors, one launch")
         del mb_main
+        # the dygraph ResNet-50's 161 tensors, the piecewise rate read from
+        # the card, one launch (phase 49's update); the dygraph
+        # Transformer's word table [10000,512] at its 4096 ids a side and
+        # its position tables [256,512] at the 64 positions of its 64
+        # sentences, fp32 and (under amp) bf16 (phase 48's lookups)
+        mom_dy = check_sgd(
+            K, [tuple(v.shape) for v in dy_resnet[1].values()], "momentum",
+            gen, "the dygraph ResNet-50's 161 tensors, lr on the card, one "
+            "launch", lr_on_card=True)
+        positions = torch.as_tensor(dygraph_transformer.synthetic_batch(
+            dygraph_transformer.transformer_base(), 0)["src_pos"],
+            device="cuda").reshape(-1)
+        emb_dy = {}
+        for dt in (torch.float32, torch.bfloat16):
+            emb_dy[f"word {dt}"] = check_embedding(K, 10000, 512, dt,
+                                                   64 * 64, gen)
+            emb_dy[f"position {dt}"] = check_embedding(
+                K, 256, 512, dt, 64 * 64, gen, ids=positions)
+        log("dygraph kernels (phases 48-49) " + json.dumps(dict(
+            adam=adam_dy, momentum=mom_dy, gather=emb_dy)))
         # the scatter-add: bench.py's CTR point; BERT-base's three
         # embedding gradients with pretrain-512's ids into zeros (phase
         # 10's word shape is the main one); the merge's inverse ids; bf16;
@@ -8145,6 +8803,25 @@ def main():
     http_swap = phase_serve_http_swap(K, pt, mobilenet_v1, card)
     log(f"phases 45-47 took {time.perf_counter() - t45:.1f} s; phases 0-47 "
         f"done at {time.perf_counter() - t_start:.1f} s")
+    t48 = time.perf_counter()
+    log("phase 48: the dygraph Transformer-base, 64x64 tokens a side, 10 "
+        "eager Adam steps in fp32 and 10 under amp bf16, then evaluation "
+        "under no_grad (train-dygraph-transformer)")
+    dy_t = phase_train_dygraph_transformer(K, pt, dygraph_transformer, card,
+                                           dy_transformer)
+    del dy_transformer
+    log("phase 49: the dygraph ResNet-50 at 224^2, batch 32, 10 eager "
+        "Momentum steps, then an evaluation batch scored by "
+        "metrics.Accuracy (train-dygraph-resnet50)")
+    dy_r = phase_train_dygraph_resnet(K, pt, dygraph_resnet, card, dy_resnet)
+    del dy_resnet
+    log("phase 50: the tiny trainers and every nn class on the card against "
+        "the CPU, amp's skipped steps with no host read, the distributions' "
+        "draws, save/load_dygraph (dygraph-correctness)")
+    dy_checks = phase_dygraph_checks(K, pt, dygraph_transformer,
+                                     dygraph_resnet, card)
+    log(f"phases 48-50 took {time.perf_counter() - t48:.1f} s; phases 0-50 "
+        f"done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
     # launches on the main paths: each phase's counted runs, counts set to
@@ -8183,6 +8860,9 @@ def main():
         "quant-correctness": quant_checks["launches"],
         "train-mobilenet-versions": http_swap["versions"]["launches"],
         "serve-http-swap-mobilenet": http_swap["launches"],
+        "train-dygraph-transformer": dy_t["launches"],
+        "train-dygraph-resnet50": dy_r["launches"],
+        "dygraph-correctness": dy_checks["launches"],
     }
     kernels = []
     for name, main_rec in (
@@ -8212,11 +8892,13 @@ def main():
             library_ms=main_rec["library_ms"]))
     check(sorted(k["name"] for k in kernels) == K.list_kernels(),
           "the kernels line must list every registered kernel")
+    log(f"probes not measured: {len(UNMEASURED)} {UNMEASURED}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()},
+        "probes_not_measured": UNMEASURED}))
     return 0
 
 

@@ -14,7 +14,10 @@ rather than falling back.
 The package root carries the Fluid surface of the static path (``Program``,
 ``program_guard``, ``data``, ``layers``, ``optimizer``, ``Executor``, ...),
 so a fluid script runs with ``import paddle_tpu_torch as pt``, and the
-module context of the eager path (``nn``) with the ragged-batch helpers
+eager (dygraph) surface: the module context and its Layer classes
+(``nn``), ``dygraph``, ``grad``, ``no_grad``, ``to_variable``,
+``WeightNormParamAttr``, ``amp``, ``metrics``, ``distributions`` and
+``parallel``'s process environment, with the ragged-batch helpers
 (``create_lod_tensor``). The dtype constants (``float32`` ... ``uint8``,
 ``bool_``) are torch dtypes; the place helpers are ``core/place.py``'s;
 ``flags`` reads the flags by attribute; ``in_dygraph_mode()`` is True
@@ -44,7 +47,9 @@ __all__ = ["__version__", "NoCudaDeviceError", "default_device",
            "is_compiled_with_tpu", "is_compiled_with_cuda", "device_count",
            "set_device", "get_device", "cpu_places", "cuda_places",
            "cuda_pinned_places", "tpu_places", "flags", "ExecutionStrategy",
-           "in_dygraph_mode"]
+           "in_dygraph_mode", "grad", "no_grad", "to_variable",
+           "WeightNormParamAttr", "dygraph", "amp", "metrics",
+           "distributions", "parallel"]
 
 float32, float64, float16, bfloat16 = (torch.float32, torch.float64,
                                        torch.float16, torch.bfloat16)
@@ -89,7 +94,9 @@ from paddle_tpu_torch.core.place import (  # noqa: E402
     get_device, is_compiled_with_cuda, is_compiled_with_tpu, set_device,
     tpu_places,
 )
-from paddle_tpu_torch.framework import ParamAttr, unique_name  # noqa: E402
+from paddle_tpu_torch.framework import (  # noqa: E402
+    ParamAttr, WeightNormParamAttr, grad, no_grad, to_variable, unique_name,
+)
 from paddle_tpu_torch.lod_tensor import (  # noqa: E402
     create_lod_tensor, create_random_int_lodtensor,
 )
@@ -102,6 +109,8 @@ from paddle_tpu_torch.static import (  # noqa: E402
 # bound on the root as the JAX package's imports bind them
 from paddle_tpu_torch import distributed, inference, monitor  # noqa: E402,F401
 from paddle_tpu_torch import contrib  # noqa: E402,F401
+from paddle_tpu_torch import amp, distributions, metrics  # noqa: E402,F401
+from paddle_tpu_torch import dygraph, parallel  # noqa: E402,F401
 
 
 def in_dygraph_mode():

@@ -1,13 +1,26 @@
 """Nested dict/list trees of tensors (parameters, grads, optimizer slots):
 the little of ``jax.tree`` the port needs.
 
-Both functions walk dicts in their own key order and lists in order, so
-``leaves(t)`` lists the leaves in the order ``map_tree`` visits them.
+``leaves`` and ``map_tree`` walk dicts in their own key order and lists in
+order, so ``leaves(t)`` lists the leaves in the order ``map_tree`` visits
+them. ``map_tensors`` and ``tensors`` walk dicts, lists and tuples in the
+same order and act on the tensors only (the eager API's trees: ``grad``'s
+arguments, ``amp``'s casts, a loaded checkpoint).
+
+The two pairs stay apart because they disagree on tuples: to
+``leaves``/``map_tree`` a tuple is a leaf (the optimizer zips each param
+with its grad and slots into a tuple leaf and lists them with ``leaves``),
+while the eager API's trees hold tuples as containers and non-tensor leaves
+that pass through untouched. On a tree of dicts and lists of tensors (a
+params tree, an optimizer state) both give the same leaves in the same
+order: ``tensors(t) == leaves(t)``.
 """
+
+import torch
 
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 
-__all__ = ["leaves", "map_tree"]
+__all__ = ["leaves", "map_tree", "map_tensors", "tensors"]
 
 
 def leaves(tree):
@@ -44,3 +57,20 @@ def map_tree(fn, tree, *rest, path=""):
                          path=f"{path}.{i}".lstrip("."))
                 for i, v in enumerate(tree)]
     return fn(path, tree, *rest)
+
+
+def map_tensors(fn, tree):
+    """``tree`` (dicts, lists, tuples) with ``fn`` applied to each tensor;
+    other leaves kept."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def tensors(tree):
+    """The tensors of ``tree``, in :func:`map_tensors`' order."""
+    out = []
+    map_tensors(out.append, tree)
+    return out

@@ -43,8 +43,10 @@ device, seeded from the program's ``random_seed``, the run and the op (the
 op's own ``seed`` attr is ignored there, as the JAX ``_key`` ignores it
 when given a key). ``batch_norm`` in a Program keeps its moving mean and variance
 as non-trainable persistable parameters, which its op's ``MeanOut`` and
-``VarianceOut`` overwrite; outside a Program its running stats would be
-module state, which it does not keep yet (queue 1 item 7d): it raises.
+``VarianceOut`` overwrite; outside a Program (the module context) they
+are ``nn`` state (``bn_mean``, ``bn_variance``), as in the JAX package. A
+``WeightNormParamAttr`` makes a parameter ``g * v / ||v||`` in both
+contexts.
 
 The detection layers: every function of ``ops/detection.py`` but the eight
 that take or return lists or run on the host (``_DETECTION_HOST``: eager
@@ -98,7 +100,9 @@ import torch
 from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch.core.dtypes import convert_dtype, dtype_name
 from paddle_tpu_torch.core.enforce import EnforceNotMet
-from paddle_tpu_torch.framework import ParamAttr, unique_name
+from paddle_tpu_torch.framework import (
+    ParamAttr, WeightNormParamAttr, unique_name,
+)
 from paddle_tpu_torch.layers import learning_rate_scheduler
 from paddle_tpu_torch.layers.learning_rate_scheduler import (
     cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
@@ -498,6 +502,9 @@ def _make_param(prefix, shape, dtype, attr, default_init, trainable=True):
     name), or in the module context's frame (JAX layers/__init__.py:398-
     429)."""
     attr = ParamAttr.to_attr(attr) if attr is not None else ParamAttr()
+    if isinstance(attr, WeightNormParamAttr):
+        return _make_weight_norm_param(prefix, shape, dtype, attr,
+                                       default_init, trainable)
     init = attr.initializer or default_init
     if not in_static_mode():
         if _module.in_module_ctx():
@@ -523,6 +530,85 @@ def _make_param(prefix, shape, dtype, attr, default_init, trainable=True):
     return p
 
 
+def _make_weight_norm_param(prefix, shape, dtype, attr, default_init,
+                            trainable):
+    """Weight normalization (``WeightNormParamAttr``; JAX
+    layers/__init__.py:432-529): the parameter is ``g * v / ||v||`` with
+    the norm over every axis but ``dim`` (all of them when None; each
+    element of a 1-D ``v`` with ``dim`` set), ``g`` starting at the norm of
+    ``v``'s initial value. In a Program ``g``'s startup op computes it from
+    ``v`` (``weight_norm_init_g``); in the module context ``g``'s
+    initializer does, and the names are ``{prefix}_wn_v`` / ``_g`` unless
+    the attr names them, so that ``init`` and ``apply`` meet the same
+    keys."""
+    if attr.name:
+        base = attr.name
+    elif in_static_mode():
+        base = unique_name.generate(prefix + "_wn")
+    else:
+        base = prefix + "_wn"
+    init = attr.initializer or default_init
+    train = attr.trainable and trainable
+    plain = ParamAttr(name=base + "_v", initializer=init,
+                      learning_rate=attr.learning_rate,
+                      regularizer=attr.regularizer, trainable=train,
+                      gradient_clip=attr.gradient_clip)
+    v = _make_param(prefix + "_v", shape, dtype, plain, init, trainable)
+    dim = attr.dim
+    norm_axes = (None if dim is None else
+                 tuple(i for i in builtins.range(len(shape)) if i != dim))
+    g_shape = (shape[dim],) if dim is not None else (1,)
+    if in_static_mode():
+        gname = base + "_g"
+        g = default_main_program().global_block().create_parameter(
+            gname, g_shape, dtype, trainable=train,
+            regularizer=attr.regularizer, gradient_clip=attr.gradient_clip,
+            optimize_attr={"learning_rate": attr.learning_rate},
+            initializer=I.Constant(1.0))
+        sblk = default_startup_program().global_block()
+        if not sblk.has_var(gname):
+            sblk.create_parameter(gname, g_shape, dtype,
+                                  initializer=I.Constant(1.0))
+            sblk.append_op(type="weight_norm_init_g",
+                           inputs={"X": [base + "_v"]},
+                           outputs={"Out": [gname]}, attrs={"dim": dim})
+    else:
+        class _GInit(I.Initializer):
+            def __call__(self, gen, gshape, gdtype=torch.float32):
+                return _wn_norm(v.detach(), dim).reshape(gshape).to(gdtype)
+        g = _make_param(prefix + "_g", g_shape, dtype,
+                        ParamAttr(name=base + "_g", initializer=_GInit(),
+                                  learning_rate=attr.learning_rate,
+                                  regularizer=attr.regularizer,
+                                  gradient_clip=attr.gradient_clip,
+                                  trainable=train),
+                        I.Constant(1.0), trainable)
+    # w = g * v / ||v||, from the wrapped ops, so that a Program records it
+    if norm_axes is None:
+        sq = reduce_sum(square(v), keep_dim=True)
+    elif norm_axes:
+        sq = reduce_sum(square(v), dim=list(norm_axes), keep_dim=True)
+    else:
+        sq = square(v)
+    inv = rsqrt(scale(sq, scale=1.0, bias=1e-12))
+    gshape = [1] * len(shape)
+    if dim is not None:
+        gshape[dim] = shape[dim]
+    gb = reshape(g, shape=gshape)
+    return elementwise_mul(elementwise_mul(v, inv), gb)
+
+
+def _wn_norm(v, dim):
+    """||v|| over every axis but ``dim`` (all axes when None, each element
+    when v is 1-D and ``dim`` is set)."""
+    if dim is None:
+        return torch.sqrt(torch.sum(torch.square(v))).reshape(1)
+    axes = tuple(i for i in builtins.range(v.dim()) if i != dim)
+    if not axes:
+        return torch.abs(v)
+    return torch.sqrt(torch.sum(torch.square(v), dim=axes))
+
+
 def _init_param_compute(ins, attrs):
     """The startup program's initializer op; ``rng`` is the executor's
     generator (ops without ``_needs_rng``, constants, draw nothing). An
@@ -541,6 +627,8 @@ def register_op_init_param():
 
 
 register_op_init_param()
+register_op("weight_norm_init_g", lambda ins, attrs: {
+    "Out": [_wn_norm(ins["X"][0], attrs.get("dim"))]})
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,
@@ -774,21 +862,27 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                param_attr=None, bias_attr=None, data_layout="NCHW",
                name=None, moving_mean_name=None, moving_variance_name=None,
                use_global_stats=False):
-    """fluid.layers.batch_norm parity in a Program: scale and bias
-    parameters, the moving mean and variance as non-trainable persistable
-    parameters (0 and 1), and one ``batch_norm`` op whose ``MeanOut`` and
-    ``VarianceOut`` overwrite them. Outside a Program the running stats
-    need the module context, which is not ported yet: it raises."""
-    if not (in_static_mode() and isinstance(input, Variable)):
-        raise EnforceNotMet(
-            "batch_norm outside a Program keeps its running stats in the "
-            "module context (nn state), which is not ported yet (ROADMAP "
-            "queue 1 item 7d)")
+    """fluid.layers.batch_norm parity: scale and bias parameters, then,
+    in a Program, the moving mean and variance as non-trainable persistable
+    parameters (0 and 1) and one ``batch_norm`` op whose ``MeanOut`` and
+    ``VarianceOut`` overwrite them; outside one (the module context), the
+    running stats as ``nn`` state (``bn_mean``, ``bn_variance``), which a
+    training call overwrites, and the op at once."""
     c = int(input.shape[1] if data_layout == "NCHW" else input.shape[-1])
     scale_p = _make_param("bn_scale", (c,), torch.float32, param_attr,
                           I.Constant(1.0))
     bias_p = _make_param("bn_bias", (c,), torch.float32, bias_attr,
                          I.Constant(0.0))
+    if not (in_static_mode() and isinstance(input, Variable)):
+        mean = _module.create_state("bn_mean", (c,), torch.float32, 0.0)
+        var = _module.create_state("bn_variance", (c,), torch.float32, 1.0)
+        out, m_out, v_out, _, _ = _nn.batch_norm(
+            input, scale_p, bias_p, mean, var, epsilon, momentum, is_test,
+            data_layout, use_global_stats)
+        if not is_test:
+            _module.set_state("bn_mean", m_out.detach())
+            _module.set_state("bn_variance", v_out.detach())
+        return _apply_act(out, act)
     mean = _make_param(moving_mean_name or "bn_mean", (c,), torch.float32,
                        ParamAttr(name=moving_mean_name, trainable=False),
                        I.Constant(0.0), trainable=False)

@@ -12,6 +12,10 @@ parameters from it (initializers draw on the CPU: a CUDA generator gives
 its seed to a CPU one) and makes them on its device, the card when it is
 None. ``apply`` hands it to the layers that draw (``current_rng``).
 
+Inside ``framework.no_grad()`` a Layer's outputs are detached (the JAX
+package's ``stop_gradient`` on them), so a parameter used only there gets
+exact-zero gradients; the math between layers stays differentiable.
+
 One departure, a refusal: where a parameter of the frame is asked for
 again with another shape, ``create_parameter`` raises naming it. The JAX
 package returns the first one whatever the shape (a second ``fc_w`` of
@@ -203,7 +207,11 @@ class Layer:
                 f"{type(self).__name__} called outside a module context — "
                 f"use .init(rng, ...) then .apply(params, state, ...)")
         with _frame().scope(self._scope_name):
-            return self.forward(*args, **kwargs)
+            out = self.forward(*args, **kwargs)
+        from paddle_tpu_torch.framework import in_no_grad, stop_gradient
+        if in_no_grad():
+            out = stop_gradient(out)
+        return out
 
     # -- functional entry points ------------------------------------------
     def init(self, rng, *args, **kwargs):

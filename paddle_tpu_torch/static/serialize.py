@@ -149,7 +149,7 @@ def _resolve_class(path):
     port_mod = _PORT_PKG + mod[len(_DOC_PKG):]
     missing = SerializationError(
         f"{path}: the port has no {qual} in {port_mod} yet (ROADMAP queue "
-        f"1 item 7: the eager surface and the initializers)")
+        f"1: items 9 and 10 are still to port)")
     try:
         obj = importlib.import_module(port_mod)
     except ModuleNotFoundError:

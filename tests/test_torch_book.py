@@ -238,11 +238,12 @@ def test_nets_glu_and_attention_match_jax():
 
 
 def test_layers_outside_a_program():
-    """batch_norm needs the module context (7d); dropout runs at once with
-    a generator from ``seed``; a static split gives one Variable per
+    """batch_norm keeps its running stats in the module context, and
+    outside one it has nowhere to keep its parameters; dropout runs at once
+    with a generator from ``seed``; a static split gives one Variable per
     part."""
     x = torch.tensor(_np(16, 4, 3, 5, 5))
-    with pytest.raises(EnforceNotMet, match="queue 1 item 7d"):
+    with pytest.raises(EnforceNotMet, match="module context"):
         tpt.layers.batch_norm(x)
     a = tpt.layers.dropout(x, 0.5, seed=11)
     assert torch.equal(a, tpt.layers.dropout(x, 0.5, seed=11))

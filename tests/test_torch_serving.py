@@ -221,13 +221,16 @@ def test_port_programs_write_the_jax_documents(opt):
 
 
 def test_documents_refuse_what_the_port_cannot_build(exports):
-    # (a class the port does not have yet: WeightNormParamAttr, queue 1
-    # item 7d)
-    node = {"__obj__": "paddle_tpu.framework:WeightNormParamAttr",
-            "state": {"dim": None}}
+    # (a class the port does not have yet: the mesh config, queue 1 item 9;
+    # WeightNormParamAttr, item 7d, decodes since the eager surface came)
+    node = {"__obj__": "paddle_tpu.parallel.mesh:MeshConfig", "state": {}}
     with pytest.raises(tser.SerializationError,
-                       match="WeightNormParamAttr.*queue 1 item 7"):
+                       match="MeshConfig.*queue 1: items 9 and 10"):
         tser.decode_value(node)
+    wn = tser.decode_value({"__obj__": "paddle_tpu.framework:"
+                                       "WeightNormParamAttr",
+                            "state": {"dim": 1}})
+    assert type(wn) is tpt.WeightNormParamAttr and wn.dim == 1
     for path in ("os:system", "paddle_tpu_torch.initializer:Constant",
                  "paddle_tpu.nosuchmodule:Thing"):
         with pytest.raises(tser.SerializationError):
