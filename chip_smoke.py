@@ -8267,7 +8267,925 @@ def phase_dygraph_checks(K, pt, dt, dr, card):
     return rec
 
 
-def main():
+# ---------------------------------------------------------------------------
+# phases 51-53: observability on the PTB LM at lm_model.py's medium config
+# ---------------------------------------------------------------------------
+#: steps of each monitor configuration of phase 51, from the same state
+OBS_STEPS = 40
+#: phase 51: the cost monitor's FLOPs a step against the analytic count of
+#: the config's matrix products (forward, and twice that backward)
+OBS_FLOPS_TOL = 0.01
+#: phase 51: each configuration's losses against off's. The first step's
+#: loss is bitwise equal (the forward from the same state, the same dropout
+#: masks); later ones differ by rounding: the embedding's gradient is a
+#: float-atomic index_add_ on the card, whose order changes from run to
+#: run, and SGD at rate 1.0 carries that into the next losses. Held to
+#: this relative gap: about 100 times the 9.6e-8 that every configuration
+#: read against off on an H100 (off against off again is the floor the run
+#: measures), and below what one dropped update moves the losses by (the
+#: phase shows it: ``obs_dropped_update``)
+OBS_LOSS_REL = 1e-5
+#: phase 52: the clean checked step against the unchecked one from the same
+#: state: the loss bitwise, the parameters within this absolute gap (the
+#: same index_add_ rounding, at rate 1.0)
+CLEAN_PARAM_GAP = 1e-6
+#: phase 53's limits, card against the port on the CPU in fp32 with TF32
+#: off, set before the first card run: the tensor-watch stats are norms of
+#: the grads and of the update, so they take phase 30's relative gradient
+#: error (LM_TOL); the cost FLOPs count the same plain bodies on meta
+#: tensors on both devices, so they are equal; the localizer's report
+#: names the same tensor, op, index and counts
+MON_TOL = {"watch_rel": LM_TOL["grad_relnorm_err"], "flops": 0.0}
+LM_WANT = {"embedding_gather": 1, "fused_matmul": 1, "fused_sgd": 7}
+
+
+def lm_flops(cfg):
+    """The LM's matrix-product FLOPs a step: each of the B*T tokens runs
+    every layer's [x, h] x [2H, 4H] gate product and the [H, V] softmax fc,
+    2 FLOPs a multiply-add, forward once and backward twice."""
+    H = cfg.hidden
+    return (cfg.batch * cfg.num_steps * 3
+            * (cfg.layers * 2 * (2 * H) * (4 * H) + 2 * H * cfg.vocab))
+
+
+def lm_state(pt, ptb_lm, cfg):
+    """(startup-made persistables as numpy, the built program's dict)."""
+    built = ptb_lm.build_train(pt, cfg)
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(built["startup"], scope=scope)
+    snap = {n: scope.find_var(n).cpu().numpy().copy()
+            for n, v in built["startup"].global_block().vars.items()
+            if v.persistable}
+    return snap, built
+
+
+def lm_feeds(cfg, built, windows, device):
+    """The feed of each window: x, y and a zero initial state, on the
+    device."""
+    import numpy as np
+    xn, yn = [v.name for v in built["reader"].vars]
+    z = np.zeros((cfg.batch, cfg.state_width), np.float32)
+    return [{xn: torch.as_tensor(x, device=device),
+             yn: torch.as_tensor(y, device=device),
+             "init": torch.as_tensor(z, device=device)} for x, y in windows]
+
+
+def lm_run(pt, built, scope, feeds, device, exe=None):
+    """One step per feed through ``Executor.run``; returns (losses, ms of
+    each step, the executor). Each step ends in the loss's host read."""
+    exe = exe or pt.Executor(pt.CPUPlace() if device == "cpu" else None)
+    losses, ms = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        (loss,) = exe.run(built["main"], feed=feed,
+                          fetch_list=[built["loss"]], scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms, exe
+
+
+def group_kernels(rows, groups=KERNEL_GROUPS):
+    """{group: [device ms, calls]} of [(kernel name, ms, calls)]."""
+    import re
+    out = {}
+    for name, ms, n in rows:
+        g = next((g for g, pat in groups if re.search(pat, name, re.I)),
+                 "other")
+        acc = out.setdefault(g, [0.0, 0])
+        acc[0] += ms
+        acc[1] += n
+    return out
+
+
+def _monitors_on(names, tmp):
+    """Turn on the monitors of one phase-51 configuration; returns the
+    function that turns them off again."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.monitor import (
+        anomaly, flight_recorder, goodput, tensorwatch, trace)
+    undo = None
+    if "trace" in names:
+        trace.enable(os.path.join(tmp, "traces"), sample_rate=1.0)
+    if "profiler" in names:
+        profiler.start_profiler()
+    if "goodput" in names:
+        goodput.enable()
+    if "anomaly" in names:
+        anomaly.enable()
+    if "flight" in names:
+        undo = flight_recorder.RECORDER.install(os.path.join(tmp, "pm"))
+        flight_recorder.enable()
+    if "watch" in names:
+        tensorwatch.enable()
+    if "check" in names:
+        import paddle_tpu_torch as pt
+        pt.set_flags({"check_nan_inf": True})
+
+    def off():
+        import paddle_tpu_torch as pt
+        pt.set_flags({"check_nan_inf": False})
+        tensorwatch.disable()
+        flight_recorder.disable()
+        if undo is not None:
+            undo()
+        anomaly.disable()
+        goodput.disable()
+        if "profiler" in names:
+            profiler.stop_profiler()
+        if "trace" in names:
+            trace.disable()
+    return off
+
+
+#: the monitors of each phase-51 configuration
+OBS_ON = {"off": (), "trace+profiler": ("trace", "profiler"),
+          "goodput+anomaly+flight": ("goodput", "anomaly", "flight"),
+          "tensorwatch": ("watch",), "check_nan_inf": ("check",),
+          "all": ("trace", "profiler", "goodput", "anomaly", "flight",
+                  "watch", "check"), "off again": ()}
+#: phase 51 runs the configurations in turns: this many rounds of
+#: ``OBS_STEPS // OBS_ROUNDS`` steps each, so the host's drift lands on
+#: every configuration alike (the step is host-bound)
+OBS_ROUNDS = 5
+
+
+class HookTimer:
+    """Host time inside the Executor's monitor hooks, by monitor. While
+    installed, each hook is a wrapper that reads ``time.perf_counter``
+    around it and keeps its exclusive seconds and its calls: a hook called
+    from another (the flight recorder's span from a ``RecordEvent``) counts
+    in its own monitor only. ``install()`` after the monitors are on
+    (``anomaly.enable`` makes a new detector), ``remove()`` before they go
+    off. The profiler's ``RecordEvent`` spans run in every configuration:
+    off's reading is their cost with the profiler off."""
+
+    def __init__(self):
+        self.secs, self.calls, self._stack, self._undo = {}, {}, [], []
+
+    @staticmethod
+    def _targets():
+        from paddle_tpu_torch import profiler
+        from paddle_tpu_torch.monitor import (
+            anomaly, flight_recorder, goodput, numerics, tensorwatch, trace)
+        from paddle_tpu_torch.static.program import OP_REGISTRY
+        return [
+            ("trace", trace, ("start_trace", "record_span",
+                              "record_exemplar", "end_trace")),
+            ("profiler", profiler.RecordEvent, ("__enter__", "__exit__")),
+            ("goodput", goodput, ("on_run_start", "on_run_end")),
+            ("anomaly", anomaly.DETECTOR, ("observe",)),
+            ("flight", flight_recorder.RECORDER, ("note", "span_push",
+                                                  "span_pop")),
+            ("tensorwatch", tensorwatch, ("on_step",)),
+            ("tensorwatch", OP_REGISTRY, ("tensor_watch_pre",
+                                          "tensor_watch_post")),
+            ("check_nan_inf", numerics, ("snapshot", "sentinel")),
+            # the checked step's host read waits here for the card, where
+            # an unchecked step waits in its fetch
+            ("check_nan_inf flag read", numerics, ("read_flags",))]
+
+    def _wrap(self, label, fn):
+        def timed(*a, **k):
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.secs[label] = self.secs.get(label, 0.0) + dt - inner
+                self.calls[label] = self.calls.get(label, 0) + 1
+                if self._stack:
+                    self._stack[-1] += dt
+        return timed
+
+    def install(self):
+        for label, owner, names in self._targets():
+            for n in names:
+                if isinstance(owner, dict):
+                    fn = owner[n]
+                    owner[n] = self._wrap(label, fn)
+                    self._undo.append(
+                        lambda o=owner, n=n, f=fn: o.__setitem__(n, f))
+                    continue
+                own = n in vars(owner)
+                fn = getattr(owner, n)
+                setattr(owner, n, self._wrap(label, fn))
+                self._undo.append(
+                    lambda o=owner, n=n, f=fn, own=own:
+                    setattr(o, n, f) if own else delattr(o, n))
+
+    def remove(self):
+        while self._undo:
+            self._undo.pop()()
+
+    def per_step(self, steps):
+        """{monitor: [host ms a step, calls a step]}."""
+        return {k: [v * 1e3 / steps, self.calls[k] / steps]
+                for k, v in sorted(self.secs.items())}
+
+
+def obs_monitor_device_ms(pt, runs, tmp, snap, n=10):
+    """Device ms of the work ``check_nan_inf`` and tensor watch add to a
+    step, from CUDA events around it (``events_ms``), on the tensors of one
+    real step of each (their configurations' executors and scopes, after
+    the rounds): the snapshot of the persistables, the sentinels over each
+    segment's writes, and the two watch ops."""
+    from paddle_tpu_torch.monitor import numerics
+    from paddle_tpu_torch.static.program import OP_REGISTRY
+    took = {"sentinel": []}
+    real = {"sentinel": numerics.sentinel,
+            "tensor_watch_pre": OP_REGISTRY["tensor_watch_pre"],
+            "tensor_watch_post": OP_REGISTRY["tensor_watch_post"]}
+
+    def grab_sentinel(values, device=None):
+        took["sentinel"].append((list(values), device))
+        return real["sentinel"](values, device)
+
+    def grabber(t):
+        def grab(ins, attrs):
+            took[t] = ({k: list(v) for k, v in ins.items()}, dict(attrs))
+            return real[t](ins, attrs)
+        return grab
+
+    numerics.sentinel = grab_sentinel
+    for t in ("tensor_watch_pre", "tensor_watch_post"):
+        OP_REGISTRY[t] = grabber(t)
+    try:
+        for name in ("check_nan_inf", "tensorwatch"):
+            r = runs[name]
+            off = _monitors_on(r["on"], tmp)
+            try:
+                lm_run(pt, r["built"], r["scope"], r["feeds"][:1], "cuda",
+                       r["exe"])
+            finally:
+                off()
+    finally:
+        numerics.sentinel = real["sentinel"]
+        for t in ("tensor_watch_pre", "tensor_watch_post"):
+            OP_REGISTRY[t] = real[t]
+    scope = runs["check_nan_inf"]["scope"]
+    state = {k: scope.find_var(k) for k in snap}
+    pre, post = took["tensor_watch_pre"], took["tensor_watch_post"]
+    out = dict(
+        snapshot=events_ms(lambda: numerics.snapshot(state), n)[0],
+        sentinels=events_ms(lambda: [numerics.sentinel(v, d)
+                                     for v, d in took["sentinel"]], n)[0],
+        sentinel_segments=len(took["sentinel"]),
+        sentinel_tensors=sum(len(v) for v, _ in took["sentinel"]),
+        watch_pre=events_ms(lambda: real["tensor_watch_pre"](*pre), n)[0],
+        watch_post=events_ms(lambda: real["tensor_watch_post"](*post),
+                             n)[0])
+    out["check_nan_inf"] = out["snapshot"] + out["sentinels"]
+    out["tensorwatch"] = out["watch_pre"] + out["watch_post"]
+    return out
+
+
+def obs_dropped_update(pt, ptb_lm, cfg, built, snap, device, feeds,
+                       off_losses):
+    """The loss check's power: off's first four steps again, with the
+    second step's update dropped (the parameters put back to their values
+    before it, as a monitor that lost an update would leave them). Returns
+    the largest relative gap of the last two losses to off's, which the
+    phase requires above ``OBS_LOSS_REL``."""
+    scope = pt.Scope.from_numpy(snap, device, built["startup"])
+    exe = pt.Executor(pt.CPUPlace() if device == "cpu" else None)
+    names = ptb_lm.param_names(cfg)
+    losses, _, _ = lm_run(pt, built, scope, feeds[:1], device, exe)
+    pre = {n: scope.find_var(n).clone() for n in names}
+    more, _, _ = lm_run(pt, built, scope, feeds[1:2], device, exe)
+    with torch.no_grad():
+        for n, v in pre.items():
+            scope.find_var(n).copy_(v)
+    rest, _, _ = lm_run(pt, built, scope, feeds[2:4], device, exe)
+    return max(abs(a - b) / abs(b) for a, b in zip(rest, off_losses[2:4]))
+
+
+def phase_observe_ptb_lm(K, pt, ptb_lm, card, cfg=None, device="cuda",
+                         steps=OBS_STEPS):
+    """Phase 51: the LM at medium through ``Executor.run`` from one state
+    under each configuration of ``OBS_ON`` (off, each monitor group, all,
+    off again), each its own executor and scope, run in turns
+    (``OBS_ROUNDS`` rounds of a share of ``steps``; each step ends in the
+    loss's host read): steady ms a step and the overhead against off; what
+    each monitor adds, measured directly: the host ms a step inside its
+    hooks (``HookTimer``) and the device ms of its own work
+    (``obs_monitor_device_ms``); the launch counts (exactly 1/1/7 a step in
+    every configuration); the losses against off's (``OBS_LOSS_REL``, which
+    a dropped update must exceed: ``obs_dropped_update``); the extra peak
+    of each; the cost FLOPs against the analytic count, MFU, tensor watch's
+    stats against the norms from the snapshot, the profiler's device spans
+    against the launch counts and ``op_breakdown``, goodput's
+    compile/compute split and a ``MetricsServer`` scrape."""
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch.clip import global_norm
+    from paddle_tpu_torch.monitor import (
+        cost, exporter, goodput, memory, tensorwatch)
+    from paddle_tpu_torch.monitor.registry import REGISTRY
+    cuda = device == "cuda"
+    cfg = cfg or ptb_lm.medium()
+    per = steps // OBS_ROUNDS
+    windows = lm_windows(ptb_lm, cfg, per * OBS_ROUNDS, 51)
+    snap, plain = lm_state(pt, ptb_lm, cfg)
+    tensorwatch.enable()
+    try:
+        watched = ptb_lm.build_train(pt, cfg)
+    finally:
+        tensorwatch.disable()
+    tmp = tempfile.mkdtemp(prefix="obs51.")
+    srv = exporter.MetricsServer(port=0).start()
+    steps_total = REGISTRY.get("executor_steps_total")
+    runs = {}
+    for name, on in OBS_ON.items():
+        built = watched if "watch" in on else plain
+        runs[name] = dict(
+            built=built, on=on,
+            scope=pt.Scope.from_numpy(snap, device, built["startup"]),
+            feeds=lm_feeds(cfg, built, windows, device),
+            exe=pt.Executor(pt.CPUPlace() if device == "cpu" else None),
+            ms=[], losses=[], peak=0, counts={}, scraped=0.0, ran=0,
+            timer=HookTimer(), fetch=[0.0, 0])
+    fetch_h = REGISTRY.get("executor_fetch_ms")
+    try:
+        for rnd in range(OBS_ROUNDS):
+            for name, r in runs.items():
+                off = _monitors_on(r["on"], tmp)
+                try:
+                    feeds = r["feeds"][rnd * per:(rnd + 1) * per]
+                    scraped0 = exporter.parse_text(urllib_get(srv.port))[
+                        1].get(("executor_steps_total", ()), 0.0)
+                    steps0 = steps_total.value()
+                    phases0 = {p: goodput._c_phase.value(phase=p)
+                               for p in ("compile", "device_compute")}
+                    start = 0
+                    if rnd == 0:
+                        # the first step builds the runner: not counted.
+                        # The Executor measures its peak when it sets a
+                        # new high of the process, so the high is reset
+                        if cuda:
+                            torch.cuda.reset_peak_memory_stats()
+                        losses, ms, _ = lm_run(pt, r["built"], r["scope"],
+                                               feeds[:1], device, r["exe"])
+                        r["losses"] += losses
+                        r["first_step_ms"] = ms[0]
+                        r["cost"] = (cost.flops_per_step(),
+                                     cost.bytes_per_step())
+                        r["goodput_first_step"] = {
+                            p: goodput._c_phase.value(phase=p) - phases0[p]
+                            for p in phases0}
+                        phases0 = {p: goodput._c_phase.value(phase=p)
+                                   for p in phases0}
+                        start = 1
+                    if cuda:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                    K.reset_launch_counts()
+                    fetch0 = (fetch_h.sum(), fetch_h.count())
+                    r["timer"].install()
+                    try:
+                        losses, ms, _ = lm_run(pt, r["built"], r["scope"],
+                                               feeds[start:], device,
+                                               r["exe"])
+                    finally:
+                        r["timer"].remove()
+                    r["fetch"][0] += fetch_h.sum() - fetch0[0]
+                    r["fetch"][1] += fetch_h.count() - fetch0[1]
+                    for k, v in K.launch_counts().items():
+                        r["counts"][k] = r["counts"].get(k, 0) + v
+                    if cuda:
+                        r["peak"] = max(r["peak"],
+                                        torch.cuda.max_memory_allocated()
+                                        - base)
+                    r["goodput_after"] = {
+                        p: r.get("goodput_after", {}).get(p, 0.0)
+                        + goodput._c_phase.value(phase=p) - phases0[p]
+                        for p in phases0}
+                    r["losses"] += losses
+                    r["ms"] += ms
+                    r["ran"] += steps_total.value() - steps0
+                    r["scraped"] += exporter.parse_text(urllib_get(
+                        srv.port))[1].get(("executor_steps_total", ()),
+                                          0.0) - scraped0
+                finally:
+                    off()
+        # tensor watch: one more step, its stats against the snapshot's
+        r = runs["tensorwatch"]
+        off = _monitors_on(r["on"], tmp)
+        try:
+            names = ptb_lm.param_names(cfg)
+            old = [r["scope"].find_var(n).clone() for n in names]
+            (_, stats) = r["exe"].run(
+                r["built"]["main"], feed=r["feeds"][0],
+                fetch_list=[r["built"]["loss"], tensorwatch.STATS_VAR],
+                scope=r["scope"], return_numpy=False)
+            new = [r["scope"].find_var(n) for n in names]
+        finally:
+            off()
+        gn, pn, un, ratio = stats.tolist()
+        pn_t = global_norm(old)
+        un_t = global_norm([a - b for a, b in zip(new, old)])
+        ratio_d = (un_t / torch.clamp(pn_t, min=1e-12)).item()
+        watch = dict(stats=[gn, pn, un, ratio], param_norm_direct=pn_t.item(),
+                     update_norm_direct=un_t.item(), ratio_direct=ratio_d,
+                     clip_relation=[min(gn, cfg.max_grad_norm) * cfg.lr, un],
+                     gauges_published={k: REGISTRY.get(k).value() for k in (
+                         "grad_global_norm", "param_global_norm",
+                         "update_ratio")})
+        check(pn == pn_t.item() and un == un_t.item() and ratio == ratio_d,
+              f"observe-ptb-lm tensorwatch: stats {watch}")
+        check(abs(min(gn, cfg.max_grad_norm) * cfg.lr - un) <= 1e-4 * un,
+              f"observe-ptb-lm tensorwatch: the update norm is not lr x "
+              f"the clipped grad norm: {watch}")
+        rec = dict(configs={}, tensorwatch=watch)
+        if cuda:
+            rec["monitor_device_ms"] = obs_monitor_device_ms(pt, runs, tmp,
+                                                             snap)
+        ref = runs["off"]
+        rec["dropped_update_loss_rel_gap"] = obs_dropped_update(
+            pt, ptb_lm, cfg, plain, snap, device, ref["feeds"],
+            ref["losses"])
+        check(rec["dropped_update_loss_rel_gap"] > OBS_LOSS_REL,
+              f"observe-ptb-lm: one dropped update moved the losses by "
+              f"{rec['dropped_update_loss_rel_gap']}, within the "
+              f"{OBS_LOSS_REL} the configurations are held to")
+        for name, r in runs.items():
+            counted = len(r["ms"])
+            for k, v in r["counts"].items():
+                check(v == LM_WANT.get(k, 0) * counted,
+                      f"observe-ptb-lm {name}: {v} {k} launches in "
+                      f"{counted} steps, expected {LM_WANT.get(k, 0)} a "
+                      "step")
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(r["losses"], ref["losses"]))
+            check(r["losses"][0] == ref["losses"][0]
+                  and gap <= OBS_LOSS_REL,
+                  f"observe-ptb-lm {name}: the losses moved under the "
+                  f"monitors: {r['losses'][0]} vs {ref['losses'][0]}, "
+                  f"relative gap {gap}")
+            check(r["scraped"] == r["ran"],
+                  f"observe-ptb-lm {name}: the scrape moved "
+                  f"executor_steps_total by {r['scraped']}, {r['ran']} ran")
+            c = dict(ms_per_step_steady=statistics.median(r["ms"]),
+                     ms_per_step_quartiles=statistics.quantiles(r["ms"],
+                                                                n=4),
+                     first_step_ms=r["first_step_ms"], steps=counted,
+                     peak_gb=r["peak"] / 1e9, loss_first=r["losses"][0],
+                     loss_last=r["losses"][-1], loss_rel_gap_to_off=gap,
+                     steps_scraped=r["scraped"],
+                     hook_host_ms_per_step=r["timer"].per_step(counted),
+                     fetch_ms_mean=r["fetch"][0] / max(r["fetch"][1], 1),
+                     launches_per_step={k: v // counted
+                                        for k, v in r["counts"].items()
+                                        if v})
+            if "goodput" in r["on"]:
+                c.update(goodput_first_step=r["goodput_first_step"],
+                         goodput_after=r["goodput_after"])
+                check(r["goodput_first_step"]["compile"] > 0
+                      and r["goodput_after"]["compile"] == 0
+                      and r["goodput_after"]["device_compute"] > 0,
+                      f"observe-ptb-lm {name}: goodput split {c}")
+            rec["configs"][name] = c
+        off_ms = rec["configs"]["off"]["ms_per_step_steady"]
+        for c in rec["configs"].values():
+            # the host time in the hooks, the flag read's wait for the card
+            # apart (an unchecked step waits as long in its fetch)
+            c["hook_host_ms"] = sum(
+                v[0] for k, v in c["hook_host_ms_per_step"].items()
+                if k != "check_nan_inf flag read")
+        off_hooks = rec["configs"]["off"]["hook_host_ms"]
+        for name, c in rec["configs"].items():
+            c["overhead_ms"] = c["ms_per_step_steady"] - off_ms
+            c["overhead_rel"] = c["ms_per_step_steady"] / off_ms - 1.0
+            c["hook_host_ms_over_off"] = c["hook_host_ms"] - off_hooks
+            log(f"observe-ptb-lm {name}: steady {c['ms_per_step_steady']:.3f}"
+                f" ms/step ({c['overhead_rel'] * 100:+.2f} % against off), "
+                f"hooks {c['hook_host_ms']:.4f} ms of host a step "
+                f"({c['hook_host_ms_over_off']:+.4f} over off), fetch "
+                f"{c['fetch_ms_mean']:.3f} ms, peak {c['peak_gb']:.4f} GB "
+                f"[{card}]")
+        if cuda:
+            log("observe-ptb-lm monitors' device ms a step "
+                + json.dumps(rec["monitor_device_ms"]) + f" [{card}]")
+        from paddle_tpu_torch import profiler
+        report = profiler.summary()
+        check("executor.run/dispatch" in report and "MFU estimate" in report,
+              f"observe-ptb-lm: profiler summary {report}")
+        flops, nbytes = runs["off"]["cost"]
+        want = lm_flops(cfg)
+        for name, r in runs.items():
+            rec["configs"][name]["flops_per_step"], \
+                rec["configs"][name]["bytes_per_step"] = r["cost"]
+            check(abs(r["cost"][0] - want) <= OBS_FLOPS_TOL * want,
+                  f"observe-ptb-lm {name}: cost FLOPs {r['cost'][0]} "
+                  f"against the analytic {want}")
+        counts_all = {}
+        for r in runs.values():
+            for k, v in r["counts"].items():
+                counts_all[k] = counts_all.get(k, 0) + v
+        rec.update(
+            config="lm_model.py medium" if cfg == ptb_lm.medium() else str(
+                cfg), rounds=OBS_ROUNDS, steps_per_round=per,
+            flops_per_step=flops, flops_analytic=want,
+            flops_rel_err=flops / want - 1.0,
+            bytes_per_step=nbytes, off_ms_per_step=off_ms,
+            mfu_at_steady=cost.estimate_mfu(ms_per_step=off_ms),
+            peak_flops=cost.peak_flops(),
+            mfu_at_steady_fp32_simt=flops / (off_ms / 1e3) / 67e12,
+            check_nan_inf_extra_peak_gb=rec["configs"]["check_nan_inf"][
+                "peak_gb"] - rec["configs"]["off"]["peak_gb"],
+            state_gb=sum(np.asarray(v).nbytes for v in snap.values()) / 1e9,
+            memory_peak_bytes_per_step=memory.peak_bytes_per_step(),
+            profiler_summary=report.splitlines(), trace_files=sorted(
+                os.listdir(os.path.join(tmp, "traces"))),
+            launches=counts_all, card=card)
+        if cuda:
+            rec["device_spans"] = obs_device_spans(
+                K, pt, profiler, plain, snap, device, runs["off"]["feeds"],
+                tmp)
+    finally:
+        srv.stop()
+    log("observe_ptb_lm " + json.dumps(rec))
+    return rec
+
+
+def urllib_get(port):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        return resp.read().decode()
+
+
+#: spin kernels that open phase 51's profiled session ahead of the steps
+OBS_PAD_KERNELS = 256
+
+
+def obs_device_spans(K, pt, profiler, built, snap, device, feeds, tmp):
+    """Two steps under ``profiler.profiler(trace_dir=...)`` (torch.profiler
+    in the JAX profiler's role): its kernels by ``KERNEL_GROUPS``, the three
+    registered kernels' calls, which must equal their launch counts, and
+    its groups against ``op_breakdown``'s of one step. Late in a long
+    process a profiling session can lose the kernel records at its start
+    (~40 of a step's 3,612 on an H100 at the end of a run of every phase):
+    a pause and ``OBS_PAD_KERNELS`` spin kernels open the session, and the
+    spins the trace misses are the records it lost there."""
+    scope = pt.Scope.from_numpy(snap, device, built["startup"])
+    exe = pt.Executor()
+
+    def one_step():
+        exe.run(built["main"], feed=feeds[0], fetch_list=[built["loss"]],
+                scope=scope)
+
+    one_step()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with profiler.profiler(trace_dir=os.path.join(tmp, "torch_trace")):
+        time.sleep(0.05)
+        for _ in range(OBS_PAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        one_step()
+        one_step()
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    rows = profiler.device_kernel_times()
+    pads = sum(c for n, _, c in rows if "spin_kernel" in n)
+    rows = [r for r in rows if "spin_kernel" not in r[0]]
+    mine = group_kernels(rows)
+    ref = op_breakdown(one_step, top=1000)
+    out = dict(launches=counts, groups=mine,
+               op_breakdown_groups_ms=ref["groups_ms"],
+               records_lost_at_start=OBS_PAD_KERNELS - pads,
+               step_records=sum(c for _, _, c in rows),
+               op_breakdown_step_records=ref["launches"],
+               kernels=[[n[:100], ms, c] for n, ms, c in rows],
+               trace_files=os.listdir(os.path.join(tmp, "torch_trace")))
+    log("observe-ptb-lm device spans " + json.dumps(out))
+    check(counts == {k: 2 * v for k, v in LM_WANT.items()},
+          f"observe-ptb-lm: the two profiled steps launched {counts}")
+    for g in ("embedding_gather", "fused_matmul", "fused_sgd"):
+        check(mine.get(g, [0, 0])[1] == counts.get(g),
+              f"observe-ptb-lm: the profiler saw {mine.get(g)} of {g} "
+              f"against {counts.get(g)} launches in two steps "
+              f"({out['records_lost_at_start']} records lost at the "
+              f"session's start)")
+    big = {g for g, ms in ref["groups_ms"].items()
+           if ms >= 0.01 * ref["kernel_ms"]}
+    check(big <= set(mine), f"observe-ptb-lm: op_breakdown's groups "
+          f"{sorted(big)} missing from the profiler's {sorted(mine)}")
+    return out
+
+
+def lm_grad_overflow(scope, cfg):
+    """Make ``fc_weight1_0@GRAD`` overflow while the forward stays finite:
+    the embedding rows at +-1e38 (the forward never sees them: the gate
+    matmul's input rows of ``fc_weight1_0`` are zero, 0 x 1e38 = 0), and
+    ``softmax_weight`` scaled by 1e4 so the gates' gradients are O(10);
+    the input rows' gradient, the embedding times those gradients summed
+    over the tokens, is then far beyond fp32. No other leaf overflows: the
+    embedding's gradient is the gates' gradients times the zero rows."""
+    H = cfg.hidden
+    with torch.no_grad():
+        emb = scope.find_var("embedding_para")
+        emb.copy_(torch.sign(emb) * 1e38)
+        scope.find_var("fc_weight1_0")[:H].zero_()
+        scope.find_var("softmax_weight").mul_(1e4)
+
+
+def phase_nonfinite_ptb_lm(K, pt, ptb_lm, card, cfg=None, device="cuda"):
+    """Phase 52: the LM at medium under ``check_nan_inf``, three trips: NaN
+    fed in ``init``, +inf in one row of ``embedding_para``, and a gradient
+    leaf that overflows (``lm_grad_overflow``). Each report names the right
+    tensor and op type and leaves the scope's parameters bitwise at their
+    pre-step values; ``nonfinite_trips_total`` moves by 3; the anomaly
+    postmortem carries the first report; the next clean checked step equals
+    an unchecked executor's from the same state (same @step@, same dropout
+    masks), bitwise; the sentinel trips on NaN, +inf and -inf on the
+    device; a checked step whose first segment writes only an int tensor
+    runs (``int_segment_step``)."""
+    import tempfile
+
+    from paddle_tpu_torch.monitor import flight_recorder, numerics
+    from paddle_tpu_torch.monitor.registry import REGISTRY
+    cfg = cfg or ptb_lm.medium()
+    windows = lm_windows(ptb_lm, cfg, 1, 52)
+    snap, built = lm_state(pt, ptb_lm, cfg)
+    names = ptb_lm.param_names(cfg)
+    feed = lm_feeds(cfg, built, windows, device)[0]
+    xn = built["reader"].vars[0].name
+    row = int(feed[xn][0, 0])
+    exe = pt.Executor(pt.CPUPlace() if device == "cpu" else None)
+    tmp = tempfile.mkdtemp(prefix="nonfinite52.")
+    undo = flight_recorder.RECORDER.install(tmp)
+    flight_recorder.enable()
+    from paddle_tpu_torch.monitor import anomaly
+    anomaly._dumped_kinds.discard("non_finite")
+    trips0 = REGISTRY.get("nonfinite_trips_total").value()
+    scope = pt.Scope.from_numpy(snap, device, built["startup"])
+    main_ops = built["main"].global_block().ops
+    scan_outs = next(op for op in main_ops
+                     if op.type == "scan_block").output_names()
+    emb_out = next(op for op in main_ops
+                   if op.type == "embedding").output_names()
+    cases = (
+        ("nan-init", lambda s: None,
+         {"init": torch.full_like(feed["init"], 0.0).index_fill_(
+             0, torch.tensor([0], device=feed["init"].device),
+             float("nan"))},
+         lambda r: r["op_type"] == "scan_block"
+         and r["tensor"] in scan_outs and r["nan_count"] > 0),
+        ("inf-embedding-row",
+         lambda s: s.find_var("embedding_para")[row].fill_(float("inf")),
+         {}, lambda r: r["op_type"] == "embedding"
+         and r["tensor"] in emb_out and r["inf_count"] > 0),
+        ("overflowing-grad-leaf", lambda s: lm_grad_overflow(s, cfg), {},
+         lambda r: r["op_type"] == "autodiff"
+         and r["tensor"] == "fc_weight1_0@GRAD"))
+    rec = dict(trips={})
+    pt.set_flags({"check_nan_inf": True})
+    try:
+        for label, poison, feed_over, ok in cases:
+            with torch.no_grad():
+                poison(scope)
+            pre = {n: scope.find_var(n).clone() for n in names}
+            t0 = time.perf_counter()
+            try:
+                exe.run(built["main"], feed={**feed, **feed_over},
+                        fetch_list=[built["loss"]], scope=scope)
+                report = None
+            except numerics.NonFiniteError as e:
+                report = e.report
+            ms = (time.perf_counter() - t0) * 1e3
+            check(report is not None and report.get("localized")
+                  and ok(report), f"nonfinite-ptb-lm {label}: {report}")
+            bitwise = all(torch.equal(pre[n], scope.find_var(n))
+                          for n in names)
+            check(bitwise, f"nonfinite-ptb-lm {label}: the scope's "
+                           "parameters moved")
+            rec["trips"][label] = dict(report=report, ms=ms,
+                                       params_bitwise_unchanged=bitwise)
+            scope = pt.Scope.from_numpy(snap, device, built["startup"])
+            scope.set_var("@step@", 0)
+        trips = REGISTRY.get("nonfinite_trips_total").value() - trips0
+        check(trips == 3, f"nonfinite-ptb-lm: nonfinite_trips_total moved "
+                          f"by {trips}, expected 3")
+        dumps = [f for f in os.listdir(tmp) if "anomaly-non-finite" in f]
+        check(len(dumps) == 1, f"nonfinite-ptb-lm: postmortems {dumps}")
+        doc = json.load(open(os.path.join(tmp, dumps[0])))
+        first = rec["trips"]["nan-init"]["report"]
+        check(doc["anomaly"]["tensor"] == first["tensor"]
+              and doc["anomaly"]["op_type"] == first["op_type"],
+              f"nonfinite-ptb-lm: postmortem {doc.get('anomaly')}")
+        # the next clean step: checked against unchecked, same state
+        ref = pt.Scope.from_numpy(snap, device, built["startup"])
+        scope = pt.Scope.from_numpy(snap, device, built["startup"])
+        (a,) = exe.run(built["main"], feed=feed, fetch_list=[built["loss"]],
+                       scope=scope)
+        pt.set_flags({"check_nan_inf": False})
+        e2 = pt.Executor(pt.CPUPlace() if device == "cpu" else None)
+        (b,) = e2.run(built["main"], feed=feed, fetch_list=[built["loss"]],
+                      scope=ref)
+        gaps = {n: max_err(scope.find_var(n), ref.find_var(n))
+                for n in names}
+        same = bool(a == b) and max(gaps.values()) <= CLEAN_PARAM_GAP
+        check(same, f"nonfinite-ptb-lm: the clean checked step {a} vs "
+                    f"unchecked {b}, parameter gaps {gaps}")
+        sent = {}
+        for label, bad in (("nan", float("nan")), ("+inf", float("inf")),
+                           ("-inf", float("-inf"))):
+            v = torch.full((1 << 20,), 3e38, device=device)
+            sent["finite_3e38"] = bool(numerics.sentinel([v, v]))
+            v[12345] = bad
+            sent[label] = bool(numerics.sentinel([v]))
+        check(sent == {"finite_3e38": True, "nan": False, "+inf": False,
+                       "-inf": False}, f"nonfinite-ptb-lm: sentinel {sent}")
+        int_seg = int_segment_step(pt, device)
+        check(int_seg, "nonfinite-ptb-lm: a checked step whose first "
+                       "segment writes only an int tensor")
+        rec.update(nonfinite_trips=trips, postmortem=dumps[0],
+                   int_only_segment_checked_step_ok=int_seg,
+                   clean_step_loss_bitwise=bool(a == b),
+                   clean_step_param_gaps=gaps, sentinel=sent, card=card)
+    finally:
+        pt.set_flags({"check_nan_inf": False})
+        flight_recorder.disable()
+        undo()
+    log("nonfinite_ptb_lm " + json.dumps(rec, default=str))
+    return rec
+
+
+def int_segment_step(pt, device):
+    """A checked step whose first device segment writes only an int tensor,
+    then a host op (``py_func``) and a float segment, so every segment's
+    flag must stack on one device: True when it gives the unchecked step's
+    result."""
+    import numpy as np
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.data("x", [4], "float32")
+        ids = pt.layers.cast(x, "int32")
+        out = main.global_block().create_var(name="hostout", shape=[-1, 4],
+                                             dtype="float32")
+        pt.layers.py_func(lambda v: v.astype(np.float32) * 2.0, ids, out)
+        res = pt.layers.scale(out, 0.5)
+    exe = pt.Executor(pt.CPUPlace() if device == "cpu" else None)
+    feed = {"x": np.arange(8, dtype=np.float32).reshape(2, 4) + 0.25}
+    pt.set_flags({"check_nan_inf": True})
+    try:
+        (a,) = exe.run(main, feed=feed, fetch_list=[res], scope=pt.Scope())
+    finally:
+        pt.set_flags({"check_nan_inf": False})
+    (b,) = exe.run(main, feed=feed, fetch_list=[res], scope=pt.Scope())
+    return bool(np.array_equal(a, b) and np.array_equal(a, np.floor(
+        feed["x"])))
+
+
+def phase_monitor_checks(K, pt, ptb_lm, card, devices=("cuda", "cpu")):
+    """Phase 53: ``lm_tiny`` with the watch ops, the same program card
+    against the port on the CPU from the same weights (``MON_TOL``): the
+    tensor-watch stats of 3 steps, the cost FLOPs (equal), the localizer's
+    report of a NaN ``init``, and the goodput ledger of the card's run
+    written as an incarnation record and read back; on the card, a runner's
+    first step leaves a peak set before it in place."""
+    import tempfile
+
+    from paddle_tpu_torch.monitor import (
+        cost, exporter, goodput, numerics, tensorwatch)
+    from paddle_tpu_torch.monitor.registry import REGISTRY
+    cfg = ptb_lm.lm_tiny()
+    windows = lm_windows(ptb_lm, cfg, 3, 53)
+    tensorwatch.enable()
+    try:
+        snap, built = lm_state(pt, ptb_lm, cfg)
+        out = {}
+        for key, dev in zip(("card", "cpu"), devices):
+            scope = pt.Scope.from_numpy(snap, dev, built["startup"])
+            feeds = lm_feeds(cfg, built, windows, dev)
+            exe = pt.Executor(pt.CPUPlace() if dev == "cpu" else None)
+            stats = []
+            if dev == "cuda":
+                # a high set before the runner's first step: the Executor
+                # reads its peak without resetting the caller's
+                torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+                high = torch.cuda.max_memory_allocated()
+            K.reset_launch_counts()
+            goodput.enable()
+            t0 = time.time()
+            for f in feeds:
+                exe.run(built["main"], feed=f, fetch_list=[built["loss"]],
+                        scope=scope)
+                stats.append([REGISTRY.get(k).value() for k in (
+                    "grad_global_norm", "param_global_norm",
+                    "update_ratio")])
+            if dev == "cuda":
+                check(torch.cuda.max_memory_allocated() >= high,
+                      "monitor-correctness: the Executor reset the "
+                      "process's peak memory")
+            goodput.flush_idle()
+            goodput.disable()
+            counts = K.launch_counts()
+            flops = cost.flops_per_step()
+            pt.set_flags({"check_nan_inf": True})
+            try:
+                bad = dict(feeds[0])
+                bad["init"] = bad["init"].clone()
+                bad["init"][1, 3] = float("nan")
+                exe.run(built["main"], feed=bad,
+                        fetch_list=[built["loss"]], scope=scope)
+                report = None
+            except numerics.NonFiniteError as e:
+                report = {k: e.report.get(k) for k in (
+                    "tensor", "op_type", "op_index", "segment", "shape",
+                    "nan_count", "inf_count", "size", "localized")}
+            finally:
+                pt.set_flags({"check_nan_inf": False})
+            out[key] = dict(stats=stats, flops=flops, report=report,
+                            counts={k: v for k, v in counts.items() if v},
+                            start=t0)
+    finally:
+        tensorwatch.disable()
+    card_r, cpu_r = out["card"], out["cpu"]
+    gaps = [abs(a - b) / max(abs(b), 1e-30)
+            for sa, sb in zip(card_r["stats"], cpu_r["stats"])
+            for a, b in zip(sa, sb)]
+    rec = dict(watch_rel_gap=max(gaps), flops_card=card_r["flops"],
+               flops_cpu=cpu_r["flops"], flops_analytic=lm_flops(cfg),
+               report_card=card_r["report"], report_cpu=cpu_r["report"],
+               launches=card_r["counts"], tol=MON_TOL)
+    check(rec["watch_rel_gap"] <= MON_TOL["watch_rel"],
+          f"monitor-correctness: watch stats {card_r['stats']} vs "
+          f"{cpu_r['stats']}")
+    check(card_r["flops"] == cpu_r["flops"] == lm_flops(cfg),
+          f"monitor-correctness: FLOPs {rec}")
+    check(card_r["report"] is not None and card_r["report"]["localized"]
+          and card_r["report"] == cpu_r["report"],
+          f"monitor-correctness: reports {card_r['report']} vs "
+          f"{cpu_r['report']}")
+    if devices[0] == "cuda":
+        check(card_r["counts"] == {k: 3 * v for k, v in LM_WANT.items()},
+              f"monitor-correctness: launches {card_r['counts']}")
+    # the ledger as the launcher writes it, read back
+    d = tempfile.mkdtemp(prefix="goodput53.")
+    _, samples = exporter.parse_text(exporter.render_text())
+    phases = goodput.phase_seconds_of(samples)
+    goodput.record_incarnation(d, {
+        "incarnation": 0, "world": 1, "status": "ok", "rc": 0,
+        "rc_label": None, "start": card_r["start"], "end": time.time(),
+        "last_step": 3, "restored_step": None,
+        "ranks": {"0": {"wall_seconds": goodput._g_wall.value(),
+                        "phases": phases}}})
+    (back,) = goodput.read_incarnations(d)
+    check(back["ranks"]["0"]["phases"] == phases
+          and phases.get("compile", 0) > 0
+          and phases.get("device_compute", 0) > 0,
+          f"monitor-correctness: ledger {back}")
+    rec.update(goodput_phases=phases,
+               goodput_fraction=goodput.fraction_of(samples), card=card)
+    log("monitor_correctness " + json.dumps(rec, default=str))
+    return rec
+
+
+#: the phases after 0-2 (the builds and every kernel against its plain
+#: version, which always run, as do the kernels line and the last line)
+ALL_PHASES = frozenset(range(3, 54))
+#: a selected phase also runs the phases whose results it takes
+PHASE_NEEDS = {9: {8}, 16: {15}, 22: {20}, 29: {28}, 30: {28, 29},
+               32: {31}, 34: {33}, 37: {36}, 40: {39}, 43: {42}, 46: {45},
+               47: {45}}
+
+
+def selected_phases(argv):
+    """The phases ``--phases A-B,C,...`` selects (a dev run), with those
+    they need; every phase with no argument (the contract's run)."""
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on the card.")
+    ap.add_argument("--phases", default=None,
+                    help="phases to run after 0-2, e.g. 51-53 or 28,51-53 "
+                         "(default: all)")
+    spec = ap.parse_args(argv).phases
+    if spec is None:
+        return ALL_PHASES
+    want = set()
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        want.update(range(int(lo), int(hi or lo) + 1))
+    todo = list(want)
+    while todo:
+        for d in PHASE_NEEDS.get(todo.pop(), ()):
+            if d not in want:
+                want.add(d)
+                todo.append(d)
+    unknown = sorted(want - ALL_PHASES - {0, 1, 2})
+    if unknown:
+        ap.error(f"no phase {unknown}: phases are 0-53")
+    return frozenset(want & ALL_PHASES)
+
+
+def main(argv=None):
+    selected = selected_phases(sys.argv[1:] if argv is None else argv)
+    run = selected.__contains__
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); the port's main path runs only on an NVIDIA GPU",
@@ -8616,254 +9534,328 @@ def main():
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     log_card("after phase 2")
 
-    with torch.inference_mode():
-        log("phase 3: serving BERT-base masked-LM at S=512")
-        # in the model, LayerNorm reads the residual sum just written: its
-        # share of a request uses the L2-warm time
-        serving = phase_serving(K, bert, card, ln_main["l2_warm_ms"])
-        log("phase 4: long context S=2048")
-        longc = phase_long_context(K, bert, card, fa_main["ms"],
-                                   ln_main["l2_warm_ms"])
-    log("phase 5: pretraining BERT-base, 64x512 (pretrain-512)")
-    # LayerNorm per step from its phase-2 times read from HBM: 25 at the
-    # layers' rows, 1 at the gathered head's
-    pre512 = phase_pretrain_512(K, bert, optimizer, card, adam_main["ms"],
-                                25 * ln_512["ms"] + ln_head["ms"])
-    log("phase 6: pretraining BERT-base, 8x2048 flash (pretrain-2048)")
-    fa_ms = {"flash_attention": fa_train["ms"],
-             **{n: r["ms"] for n, r in bwd_main.items()}}
-    pre2048 = phase_pretrain_2048(K, bert, optimizer, card, fa_ms,
-                                  adam_main["ms"], ln_2048["ms"])
-    log("phase 7: training correctness on the card")
-    phase_train_checks(bert, optimizer, card)
-    log("phase 8: the Fluid static path, word2vec (static-w2v)")
-    static, trained = phase_static_w2v(K, pt, card)
-    log(f"phases 0-8 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 9: Fluid inference and int8 serving (serve-int8)")
-    served = phase_serve_int8(K, pt, card, trained)
-    log(f"phases 0-9 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 10: sparse rows and the fused loss at BERT-base width "
-        "(sparse-xent)")
-    sparse = phase_sparse_xent(K, bert, ops, card)
-    log(f"phases 0-10 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 11: training ResNet-50, 256x224^2 bf16 (train-resnet50)")
-    rn50 = phase_train_resnet50(K, resnet, optimizer, card)
-    log("phase 12: image training correctness on the card "
-        "(train-correctness)")
-    img_checks = phase_image_train_checks(K, resnet, optimizer, pt, card)
-    log("phase 13: ResNet-50 and VGG-16 inference latency (infer-image)")
-    phase_infer_image(K, resnet, vgg, card)
-    log("phase 14: training SE-ResNeXt-50, 32x224^2 bf16 "
-        "(train-se-resnext50)")
-    sx50 = phase_train_se_resnext50(K, se_resnext, optimizer, card)
-    log(f"phases 0-14 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 15: training Transformer-big, 32x256 bf16 "
-        "(train-transformer-big)")
-    nmt, trained = phase_train_transformer_big(K, transformer, optimizer,
-                                               card, adam_nmt["ms"])
-    log("phase 16: Transformer-big beam-4 and greedy decode, 32 sources, "
-        "64 tokens (decode-transformer-big)")
-    phase_decode_transformer_big(K, transformer, card, trained)
-    del trained
-    log("phase 17: Transformer correctness on the card "
-        "(transformer-correctness)")
-    phase_transformer_checks(K, transformer, optimizer, card)
-    log("phase 18: the DeepFM CTR trainer over the host tables, batch 4096 "
-        "(ctr-deepfm)")
-    phase_ctr_deepfm(K, deepfm, card)
-    log(f"phases 0-18 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 19: the recognize_digits conv_net through the static path, "
-        "batch 64 (train-book-digits)")
-    digits, _ = phase_train_book(
-        K, pt, card, "train-book-digits",
-        build_conv_net(pt, pt.optimizer.Adam(BOOK_LR)),
-        book_batches((1, 28, 28), DIGITS_BATCH, 10, 1), DIGITS_BATCH, 1)
-    log("phase 20: vgg16_bn_drop through the static path, 3x32x32, batch "
-        "128 (train-book-vgg)")
-    vgg_rec, (vgg_built, _, _) = phase_train_book(
-        K, pt, card, "train-book-vgg",
-        build_vgg16_bn_drop(pt, pt.optimizer.Adam(BOOK_LR)),
-        book_batches((3, 32, 32), VGG_BATCH, 10, 2), VGG_BATCH, 3)
-    vgg_main = vgg_built[0]
-    vgg_shapes = [tuple(vgg_main.global_block().var(n).shape)
-                  for n in trainable(vgg_main)]
-    del vgg_built
-    log(f"phases 0-20 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 21: the book models on the card against the CPU, dropout, "
-        "the inference round trip (book-correctness)")
-    book = phase_book_checks(K, pt, ops, card)
-    log("phase 22: the twelve optimizer rules without a kernel, card "
-        "against CPU, device time per update (optimizer-rules)")
-    phase_optimizer_rules(K, pt, resnet, card, vgg_shapes)
-    log(f"phases 0-22 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 23: understand_sentiment's convolution_net, batch 128 "
-        "(train-book-sentiment)")
-    sent = phase_train_module_book(
-        K, pt, card, "train-book-sentiment", sentiment_model, SENT,
-        sentiment_batches, pt.optimizer.Adagrad(SENT["lr"]),
-        {"embedding_gather": 1}, "reviews", 23)
-    log("phase 24: label_semantic_roles' db_lstm through the static path, "
-        "batch 10 (train-book-srl)")
-    srl, _ = phase_train_book_srl(K, pt, ops, card)
-    log("phase 25: the GRU encoder-decoder at 512, batch 64 "
-        "(train-book-nmt)")
-    book_nmt = phase_train_book_nmt(K, pt, ops, card)
-    log("phase 26: the full MovieLens recommender, batch 256 "
-        "(train-book-movielens)")
-    movielens = phase_train_module_book(
-        K, pt, card, "train-book-movielens", movielens_model, MLF,
-        movielens_batches, pt.optimizer.SGD(MLF["lr"]),
-        {"embedding_gather": 7, "fused_sgd": 1}, "examples", 26)
-    log(f"phases 0-26 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 27: the sequence models, ops and recurrences on the card "
-        "against the CPU (sequence-correctness)")
-    seq_checks = phase_sequence_checks(K, pt, ops, card,
-                                       db_lstm_program(pt, SRL, srl_sgd))
-    log(f"phases 0-27 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 28: the PTB LSTM language model at lm_model.py's medium "
-        "config through the reader, StaticRNN and prepare (train-ptb-lm)")
-    lm_train, lm_trained = phase_train_ptb_lm(K, pt, ptb_lm, card)
-    log("phase 29: greedy generation through the while loop, 20 streams x "
-        "35 tokens (generate-ptb-lm)")
-    _, lm_out = phase_generate_ptb_lm(K, pt, ptb_lm, card, lm_trained)
-    log("phase 30: the LM, the control flow, tensor arrays and module 1's "
-        "ops on the card against the CPU (control-flow-correctness)")
-    cf_checks = phase_control_flow_checks(K, pt, ops, ptb_lm, lm_trained,
-                                          lm_out)
-    del lm_trained
-    log(f"phases 0-30 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 31: MobileNet-SSD at 300^2, batch 64, through prepare and "
-        "Executor.run (train-ssd-mobilenet)")
-    ssd_cfg = ssd.mobilenet_ssd_voc()
-    ssd_train, ssd_trained = phase_train_detection(
-        K, pt, "train-ssd-mobilenet", ssd, ssd_cfg, SSD_STEPS,
-        ("image", "gt_box", "gt_label"), lambda n: {}, card, ssd_probes(ops))
-    log("phase 32: MobileNet-SSD inference, batch 32, detection_output "
-        "(infer-ssd-mobilenet)")
-    phase_infer_ssd(pt, ops, ssd, card, ssd_trained)
-    del ssd_trained
-    log("phase 33: YOLOv3 (DarkNet-53) at 608^2, batch 8 (train-yolov3)")
-    yolo_cfg = yolov3.yolov3_coco()
-    yolo_train, yolo_trained = phase_train_detection(
-        K, pt, "train-yolov3", yolov3, yolo_cfg, YOLO_STEPS,
-        ("image", "gt_box", "gt_label", "gt_score"),
-        lambda n: {"fused_momentum": n}, card,
-        yolo_probes(ops, yolov3, yolo_cfg))
-    check(yolo_train["params"] == 222, f"train-yolov3: "
-          f"{yolo_train['params']} trainable tensors, expected 222")
-    log("phase 34: YOLOv3 inference, batch 8, yolo_box and multiclass_nms "
-        "(infer-yolov3)")
-    phase_infer_yolo(pt, ops, yolov3, card, yolo_trained)
-    del yolo_trained
-    log("phase 35: the detection models and ops on the card against the "
-        "CPU (detection-correctness)")
-    det_checks = phase_detection_checks(K, pt, ops, ssd, yolov3, card)
-    log(f"phases 0-35 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 36: CycleGAN at 256^2, batch 1: G, D_A and D_B through "
-        "Executor.run with the image pool (train-cycle-gan)")
-    cg_train, cg_trained = phase_train_cycle_gan(K, pt, cycle_gan, card)
-    log("phase 37: both CycleGAN generators at batch 1 and 8 "
-        "(infer-cycle-gan)")
-    phase_infer_cycle_gan(pt, cycle_gan, card, cg_trained)
-    del cg_trained
-    log("phase 38: the rest of ops/nn.py, the metric ops, the kink "
-        "gradients and cyclegan_tiny on the card against the CPU "
-        "(nn-correctness)")
-    nn_checks = phase_nn_checks(K, pt, ops, cycle_gan, card)
-    log(f"phases 0-38 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 39: CRNN-CTC at 48x512, batch 32, through prepare and "
-        "Executor.run (train-crnn-ctc)")
-    crnn_train, crnn_trained = phase_train_crnn(K, pt, crnn_ctc, card)
-    log("phase 40: CRNN-CTC's evaluation program at batch 32 and 1 "
-        "(infer-crnn-ctc)")
-    crnn_infer = phase_infer_crnn(K, pt, crnn_ctc, card, crnn_trained)
-    del crnn_trained
-    log("phase 41: the random ops, ops/misc.py, the CTC ops and "
-        "crnn_ctc_tiny on the card against the CPU (misc-correctness)")
-    misc_checks = phase_misc_checks(K, pt, ops, crnn_ctc, card)
-    log(f"phases 0-41 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 42: MobileNetV1 under quantization-aware training at 224^2, "
-        "batch 256, through prepare and Executor.run (train-qat-mobilenet)")
-    qat_train, qat_trained = phase_train_qat(K, pt, mobilenet_v1, card)
-    log("phase 43: calibration, the int8 freeze and the frozen program at "
-        "batch 256 and 1, through save/load_inference_model and a Predictor "
-        "(infer-int8-mobilenet)")
-    phase_infer_int8(K, pt, mobilenet_v1, card, qat_trained)
-    del qat_trained
-    log("phase 44: the quantization ops, ops/aliases.py, layers' own "
-        "functions, mobilenet_v1_tiny and the three new passes on the card "
-        "against the CPU (quant-correctness)")
-    quant_checks = phase_quant_checks(K, pt, ops, mobilenet_v1, card)
-    log(f"phases 0-44 done at {time.perf_counter() - t_start:.1f} s")
-    log("phases 45-47: MobileNetV1 at 224^2 served over HTTP, hot-swapped "
-        "from fp32 to int8 by hand and by watch_dir, three refusals under "
-        "load, every response held against its version "
-        "(serve-http-swap-mobilenet, swap-refusals, serving-correctness)")
-    t45 = time.perf_counter()
-    http_swap = phase_serve_http_swap(K, pt, mobilenet_v1, card)
-    log(f"phases 45-47 took {time.perf_counter() - t45:.1f} s; phases 0-47 "
-        f"done at {time.perf_counter() - t_start:.1f} s")
+    by_phase = {}   # launches on the main paths: each phase's counted
+    # runs, counts set to 0 just before and read just after
+    if run(3) or run(4):
+        with torch.inference_mode():
+            log("phase 3: serving BERT-base masked-LM at S=512")
+            # in the model, LayerNorm reads the residual sum just written:
+            # its share of a request uses the L2-warm time
+            serving = phase_serving(K, bert, card, ln_main["l2_warm_ms"])
+            by_phase["serve-512"] = {
+                "fused_layer_norm": serving["ln_launches"]}
+            log("phase 4: long context S=2048")
+            longc = phase_long_context(K, bert, card, fa_main["ms"],
+                                       ln_main["l2_warm_ms"])
+            by_phase["longctx-2048"] = {
+                "flash_attention": longc["flash_launches"]}
+    if run(5):
+        log("phase 5: pretraining BERT-base, 64x512 (pretrain-512)")
+        # LayerNorm per step from its phase-2 times read from HBM: 25 at
+        # the layers' rows, 1 at the gathered head's
+        pre512 = phase_pretrain_512(K, bert, optimizer, card,
+                                    adam_main["ms"],
+                                    25 * ln_512["ms"] + ln_head["ms"])
+        by_phase["pretrain-512"] = pre512["launches"]
+    if run(6):
+        log("phase 6: pretraining BERT-base, 8x2048 flash (pretrain-2048)")
+        fa_ms = {"flash_attention": fa_train["ms"],
+                 **{n: r["ms"] for n, r in bwd_main.items()}}
+        pre2048 = phase_pretrain_2048(K, bert, optimizer, card, fa_ms,
+                                      adam_main["ms"], ln_2048["ms"])
+        by_phase["pretrain-2048"] = pre2048["flash"]["launches"]
+    if run(7):
+        log("phase 7: training correctness on the card")
+        phase_train_checks(bert, optimizer, card)
+    if run(8):
+        log("phase 8: the Fluid static path, word2vec (static-w2v)")
+        static, trained = phase_static_w2v(K, pt, card)
+        by_phase["static-w2v"] = static["launches"]
+        log(f"phases 0-8 done at {time.perf_counter() - t_start:.1f} s")
+    if run(9):
+        log("phase 9: Fluid inference and int8 serving (serve-int8)")
+        served = phase_serve_int8(K, pt, card, trained)
+        by_phase["serve-int8"] = served["launches"]
+        log(f"phases 0-9 done at {time.perf_counter() - t_start:.1f} s")
+    if run(10):
+        log("phase 10: sparse rows and the fused loss at BERT-base width "
+            "(sparse-xent)")
+        sparse = phase_sparse_xent(K, bert, ops, card)
+        by_phase["sparse-xent"] = sparse["launches"]
+        log(f"phases 0-10 done at {time.perf_counter() - t_start:.1f} s")
+    if run(11):
+        log("phase 11: training ResNet-50, 256x224^2 bf16 (train-resnet50)")
+        rn50 = phase_train_resnet50(K, resnet, optimizer, card)
+        by_phase["train-resnet50"] = rn50["launches"]
+    if run(12):
+        log("phase 12: image training correctness on the card "
+            "(train-correctness)")
+        img_checks = phase_image_train_checks(K, resnet, optimizer, pt,
+                                              card)
+        by_phase["train-correctness"] = img_checks["launches"]
+    if run(13):
+        log("phase 13: ResNet-50 and VGG-16 inference latency "
+            "(infer-image)")
+        phase_infer_image(K, resnet, vgg, card)
+    if run(14):
+        log("phase 14: training SE-ResNeXt-50, 32x224^2 bf16 "
+            "(train-se-resnext50)")
+        sx50 = phase_train_se_resnext50(K, se_resnext, optimizer, card)
+        by_phase["train-se-resnext50"] = sx50["launches"]
+        log(f"phases 0-14 done at {time.perf_counter() - t_start:.1f} s")
+    if run(15):
+        log("phase 15: training Transformer-big, 32x256 bf16 "
+            "(train-transformer-big)")
+        nmt, trained = phase_train_transformer_big(
+            K, transformer, optimizer, card, adam_nmt["ms"])
+        by_phase["train-transformer-big"] = nmt["launches"]
+    if run(16):
+        log("phase 16: Transformer-big beam-4 and greedy decode, 32 "
+            "sources, 64 tokens (decode-transformer-big)")
+        phase_decode_transformer_big(K, transformer, card, trained)
+        del trained
+    if run(17):
+        log("phase 17: Transformer correctness on the card "
+            "(transformer-correctness)")
+        phase_transformer_checks(K, transformer, optimizer, card)
+    if run(18):
+        log("phase 18: the DeepFM CTR trainer over the host tables, batch "
+            "4096 (ctr-deepfm)")
+        phase_ctr_deepfm(K, deepfm, card)
+        log(f"phases 0-18 done at {time.perf_counter() - t_start:.1f} s")
+    if run(19):
+        log("phase 19: the recognize_digits conv_net through the static "
+            "path, batch 64 (train-book-digits)")
+        digits, _ = phase_train_book(
+            K, pt, card, "train-book-digits",
+            build_conv_net(pt, pt.optimizer.Adam(BOOK_LR)),
+            book_batches((1, 28, 28), DIGITS_BATCH, 10, 1), DIGITS_BATCH, 1)
+        by_phase["train-book-digits"] = digits["launches"]
+    if run(20):
+        log("phase 20: vgg16_bn_drop through the static path, 3x32x32, "
+            "batch 128 (train-book-vgg)")
+        vgg_rec, (vgg_built, _, _) = phase_train_book(
+            K, pt, card, "train-book-vgg",
+            build_vgg16_bn_drop(pt, pt.optimizer.Adam(BOOK_LR)),
+            book_batches((3, 32, 32), VGG_BATCH, 10, 2), VGG_BATCH, 3)
+        by_phase["train-book-vgg"] = vgg_rec["launches"]
+        vgg_main = vgg_built[0]
+        vgg_shapes = [tuple(vgg_main.global_block().var(n).shape)
+                      for n in trainable(vgg_main)]
+        del vgg_built
+        log(f"phases 0-20 done at {time.perf_counter() - t_start:.1f} s")
+    if run(21):
+        log("phase 21: the book models on the card against the CPU, "
+            "dropout, the inference round trip (book-correctness)")
+        book = phase_book_checks(K, pt, ops, card)
+        by_phase["book-correctness"] = book["launches"]
+    if run(22):
+        log("phase 22: the twelve optimizer rules without a kernel, card "
+            "against CPU, device time per update (optimizer-rules)")
+        phase_optimizer_rules(K, pt, resnet, card, vgg_shapes)
+        log(f"phases 0-22 done at {time.perf_counter() - t_start:.1f} s")
+    if run(23):
+        log("phase 23: understand_sentiment's convolution_net, batch 128 "
+            "(train-book-sentiment)")
+        sent = phase_train_module_book(
+            K, pt, card, "train-book-sentiment", sentiment_model, SENT,
+            sentiment_batches, pt.optimizer.Adagrad(SENT["lr"]),
+            {"embedding_gather": 1}, "reviews", 23)
+        by_phase["train-book-sentiment"] = sent["launches"]
+    if run(24):
+        log("phase 24: label_semantic_roles' db_lstm through the static "
+            "path, batch 10 (train-book-srl)")
+        srl, _ = phase_train_book_srl(K, pt, ops, card)
+        by_phase["train-book-srl"] = srl["launches"]
+    if run(25):
+        log("phase 25: the GRU encoder-decoder at 512, batch 64 "
+            "(train-book-nmt)")
+        book_nmt = phase_train_book_nmt(K, pt, ops, card)
+        by_phase["train-book-nmt"] = book_nmt["launches"]
+    if run(26):
+        log("phase 26: the full MovieLens recommender, batch 256 "
+            "(train-book-movielens)")
+        movielens = phase_train_module_book(
+            K, pt, card, "train-book-movielens", movielens_model, MLF,
+            movielens_batches, pt.optimizer.SGD(MLF["lr"]),
+            {"embedding_gather": 7, "fused_sgd": 1}, "examples", 26)
+        by_phase["train-book-movielens"] = movielens["launches"]
+        log(f"phases 0-26 done at {time.perf_counter() - t_start:.1f} s")
+    if run(27):
+        log("phase 27: the sequence models, ops and recurrences on the card "
+            "against the CPU (sequence-correctness)")
+        seq_checks = phase_sequence_checks(
+            K, pt, ops, card, db_lstm_program(pt, SRL, srl_sgd))
+        by_phase["sequence-correctness"] = seq_checks["launches"]
+        log(f"phases 0-27 done at {time.perf_counter() - t_start:.1f} s")
+    if run(28):
+        log("phase 28: the PTB LSTM language model at lm_model.py's medium "
+            "config through the reader, StaticRNN and prepare "
+            "(train-ptb-lm)")
+        lm_train, lm_trained = phase_train_ptb_lm(K, pt, ptb_lm, card)
+        by_phase["train-ptb-lm"] = lm_train["launches"]
+    if run(29):
+        log("phase 29: greedy generation through the while loop, 20 "
+            "streams x 35 tokens (generate-ptb-lm)")
+        _, lm_out = phase_generate_ptb_lm(K, pt, ptb_lm, card, lm_trained)
+    if run(30):
+        log("phase 30: the LM, the control flow, tensor arrays and module "
+            "1's ops on the card against the CPU (control-flow-correctness)")
+        cf_checks = phase_control_flow_checks(K, pt, ops, ptb_lm,
+                                              lm_trained, lm_out)
+        by_phase["control-flow-correctness"] = cf_checks["launches"]
+        log(f"phases 0-30 done at {time.perf_counter() - t_start:.1f} s")
+    lm_trained = None
+    if run(31):
+        log("phase 31: MobileNet-SSD at 300^2, batch 64, through prepare "
+            "and Executor.run (train-ssd-mobilenet)")
+        ssd_cfg = ssd.mobilenet_ssd_voc()
+        ssd_train, ssd_trained = phase_train_detection(
+            K, pt, "train-ssd-mobilenet", ssd, ssd_cfg, SSD_STEPS,
+            ("image", "gt_box", "gt_label"), lambda n: {}, card,
+            ssd_probes(ops))
+        by_phase["train-ssd-mobilenet"] = ssd_train["launches"]
+    if run(32):
+        log("phase 32: MobileNet-SSD inference, batch 32, detection_output "
+            "(infer-ssd-mobilenet)")
+        phase_infer_ssd(pt, ops, ssd, card, ssd_trained)
+        del ssd_trained
+    if run(33):
+        log("phase 33: YOLOv3 (DarkNet-53) at 608^2, batch 8 "
+            "(train-yolov3)")
+        yolo_cfg = yolov3.yolov3_coco()
+        yolo_train, yolo_trained = phase_train_detection(
+            K, pt, "train-yolov3", yolov3, yolo_cfg, YOLO_STEPS,
+            ("image", "gt_box", "gt_label", "gt_score"),
+            lambda n: {"fused_momentum": n}, card,
+            yolo_probes(ops, yolov3, yolo_cfg))
+        check(yolo_train["params"] == 222, f"train-yolov3: "
+              f"{yolo_train['params']} trainable tensors, expected 222")
+        by_phase["train-yolov3"] = yolo_train["launches"]
+    if run(34):
+        log("phase 34: YOLOv3 inference, batch 8, yolo_box and "
+            "multiclass_nms (infer-yolov3)")
+        phase_infer_yolo(pt, ops, yolov3, card, yolo_trained)
+        del yolo_trained
+    if run(35):
+        log("phase 35: the detection models and ops on the card against "
+            "the CPU (detection-correctness)")
+        det_checks = phase_detection_checks(K, pt, ops, ssd, yolov3, card)
+        by_phase["detection-correctness"] = det_checks["launches"]
+        log(f"phases 0-35 done at {time.perf_counter() - t_start:.1f} s")
+    if run(36):
+        log("phase 36: CycleGAN at 256^2, batch 1: G, D_A and D_B through "
+            "Executor.run with the image pool (train-cycle-gan)")
+        cg_train, cg_trained = phase_train_cycle_gan(K, pt, cycle_gan, card)
+        by_phase["train-cycle-gan"] = cg_train["launches"]
+    if run(37):
+        log("phase 37: both CycleGAN generators at batch 1 and 8 "
+            "(infer-cycle-gan)")
+        phase_infer_cycle_gan(pt, cycle_gan, card, cg_trained)
+        del cg_trained
+    if run(38):
+        log("phase 38: the rest of ops/nn.py, the metric ops, the kink "
+            "gradients and cyclegan_tiny on the card against the CPU "
+            "(nn-correctness)")
+        nn_checks = phase_nn_checks(K, pt, ops, cycle_gan, card)
+        by_phase["nn-correctness"] = nn_checks["launches"]
+        log(f"phases 0-38 done at {time.perf_counter() - t_start:.1f} s")
+    if run(39):
+        log("phase 39: CRNN-CTC at 48x512, batch 32, through prepare and "
+            "Executor.run (train-crnn-ctc)")
+        crnn_train, crnn_trained = phase_train_crnn(K, pt, crnn_ctc, card)
+        by_phase["train-crnn-ctc"] = crnn_train["launches"]
+    if run(40):
+        log("phase 40: CRNN-CTC's evaluation program at batch 32 and 1 "
+            "(infer-crnn-ctc)")
+        crnn_infer = phase_infer_crnn(K, pt, crnn_ctc, card, crnn_trained)
+        by_phase["infer-crnn-ctc"] = crnn_infer["launches"]
+        del crnn_trained
+    if run(41):
+        log("phase 41: the random ops, ops/misc.py, the CTC ops and "
+            "crnn_ctc_tiny on the card against the CPU (misc-correctness)")
+        misc_checks = phase_misc_checks(K, pt, ops, crnn_ctc, card)
+        by_phase["misc-correctness"] = misc_checks["launches"]
+        log(f"phases 0-41 done at {time.perf_counter() - t_start:.1f} s")
+    if run(42):
+        log("phase 42: MobileNetV1 under quantization-aware training at "
+            "224^2, batch 256, through prepare and Executor.run "
+            "(train-qat-mobilenet)")
+        qat_train, qat_trained = phase_train_qat(K, pt, mobilenet_v1, card)
+        by_phase["train-qat-mobilenet"] = qat_train["launches"]
+    if run(43):
+        log("phase 43: calibration, the int8 freeze and the frozen program "
+            "at batch 256 and 1, through save/load_inference_model and a "
+            "Predictor (infer-int8-mobilenet)")
+        phase_infer_int8(K, pt, mobilenet_v1, card, qat_trained)
+        del qat_trained
+    if run(44):
+        log("phase 44: the quantization ops, ops/aliases.py, layers' own "
+            "functions, mobilenet_v1_tiny and the three new passes on the "
+            "card against the CPU (quant-correctness)")
+        quant_checks = phase_quant_checks(K, pt, ops, mobilenet_v1, card)
+        by_phase["quant-correctness"] = quant_checks["launches"]
+        log(f"phases 0-44 done at {time.perf_counter() - t_start:.1f} s")
+    if run(45):
+        log("phases 45-47: MobileNetV1 at 224^2 served over HTTP, "
+            "hot-swapped from fp32 to int8 by hand and by watch_dir, three "
+            "refusals under load, every response held against its version "
+            "(serve-http-swap-mobilenet, swap-refusals, "
+            "serving-correctness)")
+        t45 = time.perf_counter()
+        http_swap = phase_serve_http_swap(K, pt, mobilenet_v1, card)
+        by_phase["train-mobilenet-versions"] = \
+            http_swap["versions"]["launches"]
+        by_phase["serve-http-swap-mobilenet"] = http_swap["launches"]
+        log(f"phases 45-47 took {time.perf_counter() - t45:.1f} s; phases "
+            f"0-47 done at {time.perf_counter() - t_start:.1f} s")
     t48 = time.perf_counter()
-    log("phase 48: the dygraph Transformer-base, 64x64 tokens a side, 10 "
-        "eager Adam steps in fp32 and 10 under amp bf16, then evaluation "
-        "under no_grad (train-dygraph-transformer)")
-    dy_t = phase_train_dygraph_transformer(K, pt, dygraph_transformer, card,
-                                           dy_transformer)
+    if run(48):
+        log("phase 48: the dygraph Transformer-base, 64x64 tokens a side, "
+            "10 eager Adam steps in fp32 and 10 under amp bf16, then "
+            "evaluation under no_grad (train-dygraph-transformer)")
+        dy_t = phase_train_dygraph_transformer(
+            K, pt, dygraph_transformer, card, dy_transformer)
+        by_phase["train-dygraph-transformer"] = dy_t["launches"]
     del dy_transformer
-    log("phase 49: the dygraph ResNet-50 at 224^2, batch 32, 10 eager "
-        "Momentum steps, then an evaluation batch scored by "
-        "metrics.Accuracy (train-dygraph-resnet50)")
-    dy_r = phase_train_dygraph_resnet(K, pt, dygraph_resnet, card, dy_resnet)
+    if run(49):
+        log("phase 49: the dygraph ResNet-50 at 224^2, batch 32, 10 eager "
+            "Momentum steps, then an evaluation batch scored by "
+            "metrics.Accuracy (train-dygraph-resnet50)")
+        dy_r = phase_train_dygraph_resnet(K, pt, dygraph_resnet, card,
+                                          dy_resnet)
+        by_phase["train-dygraph-resnet50"] = dy_r["launches"]
     del dy_resnet
-    log("phase 50: the tiny trainers and every nn class on the card against "
-        "the CPU, amp's skipped steps with no host read, the distributions' "
-        "draws, save/load_dygraph (dygraph-correctness)")
-    dy_checks = phase_dygraph_checks(K, pt, dygraph_transformer,
-                                     dygraph_resnet, card)
-    log(f"phases 48-50 took {time.perf_counter() - t48:.1f} s; phases 0-50 "
-        f"done at {time.perf_counter() - t_start:.1f} s")
+    if run(50):
+        log("phase 50: the tiny trainers and every nn class on the card "
+            "against the CPU, amp's skipped steps with no host read, the "
+            "distributions' draws, save/load_dygraph (dygraph-correctness)")
+        dy_checks = phase_dygraph_checks(K, pt, dygraph_transformer,
+                                         dygraph_resnet, card)
+        by_phase["dygraph-correctness"] = dy_checks["launches"]
+        log(f"phases 48-50 took {time.perf_counter() - t48:.1f} s; phases "
+            f"0-50 done at {time.perf_counter() - t_start:.1f} s")
+    t51 = time.perf_counter()
+    if run(51):
+        log("phase 51: the PTB LM at medium under each monitor: off, trace "
+            "+ profiler, goodput + anomaly + flight recorder, tensor watch, "
+            "check_nan_inf, all, off again (observe-ptb-lm)")
+        obs = phase_observe_ptb_lm(K, pt, ptb_lm, card)
+        by_phase["observe-ptb-lm"] = obs["launches"]
+    if run(52):
+        log("phase 52: three non-finite trips at medium under "
+            "check_nan_inf, localized, the parameters bitwise unchanged "
+            "(nonfinite-ptb-lm)")
+        phase_nonfinite_ptb_lm(K, pt, ptb_lm, card)
+    if run(53):
+        log("phase 53: the monitors on lm_tiny, card against the CPU "
+            "(monitor-correctness)")
+        mon = phase_monitor_checks(K, pt, ptb_lm, card)
+        by_phase["monitor-correctness"] = mon["launches"]
+    log(f"phases 51-53 took {time.perf_counter() - t51:.1f} s; the selected "
+        f"phases done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
-    # launches on the main paths: each phase's counted runs, counts set to
-    # 0 just before and read just after
-    by_phase = {
-        "serve-512": {"fused_layer_norm": serving["ln_launches"]},
-        "longctx-2048": {"flash_attention": longc["flash_launches"]},
-        "pretrain-512": pre512["launches"],
-        "pretrain-2048": pre2048["flash"]["launches"],
-        "static-w2v": static["launches"],
-        "serve-int8": served["launches"],
-        "sparse-xent": sparse["launches"],
-        "train-resnet50": rn50["launches"],
-        "train-correctness": img_checks["launches"],
-        "train-se-resnext50": sx50["launches"],
-        "train-transformer-big": nmt["launches"],
-        "train-book-digits": digits["launches"],
-        "train-book-vgg": vgg_rec["launches"],
-        "book-correctness": book["launches"],
-        "train-book-sentiment": sent["launches"],
-        "train-book-srl": srl["launches"],
-        "train-book-nmt": book_nmt["launches"],
-        "train-book-movielens": movielens["launches"],
-        "sequence-correctness": seq_checks["launches"],
-        "train-ptb-lm": lm_train["launches"],
-        "control-flow-correctness": cf_checks["launches"],
-        "train-ssd-mobilenet": ssd_train["launches"],
-        "train-yolov3": yolo_train["launches"],
-        "detection-correctness": det_checks["launches"],
-        "train-cycle-gan": cg_train["launches"],
-        "nn-correctness": nn_checks["launches"],
-        "train-crnn-ctc": crnn_train["launches"],
-        "infer-crnn-ctc": crnn_infer["launches"],
-        "misc-correctness": misc_checks["launches"],
-        "train-qat-mobilenet": qat_train["launches"],
-        "quant-correctness": quant_checks["launches"],
-        "train-mobilenet-versions": http_swap["versions"]["launches"],
-        "serve-http-swap-mobilenet": http_swap["launches"],
-        "train-dygraph-transformer": dy_t["launches"],
-        "train-dygraph-resnet50": dy_r["launches"],
-        "dygraph-correctness": dy_checks["launches"],
-    }
     kernels = []
     for name, main_rec in (
             ("fused_layer_norm", ln_main), ("flash_attention", fa_main),
@@ -8880,7 +9872,8 @@ def main():
         phases = {ph: c[name] for ph, c in by_phase.items()
                   if c.get(name, 0) > 0}
         launches = sum(phases.values())
-        check(launches > 0, f"{name} never launched on its main path")
+        check(launches > 0 or selected != ALL_PHASES,
+              f"{name} never launched on its main path")
         kd = K.get_kernel(name)
         kernels.append(dict(
             name=name, route="cuda", source=kd.source,

@@ -19,7 +19,6 @@ selects each tensor against its snapshot on the device with the 0-d
 
 import torch
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.tree import map_tensors, tensors
 
 __all__ = [
@@ -155,14 +154,17 @@ class OptimizerWithMixedPrecision:
         return params, state
 
     def monitor_state(self, state, step=None):
-        """Publishing the loss scale needs ``monitor.tensorwatch``, which
-        the port does not have yet (ROADMAP queue 1 item 10): it raises
-        with a scaler; without one there is nothing to watch (None)."""
+        """Publish the loss-scale state to ``monitor.tensorwatch``: the
+        ``loss_scale`` gauge and a ``loss_scale_decrements_total`` count for
+        each observed decrement (a non-finite fp16 gradient the scaler
+        absorbed). Call between steps: it reads the 0-d scale once. Returns
+        the float scale (None without a scaler: bf16 needs no scaling, so
+        there is nothing to watch)."""
         if not self.scaler or "loss_scale" not in state:
             return None
-        raise EnforceNotMet(
-            "amp monitor_state publishes to monitor.tensorwatch, which is "
-            "not ported yet (ROADMAP queue 1 item 10)")
+        from paddle_tpu_torch.monitor import tensorwatch
+        return tensorwatch.record_loss_scale(
+            state["loss_scale"]["scale"], step=step)
 
 
 def decorate(optimizer, amp_lists=None, init_loss_scaling=2.0 ** 15,

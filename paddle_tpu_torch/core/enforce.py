@@ -55,3 +55,22 @@ def not_none(x, name="value"):
     if x is None:
         raise EnforceNotMet(f"{name} must not be None")
     return x
+
+
+import threading as _threading
+
+_warned_keys = set()
+_warn_lock = _threading.Lock()
+
+
+def warn_once(key, message, category=UserWarning, stacklevel=3):
+    """Emit ``message`` at most once per process per ``key`` (our own set,
+    not the warnings registry, so it survives
+    ``warnings.simplefilter("always")``). Returns True iff it fired."""
+    import warnings
+    with _warn_lock:
+        if key in _warned_keys:
+            return False
+        _warned_keys.add(key)
+    warnings.warn(message, category, stacklevel=stacklevel)
+    return True

@@ -2,27 +2,20 @@
 
 A typed registry seeded from ``FLAGS_<name>`` environment variables and
 changed at run time by :func:`set_flags` (the ``fluid.set_flags`` surface).
-The port defines the flags its static path reads: ``apply_ir_passes`` and
-``executor_fast_path`` (in ``static/executor.py``). ``check_nan_inf`` is not
-ported: turning it on raises :class:`EnforceNotMet`.
+The port defines the flags its static path reads: ``check_nan_inf`` (here:
+the numerics sentinels and localizer of ``monitor/numerics.py``, wired
+through the static Executor), and ``apply_ir_passes``,
+``executor_fast_path``, ``monitor_cost`` and ``pass_cost_evidence`` (in
+``static/executor.py``).
 """
 
 import os
 import threading
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet
-
 __all__ = ["define_flag", "get_flag", "set_flags", "flags"]
 
 _lock = threading.Lock()
 _REGISTRY = {}
-
-#: flags of the JAX package whose machinery the port does not have yet
-_NOT_PORTED = {
-    "check_nan_inf": "the in-graph numerics sentinels (monitor/numerics.py) "
-                     "are ROADMAP queue 1 item 10",
-}
-
 
 class _Flag:
     __slots__ = ("name", "value", "type", "help")
@@ -55,9 +48,6 @@ def set_flags(flags_dict):
     """``{'FLAGS_x': v}`` or ``{'x': v}``; an unknown name defines a flag."""
     for k, v in flags_dict.items():
         name = k[len("FLAGS_"):] if k.startswith("FLAGS_") else k
-        if name in _NOT_PORTED and v:
-            raise EnforceNotMet(f"FLAGS_{name} is not ported yet: "
-                                f"{_NOT_PORTED[name]}")
         if name not in _REGISTRY:
             define_flag(name, v)
         else:
@@ -75,3 +65,11 @@ class _FlagsView:
 
 
 flags = _FlagsView()
+
+
+define_flag("check_nan_inf", False,
+            "Check every float tensor a step writes for nan/inf on the "
+            "device (one flag per segment, read once a step); a trip "
+            "replays the step op by op from its pre-step snapshot and "
+            "raises NonFiniteError naming the first non-finite tensor "
+            "and op (monitor/numerics.py)")

@@ -1169,10 +1169,12 @@ def _print_cb(msg, summarize, counter, first_n, arr):
 def _print_compute(ins, attrs):
     """The ``print`` op: logs its input (at most ``first_n`` runs) and
     returns it, the identity for autodiff (print_op.cc's grad forwards the
-    gradient)."""
+    gradient). A ``meta`` input (the cost monitor's abstract pass) has no
+    values: nothing is logged and the run is not counted."""
     x = ins["X"][0]
-    _print_cb(attrs.get("message", ""), attrs.get("summarize", 20),
-              attrs["_counter"], attrs.get("first_n", -1), x)
+    if not (isinstance(x, torch.Tensor) and x.device.type == "meta"):
+        _print_cb(attrs.get("message", ""), attrs.get("summarize", 20),
+                  attrs["_counter"], attrs.get("first_n", -1), x)
     return {"Out": [x]}
 
 

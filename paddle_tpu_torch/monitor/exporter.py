@@ -1,0 +1,467 @@
+"""Prometheus text-format export + per-rank snapshot files + job view:
+the port's own copy of ``paddle_tpu/monitor/exporter.py`` (stdlib only;
+one package's text parses in the other's ``parse_text``).
+
+Three consumers, one format:
+
+- **In-process scrape**: ``MetricsServer`` serves ``GET /metrics`` from
+  a stdlib ``http.server`` daemon thread (no new deps, off by default).
+- **Per-rank snapshot files**: ``RankExporter`` writes the registry as
+  Prometheus text next to this rank's heartbeat file
+  (``<heartbeat_dir>/rank<N>.prom``, see ``distributed/health.py``)
+  on a background thread. Writes are ATOMIC (tmp + ``os.replace``) and
+  end with an ``# EOF`` marker, so a concurrent reader either sees a
+  complete snapshot or — if it insists on reading mid-replace on a
+  filesystem without atomic rename — detects the tear by the missing
+  marker. ``parse_text`` refuses marker-less input for exactly that
+  reason.
+- **Job-level view**: the elastic launcher merges every rank's snapshot
+  (sum for counters/histograms, max for gauges — summing a per-rank
+  FLOPs gauge across replicas would double-count work) into
+  ``<log_dir>/metrics.prom`` and a one-line status log
+  (``step=… ms/step=… mfu=… restarts=…``).
+"""
+
+import os
+import re
+import threading
+
+from paddle_tpu_torch.monitor.httpd import ThreadedHTTPServerBase
+from paddle_tpu_torch.monitor.registry import REGISTRY, counter
+
+__all__ = [
+    "render_text", "write_snapshot", "parse_text", "aggregate",
+    "read_rank_snapshots", "write_job_snapshot", "job_status_line",
+    "RankExporter", "MetricsServer", "EOF_MARKER", "CONTENT_TYPE",
+]
+
+EOF_MARKER = "# EOF"
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _esc(v):
+    return (str(v).replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r'\"'))
+
+
+def _fmt(v):
+    f = float(v)
+    if f != f:
+        return "NaN"                 # repr() would emit 'nan', which
+    if f == float("inf"):            # the parser (rightly) rejects
+        return "+Inf"
+    if f == float("-inf"):
+        return "-Inf"
+    return repr(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+def _labelstr(labelnames, key, extra=()):
+    pairs = [f'{n}="{_esc(v)}"' for n, v in zip(labelnames, key)]
+    pairs += [f'{n}="{_esc(v)}"' for n, v in extra]
+    return "{" + ",".join(pairs) + "}" if pairs else ""
+
+
+def render_text(registry=None):
+    """The whole registry as Prometheus exposition text (0.0.4),
+    terminated by the ``# EOF`` torn-read marker."""
+    registry = registry or REGISTRY
+    lines = []
+    for m in registry.collect():
+        if m.help:
+            lines.append(f"# HELP {m.name} {m.help}")
+        lines.append(f"# TYPE {m.name} {m.kind}")
+        if m.kind == "histogram":
+            for key, (cum, total, count) in sorted(m.samples().items()):
+                les = [_fmt(b) for b in m.buckets] + ["+Inf"]
+                for le, c in zip(les, cum):
+                    lines.append(
+                        f"{m.name}_bucket"
+                        f"{_labelstr(m.labelnames, key, [('le', le)])}"
+                        f" {_fmt(c)}")
+                ls = _labelstr(m.labelnames, key)
+                lines.append(f"{m.name}_sum{ls} {_fmt(total)}")
+                lines.append(f"{m.name}_count{ls} {_fmt(count)}")
+        else:
+            for key, v in sorted(m.samples().items()):
+                lines.append(
+                    f"{m.name}{_labelstr(m.labelnames, key)} {_fmt(v)}")
+    lines.append(EOF_MARKER)
+    return "\n".join(lines) + "\n"
+
+
+def _atomic_write(path, text):
+    """tmp + ``os.replace``; the tmp name is unique per call (mkstemp),
+    so two threads publishing the same path can never interleave writes
+    into one tmp file — last replace wins, both complete."""
+    import tempfile
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path),
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    return path
+
+
+def write_snapshot(path, registry=None):
+    """Atomically publish the registry as text at ``path``: a reader
+    never sees a torn snapshot."""
+    return _atomic_write(path, render_text(registry))
+
+
+# -- parsing / aggregation (launcher side) ----------------------------------
+_TYPE_RE = re.compile(r"^# TYPE ([a-zA-Z_:][\w:]*) (\w+)\s*$")
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][\w:]*)(?:\{(.*)\})?\s+"
+    r"(-?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?|[+-]Inf|NaN)\s*$")
+_LABEL_PAIR_RE = re.compile(r'([a-zA-Z_][\w]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _unesc(v):
+    # single left-to-right pass (sequential .replace would corrupt a
+    # literal backslash-n that was escaped as \\n)
+    return re.sub(r"\\(.)",
+                  lambda m: "\n" if m.group(1) == "n" else m.group(1),
+                  v)
+
+
+def parse_text(text):
+    """Parse exposition text into ``(types, samples)``:
+    ``types[name] = kind``; ``samples[(name, labelpairs)] = value``
+    where ``labelpairs`` is a sorted tuple of (label, value).
+
+    Raises ValueError when the ``# EOF`` marker is missing — the torn-
+    snapshot guard the atomic-write contract promises readers."""
+    lines = text.splitlines()
+    if EOF_MARKER not in (ln.strip() for ln in lines):
+        raise ValueError("snapshot missing '# EOF' marker (torn read?)")
+    types, samples = {}, {}
+    for ln in lines:
+        if ln.startswith("#"):
+            m = _TYPE_RE.match(ln)
+            if m:
+                types[m.group(1)] = m.group(2)
+            continue
+        if not ln.strip():
+            continue
+        m = _SAMPLE_RE.match(ln)
+        if not m:
+            raise ValueError(f"unparseable metrics line: {ln!r}")
+        name, labelblob, val = m.groups()
+        pairs = tuple(sorted(
+            (k, _unesc(v))
+            for k, v in _LABEL_PAIR_RE.findall(labelblob or "")))
+        samples[(name, pairs)] = float(
+            val.replace("+Inf", "inf").replace("-Inf", "-inf"))
+    return types, samples
+
+
+def _base_name(name, types):
+    """Histogram sample names carry _bucket/_sum/_count suffixes; map
+    back to the declared metric for type lookup."""
+    if name in types:
+        return name
+    for suf in ("_bucket", "_sum", "_count"):
+        if name.endswith(suf) and name[:-len(suf)] in types:
+            return name[:-len(suf)]
+    return name
+
+
+#: series that take MAX across snapshots even though typed counter:
+#: every rank reports its incarnation index and the launcher counts the
+#: same restart events — summing would report one gang restart of N
+#: ranks as N+1 restarts
+_MAX_MERGE_NAMES = frozenset({"restarts_total"})
+
+#: gauges that take MIN across snapshots: train_health is 1=healthy /
+#: 0=tripped, and the job is only as healthy as its sickest rank — the
+#: default max-merge would report a job with one anomalous rank as
+#: healthy in <log_dir>/metrics.prom
+_MIN_MERGE_NAMES = frozenset({"train_health"})
+
+
+def aggregate(parsed):
+    """Merge a list of ``(types, samples)`` into one job-level view:
+    counters and histogram series SUM across ranks; gauges — and the
+    restart count, which every party reports for the same events — take
+    the MAX (per-rank FLOPs/queue-depth summed over replicas would read
+    as more work than any rank did); health-style gauges where the job
+    is only as good as its worst rank (``train_health``) take the
+    MIN."""
+    types, samples = {}, {}
+    for t, s in parsed:
+        types.update(t)
+    for t, s in parsed:
+        for key, v in s.items():
+            kind = types.get(_base_name(key[0], types), "counter")
+            if key not in samples:
+                samples[key] = v
+            elif key[0] in _MIN_MERGE_NAMES:
+                samples[key] = min(samples[key], v)
+            elif kind == "gauge" or key[0] in _MAX_MERGE_NAMES:
+                samples[key] = max(samples[key], v)
+            else:
+                samples[key] += v
+    return types, samples
+
+
+def render_parsed(types, samples):
+    """Aggregated (types, samples) back to exposition text."""
+    lines, seen = [], set()
+    for (name, pairs) in sorted(samples):
+        base = _base_name(name, types)
+        if base not in seen and base in types:
+            seen.add(base)
+            lines.append(f"# TYPE {base} {types[base]}")
+        ls = "{" + ",".join(f'{k}="{_esc(v)}"' for k, v in pairs) + "}" \
+            if pairs else ""
+        lines.append(f"{name}{ls} {_fmt(samples[(name, pairs)])}")
+    lines.append(EOF_MARKER)
+    return "\n".join(lines) + "\n"
+
+
+_RANK_SNAP_RE = re.compile(r"^rank(\d+)\.prom$")
+
+
+def read_rank_snapshots(dirname):
+    """{rank: (types, samples)} for every readable, untorn
+    ``rank<N>.prom`` in ``dirname`` (torn/missing files are skipped —
+    the next exporter tick replaces them)."""
+    out = {}
+    try:
+        names = os.listdir(dirname)
+    except OSError:
+        return out
+    for fn in names:
+        m = _RANK_SNAP_RE.match(fn)
+        if not m:
+            continue
+        try:
+            with open(os.path.join(dirname, fn)) as f:
+                out[int(m.group(1))] = parse_text(f.read())
+        except (OSError, ValueError):
+            continue
+    return out
+
+
+def write_job_snapshot(hb_dir, out_path, registry=None, snaps=None):
+    """Aggregate every rank's snapshot (plus ``registry`` — the
+    launcher's own restart/watchdog counters) into one atomic file.
+    Returns ``out_path``, or None when there is nothing to write.
+    Pass pre-read ``snaps`` to reuse one directory scan and keep the
+    written aggregate consistent with whatever the caller just judged
+    (the launcher's status tick does)."""
+    if snaps is None:
+        snaps = read_rank_snapshots(hb_dir)
+    parsed = list(snaps.values())
+    if registry is not None:
+        parsed.append(parse_text(render_text(registry)))
+    if not parsed:
+        return None
+    return _atomic_write(out_path, render_parsed(*aggregate(parsed)))
+
+
+def _sum_matching(samples, name):
+    return sum(v for (n, _), v in samples.items() if n == name)
+
+
+def _max_matching(samples, name):
+    return max((v for (n, _), v in samples.items() if n == name),
+               default=0.0)
+
+
+def job_status_line(hb_dir, restarts=0, snaps=None, health=None,
+                    registry=None):
+    """The launcher's periodic one-liner:
+    ``step=… ms/step=… mem=…/…GB mfu=… goodput=…% health=… ranks=…
+    restarts=…`` computed from the rank snapshots in ``hb_dir``; None
+    when no rank has exported yet. ``mem`` (worst device's high-water
+    mark over the known limit, monitor/memory.py) appears only once
+    some rank's memory poller has sampled; ``goodput`` (device-compute
+    share of all ledger-attributed seconds, monitor/goodput.py) only
+    once some party's ledger is armed.
+
+    ``step`` is the max across ranks (they advance together in data
+    parallel); ms/step pools every rank's histogram; mfu uses the
+    max-across-ranks per-step FLOPs (see ``monitor.cost`` for the
+    peak-FLOPs source and its CPU-host caveats); ``health`` comes from
+    ``monitor.anomaly.job_health`` — anomaly trips any rank exported
+    plus step-time-skew straggler detection over the same snapshots.
+    Pass pre-read ``snaps`` and a pre-computed ``health`` string to
+    reuse one directory scan / one job_health judgment (the launcher's
+    status tick does, so its log line and straggler bookkeeping judge
+    the SAME snapshot state with the SAME skew threshold). Every field
+    of one line derives from that single read — mem/health/goodput in
+    one tick can never disagree about which snapshots they judged.
+    ``registry`` (the launcher passes its own) joins the aggregation
+    so launcher-side ledger phases (``restart_downtime``) count in the
+    goodput denominator; the computed fraction is published back to it
+    as the ``goodput_fraction`` gauge, which the subsequent
+    ``write_job_snapshot(registry=...)`` then carries into
+    <log_dir>/metrics.prom."""
+    if snaps is None:
+        snaps = read_rank_snapshots(hb_dir)
+    if not snaps:
+        return None
+    step = 0
+    flops = 0.0
+    for _, (types, samples) in snaps.items():
+        step = max(step, int(_sum_matching(samples,
+                                           "executor_steps_total")))
+        flops = max(flops, _sum_matching(samples, "segment_flops"))
+    parsed = list(snaps.values())
+    if registry is not None:
+        parsed.append(parse_text(render_text(registry)))
+    _, merged = aggregate(parsed)
+    ms_sum = _sum_matching(merged, "executor_step_ms_sum")
+    ms_count = _sum_matching(merged, "executor_step_ms_count")
+    ms = ms_sum / ms_count if ms_count else 0.0
+    parts = [f"step={step}", f"ms/step={ms:.1f}"]
+    # worst device's high-water mark across ranks, off the SAME merged
+    # view as every other field (gauges max-merge, and the launcher
+    # sweeps departed ranks' files, so no stale rank pins the number):
+    # mem=<high-water>/<limit>GB, limit part only when some rank knows
+    # one (monitor/memory.py poller)
+    hwm = _max_matching(merged, "hbm_bytes_high_water")
+    if hwm > 0:
+        limit = _max_matching(merged, "hbm_bytes_limit")
+        gb = 1024.0 ** 3
+        mem = f"mem={hwm / gb:.2f}"
+        if limit > 0:
+            mem += f"/{limit / gb:.2f}"
+        parts.append(mem + "GB")
+    if flops > 0 and ms > 0:
+        from paddle_tpu_torch.monitor.cost import peak_flops
+        mfu = flops / (ms / 1e3) / peak_flops()
+        parts.append(f"mfu={mfu:.4f}")
+    from paddle_tpu_torch.monitor import goodput as _goodput
+    frac = _goodput.fraction_of(merged)
+    if frac is not None:
+        parts.append(f"goodput={frac * 100.0:.0f}%")
+        if registry is not None:
+            _goodput._g_fraction.set(frac)
+    if health is None:
+        from paddle_tpu_torch.monitor import anomaly as _anomaly
+        health, _stragglers = _anomaly.job_health(snaps)
+    parts.append(f"health={health}")
+    parts.append(f"ranks={len(snaps)}")
+    parts.append(f"restarts={restarts}")
+    return " ".join(parts)
+
+
+# -- per-rank background exporter -------------------------------------------
+class RankExporter:
+    """Writes the registry to ``path`` every ``interval`` seconds on a
+    daemon thread (plus once on ``stop()``, so a clean exit always
+    leaves a final snapshot). ``from_env()`` is the launcher hookup:
+    under the JAX package's ``distributed.launch`` the snapshot lands next to
+    this rank's heartbeat file, where the launcher aggregates it."""
+
+    def __init__(self, path, interval=2.0, registry=None):
+        self.path = path
+        self.interval = float(interval)
+        self.registry = registry or REGISTRY
+        self._stop = threading.Event()
+        self._thread = None
+
+    @classmethod
+    def from_env(cls, env=None, interval=2.0, registry=None):
+        """A RankExporter wired from the launcher's env (None when not
+        launched under a supervisor). Also registers this incarnation's
+        ``restarts_total`` from PADDLE_RESTART_COUNT, so a restarted
+        rank's snapshot carries its restart count."""
+        from paddle_tpu_torch.distributed import health
+        env = os.environ if env is None else env
+        if not env.get(health.ENV_DIR):
+            return None
+        rank = env.get(health.ENV_RANK, "0")
+        path = health.metrics_path(env[health.ENV_DIR], rank)
+        exp = cls(path, interval=interval, registry=registry)
+        restarts = counter(
+            "restarts_total",
+            "Restarts: the launcher counts restarts it performed; a "
+            "rank reports its own incarnation index",
+            registry=exp.registry)
+        restarts.inc(int(env.get("PADDLE_RESTART_COUNT", "0") or 0))
+        return exp
+
+    def write_now(self):
+        try:
+            return write_snapshot(self.path, self.registry)
+        except OSError:
+            return None     # a full disk must not kill the loop
+
+    def start(self):
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, daemon=True, name="pt-rank-exporter")
+            self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            self.write_now()
+
+    def stop(self):
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=5)
+            self._thread = None
+        self.write_now()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+
+# -- optional /metrics endpoint ---------------------------------------------
+class MetricsServer(ThreadedHTTPServerBase):
+    """``GET /metrics`` over the shared threaded-HTTP base
+    (``monitor/httpd.py``) on a daemon thread. ``port=0`` picks a free
+    port (read ``self.port`` after ``start()``). Loopback-only by
+    default: metrics can leak shapes and step counts, so exposing
+    beyond the host is an explicit choice. ``socket_timeout_s`` bounds
+    every socket read/write per connection, so a scraper that connects
+    and then stalls can no longer pin a handler thread forever."""
+
+    thread_name = "pt-metrics-server"
+
+    def __init__(self, port=0, host="127.0.0.1", registry=None,
+                 socket_timeout_s=10.0):
+        super().__init__(port=port, host=host,
+                         socket_timeout_s=socket_timeout_s)
+        self.registry = registry or REGISTRY
+
+    def _handler_class(self):
+        import http.server
+
+        registry = self.registry
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                if self.path.rstrip("/") not in ("", "/metrics"):
+                    self.send_error(404)
+                    return
+                body = render_text(registry).encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type", CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):    # quiet: no per-scrape stderr
+                pass
+
+        return Handler

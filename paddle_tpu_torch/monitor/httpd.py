@@ -1,7 +1,7 @@
 """Shared threaded-HTTP plumbing: the lifecycle base under the serving
-front door (``serving/frontdoor.py``). The port's copy of
-``paddle_tpu/monitor/httpd.py`` (stdlib only); the metrics endpoint that
-the JAX package also builds on it is ROADMAP queue 1 item 10.
+front door (``serving/frontdoor.py``) and the exporter's ``/metrics``
+endpoint (``monitor/exporter.py``). The port's copy of
+``paddle_tpu/monitor/httpd.py`` (stdlib only).
 
 Both servers want the exact same shell — stdlib
 ``http.server.ThreadingHTTPServer`` on a daemon thread, ``port=0``

@@ -24,19 +24,27 @@ The limit is the card's total memory (``torch.cuda.mem_get_info``) where
 the device is a card, else the ``PADDLE_TPU_HBM_LIMIT_BYTES`` override, else
 None: on the CPU, admission is advisory unless the override is given.
 
-Where the JAX package reads XLA's compile-time analysis
-(``analyze_compiled``, ``record_segment_memory``, ``memory_segments``,
-``peak_bytes_per_step``), the port has no compiled executable to ask: those
-belong with the Executor's cache (ROADMAP queue 1 item 10) and raise. The
-serving pools measure their buckets' peaks instead
-(``ReplicaPool.projected_bytes``). The anomaly escalation the JAX
-``handle_oom`` trips (the flight recorder) is item 10 too.
+- **Per-step peaks.** Where the JAX package reads XLA's compile-time
+  analysis of each compiled segment, the port has no compiled executable:
+  its counterpart is the **measured** peak of a prepared runner's first
+  step on the card (the Executor's ``FLAGS_monitor_cost`` probe), turned by
+  ``analyze_compiled`` into the JAX analysis dict and kept by
+  ``record_segment_memory`` under the same ``segment_*_bytes`` gauges;
+  ``memory_segments`` and ``peak_bytes_per_step`` read it back. The
+  Executor reads ``torch.cuda.max_memory_allocated`` before and after the
+  step and never resets it (a caller may be measuring its own peak): a step
+  that sets a new high of the process is measured exactly, one that stays
+  under an earlier high is not recorded (reset the high before it to have
+  it measured). On the CPU nothing is measured and ``analyze_compiled``
+  gives None. The serving pools measure their buckets' peaks with a reset
+  of their own (``ReplicaPool.projected_bytes``).
+- ``handle_oom`` escalates through ``anomaly.trip("oom")`` (the health
+  gauge and a flight-recorder postmortem when it is armed).
 """
 
 import os
 import threading
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.monitor.registry import counter, gauge
 
 __all__ = [
@@ -54,9 +62,24 @@ __all__ = [
 HBM_LIMIT_ENV = "PADDLE_TPU_HBM_LIMIT_BYTES"
 
 _lock = threading.Lock()
+_segments = {}            # group -> {index: {"temp_bytes", ...}}
+_latest_group = None
 _ledger = {}              # entity -> bytes
 _high_water = {}          # device label -> peak observed in-use bytes
 
+_g_temp = gauge(
+    "segment_temp_bytes",
+    "Temp bytes a prepared runner's first step allocated on the card "
+    "beyond its arguments (measured peak minus the bytes resident at its "
+    "start)", labels=("segment",))
+_g_arg = gauge(
+    "segment_argument_bytes",
+    "Argument bytes of a prepared runner's step (its state, feeds and "
+    "constants resident for the call)", labels=("segment",))
+_g_peak = gauge(
+    "segment_peak_bytes_estimate",
+    "Measured peak device bytes of a prepared runner's first step "
+    "(arguments + temps)", labels=("segment",))
 _g_ledger = gauge(
     "memory_ledger_bytes",
     "Resident device/host bytes the memory ledger attributes to each "
@@ -86,31 +109,64 @@ _c_oom = counter(
     labels=("where",))
 
 
-def _not_ported(name):
-    raise EnforceNotMet(
-        f"memory.{name} reads XLA's compile-time memory analysis; the port "
-        f"has no compiled executable to ask: it belongs with the Executor's "
-        f"cache (ROADMAP queue 1 item 10)")
-
-
 def analyze_compiled(compiled):
-    """Not ported (ROADMAP queue 1 item 10): raises."""
-    _not_ported("analyze_compiled")
+    """The JAX analysis dict ({'argument_bytes', 'output_bytes',
+    'temp_bytes', 'alias_bytes', 'generated_code_bytes',
+    'peak_bytes_estimate'}) of a step measured on the card: ``compiled`` is
+    ``{"argument_bytes", "peak_bytes", "start_bytes"}`` (the step's
+    arguments, ``torch.cuda.max_memory_allocated`` over the step and
+    ``memory_allocated`` at its start), or None (the CPU: nothing measured),
+    which gives None. The parameters are updated in place, so the outputs
+    alias the arguments and count 0; the peak is arguments + temps."""
+    if not compiled:
+        return None
+    arg = float(compiled.get("argument_bytes", 0) or 0)
+    peak = float(compiled.get("peak_bytes", 0) or 0)
+    start = float(compiled.get("start_bytes", 0) or 0)
+    if not peak:
+        return None
+    tmp = max(0.0, peak - start)
+    return {"argument_bytes": arg, "output_bytes": 0.0, "temp_bytes": tmp,
+            "alias_bytes": 0.0, "generated_code_bytes": 0.0,
+            "peak_bytes_estimate": arg + tmp}
 
 
 def record_segment_memory(group, index, analysis):
-    """Not ported (ROADMAP queue 1 item 10): raises."""
-    _not_ported("record_segment_memory")
+    """Record one segment's analysis under ``group`` (the prepared runner's
+    identity). The gauges mirror ONLY the most recent group, as
+    ``cost.record_segment``'s do."""
+    global _latest_group
+    if not analysis:
+        return
+    with _lock:
+        if group != _latest_group:
+            _g_temp.clear()
+            _g_arg.clear()
+            _g_peak.clear()
+        _segments.setdefault(group, {}).setdefault(
+            int(index), {}).update(analysis)
+        _latest_group = group
+    seg = str(index)
+    _g_temp.set(analysis.get("temp_bytes", 0.0), segment=seg)
+    _g_arg.set(analysis.get("argument_bytes", 0.0), segment=seg)
+    _g_peak.set(analysis.get("peak_bytes_estimate", 0.0), segment=seg)
 
 
 def memory_segments(group=None):
-    """Not ported (ROADMAP queue 1 item 10): raises."""
-    _not_ported("memory_segments")
+    """{segment index: analysis dict} for ``group`` (default: the most
+    recently recorded runner)."""
+    with _lock:
+        g = _latest_group if group is None else group
+        return {i: dict(a) for i, a in _segments.get(g, {}).items()}
 
 
 def peak_bytes_per_step():
-    """Not ported (ROADMAP queue 1 item 10): raises."""
-    _not_ported("peak_bytes_per_step")
+    """Max peak across the latest runner's segments (segments run one
+    after another, so the step's peak is the worst one, not the sum)."""
+    with _lock:
+        segs = _segments.get(_latest_group, {})
+        return max((a.get("peak_bytes_estimate", 0.0)
+                    for a in segs.values()), default=0.0)
 
 
 # -- ledger ----------------------------------------------------------------
@@ -378,17 +434,24 @@ def oom_postmortem(where, exc=None, top_k=8):
         "hbm_bytes_in_use": dict(usage),
         "hbm_bytes_limit": _first_limit(),
         "hbm_bytes_high_water": dict(_high_water),
+        "segments": memory_segments(),
+        "peak_bytes_estimate": peak_bytes_per_step(),
     }
 
 
 def handle_oom(exc, where, step=None):
     """Convert a device OOM into the typed error: build the postmortem, bump
     ``oom_errors_total{where=...}`` and raise :class:`OutOfDeviceMemoryError`
-    chained from the original. Callers invoke this only after
-    ``is_oom_error(exc)``. ``step`` is taken for the JAX signature (its
-    anomaly escalation is ROADMAP queue 1 item 10)."""
+    chained from the original, after the ``anomaly.trip("oom")``
+    escalation (health gauge + flight-recorder dump embedding the in-flight
+    trace). Callers invoke this only after ``is_oom_error(exc)``."""
     pm = oom_postmortem(where, exc)
     _c_oom.inc(where=str(where))
+    try:
+        from paddle_tpu_torch.monitor import anomaly
+        anomaly.trip("oom", report=pm, step=step)
+    except Exception:
+        pass
     peak = max(pm.get("peak_bytes", {}).values(), default=0)
     limit = pm.get("hbm_bytes_limit")
     msg = (f"device out of memory at {where}: peak allocated "
@@ -454,9 +517,15 @@ def reset():
     """Forget the ledger and high-water marks, stop the poller and drop
     every gauge series (tests)."""
     disable()
+    global _latest_group
     with _lock:
         _ledger.clear()
         _high_water.clear()
+        _segments.clear()
+        _latest_group = None
+    _g_temp.clear()
+    _g_arg.clear()
+    _g_peak.clear()
     _g_ledger.clear()
     _g_in_use.clear()
     _g_limit.clear()

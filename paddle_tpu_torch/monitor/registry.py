@@ -1,7 +1,8 @@
 """Process-wide metrics registry: Counter / Gauge / Histogram.
 
-The port's own copy of ``paddle_tpu/monitor/registry.py`` (stdlib only), for
-the serving modules' ``serving_*`` metrics.
+The port's own copy of ``paddle_tpu/monitor/registry.py`` (stdlib only):
+the metrics of the serving modules, the Executor, the cost, goodput,
+numerics and tensor-watch monitors, read by the exporter.
 
 Design constraints, in order:
 
@@ -16,9 +17,9 @@ Design constraints, in order:
 3. Stdlib only.
 
 Metric names follow Prometheus conventions (``snake_case``, counters end in
-``_total``, unit suffix like ``_ms`` on histograms). The exporter and the
-registry's ``collect`` are not ported yet (ROADMAP queue 1 item 10); a
-metric is read with ``value``/``count``/``sum`` or its ``samples()``.
+``_total``, unit suffix like ``_ms`` on histograms). Every name the port
+registers is a row of docs/OBSERVABILITY.md's catalogue, under the JAX
+package's kind and labels (``tests/test_torch_monitor.py`` holds them).
 """
 
 import bisect
@@ -73,6 +74,12 @@ class _ThreadShards:
     def shards(self):
         with self._lock:
             return [sd for _t, sd in self._entries]
+
+    def items(self):
+        """[(owner thread, shard)]: for readers that need the owner (the
+        flight recorder naming a stuck thread)."""
+        with self._lock:
+            return list(self._entries)
 
 
 def _snap_items(d):
@@ -317,6 +324,19 @@ class Registry:
     def get(self, name):
         with self._lock:
             return self._metrics.get(name)
+
+    def collect(self):
+        """All metrics, name-sorted (the exporter's iteration order)."""
+        with self._lock:
+            ms = list(self._metrics.values())
+        return sorted(ms, key=lambda m: m.name)
+
+    def clear(self):
+        """Drop every metric (tests only): instrumented modules hold
+        references to their metric objects, which keep counting but stop
+        being exported after a clear."""
+        with self._lock:
+            self._metrics.clear()
 
 
 #: the process-wide default registry every instrumented layer writes to

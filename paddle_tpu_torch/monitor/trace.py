@@ -26,9 +26,10 @@ trace JSON (one pid per rank). The file format is the JAX package's, so a
 file written by either package merges with the other's.
 
 ``install_from_env()`` arms tracing iff ``PADDLE_TRACE_DIR`` is set (knobs
-``PADDLE_TRACE_SAMPLE``, ``PADDLE_TRACE_SLOW_KEEP``). Not ported: the
-executor's step traces and the flight recorder that embeds
-``inflight_report`` (ROADMAP queue 1 item 10).
+``PADDLE_TRACE_SAMPLE``, ``PADDLE_TRACE_SLOW_KEEP``). The static
+Executor opens one ``executor/step`` trace per run (its ``prepare``,
+``dispatch`` and ``fetch`` spans), and the flight recorder embeds
+``inflight_report`` in its postmortems.
 """
 
 import collections

@@ -48,10 +48,12 @@ def reset_host_reads():
 
 def _read(x):
     """One host read of a predicate or an index (a 0-d or one-element
-    tensor, or a Python value)."""
-    _reads.n = host_reads() + 1
+    tensor, or a Python value), counted once it succeeded (a ``meta``
+    tensor, which the cost monitor's abstract pass gives, cannot be
+    read)."""
     if isinstance(x, torch.Tensor):
-        return x.reshape(()).item()
+        x = x.reshape(()).item()
+    _reads.n = host_reads() + 1
     return x
 
 
@@ -98,14 +100,15 @@ def case(pred_fn_pairs, default=None):
 
 
 def _read_all(preds):
-    """Every predicate in one host read."""
-    _reads.n = host_reads() + 1
+    """Every predicate in one host read (counted once it succeeded)."""
     if not any(isinstance(p, torch.Tensor) for p in preds):
-        return [bool(p) for p in preds]
-    dev = next(p.device for p in preds if isinstance(p, torch.Tensor))
-    flags = torch.stack([torch.as_tensor(p, device=dev).reshape(())
-                         .to(torch.bool) for p in preds])
-    return flags.tolist()
+        out = [bool(p) for p in preds]
+    else:
+        dev = next(p.device for p in preds if isinstance(p, torch.Tensor))
+        out = torch.stack([torch.as_tensor(p, device=dev).reshape(())
+                           .to(torch.bool) for p in preds]).tolist()
+    _reads.n = host_reads() + 1
+    return out
 
 
 def switch_case(branch_index, branch_fns, default=None):

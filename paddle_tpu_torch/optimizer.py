@@ -49,6 +49,7 @@ from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch.core.dtypes import dtype_name
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.tree import leaves, map_tree
+from paddle_tpu_torch.monitor import tensorwatch as _tensorwatch
 from paddle_tpu_torch.ops.kernels import fused_adam, fused_momentum, fused_sgd
 from paddle_tpu_torch.static.program import (
     default_startup_program, in_static_mode, register_op,
@@ -174,6 +175,27 @@ class Optimizer:
         blk.append_op(type="increment_step", inputs={"X": [step_name]},
                       outputs={"Out": [step_name]}, attrs={})
 
+        # tensor watch (monitor/tensorwatch.py): bracket the update with the
+        # two stats ops, the pre-clip grad and param norms before it, the
+        # update ratio after (optimizer.py:153-219)
+        watching = _tensorwatch.is_enabled() and p_g
+        pre_names = []
+        if watching:
+            pre_names = [f"@watch@pre@{p.name}" for p, _ in p_g]
+            for (p, _g), pn in zip(p_g, pre_names):
+                if not blk.has_var(pn):
+                    blk.create_var(name=pn, shape=p.shape, dtype=p.dtype)
+            if not blk.has_var(_tensorwatch.PRE_VAR):
+                blk.create_var(name=_tensorwatch.PRE_VAR, shape=(2,),
+                               dtype="float32")
+            blk.append_op(
+                type="tensor_watch_pre",
+                inputs={"Params": [p.name for p, _ in p_g],
+                        "Grads": [g.name for _, g in p_g]},
+                outputs={"Norms": [_tensorwatch.PRE_VAR],
+                         "PreParams": pre_names},
+                attrs={})
+
         clip = self.grad_clip or clip_mod.get_gradient_clip(program)
         if clip is not None:
             gnames = [g.name for _, g in p_g]
@@ -207,6 +229,17 @@ class Optimizer:
                        "regularizer": p.regularizer,
                        "param_lr": p.optimize_attr.get("learning_rate",
                                                        1.0)}))
+        if watching:
+            if not blk.has_var(_tensorwatch.STATS_VAR):
+                blk.create_var(name=_tensorwatch.STATS_VAR, shape=(4,),
+                               dtype="float32")
+            blk.append_op(
+                type="tensor_watch_post",
+                inputs={"Params": [p.name for p, _ in p_g],
+                        "PreParams": pre_names,
+                        "PreNorms": [_tensorwatch.PRE_VAR]},
+                outputs={"Out": [_tensorwatch.STATS_VAR]},
+                attrs={})
         return ops, p_g
 
     def state_from_numpy(self, tree, params):
@@ -404,6 +437,8 @@ register_op("apply_optimizer", _apply_optimizer_compute)
 register_op("increment_step", lambda ins, attrs: {"Out": [ins["X"][0] + 1]})
 register_op("clip_grads", lambda ins, attrs: {
     "Out": attrs["clip"].clip_tree(list(ins["X"]))})
+register_op("tensor_watch_pre", _tensorwatch._watch_pre_compute)
+register_op("tensor_watch_post", _tensorwatch._watch_post_compute)
 
 
 # ---------------------------------------------------------------------------

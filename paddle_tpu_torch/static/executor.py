@@ -52,18 +52,40 @@ differentiation; a ``scan_block`` is differentiated through its steps.
 Host ops (marked ``_host``): ``py_func`` runs between the device ops, its
 function called on numpy copies and its outputs put back on the device; a
 host op that a differentiated value reaches before the ``autodiff`` op
-raises, as in the JAX package (gradients cannot cross the host). Not
-ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item: the
-other host ops (parameter-server send/recv, queue 1 item 9), prefetch (``device_prefetch``, ``background_prefetch``,
-``Executor.feed_stage``) and ``train_from_dataset`` /
-``infer_from_dataset`` (item 10), the persistent compile cache
-(``PADDLE_TPU_CACHE_DIR``; item 10), mesh specs
-(``CompiledProgram.with_data_parallel`` / ``with_mesh_sharding``; item 9),
-and the monitor hooks the JAX executor feeds (goodput, trace, anomaly,
-tensorwatch, numerics; item 10).
+raises, as in the JAX package (gradients cannot cross the host). A
+*segment* is a run of device ops between host ops, as the JAX package cuts
+its compiled segments.
+
+The monitor hooks sit at the JAX package's seams (executor.py:297-317,
+:828-980), each one check of its module's switch when its monitor is off:
+the ``executor/step`` trace with its ``prepare``/``dispatch``/``fetch``
+spans (``monitor.trace``), the profiler's ``executor.run/*`` events, the
+step metrics (``executor_steps_total``, ``executor_step_ms``,
+``executor_fetch_ms``, ``executor_retraces_total``), the goodput ledger
+(a runner build is its ``compile``, a reader pull its ``input_wait``),
+``anomaly.DETECTOR.observe`` of the step time, the flight recorder's step
+note, tensor watch's ``@watch@stats`` fetched and peeled off before the
+user sees the fetches, ``memory.handle_oom`` on a dispatch OOM, and on
+each runner's first step (``FLAGS_monitor_cost``) the cost monitor's
+abstract pass, queued to run when its numbers are first read, and the
+measured peak of the step on the card. Under
+``FLAGS_check_nan_inf`` the step runs on clones of the persistables, one
+device flag per segment says whether every float tensor it wrote is
+finite, and the flags are read once before the new state reaches the
+scope: a trip leaves the scope bitwise at its pre-step values and raises
+``monitor.numerics.NonFiniteError`` from the localizer's replay.
+
+Not ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item: the
+other host ops (parameter-server send/recv, queue 1 item 9), prefetch
+(``device_prefetch``, ``background_prefetch``, ``Executor.feed_stage``) and
+``train_from_dataset`` / ``infer_from_dataset`` (item 10), the persistent
+compile cache (``PADDLE_TPU_CACHE_DIR``; item 10 step 3) and mesh specs
+(``CompiledProgram.with_data_parallel`` / ``with_mesh_sharding``; item 9).
 """
 
+import itertools
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -73,7 +95,15 @@ from paddle_tpu_torch.core.dtypes import dtype_name
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.flags import define_flag, get_flag
 from paddle_tpu_torch.core.place import place_device
+from paddle_tpu_torch.monitor import anomaly as _anomaly
+from paddle_tpu_torch.monitor import flight_recorder as _flight
+from paddle_tpu_torch.monitor import goodput as _goodput
+from paddle_tpu_torch.monitor import tensorwatch as _tensorwatch
+from paddle_tpu_torch.monitor import trace as _trace
+from paddle_tpu_torch.monitor.registry import counter as _counter
+from paddle_tpu_torch.monitor.registry import histogram as _histogram
 from paddle_tpu_torch.ops.nn import no_tf32
+from paddle_tpu_torch.profiler import RecordEvent
 from paddle_tpu_torch.static.backward import GRAD_SUFFIX
 from paddle_tpu_torch.static.program import (
     OP_REGISTRY, Program, default_main_program,
@@ -92,8 +122,34 @@ define_flag("apply_ir_passes", True,
             "matmul+bias+act fusion, dead-op elimination) before running "
             "each main program; BuildStrategy.apply_ir_passes overrides it "
             "per program (0 = run the program as built)")
+define_flag("monitor_cost", True,
+            "On each prepared runner's first step, queue the count of its "
+            "FLOPs and bytes (monitor/cost.py's abstract pass on meta "
+            "copies, run when first read) and, on the card, measure its "
+            "peak memory (monitor/memory.py) (0 = skip the probe)")
+define_flag("pass_cost_evidence", False,
+            "Count the FLOPs and bytes (monitor/cost.py's abstract pass) "
+            "before the pass pipeline and after every pass, publishing "
+            "per-pass predicted deltas (program_pass_flops_delta / "
+            "_bytes_delta gauges and the pass_evidence table); evidence "
+            "tooling, off by default")
+
+# the hot-loop metrics (monitor/registry.py), under the JAX names
+_m_steps = _counter("executor_steps_total",
+                    "Executor.run calls that dispatched a step")
+_m_step_ms = _histogram("executor_step_ms",
+                        "Wall ms per Executor.run call (prepare + "
+                        "dispatch + fetch)")
+_m_fetch_ms = _histogram("executor_fetch_ms",
+                         "Wall ms blocked materializing fetches "
+                         "(host sync) per Executor.run call")
+_m_retraces = _counter("executor_retraces_total",
+                       "Device-segment traces performed (mirrors "
+                       "Executor.trace_count across all executors)")
 
 _STEP = "@step@"
+_flow_ids = itertools.count(1)
+_runner_ids = itertools.count(1)
 
 
 class Scope:
@@ -235,19 +291,24 @@ def _op_generator(device, seed, step, op):
     return torch.Generator(device=device).manual_seed(mixed)
 
 
-def _interpret(ops, env, rng_for=None):
+def _interpret(ops, env, rng_for=None, after_op=None):
     """Run ``ops`` in order over ``env``; the ``autodiff`` op makes the
     grads of the summed loss over the ops before it. ``rng_for(op)`` gives
-    a ``_needs_rng`` op its generator."""
-    def run(op):
+    a ``_needs_rng`` op its generator; ``after_op(i, op, outs)`` sees each
+    op's outputs once ``env`` holds them (the ``autodiff`` op's are its
+    ``<param>@GRAD`` leaves)."""
+    def run(i, op):
         rng = rng_for(op) if rng_for and op.attrs.get("_needs_rng") else None
-        env.update(exec_op(op, env, rng))
+        outs = exec_op(op, env, rng)
+        env.update(outs)
+        if after_op is not None:
+            after_op(i, op, outs)
 
     ad = next((i for i, op in enumerate(ops) if op.type == "autodiff"), None)
     if ad is None:
         with torch.no_grad():
-            for op in ops:
-                run(op)
+            for i, op in enumerate(ops):
+                run(i, op)
         return env
     adop = ops[ad]
     names = adop.attrs["params"]
@@ -255,8 +316,8 @@ def _interpret(ops, env, rng_for=None):
     leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
     env.update(leaves)
     with torch.enable_grad():
-        for op in ops[:ad]:
-            run(op)
+        for i, op in enumerate(ops[:ad]):
+            run(i, op)
         loss = env[adop.attrs["loss"]].sum()
         # a loss that reaches no parameter gives every parameter a zero grad
         grads = (torch.autograd.grad(loss, list(leaves.values()),
@@ -268,9 +329,12 @@ def _interpret(ops, env, rng_for=None):
     env.update(params)
     for n, g in zip(names, grads):
         env[n + GRAD_SUFFIX] = torch.zeros_like(params[n]) if g is None else g
+    if after_op is not None:
+        after_op(ad, adop, {n + GRAD_SUFFIX: env[n + GRAD_SUFFIX]
+                            for n in names})
     with torch.no_grad():
-        for op in ops[ad + 1:]:
-            run(op)
+        for i, op in enumerate(ops[ad + 1:], ad + 1):
+            run(i, op)
     return env
 
 
@@ -301,6 +365,15 @@ def _spec_of(v):
 
 def _feed_signature(feed):
     return tuple(sorted((k, *_spec_of(v)) for k, v in feed.items()))
+
+
+def _run_fetch(program, fetch_names):
+    """The fetch list a step runs: a tensor-watch program's
+    ``@watch@stats`` rides it (executor.py:1164-1170)."""
+    if (program.global_block().has_var(_tensorwatch.STATS_VAR)
+            and _tensorwatch.STATS_VAR not in fetch_names):
+        return list(fetch_names) + [_tensorwatch.STATS_VAR]
+    return list(fetch_names)
 
 
 def _sub_programs(op):
@@ -366,20 +439,66 @@ def _refuse_host_in_grad(ops):
                 f"loss/backward, or use a differentiable op instead")
 
 
+def _segments(ops):
+    """[(is_host, start, end)]: the runs of ops with the same ``_host``
+    mark, the JAX package's segments (executor.py:1482-1489)."""
+    segs, i = [], 0
+    while i < len(ops):
+        is_host = bool(ops[i].attrs.get("_host"))
+        j = i
+        while j < len(ops) and bool(ops[j].attrs.get("_host")) == is_host:
+            j += 1
+        segs.append((is_host, i, j))
+        i = j
+    return segs
+
+
+def _writes(op):
+    if op.type == "autodiff":
+        return [n + GRAD_SUFFIX for n in op.attrs["params"]]
+    return op.output_names()
+
+
 class _Runner:
     """One prepared (program, version, feed signature, fetch list,
     passes): the program to interpret (the pass pipeline's optimized clone,
     or the program itself), its persistable names and the kernel libraries
-    its ops launch, built and loaded when it was prepared."""
+    its ops launch, built and loaded when it was prepared, and its segments
+    with the names each device segment writes (the numerics sentinels'
+    scope)."""
 
-    def __init__(self, program, kernel_libraries):
+    def __init__(self, program, kernel_libraries, device):
         self.program = program
+        self.device = device
         blk = program.global_block()
         self.ops = list(blk.ops)
         self.state_names = [n for n, v in blk.vars.items() if v.persistable]
         self.kernel_libraries = sorted(kernel_libraries)
+        self.segs = _segments(self.ops)
+        self.seg_writes = {hi - 1: sorted({n for op in self.ops[lo:hi]
+                                           for n in _writes(op)})
+                           for is_host, lo, hi in self.segs if not is_host}
+        self.uid = next(_runner_ids)
+        self.cost_done = False
         _refuse_grad_through_while(self.ops)
         _refuse_host_in_grad(self.ops)
+
+    def constants(self):
+        return {n: c.to(self.device)
+                for n, c in self.program._constants.items()}
+
+    def replay(self, state, feeds, base_key, step_idx, end, after_op):
+        """Re-run ``ops[:end]`` of run ``step_idx`` (the JAX step index:
+        ``@step@`` before the run) from clones of ``state`` with ``feeds``,
+        every op that draws drawing what it drew in that run;
+        ``after_op(i, op, outs)`` sees each op (the numerics localizer)."""
+        env = self.constants()
+        env.update({n: v.clone() if isinstance(v, torch.Tensor) else v
+                    for n, v in state.items()})
+        env.update(feeds)
+        with no_tf32():
+            _interpret(self.ops[:end], env, lambda op: _op_generator(
+                self.device, base_key, step_idx + 1, op), after_op)
 
 
 class Executor:
@@ -428,18 +547,123 @@ class Executor:
         feed = dict(feed or {})
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
-        feed = {**self._pull_readers(program, fetch_names, feed), **feed}
+        if _goodput._armed:
+            # blocked on a reader's queue: the input pipeline could not
+            # keep up, the goodput ledger's input_wait (executor.py:297-305)
+            t_pull = time.perf_counter()
+            pulled = self._pull_readers(program, fetch_names, feed)
+            if pulled:
+                _goodput.attribute(time.perf_counter() - t_pull,
+                                   phase="input_wait")
+        else:
+            pulled = self._pull_readers(program, fetch_names, feed)
+        feed = {**pulled, **feed}
         scope = scope or global_scope()
         if not feed and self._is_startup_like(program):
             self._run_eager(program, scope)
-            values = {n: scope.find_var(n) for n in fetch_names}
-        else:
-            runner = self._runner(program, _feed_signature(feed),
-                                  fetch_names, scope,
-                                  self._passes_enabled(compiled))
-            values = self._run_main(runner, feed, fetch_names, scope)
-        return [_fetch_value(n, values[n], return_numpy)
-                for n in fetch_names]
+            return [_fetch_value(n, scope.find_var(n), return_numpy)
+                    for n in fetch_names]
+        return self._run_step(program, compiled, feed, fetch_names, scope,
+                              return_numpy)
+
+    def _run_step(self, program, compiled, feed, fetch_names, scope,
+                  return_numpy):
+        """One step of a main program with the monitor hooks at the JAX
+        package's seams (executor.py:828-980)."""
+        t_run = time.perf_counter()
+        if _goodput._armed:
+            _goodput.on_run_start(t_run)
+        tc0 = self._trace_count
+        tctx = _trace.start_trace("executor/step", current=True) \
+            if _trace._enabled else None
+        if tctx is not None:
+            tctx.t0 = t_run
+        try:
+            with RecordEvent("executor.run/prepare"):
+                # a tensor-watch program's stats ride the fetch list, peeled
+                # off before the user sees the fetches
+                run_fetch = _run_fetch(program, fetch_names)
+                watch = len(run_fetch) > len(fetch_names)
+                runner = self._runner(program, _feed_signature(feed),
+                                      run_fetch, scope,
+                                      self._passes_enabled(compiled))
+            t_prep = time.perf_counter()
+            if tctx is not None:
+                _trace.record_span(tctx, "executor/prepare", t_run, t_prep)
+            step_idx = int(scope.find_var(_STEP) or 0)
+            scope.set_var(_STEP, step_idx + 1)
+            if tctx is not None:
+                tctx.attrs["step"] = step_idx
+            check = bool(get_flag("check_nan_inf"))
+            fid = next(_flow_ids)
+            t_disp = time.perf_counter()
+            with RecordEvent("executor.run/dispatch", args={"flow": fid}):
+                try:
+                    env, feeds, flags = self._run_main(
+                        runner, feed, scope, step_idx, check)
+                except Exception as e:
+                    from paddle_tpu_torch.monitor import memory as _memory
+                    if _memory.is_oom_error(e):
+                        _memory.handle_oom(e, "executor.run/dispatch",
+                                           step=step_idx)
+                    raise
+            t_disp_end = time.perf_counter()
+            if tctx is not None:
+                _trace.record_span(tctx, "executor/dispatch", t_disp,
+                                   t_disp_end)
+            if check and flags:
+                # the one host read of the checked mode, before the new
+                # state reaches the scope
+                from paddle_tpu_torch.monitor import numerics as _numerics
+                ok = _numerics.read_flags(flags)
+                if not all(ok):
+                    del env
+                    _numerics.handle_trip(
+                        runner, {n: scope.find_var(n)
+                                 for n in runner.state_names},
+                        feeds, runner.program.random_seed, step_idx,
+                        ok.index(False))
+            for n in runner.state_names:
+                scope.set_var(n, env[n])
+            watch_v = env.get(_tensorwatch.STATS_VAR) if watch else None
+            if return_numpy:
+                with RecordEvent("executor.run/fetch", args={"flow": fid}):
+                    t_fetch = time.perf_counter()
+                    out = [_fetch_value(n, env.get(n), True)
+                           for n in fetch_names]
+                    _m_fetch_ms.observe(
+                        (time.perf_counter() - t_fetch) * 1e3)
+                if tctx is not None:
+                    _trace.record_span(tctx, "executor/fetch", t_fetch,
+                                       time.perf_counter())
+            else:
+                out = [_fetch_value(n, env.get(n), False)
+                       for n in fetch_names]
+            _m_steps.inc()
+            step_ms = (time.perf_counter() - t_run) * 1e3
+            _m_step_ms.observe(step_ms)
+            if _goodput._armed:
+                _goodput.on_run_end(t_run, t_prep, t_disp, t_disp_end,
+                                    self._trace_count > tc0)
+            if watch_v is not None and _tensorwatch._enabled:
+                _tensorwatch.on_step(watch_v, step_idx, sync=return_numpy)
+            if _anomaly._enabled:
+                # keyed by runner: train and eval programs through one
+                # executor get separate stall baselines
+                _anomaly.DETECTOR.observe(step=step_idx, step_ms=step_ms,
+                                          step_ms_key=runner.uid)
+            if _flight._enabled:
+                _flight.RECORDER.note("step", "executor.run", step=step_idx)
+            if tctx is not None:
+                _trace.record_exemplar("executor_step_ms", step_ms, tctx)
+                _trace.end_trace(tctx)
+            return out
+        except BaseException:
+            # a step that dies mid-flight (an op, a sentinel trip, the
+            # fetch) still ends its trace as an error
+            if tctx is not None:
+                _trace.end_trace(tctx, error=True)
+            raise
 
     @staticmethod
     def _program_read_names(program):
@@ -496,11 +720,28 @@ class Executor:
         startup program must have run (a persistable missing from the scope
         raises). Returns True: every op of the program is prepared."""
         program, compiled = self._unwrap(program)
-        fetch_names = [f if isinstance(f, str) else f.name
-                       for f in (fetch_list or [])]
+        fetch_names = _run_fetch(program, [
+            f if isinstance(f, str) else f.name for f in (fetch_list or [])])
         scope = scope or global_scope()
-        self._runner(program, _feed_signature(feed or {}), fetch_names,
-                     scope, self._passes_enabled(compiled))
+        runner = self._runner(program, _feed_signature(feed or {}),
+                              fetch_names, scope,
+                              self._passes_enabled(compiled))
+        # the memory ledger's residency of the scope (executor.py:1040-1056):
+        # optimizer slots are "<param>@<slot>" and internal optimizer state
+        # leads with "@"; everything else is a parameter
+        from paddle_tpu_torch.monitor import memory as _memory
+        p_bytes = s_bytes = 0
+        for n in runner.state_names:
+            v = scope.find_var(n)
+            nb = v.numel() * v.element_size() \
+                if isinstance(v, torch.Tensor) else 0
+            if "@" in n:
+                s_bytes += nb
+            else:
+                p_bytes += nb
+        _memory.ledger_set("train/params", p_bytes)
+        if s_bytes:
+            _memory.ledger_set("train/optimizer_slots", s_bytes)
         return True
 
     def _runner(self, program, feed_sig, fetch_names, scope, apply_passes):
@@ -512,9 +753,13 @@ class Executor:
             if apply_passes:
                 from paddle_tpu_torch.static.opt_passes import \
                     optimize_for_execution
-                prog = optimize_for_execution(program, fetch_names)
+                probe = None
+                if get_flag("pass_cost_evidence"):
+                    probe = self._cost_probe(feed_sig, scope)
+                prog = optimize_for_execution(program, fetch_names,
+                                              cost_probe=probe)
             libs = _kernel_libraries(prog.global_block().ops)
-            runner = _Runner(prog, libs)
+            runner = _Runner(prog, libs, self.device)
             self._check_state(runner, scope)
             if self.device.type == "cuda":
                 from paddle_tpu_torch.ops import kernels
@@ -522,9 +767,31 @@ class Executor:
                 for lib in runner.kernel_libraries:
                     _build.load(lib, kernels.LIBRARY_SIGNATURES[lib])
             self._trace_count += 1
+            _m_retraces.inc()
             if get_flag("executor_fast_path"):
                 self._runners[key] = runner
         return runner
+
+    def _cost_probe(self, feed_sig, scope):
+        """``FLAGS_pass_cost_evidence``'s probe: the cost monitor's abstract
+        pass over a program's first device segment, on meta tensors of the
+        scope's state and of the feed signature's shapes and dtypes."""
+        from paddle_tpu_torch.core.dtypes import convert_dtype
+        from paddle_tpu_torch.monitor import cost as _cost
+        feeds = {n: torch.empty(shape, dtype=convert_dtype(dt), device="meta")
+                 for n, shape, dt in feed_sig}
+
+        def probe(prog):
+            blk = prog.global_block()
+            env = {n: c for n, c in prog._constants.items()}
+            env.update({n: scope.find_var(n) for n, v in blk.vars.items()
+                        if v.persistable})
+            env.update(feeds)
+            is_host, _lo, hi = (_segments(blk.ops) or [(True, 0, 0)])[0]
+            if is_host:
+                return None
+            return _cost.analyze_step(blk.ops[:hi], env, _interpret)
+        return probe
 
     @staticmethod
     def _check_state(runner, scope):
@@ -534,23 +801,71 @@ class Executor:
                 f"Persistable vars not initialized: {missing[:5]} — run the "
                 f"startup program first (exe.run(startup_program))")
 
-    def _run_main(self, runner, feed, fetch_names, scope):
-        prog = runner.program
+    def _run_main(self, runner, feed, scope, step_idx, check):
+        """Interpret the runner's ops for run ``step_idx``; returns (env,
+        the feeds as tensors, the segments' finiteness flags under
+        ``check``). With ``check`` the persistables are clones, so nothing
+        reaches the scope until the caller has read the flags."""
         self._check_state(runner, scope)
-        env = {n: c.to(self.device) for n, c in prog._constants.items()}
-        for n in runner.state_names:
-            env[n] = scope.find_var(n)
-        blk = prog.global_block()
-        for k, v in feed.items():
-            env[k] = self._as_feed(blk, k, v)
-        step = (scope.find_var(_STEP) or 0) + 1
-        scope.set_var(_STEP, step)
+        env = runner.constants()
+        state = {n: scope.find_var(n) for n in runner.state_names}
+        if check:
+            from paddle_tpu_torch.monitor import numerics
+            state = numerics.snapshot(state)
+        env.update(state)
+        blk = runner.program.global_block()
+        feeds = {k: self._as_feed(blk, k, v) for k, v in feed.items()}
+        env.update(feeds)
+        first = not runner.cost_done and bool(get_flag("monitor_cost"))
+        if first:
+            self._record_cost(runner, env)
+        # the first step's measured peak (memory.py's per-step analysis),
+        # read off the process-wide high without resetting it: a caller may
+        # be measuring its own peak around this run
+        measure = first and self.device.type == "cuda"
+        if measure:
+            high = torch.cuda.max_memory_allocated(self.device)
+            start = torch.cuda.memory_allocated(self.device)
+            arg = sum(v.numel() * v.element_size() for v in env.values()
+                      if isinstance(v, torch.Tensor))
+        flags = []
+        after_op = None
+        if check:
+            ends = runner.seg_writes
+
+            def after_op(i, op, outs):
+                if i in ends:
+                    flags.append(numerics.sentinel(
+                        [env[n] for n in ends[i] if n in env], self.device))
+        seed = runner.program.random_seed
         with no_tf32():
             env = _interpret(runner.ops, env, lambda op: _op_generator(
-                self.device, prog.random_seed, step, op))
-        for n in runner.state_names:
-            scope.set_var(n, env[n])
-        return {n: env.get(n) for n in fetch_names}
+                self.device, seed, step_idx + 1, op), after_op)
+        if measure:
+            # a step under an earlier high is not measured
+            peak = torch.cuda.max_memory_allocated(self.device)
+            if peak > high:
+                from paddle_tpu_torch.monitor import memory as _memory
+                _memory.record_segment_memory(
+                    runner.uid, 0, _memory.analyze_compiled({
+                        "argument_bytes": arg, "start_bytes": start,
+                        "peak_bytes": peak}))
+        return env, feeds, flags
+
+    @staticmethod
+    def _record_cost(runner, env):
+        """Queue the cost monitor's abstract pass over the runner's first
+        device segment (the ops before its first host op) on meta copies
+        of ``env``: it runs when a reader first asks (monitor/cost.py);
+        never fatal. Latched once queued."""
+        from paddle_tpu_torch.monitor import cost as _cost
+        runner.cost_done = True
+        is_host, lo, hi = runner.segs[0] if runner.segs else (True, 0, 0)
+        if is_host:
+            return
+        _cost.defer_step(runner.uid, 0, runner.ops[:hi], env, _interpret)
+        # one card: no collective
+        _cost.record_segment_comm(runner.uid, 0, {"comm_bytes": 0.0})
 
     def _as_feed(self, blk, name, value):
         """A feed as a tensor on the device, in its data var's dtype (a

@@ -577,34 +577,59 @@ def default_pipeline(targets=()):
 def optimize_program(program, targets=(), pipeline=None, record=True,
                      cost_probe=None):
     """Clone ``program``, run the pass pipeline against ``targets`` (the
-    step's fetch names) and return ``(optimized_program, report)``. The
-    input program is never mutated.
+    step's fetch names), publish per-pass evidence through
+    ``monitor/cost.py`` (``record``) and return ``(optimized_program,
+    report)``. The input program is never mutated.
 
-    ``record`` is accepted and has nothing to do: the JAX package publishes
-    per-pass evidence to its cost monitor, which is not ported (ROADMAP
-    queue 1 item 10), so nothing is published either way. ``cost_probe``
-    (the analytical cost of each pass) needs that cost monitor too: anything
-    but None raises."""
-    if cost_probe is not None:
-        raise EnforceNotMet(
-            "optimize_program(cost_probe=...): the per-pass cost probe "
-            "needs the cost monitor, not ported yet (ROADMAP queue 1 item "
-            "10)")
+    ``cost_probe`` (optional, ``FLAGS_pass_cost_evidence``): a callable
+    ``prog -> {"flops", "bytes"} | None`` (the Executor's is the cost
+    monitor's abstract pass on meta copies of the step's state and feeds).
+    When given, it runs before the pipeline and after every pass; each
+    pass's predicted delta (negative = cheaper) lands in its
+    ``report.per_pass`` row and the ``program_pass_flops_delta`` /
+    ``program_pass_bytes_delta`` gauges. A probe that raises disables
+    probing, never the pipeline."""
+    from paddle_tpu_torch.monitor import cost as _cost
+
     prog = program.clone()
     pm = pipeline or default_pipeline(targets)
     report = PipelineReport()
     report.ops_before = len(prog.global_block().ops)
+
+    def _probe(p):
+        nonlocal cost_probe
+        if cost_probe is None:
+            return None
+        try:
+            return cost_probe(p)
+        except Exception:
+            cost_probe = None
+            return None
+
+    cost0 = _probe(prog)
     for p in pm.passes:
         n0 = len(prog.global_block().ops)
         t0 = time.perf_counter()
         out = p.apply(prog)
+        ms = (time.perf_counter() - t0) * 1e3
         prog = out if out is not None else prog
         n1 = len(prog.global_block().ops)
         pm.applied.append(p.name)
-        report.per_pass.append({
-            "pass": p.name, "ops_before": n0, "ops_after": n1,
-            "ops_removed": n0 - n1,
-            "ms": (time.perf_counter() - t0) * 1e3})
+        row = {"pass": p.name, "ops_before": n0, "ops_after": n1,
+               "ops_removed": n0 - n1, "ms": ms}
+        flops_d = bytes_d = None
+        if cost0 is not None:
+            cost1 = _probe(prog)
+            if cost1 is not None:
+                flops_d = cost1["flops"] - cost0["flops"]
+                bytes_d = cost1["bytes"] - cost0["bytes"]
+                row["flops_delta"] = flops_d
+                row["bytes_delta"] = bytes_d
+                cost0 = cost1
+        report.per_pass.append(row)
+        if record:
+            _cost.record_pass(p.name, ops_removed=n0 - n1, ms=ms,
+                              flops_delta=flops_d, bytes_delta=bytes_d)
     # keep only the constants a surviving op (or fetch target) still reads
     live = set(targets)
     for op in prog.global_block().ops:

@@ -35,7 +35,6 @@ from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import distributions as tdist
 from paddle_tpu_torch import metrics as tmetrics
 from paddle_tpu_torch.core import random as trandom
-from paddle_tpu_torch.core.enforce import EnforceNotMet
 
 
 def _np(seed, *shape):
@@ -138,8 +137,13 @@ def test_fp16_skipped_step_is_bitwise_and_reads_nothing_on_the_host(
     assert skipped == 3
     assert topt.scale_loss(torch.tensor(2.0), tst).item() == \
         2.0 * tst["loss_scale"]["scale"].item()
-    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-        topt.monitor_state(tst)
+    # monitor_state publishes the scale to tensor watch, as the JAX one does
+    from paddle_tpu.monitor.registry import REGISTRY as JREG
+
+    from paddle_tpu_torch.monitor.registry import REGISTRY as TREG
+    assert topt.monitor_state(tst, step=9) == jopt.monitor_state(jst, step=9)
+    assert TREG.get("loss_scale").value() == JREG.get("loss_scale").value() \
+        == tst["loss_scale"]["scale"].item()
 
 
 def test_bf16_policy_cast_tree_and_lists():

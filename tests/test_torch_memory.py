@@ -111,6 +111,8 @@ def test_handle_oom_raises_typed_with_postmortem():
     tmem.ledger_set("serving/pool0:live/params", 4096)
     c = REGISTRY.get("oom_errors_total")
     before = c.value(where="test/where")
+    trips = REGISTRY.get("anomaly_trips_total")
+    trips0 = trips.value(kind="oom") if trips is not None else 0.0
     err = torch.cuda.OutOfMemoryError("CUDA out of memory")
     with pytest.raises(tmem.OutOfDeviceMemoryError,
                        match="out of memory at test/where") as ei:
@@ -119,7 +121,11 @@ def test_handle_oom_raises_typed_with_postmortem():
     pm = ei.value.postmortem
     assert set(pm) == {"where", "error", "ledger", "top_live_buffers",
                        "peak_bytes", "hbm_bytes_in_use", "hbm_bytes_limit",
-                       "hbm_bytes_high_water"}
+                       "hbm_bytes_high_water", "segments",
+                       "peak_bytes_estimate"}
+    # the escalation through anomaly.trip("oom"), as in the JAX package
+    assert REGISTRY.get("anomaly_trips_total").value(kind="oom") == \
+        trips0 + 1
     assert pm["ledger"] == [("serving/pool0:live/params", 4096.0)]
     assert pm["top_live_buffers"] == [] and pm["hbm_bytes_limit"] is None
     assert c.value(where="test/where") == before + 1
@@ -146,6 +152,20 @@ def test_shed_sheds_on_hbm_pressure_like_jax():
         ShedController(deadline_ms=100.0, hbm_high_frac=1.5)
 
 
+class _FakeCompiled:
+    """A stand-in for the JAX package's compiled executable: the memory
+    analysis XLA reports."""
+
+    def memory_analysis(self):
+        class MA:
+            argument_size_in_bytes = 100
+            output_size_in_bytes = 10
+            temp_size_in_bytes = 300
+            alias_size_in_bytes = 0
+            generated_code_size_in_bytes = 0
+        return MA()
+
+
 def test_poller_and_what_stays_with_item_10():
     assert tmem.sample_now() == {} and tmem.device_usage() == {}
     assert tmem.top_live_buffers() == [] and tmem.high_water() == 0
@@ -157,8 +177,21 @@ def test_poller_and_what_stays_with_item_10():
     assert tmem.summary_line() is None
     tmem.ledger_set("a", 2048)
     assert tmem.summary_line() == "memory: top: a=2.00KB"
-    for fn in (lambda: tmem.analyze_compiled(None),
-               lambda: tmem.record_segment_memory(0, 0, {"temp_bytes": 1}),
-               tmem.memory_segments, tmem.peak_bytes_per_step):
-        with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-            fn()
+    # the per-step peak: nothing measured on the CPU, and a measured step
+    # gives the JAX analysis dict, read back as the JAX package reads its
+    # compile-time one
+    assert tmem.analyze_compiled(None) is None
+    assert tmem.memory_segments() == {} and tmem.peak_bytes_per_step() == 0
+    a = tmem.analyze_compiled({"argument_bytes": 100, "start_bytes": 1000,
+                               "peak_bytes": 1300})
+    assert a == {"argument_bytes": 100.0, "output_bytes": 0.0,
+                 "temp_bytes": 300.0, "alias_bytes": 0.0,
+                 "generated_code_bytes": 0.0, "peak_bytes_estimate": 400.0}
+    assert set(a) == set(jmem.analyze_compiled(_FakeCompiled()))
+    tmem.record_segment_memory(7, 0, a)
+    tmem.record_segment_memory(7, 1, dict(a, peak_bytes_estimate=50.0))
+    assert tmem.peak_bytes_per_step() == 400.0
+    assert sorted(tmem.memory_segments()) == [0, 1]
+    tmem.record_segment_memory(8, 0, dict(a, peak_bytes_estimate=90.0))
+    assert tmem.peak_bytes_per_step() == 90.0    # the latest runner wins
+    assert tmem.oom_postmortem("x")["peak_bytes_estimate"] == 90.0

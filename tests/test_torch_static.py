@@ -484,9 +484,25 @@ def test_scope_from_numpy_is_strict():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
-    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-        tpt.set_flags({"check_nan_inf": True})
-    exe = tpt.Executor(tpt.CPUPlace())
+    # FLAGS_check_nan_inf is ported: a NaN feed raises NonFiniteError and
+    # leaves the scope's parameters bitwise at their pre-step values
+    from paddle_tpu_torch.monitor.numerics import NonFiniteError
+    main, startup, loss = _build_fit_a_line(tpt, tpt.unique_name,
+                                            _OPTS["sgd"])
+    exe, scope = tpt.Executor(tpt.CPUPlace()), tpt.Scope()
+    exe.run(startup, scope=scope)
+    xv = np.ones((4, 13), np.float32)
+    xv[1, 2] = np.nan
+    before = {n: scope.find_var(n).clone() for n in ("fc_w", "fc_b")}
+    tpt.set_flags({"check_nan_inf": True})
+    try:
+        with pytest.raises(NonFiniteError) as ei:
+            exe.run(main, feed={"x": xv, "y": np.ones((4, 1), np.float32)},
+                    fetch_list=[loss], scope=scope)
+    finally:
+        tpt.set_flags({"check_nan_inf": False})
+    assert ei.value.report["localized"]
+    assert all(torch.equal(before[n], scope.find_var(n)) for n in before)
     with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
         exe.feed_stage()
     with pytest.raises(EnforceNotMet, match="queue 1 item 10"):

@@ -68,8 +68,10 @@ SPEC = os.path.join(_TOOLS, "api_spec.txt")
 #: eager checkpoint functions, the root's ``grad``, ``no_grad``,
 #: ``to_variable`` and ``WeightNormParamAttr`` (5 with its ``to_attr``),
 #: ``layers.WeightNormParamAttr`` (2) and ``parallel``'s process
-#: environment (13); only rises
-RESOLVED_FLOOR = 1556
+#: environment (13), 1594 with the observability surface: ``monitor``'s
+#: exporter, flight recorder, anomaly detector, numerics and tensor watch
+#: (29) and ``profiler`` (9); only rises
+RESOLVED_FLOOR = 1594
 SKIPPED = ("paddle_tpu.serving.Replica", "paddle_tpu.serving.ReplicaPool")
 #: the spec's text of a JAX dtype constant (a numpy scalar type's
 #: constructor), which the port's torch dtype stands for
@@ -178,7 +180,7 @@ PORTED_MODULES = ("paddle_tpu", "paddle_tpu.layers", "paddle_tpu.ops",
                   "paddle_tpu.backward", "paddle_tpu.dataio",
                   "paddle_tpu.contrib.quant", "paddle_tpu.metrics",
                   "paddle_tpu.distributions", "paddle_tpu.amp",
-                  "paddle_tpu.parallel")
+                  "paddle_tpu.parallel", "paddle_tpu.profiler")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -369,22 +371,34 @@ def test_export_aot_takes_platforms(tmp_path):
 
 
 def test_optimize_program_takes_record_and_refuses_cost_probe():
-    """F3: ``record`` has nothing to publish to in the port; a cost probe
-    raises naming queue-1 item 10 (the cost monitor)."""
+    """``record`` publishes each pass application to the cost monitor
+    (``program_pass_runs_total``; ``record=False`` publishes nothing) and a
+    cost probe's per-pass deltas land in the report and the evidence
+    table, as in the JAX package (opt_passes.py:709-780); a probe that
+    raises stops probing, never the pipeline."""
+    from paddle_tpu_torch.monitor.registry import REGISTRY
     from paddle_tpu_torch.static import opt_passes
     main, _, pred, _ = _fc_program()
+    runs = REGISTRY.get("program_pass_runs_total")
+    n0 = sum(runs.samples().values())
     a, _ = opt_passes.optimize_program(main, targets=(pred.name,),
                                        record=False)
-    b, _ = opt_passes.optimize_program(main, targets=(pred.name,))
+    assert sum(runs.samples().values()) == n0
+    b, rep = opt_passes.optimize_program(main, targets=(pred.name,))
+    assert sum(runs.samples().values()) == n0 + len(rep.per_pass)
     assert [op.type for op in a.global_block().ops] == \
         [op.type for op in b.global_block().ops]
-    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-        opt_passes.optimize_program(main, cost_probe=lambda p: None)
-    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-        opt_passes.optimize_for_execution(main, [pred.name],
-                                          cost_probe=lambda p: None)
+    costs = iter([{"flops": 10.0, "bytes": 5.0}, {"flops": 4.0, "bytes": 5.0}]
+                 + [{"flops": 4.0, "bytes": 5.0}] * 10)
+    _, rep = opt_passes.optimize_program(main, targets=(pred.name,),
+                                         cost_probe=lambda p: next(costs))
+    assert rep.per_pass[0]["flops_delta"] == -6.0
+    assert all(r["flops_delta"] == 0.0 for r in rep.per_pass[1:])
+
+    def broken(p):
+        raise RuntimeError("probe")
     assert opt_passes.optimize_for_execution(main, [pred.name],
-                                             cost_probe=None) is not None
+                                             cost_probe=broken) is not None
 
 
 def test_block_takes_parent_idx():
