@@ -70,7 +70,10 @@ Phases; any failure raises and the script exits non-zero:
    body (ascending j) on the CPU and on the card) and the
    softmax cross-entropy (pretrain-512's gathered MLM head [5120,30528] in
    bf16 and fp32, bench.py's [512,32000], word2vec's ragged V 2073 and
-   edge labels).
+   edge labels); and the CTR-DNN's kernels (phases 54-55): the gather on
+   its [1000001,10] table with 1,000 ids, the fused matmul at
+   [1000,273]x[273,400] and [1000,400]x[400,400] relu and
+   [1000,400]x[400,2], Adam over its 9 tensors (10,431,212 values).
 3. Serve BERT-base masked-LM requests at S=512: 4 batches of 8x512 tokens
    with 80 masked positions each (loss and fill-mask top-1), exactly 26
    LayerNorm launches per batch; one 2x512 batch is held against the port
@@ -469,7 +472,44 @@ Phases; any failure raises and the script exits non-zero:
    scale following the JAX rule step for step; the distributions' draws
    on the card against their closed forms; ``save_dygraph`` on the card,
    ``load_dygraph`` on the CPU, bit for bit.
-51. Print one JSON line of every ported kernel (launches on the main paths,
+51. observe-ptb-lm: the PTB LM at medium under each monitor
+   configuration (off, trace + profiler, goodput + anomaly + flight
+   recorder, tensor watch, ``check_nan_inf``, all, off again) in turns;
+   52. nonfinite-ptb-lm: three trips localized, the parameters bitwise
+   unchanged; 53. monitor-correctness: ``lm_tiny`` card against CPU.
+54. train-ctr-dnn-dataset: the Fluid CTR-DNN (``models/ctr_dnn.py``: 26
+   slots over one [1000001,10] table, fc 400 x3, Adam 1e-4) at batch 1000
+   from 4 x 25,000 MultiSlot lines written from seed 54 by the port's
+   ``MultiSlotDataGenerator``: ``InMemoryDataset`` (``set_thread(10)``,
+   ``load_into_memory`` timed, ``local_shuffle``), two epochs of
+   ``train_from_dataset`` (print_period 25, ``fetch_list=[auc, loss]``):
+   exactly 26 ``embedding_gather``, 4 ``fused_matmul`` and 9
+   ``fused_adam`` a step, no host sync between print boundaries
+   (``torch.cuda.set_sync_debug_mode("warn")``, the warnings of the
+   consumer's thread), samples/s, ms a step (median from step 5,
+   quartiles), goodput's ``input_wait`` share, peak memory, the mean loss
+   and AUC better in epoch 2; the busy share of a profiled window of 10
+   steps; ``infer_from_dataset`` over a ``QueueDataset`` on the for-test
+   clone with the parameters bitwise unchanged; ``AsyncExecutor``'s
+   ``run_from_files`` over one file.
+55. train-ctr-dnn-fileloader: the same model fed by ``FileDataLoader`` (4
+   reader threads, a 10,000-record shuffle buffer, seed 7, stateful,
+   native, ``device_put=exe.feed_stage(main, names)``) into
+   ``Executor.run(return_numpy=False)``: the same launches a step, no new
+   runner; ``feed_stage`` against ``device_put=False`` in 3 pairs of 20
+   steps taken in turns with ``dataio_h2d_overlap_ms``; records/s native
+   against the Python oracle; a cursor after 20 batches resumed by a new
+   loader: the next 10 batches bitwise, the losses within ``RESUME_TOL``;
+   3 batches written by ``convert_reader_to_recordio_files`` and read back
+   by ``FileDataLoader(mode="recordio")`` and ``layers.open_files``,
+   bitwise the lines path's.
+56. data-correctness: ``ctr_dnn_tiny`` 10 steps of ``train_from_dataset``
+   on the card and on the CPU from one startup, the losses within
+   ``DATA_TOL``; each staged feed bitwise its host batch under a slow
+   consumer (a spin before each read, the batch dropped at once); a parse
+   error in batch 3 re-raised in the consumer with
+   ``prefetch_batch_index`` 3; no prefetch worker left.
+57. Print one JSON line of every ported kernel (launches on the main paths,
    error, times, bound), the nvidia-smi line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -9147,9 +9187,570 @@ def phase_monitor_checks(K, pt, ptb_lm, card, devices=("cuda", "cpu")):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 54-56: the data path, driven by the Fluid CTR-DNN
+# ---------------------------------------------------------------------------
+CTR_FILES = 4                 # MultiSlot files of the data phases
+CTR_LINES = 25_000            # lines a file: 100 batches of 1000 an epoch
+CTR_PRINT = 25                # train_from_dataset's print_period
+#: a CTR-DNN step's launches on the static path: a gather a slot, a fused
+#: matmul a fc, an Adam update a trainable tensor
+CTR_WANT = {"embedding_gather": 26, "fused_matmul": 4, "fused_adam": 9}
+CTR_AB_PAIRS = 3              # phase 55's double-buffer A/B: pairs of runs
+CTR_AB_STEPS = 20             # steps a run
+#: ctr_dnn_tiny's losses, card against CPU (set before the first card run)
+DATA_TOL = 1e-5
+#: a resumed stream's losses against the uninterrupted run's: the table's
+#: backward sums with index_add_'s atomics, in another order each run
+RESUME_TOL = 1e-6
+
+
+class StepClock:
+    """Wraps an executor's ``run`` (an instance attribute, which
+    ``train_from_dataset`` calls) to stamp the end of each step, keep its
+    fetches (tensors on the card, read after the loop) and say which step
+    the host is in (``inside``; None between steps)."""
+
+    def __init__(self, exe):
+        self.exe = exe
+        self.ends, self.fetches, self.inside = [], [], None
+
+    def install(self):
+        run = type(self.exe).run.__get__(self.exe)
+
+        def timed(*a, **k):
+            self.inside = len(self.ends)
+            try:
+                out = run(*a, **k)
+            finally:
+                self.ends.append(time.perf_counter())
+                self.inside = None
+            self.fetches.append(out)
+            return out
+        self.exe.run = timed
+        return self
+
+    def remove(self):
+        self.exe.__dict__.pop("run", None)
+
+    def step_ms(self, t0):
+        stamps = [t0] + self.ends
+        return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+    def values(self):
+        """[steps, fetches] of the kept fetches as numpy (one host read)."""
+        return torch.stack([torch.stack([x.reshape(-1)[0].float()
+                                         for x in out])
+                            for out in self.fetches]).cpu().numpy()
+
+
+class SyncWatch:
+    """``torch.cuda.set_sync_debug_mode("warn")`` over a window: every
+    synchronizing call the consumer's thread makes, with the step the host
+    was in (``StepClock.inside``) or, between steps, the steps done."""
+
+    def __init__(self, clock):
+        self.clock = clock
+        self.events = []
+
+    def __enter__(self):
+        import threading
+        import warnings
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        me = threading.get_ident()
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if threading.get_ident() == me and \
+                    "synchroniz" in str(message).lower():
+                self.events.append(dict(
+                    in_step=self.clock.inside,
+                    steps_done=len(self.clock.ends),
+                    where=f"{os.path.basename(filename)}:{lineno}",
+                    what=str(message)[:100]))
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._cm.__exit__(*exc)
+
+    def off_boundary(self, period, steps):
+        """The syncs outside print boundaries: inside a step, or between
+        steps N and N+1 where N is no multiple of ``period`` and not the
+        last step (the tail's read)."""
+        return [e for e in self.events
+                if e["in_step"] is not None
+                or (e["steps_done"] % period and e["steps_done"] != steps)]
+
+
+def quartiles(xs):
+    q = statistics.quantiles(xs, n=4)
+    return dict(p25=q[0], median=statistics.median(xs), p75=q[2])
+
+
+def ctr_dataset(pt, net, files, threads, batch, kind="InMemoryDataset"):
+    ds = pt.dataio.DatasetFactory().create_dataset(kind)
+    ds.set_use_var(net["feeds"])
+    ds.set_batch_size(batch)
+    ds.set_thread(threads)
+    ds.set_filelist(files)
+    return ds
+
+
+def ctr_files(cd, cfg, root):
+    """The data phases' MultiSlot files under ``root``, written from seed
+    54 on first use: (paths, seconds the writing took)."""
+    d = os.path.join(root, "lines")
+    t0 = time.perf_counter()
+    if not os.path.isdir(d):
+        cd.write_files(cfg, d, CTR_FILES, CTR_LINES, 54)
+    return ([os.path.join(d, f"part-{i:05d}") for i in range(CTR_FILES)],
+            time.perf_counter() - t0)
+
+
+def prefetch_workers():
+    import threading
+    return [t for t in threading.enumerate()
+            if t.name == "pt-prefetch-worker" and t.is_alive()]
+
+
+def phase_train_ctr_dataset(K, pt, cd, card, root):
+    """Phase 54: the CTR-DNN at its published widths trained through
+    ``InMemoryDataset`` and ``train_from_dataset`` on the card."""
+    from paddle_tpu_torch.monitor import goodput
+    cfg = cd.ctr_dnn_config()
+    files, gen_s = ctr_files(cd, cfg, root)
+    net = cd.ctr_dnn(pt, cfg)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(net["startup"], scope=scope)
+    ds = ctr_dataset(pt, net, files, cfg.threads, cfg.batch)
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    load_s = time.perf_counter() - t0
+    samples = ds.get_memory_data_size()
+    check(samples == CTR_FILES * CTR_LINES,
+          f"train-ctr-dnn-dataset: {samples} samples loaded")
+    t0 = time.perf_counter()
+    ds.local_shuffle(0)
+    shuffle_s = time.perf_counter() - t0
+    steps = samples // cfg.batch
+    fetch = [net["auc"], net["loss"]]
+    rec = dict(config="PaddleRec/ctr/dnn network_conf.py", slots=26,
+               table=[cfg.sparse_feature_dim, cfg.embedding_size],
+               fc=list(cfg.fc_sizes), batch=cfg.batch, threads=cfg.threads,
+               params=cd.param_count(cfg), files=CTR_FILES,
+               lines_per_file=CTR_LINES, write_files_s=gen_s,
+               load_into_memory_s=load_s,
+               load_samples_per_s=samples / load_s, local_shuffle_s=shuffle_s,
+               card=card)
+    epochs = []
+    for ep in range(2):
+        clock = StepClock(exe).install()
+        torch.cuda.synchronize()
+        if ep == 0:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            K.reset_launch_counts()
+        else:
+            goodput.enable()
+            wait0 = goodput._c_phase.value(phase="input_wait")
+        try:
+            with SyncWatch(clock) as syncs:
+                t_ep = time.perf_counter()
+                tail = exe.train_from_dataset(
+                    net["main"], ds, fetch_list=fetch,
+                    fetch_info=["auc", "loss"], print_period=CTR_PRINT,
+                    scope=scope)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t_ep
+        finally:
+            clock.remove()
+            if ep == 1:
+                input_wait = goodput._c_phase.value(phase="input_wait") \
+                    - wait0
+                goodput.disable()
+        check(len(clock.ends) == steps, f"train-ctr-dnn-dataset epoch "
+              f"{ep + 1}: {len(clock.ends)} steps, expected {steps}")
+        vals = clock.values()
+        check(bool((abs(vals[-1] - [float(v) for v in tail]) == 0).all()),
+              "train-ctr-dnn-dataset: the returned tail is the last step's")
+        ms = clock.step_ms(t_ep)
+        e = dict(epoch=ep + 1, steps=steps, wall_s=wall,
+                 samples_per_s=steps * cfg.batch / wall,
+                 step_ms=quartiles(ms[4:]), first_step_ms=ms[0],
+                 auc_mean=float(vals[:, 0].mean()),
+                 loss_mean=float(vals[:, 1].mean()),
+                 loss_first_last=[float(vals[0, 1]), float(vals[-1, 1])],
+                 syncs=len(syncs.events),
+                 syncs_off_boundary=syncs.off_boundary(CTR_PRINT, steps))
+        check(not e["syncs_off_boundary"],
+              f"train-ctr-dnn-dataset epoch {ep + 1}: host syncs between "
+              f"print boundaries: {e['syncs_off_boundary'][:5]}")
+        if ep == 0:
+            counts = K.launch_counts()
+            for name, n in CTR_WANT.items():
+                check(counts[name] == n * steps,
+                      f"train-ctr-dnn-dataset: {counts[name]} {name} "
+                      f"launches in {steps} steps, expected {n} a step")
+            e["launches"] = {k: v for k, v in counts.items() if v}
+            e["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        else:
+            e["input_wait_s"] = input_wait
+            e["input_wait_share"] = input_wait / wall
+        epochs.append(e)
+        log("train-ctr-dnn-dataset epoch " + json.dumps(e))
+    check(epochs[1]["loss_mean"] < epochs[0]["loss_mean"]
+          and epochs[1]["auc_mean"] > epochs[0]["auc_mean"],
+          f"train-ctr-dnn-dataset: loss and auc did not improve from epoch "
+          f"1 to 2: {[(e['loss_mean'], e['auc_mean']) for e in epochs]}")
+    # the busy share of a profiled window of 10 steps (and 10 warm-up)
+    window = list(ds)[:10]
+    prof = op_breakdown(lambda: exe.train_from_dataset(
+        net["main"], window, fetch_list=fetch, print_period=10,
+        scope=scope), host_top=8)
+    if prof:
+        prof["device_busy_share"] = prof["kernel_ms"] / \
+            prof["host_ms_profiled"]
+    else:
+        UNMEASURED.append("train-ctr-dnn-dataset busy share")
+    # inference over a QueueDataset on the for-test clone: nothing moves
+    before = {n: scope.find_var(n).clone()
+              for n, v in net["main"].global_block().vars.items()
+              if v.persistable}
+    q = ctr_dataset(pt, net, files, cfg.threads, cfg.batch, "QueueDataset")
+    t0 = time.perf_counter()
+    (auc_test,) = exe.infer_from_dataset(net["test"], q,
+                                         fetch_list=[net["auc"]],
+                                         print_period=CTR_PRINT * 4,
+                                         scope=scope)
+    infer_s = time.perf_counter() - t0
+    moved = [n for n, v in before.items()
+             if not torch.equal(v, scope.find_var(n))]
+    check(not moved, f"infer_from_dataset moved {moved[:5]}")
+    # AsyncExecutor over one file, in its own scope on the same startup
+    a_scope = pt.Scope()
+    exe.run(net["startup"], scope=a_scope)
+    t0 = time.perf_counter()
+    with pt.scope_guard(a_scope):
+        (a_loss,) = pt.static.AsyncExecutor().run_from_files(
+            net["main"], ctr_dataset(pt, net, [], cfg.threads, cfg.batch,
+                                     "QueueDataset"),
+            files[:1], cfg.threads, [net["loss"]])
+    async_s = time.perf_counter() - t0
+    check(math.isfinite(float(a_loss)), f"AsyncExecutor loss {a_loss}")
+    rec.update(epochs=epochs, profile=prof, infer_auc=float(auc_test),
+               infer_s=infer_s, infer_samples_per_s=samples / infer_s,
+               async_loss=float(a_loss), async_s=async_s,
+               launches_per_step={k: v // steps for k, v in
+                                  epochs[0]["launches"].items()})
+    log("train_ctr_dnn_dataset " + json.dumps(rec, default=str))
+    return dict(launches=epochs[0]["launches"], files=files, cfg=cfg,
+                net=net, exe=exe, scope=scope)
+
+
+def ctr_parse(cfg):
+    """The MultiSlot parse of one CTR-DNN line in C (``native.
+    parse_multislot``): dense float64 [13], 26 ids and the label int64 [1]
+    each (``feed_stage`` casts the dense field to its var's float32)."""
+    from paddle_tpu_torch import native
+    dtypes = ["float32"] + ["int64"] * (cfg.sparse_slots + 1)
+    return lambda rec: tuple(native.parse_multislot(rec, dtypes))
+
+
+def loader_steps(exe, net, names, scope, it, n):
+    """``n`` steps of ``Executor.run(return_numpy=False)`` fed from the
+    loader iterator ``it`` (staged batches or host arrays); the losses
+    stay on the card. Returns (loss tensors, the batches, wall ms)."""
+    losses, batches = [], []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        batch = next(it)
+        batches.append(batch)
+        (loss,) = exe.run(net["main"], feed=dict(zip(names, batch)),
+                          fetch_list=[net["loss"]], scope=scope,
+                          return_numpy=False)
+        losses.append(loss.reshape(-1)[0])
+    torch.cuda.synchronize()
+    return losses, batches, (time.perf_counter() - t0) * 1e3
+
+
+def host_batch(batch, dtypes):
+    """A batch as host numpy arrays in the feeds' dtypes."""
+    import numpy as np
+    return [(v.cpu().numpy() if isinstance(v, torch.Tensor)
+             else np.asarray(v)).astype(dt) for v, dt in zip(batch, dtypes)]
+
+
+def batches_equal(a, b):
+    import numpy as np
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def phase_train_ctr_fileloader(K, pt, cd, card, root):
+    """Phase 55: the CTR-DNN fed by ``FileDataLoader`` (native, stateful,
+    staged by ``feed_stage``) into ``Executor.run``: launches, the
+    double-buffer A/B, native against the Python oracle, exactly-once
+    resume, RecordIO against lines."""
+    import numpy as np
+    from paddle_tpu_torch.monitor.registry import REGISTRY
+    cfg = cd.ctr_dnn_config()
+    files, _ = ctr_files(cd, cfg, root)
+    net = cd.ctr_dnn(pt, cfg)
+    names = cd.slot_names(cfg)
+    dtypes = [np.float32] + [np.int64] * (cfg.sparse_slots + 1)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(net["startup"], scope=scope)
+    parse = ctr_parse(cfg)
+    put = exe.feed_stage(net["main"], names)
+
+    def loader(device_put=put, native=True, **kw):
+        return pt.dataio.FileDataLoader(
+            files, parse, cfg.batch, nthreads=4, shuffle_buffer=10000,
+            seed=7, stateful=True, native=native, device_put=device_put,
+            **kw)
+
+    rec = dict(loader="FileDataLoader(4 files, multislot parse, 1000, "
+                      "nthreads=4, shuffle_buffer=10000, seed=7, "
+                      "stateful=True, native=True, device_put=feed_stage)",
+               card=card)
+    # the first step builds the runner; then the counted steps
+    it = iter(loader())
+    loader_steps(exe, net, names, scope, it, 2)
+    traces = exe.trace_count
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, batches, ms = loader_steps(exe, net, names, scope, it,
+                                       CTR_AB_STEPS)
+    counts = K.launch_counts()
+    for name, n in CTR_WANT.items():
+        check(counts[name] == n * CTR_AB_STEPS,
+              f"train-ctr-dnn-fileloader: {counts[name]} {name} launches "
+              f"in {CTR_AB_STEPS} steps, expected {n} a step")
+    check(exe.trace_count == traces, "train-ctr-dnn-fileloader: staged "
+          "feeds built another runner")
+    check(all(t.device.type == exe.device.type for t in batches[0]),
+          "train-ctr-dnn-fileloader: feed_stage gave tensors off the card")
+    it.close()
+    rec.update(launches={k: v for k, v in counts.items() if v},
+               counted_ms_per_step=ms / CTR_AB_STEPS)
+    # the double-buffer A/B: feed_stage against device_put=False, in turns
+
+    def window(staged):
+        it = iter(loader(device_put=put if staged else False))
+        loader_steps(exe, net, names, scope, it, 1)     # fill the pipeline
+        h2d0 = REGISTRY.get("dataio_h2d_overlap_ms").value()
+        out = loader_steps(exe, net, names, scope, it, CTR_AB_STEPS)[2]
+        it.close()
+        return (out / CTR_AB_STEPS,
+                REGISTRY.get("dataio_h2d_overlap_ms").value() - h2d0)
+
+    ab = []
+    for p in range(CTR_AB_PAIRS):
+        first = p % 2 == 0
+        a, b = window(first), window(not first)
+        on, off = (a, b) if first else (b, a)
+        ab.append(dict(staged_ms_per_step=on[0], host_ms_per_step=off[0],
+                       ratio=off[0] / on[0], h2d_overlap_ms=on[1],
+                       host_h2d_overlap_ms=off[1]))
+    check(all(r["host_h2d_overlap_ms"] == 0 and r["h2d_overlap_ms"] > 0
+              for r in ab), f"train-ctr-dnn-fileloader: the overlap counter "
+                            f"{ab}")
+    rec["double_buffer_ab"] = dict(
+        pairs=ab, median_ratio=statistics.median(r["ratio"] for r in ab))
+    # native against the Python oracle: records/s of the reader and parse
+    # alone (no stage), 20 batches each, in turns
+    rate = {}
+    for native in (True, False, False, True):
+        it = iter(loader(device_put=False, native=native))
+        t0 = time.perf_counter()
+        for _ in range(CTR_AB_STEPS):
+            next(it)
+        dt = time.perf_counter() - t0
+        it.close()
+        rate.setdefault("native" if native else "python", []).append(
+            CTR_AB_STEPS * cfg.batch / dt)
+    rec["records_per_s"] = {k: statistics.median(v) for k, v in rate.items()}
+    # exactly-once resume: a cursor after 20 batches, a new loader from it
+    ref = loader()
+    it = iter(ref)
+    loader_steps(exe, net, names, scope, it, 20)
+    cursor = ref.state()
+    snap_params = {n: scope.find_var(n).clone()
+                   for n, v in net["main"].global_block().vars.items()
+                   if v.persistable}
+    ref_losses, ref_batches, _ = loader_steps(exe, net, names, scope, it, 10)
+    it.close()
+    for n, v in snap_params.items():
+        scope.find_var(n).copy_(v)
+    resumed = loader()
+    resumed.set_state(cursor)
+    it = iter(resumed)
+    res_losses, res_batches, _ = loader_steps(exe, net, names, scope, it, 10)
+    it.close()
+    same = batches_equal([host_batch(b, dtypes) for b in res_batches],
+                         [host_batch(b, dtypes) for b in ref_batches])
+    gap = max(abs(float(a) - float(b))
+              for a, b in zip(res_losses, ref_losses))
+    check(same, "train-ctr-dnn-fileloader: the resumed batches differ")
+    check(gap <= RESUME_TOL, f"train-ctr-dnn-fileloader: resumed losses "
+          f"{gap} from the uninterrupted run's (tol {RESUME_TOL})")
+    rec["resume"] = dict(after_batches=20, batches=10, bitwise=same,
+                         loss_gap=gap, tol=RESUME_TOL,
+                         records_consumed=cursor["records_consumed"])
+    # RecordIO: the first file's first 3 batches written as npz records
+    # into one file, read back by FileDataLoader(mode="recordio") and
+    # layers.open_files (an npz record costs ~1 ms to write or read)
+    import io as _io
+    n_rec = 3 * cfg.batch
+    lines = pt.dataio.FileDataLoader(files[:1], parse, cfg.batch,
+                                     device_put=False, native=True)
+    want = []
+    for b in lines:
+        want.append(list(b))
+        if len(want) == n_rec // cfg.batch:
+            break
+    samples = [tuple(f[r] for f in b) for b in want
+               for r in range(cfg.batch)]
+    t0 = time.perf_counter()
+    paths = pt.recordio_writer.convert_reader_to_recordio_files(
+        os.path.join(root, "ctr"), n_rec, lambda: iter(samples))
+    write_s = time.perf_counter() - t0
+
+    def npz(rec_):
+        with np.load(_io.BytesIO(rec_)) as z:
+            return tuple(z[f"f{i}"] for i in range(len(names)))
+    got = [list(b) for b in pt.dataio.FileDataLoader(
+        paths, npz, cfg.batch, mode="recordio", device_put=False,
+        native=True)]
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        rdr = pt.layers.open_files(paths, [[13]] + [[1]] * 27,
+                                   ["float64"] + ["int64"] * 27)
+    rows = [tuple(d[v.name] for v in rdr.vars) for d in rdr._source()]
+    opened = [[np.asarray([r[i] for r in rows[k:k + cfg.batch]])
+               for i in range(len(names))]
+              for k in range(0, len(rows), cfg.batch)]
+    check(batches_equal(got, want), "train-ctr-dnn-fileloader: RecordIO "
+          "batches differ from the lines path's")
+    check(batches_equal(opened, want), "train-ctr-dnn-fileloader: "
+          "open_files' batches differ from the lines path's")
+    rec["recordio"] = dict(files=len(paths), records=n_rec,
+                           write_s=write_s, loader_bitwise=True,
+                           open_files_bitwise=True)
+    log("train_ctr_dnn_fileloader " + json.dumps(rec, default=str))
+    return dict(launches=rec["launches"])
+
+
+def phase_data_checks(K, pt, cd, card, root):
+    """Phase 56: ctr_dnn_tiny on the card against the CPU through
+    train_from_dataset; the staged feeds under a slow consumer; a parse
+    error's batch index; no worker left."""
+    import contextlib
+    import io as _io
+    import re
+    import numpy as np
+    cfg = cd.ctr_dnn_tiny()
+    files = cd.write_files(cfg, os.path.join(root, "tiny"), 2,
+                           5 * cfg.batch, 56)
+    net = cd.ctr_dnn(pt, cfg)
+    cpu = pt.Executor(pt.CPUPlace())
+    c_scope = pt.Scope()
+    cpu.run(net["startup"], scope=c_scope)
+    arrays = {n: c_scope.find_var(n).numpy()
+              for n, v in net["startup"].global_block().vars.items()
+              if v.persistable}
+    g_scope = pt.Scope.from_numpy(arrays, "cuda", net["startup"])
+    vals = {}
+    for label, exe, scope in (("cpu", cpu, c_scope),
+                              ("cuda", pt.Executor(), g_scope)):
+        ds = ctr_dataset(pt, net, files, 1, cfg.batch)
+        ds.load_into_memory()
+        ds.local_shuffle(3)
+        out = _io.StringIO()
+        clock = StepClock(exe).install()
+        try:
+            with contextlib.redirect_stdout(out):
+                exe.train_from_dataset(net["main"], ds,
+                                       fetch_list=[net["auc"], net["loss"]],
+                                       fetch_info=["auc", "loss"],
+                                       print_period=1, scope=scope)
+        finally:
+            clock.remove()
+        check(len(re.findall(r"step \d+: auc=", out.getvalue())) == 10,
+              f"data-correctness: printed {out.getvalue()[:200]!r}")
+        vals[label] = clock.values()
+    check(vals["cuda"].shape == vals["cpu"].shape == (10, 2),
+          f"data-correctness: steps {vals}")
+    # full-precision losses (the printed ones have 6 decimals)
+    gap = float(abs(vals["cuda"][:, 1] - vals["cpu"][:, 1]).max())
+    check(gap <= DATA_TOL, f"data-correctness: card losses {gap} from the "
+          f"CPU's (tol {DATA_TOL})")
+    p_gap = max(float((g_scope.find_var(n).cpu() - c_scope.find_var(n))
+                      .abs().max()) for n in arrays
+                if c_scope.find_var(n).dtype.is_floating_point)
+    rec = dict(steps=10, loss_gap=gap, tol=DATA_TOL, param_gap=p_gap,
+               auc_gap=float(abs(vals["cuda"][:, 0] - vals["cpu"][:, 0])
+                             .max()),
+               losses_card=vals["cuda"][:, 1].tolist(), card=card)
+    # a deliberately slow consumer: each staged batch is read on the
+    # consumer's stream only after a spin, and its tensors are dropped at
+    # once, while the worker stages the next ones; each copy taken must
+    # equal its host batch bitwise (record_stream keeps the memory)
+    names = cd.slot_names(cfg)
+    dtypes = [np.float32] + [np.int64] * (cfg.sparse_slots + 1)
+    parse = ctr_parse(cfg)
+    exe = pt.Executor()
+    host = [host_batch(b, dtypes) for b in pt.dataio.FileDataLoader(
+        files, parse, cfg.batch, device_put=False, native=True)]
+    copies = []
+    spin = int(5 * spin_cycles_per_ms())
+    for batch in pt.dataio.FileDataLoader(
+            files, parse, cfg.batch, device_put=exe.feed_stage(
+                net["main"], names), native=True, prefetch=4):
+        torch.cuda._sleep(spin)
+        copies.append([t.clone() for t in batch])
+        del batch
+        time.sleep(0.002)
+    torch.cuda.synchronize()
+    got = [[t.cpu().numpy() for t in c] for c in copies]
+    check(batches_equal(got, host), "data-correctness: a staged feed "
+          "differs from its host batch under a slow consumer")
+    rec["slow_consumer_batches"] = len(got)
+    # a parse error in batch k re-raises in the consumer with its index
+    bad = os.path.join(root, "tiny", "bad")
+    with open(files[0]) as f, open(bad, "w") as g:
+        lines = f.readlines()
+        k = 3
+        lines[k * cfg.batch + 5] = "1 nope\n"
+        g.writelines(lines)
+    seen = 0
+    try:
+        for _ in pt.dataio.FileDataLoader(
+                [bad], parse, cfg.batch, native=True,
+                device_put=exe.feed_stage(net["main"], names)):
+            seen += 1
+        raise AssertionError("data-correctness: the parse error vanished")
+    except ValueError as e:
+        check(getattr(e, "prefetch_batch_index", None) == k and seen == k,
+              f"data-correctness: batch index "
+              f"{getattr(e, 'prefetch_batch_index', None)}, {seen} "
+              f"batches delivered, expected {k}")
+    time.sleep(0.5)
+    left = prefetch_workers()
+    check(not left, f"data-correctness: prefetch workers left: {left}")
+    rec.update(parse_error_batch=k, workers_left=0)
+    log("data_correctness " + json.dumps(rec))
+    return rec
+
+
 #: the phases after 0-2 (the builds and every kernel against its plain
 #: version, which always run, as do the kernels line and the last line)
-ALL_PHASES = frozenset(range(3, 54))
+ALL_PHASES = frozenset(range(3, 57))
 #: a selected phase also runs the phases whose results it takes
 PHASE_NEEDS = {9: {8}, 16: {15}, 22: {20}, 29: {28}, 30: {28, 29},
                32: {31}, 34: {33}, 37: {36}, 40: {39}, 43: {42}, 46: {45},
@@ -9162,8 +9763,8 @@ def selected_phases(argv):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--phases", default=None,
-                    help="phases to run after 0-2, e.g. 51-53 or 28,51-53 "
-                         "(default: all)")
+                    help="phases to run after 0-2, e.g. 54-56 or 28,51-53 "
+                         "(0-2 always run; phases 3-56; default: all)")
     spec = ap.parse_args(argv).phases
     if spec is None:
         return ALL_PHASES
@@ -9179,7 +9780,7 @@ def selected_phases(argv):
                 todo.append(d)
     unknown = sorted(want - ALL_PHASES - {0, 1, 2})
     if unknown:
-        ap.error(f"no phase {unknown}: phases are 0-53")
+        ap.error(f"no phase {unknown}: phases are 0-56")
     return frozenset(want & ALL_PHASES)
 
 
@@ -9197,9 +9798,9 @@ def main(argv=None):
 
     from paddle_tpu_torch import ops, optimizer
     from paddle_tpu_torch.models import (
-        bert, crnn_ctc, cycle_gan, deepfm, dygraph_resnet, dygraph_transformer,
-        mobilenet_v1, ptb_lm, resnet, se_resnext, ssd, transformer, vgg,
-        yolov3,
+        bert, crnn_ctc, ctr_dnn, cycle_gan, deepfm, dygraph_resnet,
+        dygraph_transformer, mobilenet_v1, ptb_lm, resnet, se_resnext, ssd,
+        transformer, vgg, yolov3,
     )
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import _build
@@ -9302,6 +9903,12 @@ def main(argv=None):
                              dy_transformer[1].values()], 1, gen,
                          lr_on_card=True,
                          label="the dygraph Transformer-base")
+    # the CTR-DNN's update (phases 54-55): Adam over its 9 tensors
+    # (10,431,212 values), one launch per tensor on the static path; timed
+    # here as one launch over the list
+    ctr_cfg = ctr_dnn.ctr_dnn_config()
+    adam_ctr = check_adam(K, ctr_dnn.param_shapes(ctr_cfg), 1, gen,
+                          label="the CTR-DNN")
     # the static path's kernels: the word2vec step's shapes at batch 100
     # (the main path) and 8192, and BERT-base's shapes beside them
     with torch.inference_mode():
@@ -9468,6 +10075,19 @@ def main(argv=None):
                 K, 256, 512, dt, 64 * 64, gen, ids=positions)
         log("dygraph kernels (phases 48-49) " + json.dumps(dict(
             adam=adam_dy, momentum=mom_dy, gather=emb_dy)))
+        # the CTR-DNN's lookups and fcs (phases 54-55): the shared table
+        # [1000001,10] with one batch's 1000 ids of a slot, and the four
+        # fcs at batch 1000 (the first at K = 273)
+        ctr_k = dict(gather=check_embedding(
+            K, ctr_cfg.sparse_feature_dim, ctr_cfg.embedding_size,
+            torch.float32, ctr_cfg.batch, gen))
+        for m, k, n, act in ((ctr_cfg.batch, 273, 400, "relu"),
+                             (ctr_cfg.batch, 400, 400, "relu"),
+                             (ctr_cfg.batch, 400, 2, None)):
+            ctr_k[f"fc {k}x{n}"] = check_fused_matmul(K, m, k, n, act,
+                                                      torch.float32, gen)
+        log("ctr-dnn kernels (phases 54-56) " + json.dumps(dict(
+            adam=adam_ctr, **ctr_k)))
         # the scatter-add: bench.py's CTR point; BERT-base's three
         # embedding gradients with pretrain-512's ids into zeros (phase
         # 10's word shape is the main one); the merge's inverse ids; bf16;
@@ -9852,7 +10472,36 @@ def main(argv=None):
             "(monitor-correctness)")
         mon = phase_monitor_checks(K, pt, ptb_lm, card)
         by_phase["monitor-correctness"] = mon["launches"]
-    log(f"phases 51-53 took {time.perf_counter() - t51:.1f} s; the selected "
+    log(f"phases 51-53 took {time.perf_counter() - t51:.1f} s; phases "
+        f"0-53 done at {time.perf_counter() - t_start:.1f} s")
+    t54 = time.perf_counter()
+    import shutil
+    import tempfile
+    ctr_root = tempfile.mkdtemp(prefix="ctr_dnn_")
+    try:
+        if run(54):
+            log("phase 54: the CTR-DNN (26 slots over a [1000001,10] table, "
+                "fc 400 x3) at batch 1000 through InMemoryDataset and "
+                "train_from_dataset, 2 epochs of 100 steps, then "
+                "infer_from_dataset and AsyncExecutor (train-ctr-dnn-"
+                "dataset)")
+            ctr54 = phase_train_ctr_dataset(K, pt, ctr_dnn, card, ctr_root)
+            by_phase["train-ctr-dnn-dataset"] = ctr54["launches"]
+        if run(55):
+            log("phase 55: the CTR-DNN fed by FileDataLoader into "
+                "Executor.run: the double-buffer A/B, native against the "
+                "Python reader, exactly-once resume, RecordIO "
+                "(train-ctr-dnn-fileloader)")
+            ctr55 = phase_train_ctr_fileloader(K, pt, ctr_dnn, card, ctr_root)
+            by_phase["train-ctr-dnn-fileloader"] = ctr55["launches"]
+        if run(56):
+            log("phase 56: ctr_dnn_tiny on the card against the CPU, staged "
+                "feeds under a slow consumer, a parse error's batch index "
+                "(data-correctness)")
+            phase_data_checks(K, pt, ctr_dnn, card, ctr_root)
+    finally:
+        shutil.rmtree(ctr_root, ignore_errors=True)
+    log(f"phases 54-56 took {time.perf_counter() - t54:.1f} s; the selected "
         f"phases done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 
@@ -9890,8 +10539,7 @@ def main(argv=None):
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()},
-        "probes_not_measured": UNMEASURED}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

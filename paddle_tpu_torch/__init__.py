@@ -18,8 +18,9 @@ eager (dygraph) surface: the module context and its Layer classes
 (``nn``), ``dygraph``, ``grad``, ``no_grad``, ``to_variable``,
 ``WeightNormParamAttr``, ``amp``, ``metrics``, ``distributions`` and
 ``parallel``'s process environment, with the ragged-batch helpers
-(``create_lod_tensor``), and the observability surface (``monitor``,
-``profiler``). The dtype constants (``float32`` ... ``uint8``,
+(``create_lod_tensor``), the observability surface (``monitor``,
+``profiler``) and the data path (``dataio``, ``incubate.data_generator``,
+``recordio_writer``; ``static.AsyncExecutor``). The dtype constants (``float32`` ... ``uint8``,
 ``bool_``) are torch dtypes; the place helpers are ``core/place.py``'s;
 ``flags`` reads the flags by attribute; ``in_dygraph_mode()`` is True
 outside static mode.
@@ -50,7 +51,8 @@ __all__ = ["__version__", "NoCudaDeviceError", "default_device",
            "cuda_pinned_places", "tpu_places", "flags", "ExecutionStrategy",
            "in_dygraph_mode", "grad", "no_grad", "to_variable",
            "WeightNormParamAttr", "dygraph", "amp", "metrics",
-           "distributions", "parallel", "profiler"]
+           "distributions", "parallel", "profiler", "incubate",
+           "recordio_writer"]
 
 float32, float64, float16, bfloat16 = (torch.float32, torch.float64,
                                        torch.float16, torch.bfloat16)
@@ -113,6 +115,7 @@ from paddle_tpu_torch import contrib  # noqa: E402,F401
 from paddle_tpu_torch import amp, distributions, metrics  # noqa: E402,F401
 from paddle_tpu_torch import dygraph, parallel  # noqa: E402,F401
 from paddle_tpu_torch import profiler  # noqa: E402,F401
+from paddle_tpu_torch import incubate, recordio_writer  # noqa: E402,F401
 
 
 def in_dygraph_mode():

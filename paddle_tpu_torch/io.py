@@ -4,7 +4,7 @@ decorator, and the eager checkpoints (``save_pytree``, ``load_pytree``,
 ``save_dygraph``, ``load_dygraph``): one ``.npz`` with a JSON manifest of
 the tree (``static/serialize.py``'s ``tree_manifest``), the JAX package's
 format, so a file written by either package loads in the other. Loading
-never unpickles. ``DataLoader`` is ROADMAP queue 1 item 10."""
+never unpickles. ``DataLoader`` is ``dataio``'s."""
 
 import json
 import os
@@ -12,7 +12,7 @@ import os
 import numpy as np
 
 from paddle_tpu_torch.core.tree import map_tensors
-from paddle_tpu_torch.dataio.pyreader import PyReader  # noqa: F401
+from paddle_tpu_torch.dataio.pyreader import DataLoader, PyReader  # noqa: F401
 from paddle_tpu_torch.static.io import (  # noqa: F401
     load_inference_model, load_params, load_persistables, load_vars,
     save_inference_model, save_params, save_persistables, save_vars,
@@ -21,7 +21,7 @@ from paddle_tpu_torch.static.io import (  # noqa: F401
 __all__ = ["save_inference_model", "load_inference_model", "save_params",
            "load_params", "save_persistables", "load_persistables",
            "save_vars", "load_vars", "batch", "save_pytree", "load_pytree",
-           "save_dygraph", "load_dygraph", "PyReader"]
+           "save_dygraph", "load_dygraph", "DataLoader", "PyReader"]
 
 
 def batch(reader, batch_size, drop_last=False):

@@ -18,9 +18,9 @@ protocols, as the reference has:
   program) until ``core.EOFException``; then ``reader.reset()``, which
   closes the iterator and so stops and joins the worker.
 
-Not ported yet (ROADMAP queue 1 item 10): ``open_files`` (the JAX
-package's native RecordIO scanner) and ``load`` (the load_combine op);
-both raise.
+``open_files`` reads RecordIO files through the port's native scanner
+(``paddle_tpu_torch.native``), ``load`` appends the ``load_combine`` host
+op that the Executor runs.
 """
 
 import contextlib
@@ -240,19 +240,33 @@ def shuffle(reader, buffer_size, seed=None):
 
 
 def load(out, file_path, load_as_fp16=None):
-    """fluid.layers.load parity: appends a load op (``static.io.
-    append_load_op``), which is not ported yet: raises."""
+    """fluid.layers.load parity (load_op.cc): appends a ``load_combine``
+    op (``static.io.append_load_op``) writing ``file_path``'s value into
+    var ``out`` when the program runs."""
     from paddle_tpu_torch.static.io import append_load_op
     return append_load_op(default_main_program(), [out], file_path)
 
 
 def open_files(filenames, shapes, dtypes, thread_num=None,
                buffer_size=None, pass_num=1, is_test=None, name=None):
-    """Not ported yet: raises (it reads RecordIO files through the JAX
-    package's native scanner)."""
-    raise EnforceNotMet(
-        "open_files is not ported yet (ROADMAP queue 1 item 10: the "
-        "native RecordIO loader)")
+    """fluid.layers.open_files parity (open_files_op): a py_reader fed
+    from RecordIO files through the port's native scanner. Each record is
+    an ``np.savez`` archive of arrays ``f0..fN`` for the N slots, the
+    records ``recordio_writer`` writes in either package."""
+    import io as _io
+    rdr = py_reader(buffer_size or 64, shapes, dtypes, name=name)
+
+    def source():
+        from paddle_tpu_torch import native
+        for _ in range(pass_num):
+            for path in filenames:
+                with native.RecordIOScanner(path) as scan:
+                    for rec in scan:
+                        with np.load(_io.BytesIO(rec)) as z:
+                            yield tuple(z[f"f{i}"]
+                                        for i in range(len(shapes)))
+    rdr.decorate_tensor_provider(source)
+    return rdr
 
 
 def random_data_generator(low, high, shapes, lod_levels=None,

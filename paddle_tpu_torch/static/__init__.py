@@ -23,7 +23,8 @@ from paddle_tpu_torch.static.debugger import (  # noqa: E402,F401
 )
 import paddle_tpu_torch.static.nested  # noqa: F401,E402
 from paddle_tpu_torch.static.executor import (  # noqa: E402
-    Executor, Scope, global_scope, scope_guard,
+    AsyncExecutor, Executor, Scope, device_prefetch, global_scope,
+    scope_guard,
 )
 from paddle_tpu_torch.compiler import (  # noqa: E402,F401
     BuildStrategy, CompiledProgram, ExecutionStrategy,

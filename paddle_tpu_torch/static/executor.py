@@ -75,11 +75,27 @@ finite, and the flags are read once before the new state reaches the
 scope: a trip leaves the scope bitwise at its pre-step values and raises
 ``monitor.numerics.NonFiniteError`` from the localizer's replay.
 
+The data path (executor.py:198-381, :1075-1120, :1298-1346, :1610-1630):
+``background_prefetch`` (a worker thread, a bounded queue whose puts
+time-slice against the stop flag, a producer's exception re-raised in the
+consumer with its traceback and ``prefetch_batch_index``, the producer
+closed in the worker, the queue metrics, the ``prefetch/pipeline`` trace,
+goodput's ``input_wait`` on the consumer's blocked get), the device-side
+double buffer (``Executor.feed_stage`` / ``device_prefetch``: the worker
+pins each batch and copies it on a side CUDA stream of its own, records an
+event and waits on it; at delivery the consumer's stream waits on that
+event and each tensor is recorded on it (``StagedFeed.hand_over``), and
+``run`` takes the placed tensors as they are: no second copy, the same
+runner), ``train_from_dataset`` / ``infer_from_dataset`` (steps with
+``return_numpy=False``, the fetches read on the host only at
+``print_period`` boundaries) and ``AsyncExecutor``. The ``load_combine``
+host op (``layers.load``) runs between the device ops, its values put on
+the executor's device; the persistables it writes need no startup.
+
 Not ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item: the
-other host ops (parameter-server send/recv, queue 1 item 9), prefetch
-(``device_prefetch``, ``background_prefetch``, ``Executor.feed_stage``) and
-``train_from_dataset`` / ``infer_from_dataset`` (item 10), the persistent
-compile cache (``PADDLE_TPU_CACHE_DIR``; item 10 step 3) and mesh specs
+other host ops (parameter-server send/recv, queue 1 item 9;
+``save_combine``, item 10), the persistent compile cache
+(``PADDLE_TPU_CACHE_DIR``; item 10 step 3) and mesh specs
 (``CompiledProgram.with_data_parallel`` / ``with_mesh_sharding``; item 9).
 """
 
@@ -101,6 +117,7 @@ from paddle_tpu_torch.monitor import goodput as _goodput
 from paddle_tpu_torch.monitor import tensorwatch as _tensorwatch
 from paddle_tpu_torch.monitor import trace as _trace
 from paddle_tpu_torch.monitor.registry import counter as _counter
+from paddle_tpu_torch.monitor.registry import gauge as _gauge
 from paddle_tpu_torch.monitor.registry import histogram as _histogram
 from paddle_tpu_torch.ops.nn import no_tf32
 from paddle_tpu_torch.profiler import RecordEvent
@@ -109,8 +126,9 @@ from paddle_tpu_torch.static.program import (
     OP_REGISTRY, Program, default_main_program,
 )
 
-__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "exec_op",
-           "device_prefetch", "background_prefetch"]
+__all__ = ["Executor", "AsyncExecutor", "Scope", "global_scope",
+           "scope_guard", "exec_op", "device_prefetch", "background_prefetch",
+           "StagedFeed"]
 
 define_flag("executor_fast_path", True,
             "Keep the prepared runner (the pass pipeline's optimized "
@@ -146,6 +164,14 @@ _m_fetch_ms = _histogram("executor_fetch_ms",
 _m_retraces = _counter("executor_retraces_total",
                        "Device-segment traces performed (mirrors "
                        "Executor.trace_count across all executors)")
+_m_q_depth = _gauge("prefetch_queue_depth",
+                    "Items currently buffered in the background "
+                    "prefetch queue")
+_m_q_wait = _counter("prefetch_producer_wait_ms_total",
+                     "Wall ms prefetch producers spent handing items "
+                     "to the queue (blocked time on a full queue)")
+_m_q_items = _counter("prefetch_items_total",
+                      "Items produced by background prefetch pipelines")
 
 _STEP = "@step@"
 _flow_ids = itertools.count(1)
@@ -251,18 +277,314 @@ def _not_ported(what, item):
                         f"{item})")
 
 
-def device_prefetch(*args, **kwargs):
-    """Not ported yet: raises."""
-    _not_ported("device_prefetch", "10 (dataio)")
+class _PrefetchFailure:
+    """A producer-thread exception on its way to the consumer: wrapped, so
+    an exception yielded as data is never raised, and its traceback rides
+    along. ``index`` is the ordinal of the item that failed (the items
+    produced before it), so a postmortem names the batch."""
+
+    __slots__ = ("exc", "index")
+
+    def __init__(self, exc, index=None):
+        self.exc = exc
+        self.index = index
 
 
-def background_prefetch(*args, **kwargs):
-    """Not ported yet: raises."""
-    _not_ported("background_prefetch", "10 (dataio)")
+def background_prefetch(producer, transform, depth=2):
+    """A worker thread pulls items from ``producer``, applies
+    ``transform`` and queues up to ``depth`` results ahead of the consumer
+    (``depth <= 0``: unbounded). A producer exception re-raises in the
+    consumer with the producer's traceback and ``prefetch_batch_index``;
+    when the consumer leaves early (``break``, ``.close()``) the worker
+    stops, its puts time-slicing against the stop flag, and the producer
+    is closed in the worker. The port of executor.py:198-335, shared by
+    ``device_prefetch`` and ``dataio.FileDataLoader``."""
+    import queue as _queue
+
+    q = _queue.Queue(maxsize=max(int(depth), 0))
+    sentinel = object()
+    stop = threading.Event()
+
+    def put(item, count=True):
+        # never park on a full queue for good: the consumer may be gone
+        t0 = time.perf_counter()
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+            except _queue.Full:
+                continue
+            if count:       # data items only, not the sentinel or a failure
+                _m_q_items.inc()
+                _m_q_wait.inc((time.perf_counter() - t0) * 1e3)
+            _m_q_depth.set(q.qsize())
+            return True
+        return False
+
+    # the pipeline's trace is made on the consumer's thread; the worker
+    # records its per-item spans against it
+    tctx = _trace.start_trace("prefetch/pipeline") \
+        if _trace._enabled else None
+
+    def worker():
+        produced = 0
+        try:
+            for b in producer:
+                if stop.is_set():
+                    return
+                if tctx is not None:
+                    t0 = time.perf_counter()
+                    item = transform(b)
+                    _trace.record_span(tctx, "prefetch/item", t0,
+                                       time.perf_counter(),
+                                       attrs={"index": produced})
+                else:
+                    item = transform(b)
+                if not put(item):
+                    return
+                produced += 1
+        except BaseException as e:       # raised again in the consumer
+            put(_PrefetchFailure(e, index=produced), count=False)
+            return
+        finally:
+            # the producer (a reader holding files) closes here, when the
+            # worker ends, not when the garbage collector finds it
+            close = getattr(producer, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except Exception:
+                    pass
+        put(sentinel, count=False)
+
+    t = threading.Thread(target=worker, daemon=True,
+                         name="pt-prefetch-worker")
+    t.start()
+    try:
+        while True:
+            if _goodput._armed:
+                # the consumer blocked on an empty queue: the input
+                # pipeline could not keep up (goodput's input_wait)
+                t_get = time.perf_counter()
+                item = q.get()
+                _goodput.attribute(time.perf_counter() - t_get,
+                                   phase="input_wait")
+            else:
+                item = q.get()
+            _m_q_depth.set(q.qsize())
+            if item is sentinel:
+                break
+            if isinstance(item, _PrefetchFailure):
+                if _flight._enabled:
+                    _flight.RECORDER.note("error", "prefetch.producer",
+                                          batch_index=item.index,
+                                          error=repr(item.exc))
+                try:
+                    item.exc.prefetch_batch_index = item.index
+                except Exception:      # an exception with __slots__
+                    pass
+                raise item.exc.with_traceback(item.exc.__traceback__)
+            yield item
+    finally:
+        # drop what the worker queued (its puts time out against the stop
+        # flag within 0.1 s), then wait for it
+        stop.set()
+        with q.mutex:
+            q.queue.clear()
+        t.join()
+        if tctx is not None:
+            _trace.end_trace(tctx)
+
+
+def _stage_key(batch):
+    """The ids of a staged batch's tensors: the identity by which its
+    consuming step adopts the stage note (trace.adopt_stage)."""
+    if isinstance(batch, dict):
+        return [id(v) for v in batch.values()]
+    if isinstance(batch, (tuple, list)):
+        return [id(v) for v in batch]
+    return [id(batch)]
+
+
+class StagedFeed:
+    """A batch a prefetch worker placed on a device, before it reaches
+    its consumer. On the card the copy ran on the worker's side stream and
+    ``event`` marks its end; :meth:`hand_over`, called on the consumer's
+    thread, makes the consumer's stream wait on that event and records the
+    tensors on it, so the caching allocator gives their memory to no
+    other batch while a step still reads them. ``device_prefetch``,
+    ``dataio.FileDataLoader`` and ``Executor.run`` hand a staged feed
+    over; ``batch`` is the structure it came in (dict, tuple, list or one
+    tensor)."""
+
+    __slots__ = ("batch", "event", "device")
+
+    def __init__(self, batch, event=None, device=None):
+        self.batch = batch
+        self.event = event
+        self.device = device
+
+    def tensors(self):
+        b = self.batch
+        vals = b.values() if isinstance(b, dict) else \
+            b if isinstance(b, (tuple, list)) else [b]
+        return [v for v in vals if isinstance(v, torch.Tensor)]
+
+    def hand_over(self):
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self.event)
+            for t in self.tensors():
+                t.record_stream(stream)
+        return self.batch
+
+
+def hand_over(item):
+    """``item``'s batch on the consumer's stream when it is a
+    :class:`StagedFeed`, else ``item``."""
+    return item.hand_over() if isinstance(item, StagedFeed) else item
+
+
+class _DeviceStage:
+    """``put(batch)`` of a prefetch worker: each array or CPU tensor of a
+    dict, tuple, list or single-array batch as a tensor on ``device``, in
+    the dtype of its program data var where ``dtypes`` names one. On the
+    card, inside ``torch.cuda.device``, the host arrays are packed into one
+    pinned buffer and copied with ``non_blocking=True`` on a side stream
+    of the calling thread (:meth:`_copy`), an event is recorded after the
+    copy and the worker waits on it, so the transfer finishes off the
+    consumer's critical path and the time the caller measures is the
+    transfer's. Returns a :class:`StagedFeed`. When tracing, the staging
+    interval is parked as the ``executor/feed_stage`` note its consuming
+    step adopts."""
+
+    def __init__(self, device, dtypes=None, names=None):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.dtypes = dtypes or {}
+        self.names = list(names) if names is not None else None
+        self._tls = threading.local()
+
+    def _host(self, name, v):
+        """A field as a tensor: an array in its data var's dtype on the
+        host, a tensor as it is."""
+        if isinstance(v, torch.Tensor):
+            return v
+        a = np.asarray(v)
+        want = self.dtypes.get(name)
+        if want is not None and a.dtype != want:
+            a = a.astype(want)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def _copy(self, hosts):
+        """The CPU tensors of ``hosts`` packed into one pinned buffer (each
+        field 16-byte aligned) and sent in one transfer on the current
+        stream, each coming back as a view of one buffer on the card: one
+        allocation and one copy a batch, whatever its field count. A
+        tensor already on the card passes through; one numpy cannot view
+        (bfloat16) is pinned and sent by itself."""
+        outs = [None] * len(hosts)
+        packed, total = [], 0
+        for i, h in enumerate(hosts):
+            if h.device.type != "cpu":
+                outs[i] = h.to(self.device, non_blocking=True)
+                continue
+            try:
+                a = np.ascontiguousarray(h.numpy())
+            except (TypeError, RuntimeError):
+                outs[i] = h.pin_memory().to(self.device, non_blocking=True)
+                continue
+            packed.append((i, a, h, total))
+            total += -(-a.nbytes // 16) * 16
+        if packed:
+            pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+            buf = pinned.numpy()
+            for _i, a, _h, off in packed:
+                buf[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+            dev = pinned.to(self.device, non_blocking=True)
+            for i, a, h, off in packed:
+                outs[i] = dev[off:off + a.nbytes].view(h.dtype).view(h.shape)
+        return outs
+
+    def _names_for(self, batch):
+        if isinstance(batch, dict):
+            return list(batch)
+        n = len(batch) if isinstance(batch, (tuple, list)) else 1
+        if self.names is not None and len(self.names) == n:
+            return self.names
+        return [None] * n
+
+    def __call__(self, batch):
+        t0 = time.perf_counter()
+        names = self._names_for(batch)
+        if isinstance(batch, dict):
+            vals = list(batch.values())
+        elif isinstance(batch, (tuple, list)):
+            vals = list(batch)
+        else:
+            vals = [batch]
+        hosts = [self._host(n, v) for n, v in zip(names, vals)]
+        event = None
+        if self.device.type == "cuda":
+            stream = getattr(self._tls, "stream", None)
+            with torch.cuda.device(self.device):
+                if stream is None:
+                    stream = self._tls.stream = torch.cuda.Stream(
+                        self.device)
+                with torch.cuda.stream(stream):
+                    outs = self._copy(hosts)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                # the transfer ends here, in the worker
+                event.synchronize()
+        else:
+            outs = [h.to(self.device) for h in hosts]
+        if isinstance(batch, dict):
+            staged = dict(zip(batch, outs))
+        elif isinstance(batch, (tuple, list)):
+            staged = type(batch)(outs)
+        else:
+            staged = outs[0]
+        if _trace._enabled:
+            _trace.stage_note("executor/feed_stage", t0, time.perf_counter(),
+                              key=_stage_key(staged))
+        return StagedFeed(staged, event, self.device)
+
+
+def device_prefetch(batches, depth=2, put=None):
+    """Device-side double buffering (the role of the reference's
+    operators/reader/buffered_reader.cc): a worker thread stages upcoming
+    feed batches ``depth`` steps ahead, so the host-to-device copy of
+    batch N+1 overlaps step N. ``put`` is the stage (pass
+    ``Executor.feed_stage(...)``); None stages on the card
+    (``NoCudaDeviceError`` without one). Yields each batch in its own
+    structure, handed over to the consumer's stream; the time spent in
+    ``put`` counts into ``dataio_h2d_overlap_ms``."""
+    from paddle_tpu_torch.dataio.dataloader import _m_h2d_ms
+    put = put if put is not None else _DeviceStage(place_device(None))
+
+    def stage(b):
+        t0 = time.perf_counter()
+        out = put(b)
+        _m_h2d_ms.inc((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return _handed_over(background_prefetch(batches, stage, depth))
+
+
+def _handed_over(items):
+    """``items`` handed over one by one on the consumer's thread; closing
+    this generator closes ``items``."""
+    try:
+        for item in items:
+            yield hand_over(item)
+    finally:
+        items.close()
 
 
 #: the host ops (``_host``) the port runs
-_HOST_OPS = frozenset({"py_func"})
+_HOST_OPS = frozenset({"py_func", "load_combine"})
 
 
 def exec_op(op, env, rng=None):
@@ -291,15 +613,18 @@ def _op_generator(device, seed, step, op):
     return torch.Generator(device=device).manual_seed(mixed)
 
 
-def _interpret(ops, env, rng_for=None, after_op=None):
+def _interpret(ops, env, rng_for=None, after_op=None, device=None):
     """Run ``ops`` in order over ``env``; the ``autodiff`` op makes the
     grads of the summed loss over the ops before it. ``rng_for(op)`` gives
     a ``_needs_rng`` op its generator; ``after_op(i, op, outs)`` sees each
     op's outputs once ``env`` holds them (the ``autodiff`` op's are its
-    ``<param>@GRAD`` leaves)."""
+    ``<param>@GRAD`` leaves). A host op's tensors go to ``device``."""
     def run(i, op):
         rng = rng_for(op) if rng_for and op.attrs.get("_needs_rng") else None
         outs = exec_op(op, env, rng)
+        if device is not None and op.attrs.get("_host"):
+            outs = {n: v.to(device) if isinstance(v, torch.Tensor) else v
+                    for n, v in outs.items()}
         env.update(outs)
         if after_op is not None:
             after_op(i, op, outs)
@@ -475,6 +800,10 @@ class _Runner:
         self.state_names = [n for n, v in blk.vars.items() if v.persistable]
         self.kernel_libraries = sorted(kernel_libraries)
         self.segs = _segments(self.ops)
+        # the vars a host op writes (load_combine) may start uninitialized:
+        # the program initializes them
+        self.host_outs = {n for op in self.ops if op.attrs.get("_host")
+                          for n in op.output_names()}
         self.seg_writes = {hi - 1: sorted({n for op in self.ops[lo:hi]
                                            for n in _writes(op)})
                            for is_host, lo, hi in self.segs if not is_host}
@@ -498,7 +827,8 @@ class _Runner:
         env.update(feeds)
         with no_tf32():
             _interpret(self.ops[:end], env, lambda op: _op_generator(
-                self.device, base_key, step_idx + 1, op), after_op)
+                self.device, base_key, step_idx + 1, op), after_op,
+                self.device)
 
 
 class Executor:
@@ -544,7 +874,7 @@ class Executor:
         place). With no feed, the started readers attached to the program
         give it (``EOFException`` when one is exhausted)."""
         program, compiled = self._unwrap(program)
-        feed = dict(feed or {})
+        feed = dict(hand_over(feed) or {})
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
         if _goodput._armed:
@@ -578,6 +908,10 @@ class Executor:
             if _trace._enabled else None
         if tctx is not None:
             tctx.t0 = t_run
+            if feed:
+                # the staging interval of exactly these feeds, parked by a
+                # prefetch worker (feed_stage), joins this step's trace
+                _trace.adopt_stage(tctx, match={id(v) for v in feed.values()})
         try:
             with RecordEvent("executor.run/prepare"):
                 # a tensor-watch program's stats ride the fetch list, peeled
@@ -795,7 +1129,8 @@ class Executor:
 
     @staticmethod
     def _check_state(runner, scope):
-        missing = [n for n in runner.state_names if scope.find_var(n) is None]
+        missing = [n for n in runner.state_names
+                   if scope.find_var(n) is None and n not in runner.host_outs]
         if missing:
             raise EnforceNotMet(
                 f"Persistable vars not initialized: {missing[:5]} — run the "
@@ -840,7 +1175,7 @@ class Executor:
         seed = runner.program.random_seed
         with no_tf32():
             env = _interpret(runner.ops, env, lambda op: _op_generator(
-                self.device, seed, step_idx + 1, op), after_op)
+                self.device, seed, step_idx + 1, op), after_op, self.device)
         if measure:
             # a step under an earlier high is not measured
             peak = torch.cuda.max_memory_allocated(self.device)
@@ -896,17 +1231,86 @@ class Executor:
             if v is not None:
                 scope.set_var(n, v)
 
-    def feed_stage(self, *args, **kwargs):
-        """Not ported yet: raises."""
-        _not_ported("Executor.feed_stage (prefetch)", "10 (dataio)")
+    def feed_stage(self, program=None, feed_names=None):
+        """The device-side double buffer's stage: ``put(batch)`` for a
+        prefetch worker (``FileDataLoader(device_put=put)``,
+        ``device_prefetch(put=put)``) that places each feed batch on this
+        executor's device, in the dtypes of ``program``'s data vars
+        (``feed_names`` names the fields of a tuple or list batch), and
+        returns it as a :class:`StagedFeed`. On the card the copy of batch
+        N+1 runs on the worker's side stream while step N computes;
+        ``run`` then takes the placed tensors as they are, with no second
+        copy, and the feed signature, which is device-agnostic, finds the
+        same prepared runner."""
+        program, _ = self._unwrap(program)
+        dtypes = {}
+        for n, v in program.global_block().vars.items():
+            if v.is_data:
+                try:
+                    dtypes[n] = torch.empty((), dtype=v.dtype).numpy().dtype
+                except TypeError:       # a dtype numpy lacks (bfloat16)
+                    pass
+        return _DeviceStage(self.device, dtypes, feed_names)
 
-    def train_from_dataset(self, *args, **kwargs):
-        """Not ported yet: raises."""
-        _not_ported("Executor.train_from_dataset", "10 (dataio)")
+    def train_from_dataset(self, program=None, dataset=None,
+                           fetch_list=None, fetch_info=None,
+                           print_period=100, scope=None, debug=False):
+        """Dataset-driven training (executor.py:927 parity): each batch of
+        ``dataset`` staged by ``device_prefetch`` through this executor's
+        ``feed_stage`` and run with ``return_numpy=False``; the fetches
+        are read on the host only every ``print_period`` steps (printed
+        as ``step N: label=value, ...``, the batch means), the only host
+        syncs of the loop. Returns the last step's fetches as numpy."""
+        if dataset is None:
+            raise EnforceNotMet("dataset is required")
+        fetch_names = [f if isinstance(f, str) else f.name
+                       for f in (fetch_list or [])]
+        if fetch_info is not None and len(fetch_info) != len(fetch_names):
+            raise EnforceNotMet("fetch_info must match fetch_list in length")
+        labels = fetch_info or fetch_names
+        step = 0
+        last = []
+        for batch in device_prefetch(dataset,
+                                     put=self.feed_stage(program)):
+            last = self.run(program, feed=batch, fetch_list=fetch_names,
+                            scope=scope, return_numpy=False)
+            step += 1
+            if fetch_names and step % print_period == 0:
+                last = [_fetch_value(n, v, True)
+                        for n, v in zip(fetch_names, last)]
+                msg = ", ".join(f"{lb}={np.asarray(v).mean():.6f}"
+                                for lb, v in zip(labels, last))
+                print(f"step {step}: {msg}")
+        return [_fetch_value(n, v, True) if isinstance(v, torch.Tensor)
+                else v for n, v in zip(fetch_names, last)]
 
-    def infer_from_dataset(self, *args, **kwargs):
-        """Not ported yet: raises."""
-        _not_ported("Executor.infer_from_dataset", "10 (dataio)")
+    def infer_from_dataset(self, program=None, dataset=None,
+                           fetch_list=None, fetch_info=None,
+                           print_period=100, scope=None, debug=False):
+        """executor.py infer_from_dataset parity: the same loop over an
+        inference (for_test) program, which updates nothing."""
+        return self.train_from_dataset(program, dataset, fetch_list,
+                                       fetch_info, print_period, scope,
+                                       debug)
 
     def close(self):
         self._runners.clear()
+
+
+class AsyncExecutor:
+    """async_executor.h:62 parity (the pre-Trainer thread-pool trainer
+    over a DataFeed): ``run_from_files`` trains over a dataset's files
+    through ``Executor.train_from_dataset``."""
+
+    def __init__(self, place=None, run_mode=""):
+        self._exe = Executor(place)
+
+    def run(self, program, data_feed, filelist, thread_num, fetch,
+            mode="", debug=False):
+        data_feed.set_filelist(filelist)
+        data_feed.set_thread(thread_num)
+        return self._exe.train_from_dataset(
+            program, data_feed, fetch_list=list(fetch) if fetch else None,
+            debug=debug)
+
+    run_from_files = run

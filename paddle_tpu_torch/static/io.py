@@ -7,9 +7,12 @@ one ``params.npz`` (numpy arrays, the file boundary), the program as the
 schema'd JSON document of ``static/serialize.py`` in ``__model__``. A model
 directory written by either package loads in the other.
 
-Values load onto the executor's device. The op forms of save/load
-(``append_save_op``/``append_load_op``) and ``save_vars``/``load_vars`` are
-not ported yet: they raise naming ROADMAP queue 1 item 10.
+Values load onto the executor's device. ``append_load_op`` appends the
+``load_combine`` host op (load_combine_op.cc), which reads the JAX
+package's file (an ``.npz`` keyed by the var names) when the program runs;
+the Executor puts its values on its device. ``append_save_op`` and
+``save_vars``/``load_vars`` are not ported yet: they raise naming ROADMAP
+queue 1 item 10.
 """
 
 import os
@@ -19,7 +22,9 @@ import torch
 
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.static.executor import global_scope
-from paddle_tpu_torch.static.program import Parameter, default_main_program
+from paddle_tpu_torch.static.program import (
+    OP_REGISTRY, Parameter, default_main_program,
+)
 from paddle_tpu_torch.static.serialize import (
     dumps_program, loads_program, to_numpy,
 )
@@ -147,9 +152,27 @@ def append_save_op(program, vars_, file_path):
     _not_ported("append_save_op (the save_combine op)")
 
 
+def _load_op_compute(ins, attrs):
+    """The ``load_combine`` host op: the named arrays of the ``.npz`` at
+    ``file_path`` (the suffix added when missing), as CPU tensors."""
+    path = attrs["file_path"]
+    with np.load(path if path.endswith(".npz") else path + ".npz") as blob:
+        return {"Out": [torch.from_numpy(np.array(blob[n]))
+                        for n in attrs["var_names"]]}
+
+
+OP_REGISTRY["load_combine"] = _load_op_compute
+
+
 def append_load_op(program, vars_, file_path):
-    """Not ported yet: raises."""
-    _not_ported("append_load_op (the load_combine op)")
+    """Append a load_combine op writing the file's values into the named
+    vars when the program runs (load_combine_op.cc)."""
+    blk = program.global_block()
+    names = [v if isinstance(v, str) else v.name for v in vars_]
+    return blk.append_op("load_combine", inputs={},
+                         outputs={"Out": names},
+                         attrs={"file_path": file_path,
+                                "var_names": names, "_host": True})
 
 
 def save_vars(executor, dirname, main_program=None, vars=None,

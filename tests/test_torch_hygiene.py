@@ -51,7 +51,7 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
     # the subpackages with copies of jax-free JAX-package modules are
     # scanned too
     for sub in ("serving", "monitor", "static", "models", "layers",
-                "distributed", "nn", "dataio"):
+                "distributed", "nn", "dataio", "native", "incubate"):
         assert any(f"{os.sep}{sub}{os.sep}" in p for p in srcs), sub
     for mod in ("nets.py", "optimizer.py", f"ops{os.sep}nn.py",
                 "lod_tensor.py", f"core{os.sep}lod.py",
@@ -64,12 +64,75 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
                 f"dataio{os.sep}feeder.py", f"dataio{os.sep}pyreader.py",
                 "backward.py", f"models{os.sep}ptb_lm.py",
                 f"ops{os.sep}detection.py", f"models{os.sep}ssd.py",
-                f"models{os.sep}yolov3.py"):
+                f"models{os.sep}yolov3.py", f"dataio{os.sep}dataloader.py",
+                f"dataio{os.sep}fluid_dataset.py",
+                f"dataio{os.sep}sample_exchange.py",
+                f"distributed{os.sep}wire.py", "recordio_writer.py",
+                f"incubate{os.sep}data_generator.py",
+                f"models{os.sep}ctr_dnn.py"):
         assert any(p.endswith(f"{os.sep}{mod}") for p in srcs), mod
     for path in srcs:
         with open(path) as f:
             m = _FORBIDDEN.search(f.read())
         assert m is None, f"{path}: {m.group(0)!r}"
+
+
+#: a path under the JAX package in a string the code uses ("paddle_tpu/..."
+#: or "paddle_tpu\\..."), not a ``file:line`` reference to a TPU kernel
+_JAX_PATH = re.compile(r"(?<![\w.])paddle_tpu[/\\]")
+_KERNEL_REF = re.compile(r"^paddle_tpu/[\w/]+\.py:\d+$")
+
+
+def _code_strings(path):
+    """(line, text) of every string constant of a source that is not a
+    docstring."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [(n.lineno, n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_port_sources_name_no_path_under_paddle_tpu():
+    """Nothing of the port reads from the JAX package's tree: no string a
+    port source uses is a path under ``paddle_tpu/`` (the kernels'
+    ``replaces`` references, ``file:line``, are labels), no path is joined
+    from a ``paddle_tpu`` component, the native C++ includes nothing from
+    outside its own ``src``, and the native build reads only the port's
+    own ``native/src``."""
+    import ast
+    assert _JAX_PATH.search("x/paddle_tpu/native/src")
+    assert not _JAX_PATH.search("paddle_tpu_torch/native/src")
+    assert _KERNEL_REF.match("paddle_tpu/ops/pallas/matmul.py:62")
+    bad = []
+    for path in _port_sources():
+        for line, text in _code_strings(path):
+            if _JAX_PATH.search(text) and not _KERNEL_REF.match(text):
+                bad.append(f"{path}:{line}: {text[:60]!r}")
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Call) and any(
+                    isinstance(a, ast.Constant) and a.value == "paddle_tpu"
+                    for a in n.args):
+                bad.append(f"{path}:{n.lineno}: a 'paddle_tpu' component")
+    src = os.path.join(PORT, "native", "src")
+    for name in os.listdir(src):
+        with open(os.path.join(src, name)) as f:
+            for inc in re.findall(r'#include\s+"([^"]+)"', f.read()):
+                if not os.path.exists(os.path.join(src, inc)):
+                    bad.append(f"{name}: #include \"{inc}\"")
+    assert not bad, "\n".join(bad)
+    from paddle_tpu_torch import native
+    assert os.path.realpath(native._SRC_DIR) == os.path.realpath(src)
+    assert all(os.path.exists(os.path.join(src, s))
+               for s in native._SOURCES + ["enforce.h"])
 
 
 def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
@@ -102,6 +165,11 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.ptb_lm\n"
         "import paddle_tpu_torch.ops.detection\n"
         "import paddle_tpu_torch.models.ssd, paddle_tpu_torch.models.yolov3\n"
+        "import paddle_tpu_torch.native, paddle_tpu_torch.dataio.dataloader\n"
+        "import paddle_tpu_torch.dataio.fluid_dataset\n"
+        "import paddle_tpu_torch.dataio.sample_exchange\n"
+        "import paddle_tpu_torch.recordio_writer, paddle_tpu_torch.incubate\n"
+        "import paddle_tpu_torch.models.ctr_dnn\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

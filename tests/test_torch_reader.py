@@ -6,8 +6,9 @@ the JAX executor fed by its own py_reader, ``reset`` stopping the staging
 thread (``threading.active_count`` back where it began after repeated
 cycles), two started readers on one var refused, the batch/shuffle chain,
 ``random_data_generator``, ``Preprocessor``; ``open_files`` and ``load``
-raise naming their ROADMAP item. Values are moved, never computed, so the
-comparisons are exact, except the losses (1e-6).
+(tests/test_torch_dataio.py holds them against the JAX package). Values
+are moved, never computed, so the comparisons are exact, except the
+losses (1e-6).
 """
 
 import threading
@@ -310,10 +311,14 @@ def test_double_buffer_create_by_data_and_refusals():
         assert tpt.layers.double_buffer(rdr) is rdr and rdr.use_double_buffer
         assert tpt.layers.read_file(rdr) is x
         assert main._py_readers == [rdr]
-        with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-            tpt.layers.open_files(["f.recordio"], [[3]], ["float32"])
-        with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-            tpt.layers.load(x, "f.npz")
+        # open_files and load are ported: a reader over RecordIO files
+        # (opened when read) and the load_combine host op
+        files = tpt.layers.open_files(["f.recordio"], [[3]], ["float32"])
+        assert main._py_readers == [rdr, files]
+        op = tpt.layers.load(x, "f.npz")
+        assert op.type == "load_combine" and op.attrs["_host"]
+        with pytest.raises(IOError):
+            next(iter(files._source()))
     with pytest.raises(EnforceNotMet, match="no data source"):
         iter(rdr)
     buffered = tpt.layers.double_buffer(_src(3))

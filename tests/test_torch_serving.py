@@ -719,10 +719,12 @@ def test_what_is_not_ported_raises(exports):
     exe = tpt.Executor(tpt.CPUPlace())
     for fn in (lambda: tpt.io.save_vars(exe, d),
                lambda: tpt.io.load_vars(exe, d),
-               lambda: tpt.static.io.append_save_op(main, [out], "f"),
-               lambda: tpt.static.io.append_load_op(main, [out], "f")):
+               lambda: tpt.static.io.append_save_op(main, [out], "f")):
         with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
             fn()
+    # append_load_op is ported: the load_combine host op
+    op = tpt.static.io.append_load_op(main, [out], "f")
+    assert op.type == "load_combine" and op.attrs["var_names"] == [out.name]
     before = (tmem.memory_segments(), tmem.peak_bytes_per_step())
     assert tmem.analyze_compiled(None) is None
     tmem.record_segment_memory(0, 0, tmem.analyze_compiled(None))

@@ -503,10 +503,16 @@ def test_what_is_not_ported_raises(monkeypatch):
         tpt.set_flags({"check_nan_inf": False})
     assert ei.value.report["localized"]
     assert all(torch.equal(before[n], scope.find_var(n)) for n in before)
-    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-        exe.feed_stage()
-    with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-        exe.train_from_dataset()
+    # feed_stage and train_from_dataset are ported: a batch staged on the
+    # executor's device in the data vars' dtypes, and a dataset of two
+    # batches trained with its fetches read once, at the end
+    feed = {"x": np.ones((4, 13)), "y": np.ones((4, 1), np.float32)}
+    staged = exe.feed_stage(main)(feed).hand_over()
+    assert staged["x"].dtype == torch.float32 and \
+        staged["x"].device.type == "cpu"
+    (last,) = exe.train_from_dataset(main, [feed, feed], fetch_list=[loss],
+                                     print_period=10, scope=scope)
+    assert isinstance(last, np.ndarray) and np.isfinite(last).all()
     main, _, _ = _build_fit_a_line(tpt, tpt.unique_name, _OPTS["sgd"])
     with pytest.raises(EnforceNotMet, match="queue 1 item 9"):
         tpt.CompiledProgram(main).with_data_parallel()

@@ -70,8 +70,12 @@ SPEC = os.path.join(_TOOLS, "api_spec.txt")
 #: ``layers.WeightNormParamAttr`` (2) and ``parallel``'s process
 #: environment (13), 1594 with the observability surface: ``monitor``'s
 #: exporter, flight recorder, anomaly detector, numerics and tensor watch
-#: (29) and ``profiler`` (9); only rises
-RESOLVED_FLOOR = 1594
+#: (29) and ``profiler`` (9), 1635 with the data path: ``dataio``'s
+#: ``DataLoader``, ``FileDataLoader``, ``InMemoryDataset``,
+#: ``QueueDataset``, ``DatasetFactory`` and ``merge_rank_states`` (31),
+#: ``io.DataLoader`` (6), ``static.AsyncExecutor`` (3) and
+#: ``static.device_prefetch`` (1); only rises
+RESOLVED_FLOOR = 1635
 SKIPPED = ("paddle_tpu.serving.Replica", "paddle_tpu.serving.ReplicaPool")
 #: the spec's text of a JAX dtype constant (a numpy scalar type's
 #: constructor), which the port's torch dtype stands for
