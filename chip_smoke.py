@@ -509,9 +509,38 @@ Phases; any failure raises and the script exits non-zero:
    consumer (a spin before each read, the batch dropped at once); a parse
    error in batch 3 re-raised in the consumer with
    ``prefetch_batch_index`` 3; no prefetch worker left.
-57. Print one JSON line of every ported kernel (launches on the main paths,
-   error, times, bound), the nvidia-smi line, then the result line
-   ``{"ok": true, "device": {...}}``.
+57. pretrain-512-preempt-resume: BERT-base at phase 5's configuration
+   (dense attention, bf16 softmax, no remat, 64 x 512, Adam 1e-4) on the
+   repo's own text: the pinned manifest's files through the port's
+   ``build_corpus`` (vocabulary 30528) and ``mlm_batch_stream``, one
+   sample a line in 4 files, read back by ``FileDataLoader(mode="lines",
+   stateful=True)`` (shuffle buffer 256, seed 57) as ``auto_checkpoint``'s
+   ``data_state``. Four trainer processes (this file with
+   ``--ckpt-run``), each with ``PADDLE_TPU_CACHE_DIR`` on one fresh
+   directory of the phase: (a) 60 steps saving every 20 (``keep_max`` 2),
+   (b) the same without checkpoints, (c) as (a) with SIGTERM after step
+   45 (exit 143 after saving step 45), (d) a new process resuming from
+   (c)'s directory. Exactly 26 ``fused_layer_norm`` and 1 ``fused_adam``
+   a step in every run; (d)'s restored state equals (c)'s after step 45
+   bitwise, every leaf; (c)'s step 40 on disk equals its state after step
+   40 (written while steps 41-45 updated in place); (d) reads exactly the
+   records (a) read after step 45; (d)'s losses equal (a)'s bitwise (or
+   within the (a)-(b) gap, reported); the loss falls; (a) builds its
+   libraries (cache misses), (d) builds none; step ms (a) against (b),
+   blocked ms a save, the writer's ms a save against the interval, GB a
+   checkpoint, restore seconds, time to the first step, peak memory, the
+   busy share of a profiled window.
+58. checkpoint-correctness: save, mutate every leaf in place, restore on
+   the card bitwise; the same state restored on the CPU bitwise; a
+   flipped byte quarantined and walked back past, an explicit step
+   raising ``CheckpointCorruptError``; a bf16 leaf refused; the
+   snapshot's blocked ms on BERT-base's training state against a
+   synchronous copy to the host; ``save_vars``/``load_vars`` and a
+   ``save_combine`` program on ``ctr_dnn_tiny`` after a step, into a fresh
+   scope bitwise; ``compilation_cache_stats()``.
+Last, print one JSON line of every ported kernel (launches on the main
+paths, error, times, bound), the nvidia-smi line, then the result line
+``{"ok": true, "device": {...}}``.
 
 Kernel times are device times per launch from CUDA events around a CUDA
 graph of back-to-back launches (no host overhead; LayerNorm's inputs are
@@ -9748,9 +9777,644 @@ def phase_data_checks(K, pt, cd, card, root):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 57-58: checkpoint and resume with the dataset readers
+# ---------------------------------------------------------------------------
+CK_STEPS = 60                 # steps of runs (a), (b) and (c)+(d)
+CK_EVERY = 20                 # auto_checkpoint's save interval
+CK_KILL = 45                  # (c) gets SIGTERM after this step
+CK_KEEP = 2                   # keep_max
+CK_BATCH, CK_SEQ = 64, 512    # phase 5's batch
+CK_FILES = 4                  # record files (shards) the loader reads
+CK_SHUFFLE = 256              # the loader's shuffle buffer
+CK_SEED = 57
+CK_LR = 1e-4
+CK_WANT = {"fused_layer_norm": 26, "fused_adam": 1}
+#: limits set before the first card run. A save blocks the step loop
+#: for its device-side concatenation and the copy's enqueue (the pinned
+#: buffers are allocated at the first save and reused): the median save
+#: within 100 ms. The writer must keep up with the interval: its ms a
+#: save (CRC32, np.savez, fsync, publish) under CK_EVERY steps' ms.
+CK_BLOCKED_MS = 100.0
+CK_CHILD_TIMEOUT = 420        # seconds a trainer process may take
+CK_MANIFEST = os.path.join("tests", "fixtures", "bert_corpus_manifest.txt")
+
+
+def mlm_record_files(text_corpus, root, dirname, vocab_size, n_records,
+                     seq, n_files, seed):
+    """The repo's own text (the pinned manifest's files) through the port's
+    ``build_corpus`` and ``mlm_batch_stream``, one sample a line
+    ``record id|input ids|labels|weights`` (weights 0/1), records dealt
+    round-robin into ``n_files`` files. Returns (paths, tokens, vocab)."""
+    import numpy as np
+    with open(os.path.join(root, CK_MANIFEST)) as f:
+        names = [ln.strip() for ln in f
+                 if ln.strip() and not ln.startswith("#")]
+    ids, vocab = text_corpus.build_corpus(root, vocab_size=vocab_size,
+                                          max_bytes=4 << 20, files=names)
+    stream = text_corpus.mlm_batch_stream(ids, vocab_size, 64, seq,
+                                          seed=seed)
+    os.makedirs(dirname, exist_ok=True)
+    outs = [open(os.path.join(dirname, f"mlm-{i:02d}.txt"), "w")
+            for i in range(n_files)]
+    rid = 0
+    try:
+        while rid < n_records:
+            b = next(stream)
+            cols = (b["input_ids"], b["labels"],
+                    b["weights"].astype(np.int32))
+            for i in range(len(b["input_ids"])):
+                if rid == n_records:
+                    break
+                fields = [" ".join(map(str, c[i].tolist())) for c in cols]
+                outs[rid % n_files].write(f"{rid}|" + "|".join(fields)
+                                          + "\n")
+                rid += 1
+    finally:
+        for f in outs:
+            f.close()
+    return [f.name for f in outs], len(ids), len(vocab)
+
+
+def parse_mlm_record(rec):
+    """One line of :func:`mlm_record_files` -> (record id, input ids,
+    labels, weights), int32 arrays."""
+    import numpy as np
+    rid, ids, labels, weights = rec.split(b"|")
+    return (np.int64(rid), np.array(ids.split(), np.int32),
+            np.array(labels.split(), np.int32),
+            np.array(weights.split(), np.int32))
+
+
+def state_digest(tree):
+    """{leaf path: sha256 of the leaf's bytes, its dtype and shape} of a
+    tree of tensors (one copy to the host)."""
+    import hashlib
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(node, torch.Tensor):
+            t = node.detach().cpu()
+            h = hashlib.sha256(t.view(-1).view(torch.uint8).numpy()
+                               .tobytes() if t.numel() else b"")
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            out[path] = h.hexdigest()
+        else:
+            out[path] = repr(node)
+    walk(tree, "")
+    return out
+
+
+def ckpt_run(a):
+    """One trainer process of phase 57 (and of the CPU test that runs the
+    same code on ``bert_tiny``): BERT under ``auto_checkpoint`` (or a plain
+    loop with ``a["checkpoint"]`` False) on the records of
+    :func:`mlm_record_files` through ``FileDataLoader(mode="lines",
+    stateful=True)``, the loader's cursor as ``data_state``. Writes a JSON
+    record to ``a["out"]``; with ``a["sigterm_after"] = k`` it prints
+    ``ready k`` after step k and waits for a line on stdin (the parent
+    sends SIGTERM first), so the signal lands after step k exactly."""
+    import numpy as np
+    import paddle_tpu_torch  # noqa: F401  (enables PADDLE_TPU_CACHE_DIR)
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core import compile_cache
+    from paddle_tpu_torch.dataio import FileDataLoader
+    from paddle_tpu_torch.io_checkpoint import auto_checkpoint
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.monitor import goodput
+    from paddle_tpu_torch.monitor.registry import REGISTRY
+    from paddle_tpu_torch.ops import kernels as K
+    dev = torch.device(a["device"])
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if a["model"] == "base":
+        cfg = bert.bert_base(attention_impl="dense", remat=False,
+                             softmax_dtype="bf16")
+    else:
+        cfg = bert.bert_tiny(vocab_size=a["vocab"], dtype=torch.float32)
+    opt = optimizer.Adam(learning_rate=a["lr"])
+    init_fn, train_step = bert.make_train_step(cfg, opt, device=dev)
+    loader = FileDataLoader(a["files"], parse_mlm_record, a["batch"],
+                            nthreads=2, shuffle_buffer=a["shuffle"],
+                            seed=a["seed"], mode="lines", device_put=False,
+                            prefetch=4, stateful=True)
+    goodput.enable()
+    rec = dict(label=a["label"], launches=[], records=[], blocked_s=[],
+               digests={})
+    losses, marks = [], []
+    it = [None]
+    gp = goodput._c_phase
+
+    def save_s():
+        return gp.value(phase="checkpoint_save")
+
+    def mark():
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+
+    def step_fn(step, state):
+        if it[0] is None:
+            it[0] = iter(loader)
+            rec["start_step"] = step
+            if step > 0:
+                rec["restored_digest"] = state_digest(state)
+                rec["restore_s"] = gp.value(phase="checkpoint_restore")
+        rec["blocked_s"].append(save_s())
+        prof = a.get("profile")
+        if prof and step == prof[0]:
+            if on_card:
+                torch.cuda.synchronize()
+            rec["_prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            rec["_prof"].__enter__()
+            rec["_prof_t0"] = time.perf_counter()
+        rids, ids, labels, weights = next(it[0])
+        batch = {"input_ids": ids, "labels": labels,
+                 "weights": weights.astype(np.float32)}
+        mark()
+        K.reset_launch_counts()
+        loss, params, ostate = train_step(state["params"], state["opt"],
+                                          batch)
+        rec["launches"].append(K.launch_counts())
+        losses.append(loss.detach())
+        rec["records"].append([int(r) for r in rids])
+        if step == rec["start_step"] and "first_step_s" not in rec:
+            if on_card:
+                torch.cuda.synchronize()
+            rec["first_step_s"] = time.time() - a["spawn_time"]
+        if prof and step == prof[1] - 1:
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - rec.pop("_prof_t0")
+            p = rec.pop("_prof")
+            p.__exit__(None, None, None)
+            kern = sum(e.self_device_time_total for e in p.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "memcpy" not in e.key.lower()) / 1e6
+            rec["busy_share"] = kern / wall
+            rec["profiled_steps"] = list(prof)
+        state = {"params": params, "opt": ostate}
+        if step in a.get("digest_after", ()):
+            rec["digests"][str(step)] = state_digest(state)
+        if step == a.get("sigterm_after"):
+            print(f"ready {step}", flush=True)
+            sys.stdin.readline()
+        return state
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(a["seed"])
+        params, ostate = init_fn(gen)
+        return {"params": params, "opt": ostate}
+
+    rc = 0
+    try:
+        if a["checkpoint"]:
+            auto_checkpoint(a["ckpt"], init_state, a["steps"], step_fn,
+                            save_interval_steps=a["every"],
+                            keep_max=a["keep"], data_state=loader,
+                            device=dev)
+        else:
+            state = init_state()
+            for step in range(a["steps"]):
+                state = step_fn(step, state)
+    except SystemExit as e:
+        rc = e.code
+    mark()
+    if on_card:
+        torch.cuda.synchronize()
+        rec["step_ms"] = [x.elapsed_time(y)
+                          for x, y in zip(marks, marks[1:])]
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    else:
+        rec["step_ms"] = [(y - x) * 1e3 for x, y in zip(marks, marks[1:])]
+    rec["losses"] = torch.stack(losses).float().cpu().tolist()
+    h = REGISTRY.get("checkpoint_save_ms")
+    rec["writer_ms"] = (h.sum() / h.count()) if h.count() else None
+    rec["saves"] = h.count()
+    rec["cache"] = compile_cache.stats()
+    rec["cache_dir"] = compile_cache.cache_dir()
+    rec["rc"] = rc
+    with open(a["out"], "w") as f:
+        json.dump(rec, f)
+    return rc
+
+
+def spawn_ckpt_run(args, cache_dir, timeout=CK_CHILD_TIMEOUT,
+                   sigterm=False):
+    """Run :func:`ckpt_run` in a child process (this file with
+    ``--ckpt-run``), ``PADDLE_TPU_CACHE_DIR`` set to ``cache_dir``; with
+    ``sigterm``, send it SIGTERM once it reports step
+    ``args["sigterm_after"]`` done, then release it. Returns (exit code,
+    its record, its stdout and stderr tails)."""
+    import signal
+    env = dict(os.environ, PADDLE_TPU_CACHE_DIR=cache_dir,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    args = dict(args, spawn_time=time.time())
+    err_path = args["out"] + ".stderr"
+    errf = open(err_path, "w")
+    p = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ckpt-run",
+         json.dumps(args)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=errf,
+        text=True, env=env)
+    try:
+        if sigterm:
+            want = f"ready {args['sigterm_after']}"
+            line = p.stdout.readline()
+            while line and line.strip() != want:
+                line = p.stdout.readline()
+            check(line.strip() == want,
+                  f"{args['label']}: the child ended before '{want}'")
+            p.send_signal(signal.SIGTERM)
+            time.sleep(0.5)         # the handler runs before the release
+            p.stdin.write("go\n")
+            p.stdin.flush()
+        out, _ = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        errf.close()
+    with open(err_path) as f:
+        err = f.read()
+    rec = None
+    if os.path.exists(args["out"]):
+        with open(args["out"]) as f:
+            rec = json.load(f)
+    return p.returncode, rec, out[-2000:], err[-4000:]
+
+
+def median_from(xs, k=5):
+    return statistics.median(xs[k:]) if len(xs) > k else None
+
+
+def check_preempted_dir(dirname, c):
+    """Before (d) runs (its saves prune older steps): (c)'s directory
+    holds step CK_KILL complete, and its interval save of the step before
+    (written while the next steps updated the state in place) equals (c)'s
+    state after that step, restored on the card, bitwise. Returns (the
+    complete steps, the restore's seconds)."""
+    from paddle_tpu_torch.io_checkpoint import CheckpointManager
+    mgr = CheckpointManager(dirname, keep_max=0, async_save=False)
+    steps_on_disk = mgr._complete_steps()
+    check(CK_KILL in steps_on_disk, f"pretrain-preempt: (c) left steps "
+                                    f"{steps_on_disk}, no {CK_KILL}")
+    k = CK_EVERY * (CK_KILL // CK_EVERY)
+    t1 = time.perf_counter()
+    tree, s = mgr.restore(step=k)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    check(s == k and state_digest(tree) == c["digests"][str(k)],
+          f"pretrain-preempt: step {k} on disk differs from (c)'s state "
+          f"after step {k}")
+    mgr.close()
+    return steps_on_disk, secs
+
+
+def phase_pretrain_preempt(K, pt, card, root):
+    """Phase 57: BERT-base pretraining at phase 5's configuration on the
+    repo's own text through a preemption and a resume; returns the record
+    (launches: the four runs' totals)."""
+    import shutil
+    from paddle_tpu_torch.dataio import text_corpus
+    repo = os.path.dirname(os.path.abspath(__file__))
+    n_rec = CK_STEPS * CK_BATCH + CK_FILES * CK_SHUFFLE
+    t0 = time.perf_counter()
+    files, tokens, vocab = mlm_record_files(
+        text_corpus, repo, os.path.join(root, "data"), 30528, n_rec,
+        CK_SEQ, CK_FILES, CK_SEED)
+    data_s = time.perf_counter() - t0
+    log(f"pretrain-preempt: {tokens} tokens, {vocab} words of the repo's "
+        f"text; {n_rec} records in {CK_FILES} files, {data_s:.1f} s")
+    cache = os.path.join(root, "cache")
+    base = dict(model="base", device="cuda", files=files, batch=CK_BATCH,
+                shuffle=CK_SHUFFLE, seed=CK_SEED, lr=CK_LR, steps=CK_STEPS,
+                every=CK_EVERY, keep=CK_KEEP)
+    runs = {}
+    for label, extra, kw in (
+            ("a", dict(checkpoint=True, ckpt=os.path.join(root, "ck_a"),
+                       profile=[38, 43]), {}),
+            ("b", dict(checkpoint=False), {}),
+            ("c", dict(checkpoint=True, ckpt=os.path.join(root, "ck_c"),
+                       sigterm_after=CK_KILL,
+                       digest_after=[CK_EVERY * (CK_KILL // CK_EVERY),
+                                     CK_KILL]), dict(sigterm=True)),
+            ("d", dict(checkpoint=True, ckpt=os.path.join(root, "ck_c")),
+             {})):
+        args = dict(base, label=label,
+                    out=os.path.join(root, f"run_{label}.json"), **extra)
+        t1 = time.perf_counter()
+        rc, rec, out, err = spawn_ckpt_run(args, cache, **kw)
+        wall = time.perf_counter() - t1
+        check(rec is not None, f"pretrain-preempt ({label}): no record; "
+                               f"rc {rc}\n{out}\n{err}")
+        rec["wall_s"] = wall
+        runs[label] = rec
+        last = rec["start_step"] + len(rec["losses"]) - 1
+        log(f"pretrain-preempt ({label}): rc {rc}, {wall:.1f} s, steps "
+            f"{rec['start_step']}..{last}, first step done "
+            f"{rec['first_step_s']:.1f} s after "
+            f"spawn, cache {rec['cache']}, median step "
+            f"{median_from(rec['step_ms'])} ms [{card}]")
+        want_rc = 143 if label == "c" else 0
+        check(rc == want_rc, f"pretrain-preempt ({label}): exit {rc}, "
+                             f"expected {want_rc}\n{err}")
+        if label == "c":
+            steps_on_disk, restore40_s = check_preempted_dir(
+                os.path.join(root, "ck_c"), rec)
+    a, b, c, d = (runs[k] for k in "abcd")
+    # launches: exactly 26 LayerNorms and one Adam a step, nothing else
+    for label, r in runs.items():
+        for i, cnt in enumerate(r["launches"]):
+            for name, n in cnt.items():
+                check(n == CK_WANT.get(name, 0),
+                      f"pretrain-preempt ({label}) step "
+                      f"{r['start_step'] + i}: {n} {name} launches, "
+                      f"expected {CK_WANT.get(name, 0)}")
+    check(len(a["losses"]) == len(b["losses"]) == CK_STEPS
+          and len(c["losses"]) == CK_KILL + 1
+          and d["start_step"] == CK_KILL + 1
+          and len(d["losses"]) == CK_STEPS - CK_KILL - 1,
+          f"pretrain-preempt: steps a {len(a['losses'])}, b "
+          f"{len(b['losses'])}, c {len(c['losses'])}, d from "
+          f"{d['start_step']} ({len(d['losses'])})")
+    shard = os.path.join(root, "ck_c", f"ckpt_{CK_KILL}.shard0.npz")
+    gb = os.path.getsize(shard) / 1e9
+    # (d) restored (c)'s state after step k bitwise, every leaf (params,
+    # both Adam moments, the step counter)
+    want = c["digests"][str(CK_KILL)]
+    diff = [k for k, v in d["restored_digest"].items() if want.get(k) != v]
+    check(d["restored_digest"] == want,
+          f"pretrain-preempt: (d)'s restored state differs from (c)'s "
+          f"after step {CK_KILL} at {diff[:5]}")
+    # the cursor: (d) reads exactly the records (a) read after step k
+    check(d["records"] == a["records"][CK_KILL + 1:],
+          "pretrain-preempt: (d) read other records than (a) after step "
+          f"{CK_KILL}")
+    check(c["records"] == a["records"][:CK_KILL + 1],
+          "pretrain-preempt: (c) read other records than (a)")
+    ab_gap = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    ad_gap = max(abs(x - y) for x, y in zip(a["losses"][CK_KILL + 1:],
+                                            d["losses"]))
+    ac_gap = max(abs(x - y) for x, y in zip(a["losses"], c["losses"]))
+    if ab_gap == 0.0:
+        check(ad_gap == 0.0 and ac_gap == 0.0,
+              f"pretrain-preempt: (a) and (b) agree bitwise but (d) is "
+              f"{ad_gap} and (c) {ac_gap} from (a)")
+    else:
+        check(ad_gap <= ab_gap and ac_gap <= ab_gap,
+              f"pretrain-preempt: (d) {ad_gap} and (c) {ac_gap} from (a), "
+              f"beyond the run-to-run gap {ab_gap}")
+    first5, last5 = (statistics.mean(a["losses"][:5]),
+                     statistics.mean(a["losses"][-5:]))
+    check(last5 < first5, f"pretrain-preempt: loss {first5} over the first "
+                          f"5 steps, {last5} over the last 5")
+    # the build cache: (a) built the libraries it runs (one for each
+    # kernel of CK_WANT, and the native data library); the resumed process
+    # found them all and built nothing
+    n_libs = len(CK_WANT) + 1
+    check(a["cache"]["misses"] == n_libs and d["cache"]["misses"] == 0
+          and d["cache"]["hits"] == n_libs,
+          f"pretrain-preempt: cache (a) {a['cache']}, (d) {d['cache']}")
+    # the snapshot's blocked time and the writer against the interval
+    blocked = []
+    for r in (a, c):
+        # the checkpoint_save seconds between consecutive steps: the
+        # save after a step (steps 0, K, 2K, ...) blocked for that long
+        s = r["blocked_s"]
+        blocked += [(y - x) * 1e3 for x, y in zip(s, s[1:]) if y > x]
+    a_ms, b_ms = median_from(a["step_ms"]), median_from(b["step_ms"])
+    interval_ms = CK_EVERY * b_ms
+    check(blocked and statistics.median(blocked) <= CK_BLOCKED_MS,
+          f"pretrain-preempt: blocked ms per save {blocked} (limit "
+          f"{CK_BLOCKED_MS})")
+    check(a["writer_ms"] < interval_ms,
+          f"pretrain-preempt: the writer takes {a['writer_ms']} ms a save, "
+          f"the interval is {interval_ms} ms")
+    rec = dict(
+        config="bert_base dense, softmax bf16, no remat, 64x512, Adam 1e-4",
+        corpus_tokens=tokens, corpus_words=vocab, records=n_rec,
+        data_s=data_s, steps=CK_STEPS, every=CK_EVERY, kill_after=CK_KILL,
+        keep_max=CK_KEEP, rc={k: r["rc"] for k, r in runs.items()},
+        ms_per_step={k: median_from(r["step_ms"]) for k, r in runs.items()},
+        overhead_ms_per_step=a_ms - b_ms, blocked_ms_per_save=blocked,
+        writer_ms_per_save={k: r["writer_ms"] for k, r in runs.items()},
+        saves={k: r["saves"] for k, r in runs.items()},
+        interval_ms=interval_ms, gb_per_checkpoint=gb,
+        restore_s_d=d["restore_s"], restore_s_parent=restore40_s,
+        first_step_s={k: r["first_step_s"] for k, r in runs.items()},
+        cache={k: r["cache"] for k, r in runs.items()},
+        peak_gb={k: r["peak_gb"] for k, r in runs.items()},
+        busy_share_a=a.get("busy_share"), profiled_steps=a.get(
+            "profiled_steps"),
+        wall_s={k: r["wall_s"] for k, r in runs.items()},
+        loss_gap_a_b=ab_gap, loss_gap_a_d=ad_gap, loss_gap_a_c=ac_gap,
+        losses_a=a["losses"], losses_d=d["losses"],
+        steps_on_disk_c=steps_on_disk, card=card,
+        launches={n: sum(cnt.get(n, 0) for r in runs.values()
+                         for cnt in r["launches"]) for n in CK_WANT})
+    log("pretrain_preempt " + json.dumps(rec))
+    shutil.rmtree(os.path.join(root, "data"), ignore_errors=True)
+    return rec
+
+
+def phase_checkpoint_checks(K, pt, cd, card, root):
+    """Phase 58: the checkpoint paths on the card (see the module
+    docstring). Returns the record (launches: the CTR-DNN steps')."""
+    import numpy as np
+    from paddle_tpu_torch import io_checkpoint as ic
+    from paddle_tpu_torch.core import compile_cache
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch import optimizer
+    rec = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(58)
+    # (1) save, mutate every leaf in place at once, restore: bitwise. One
+    # leaf of 64 M values, so the writer is still copying when the leaves
+    # change
+    tree = {"big": torch.randn(64 << 20, generator=gen, device=dev),
+            "w": torch.randn(300, 70, generator=gen, device=dev),
+            "h": torch.randn(33, generator=gen, device=dev).half(),
+            "ids": torch.randint(0, 1000, (77,), generator=gen,
+                                 device=dev),
+            "i32": torch.arange(5, device=dev, dtype=torch.int32),
+            "mask": torch.rand(9, generator=gen, device=dev) > 0.5,
+            "step": torch.tensor(7, device=dev), "n": 3, "lr": 0.5,
+            "opt": [torch.zeros(4, device=dev), (torch.ones(2, device=dev),
+                                                 "m")]}
+    from paddle_tpu_torch.core.tree import map_tensors, tensors
+    before = map_tensors(lambda t: t.clone(), tree)
+    d1 = os.path.join(root, "race")
+    mgr = ic.CheckpointManager(d1, keep_max=3)
+    t0 = time.perf_counter()
+    mgr.save(1, tree, data_state={"cursor": 1})
+    save_ms = (time.perf_counter() - t0) * 1e3
+
+    def mutate(t):
+        if t.dtype == torch.bool:
+            t.logical_not_()
+        else:
+            t.add_(1)
+    map_tensors(mutate, tree)
+    mgr.wait()
+    got, step = mgr.restore(device="cuda")
+    torch.cuda.synchronize()
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return (x.device == y.device and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return (type(x) is type(y) and len(x) == len(y)
+                    and all(same(p, q) for p, q in zip(x, y)))
+        return x == y
+    check(step == 1 and same(got, before),
+          "checkpoint-correctness: save, mutate in place, restore differs")
+    check(not torch.equal(tree["big"], before["big"]),
+          "checkpoint-correctness: the mutation did not happen")
+    check(mgr.restore_data_state(1) == {"cursor": 1},
+          "checkpoint-correctness: data_state")
+    # (2) written on the card, restored on the CPU bitwise
+    cpu_tree, _ = mgr.restore(step=1, device="cpu")
+    check(same(cpu_tree, map_tensors(lambda t: t.cpu(), before)),
+          "checkpoint-correctness: card -> CPU restore differs")
+    rec.update(race_save_blocked_ms=save_ms,
+               race_bytes=sum(t.numel() * t.element_size()
+                              for t in tensors(before)))
+    del got, cpu_tree
+    # (3) a flipped byte in the newest shard: quarantined, restore walks
+    # back; an explicit step raises
+    small = {"w": torch.randn(1000, generator=gen, device=dev)}
+    mgr.save(2, small)
+    mgr.save(3, {"w": small["w"] + 1})
+    mgr.wait()
+    path = os.path.join(d1, "ckpt_3.shard0.npz")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        mgr.restore(step=3, device="cuda")
+        check(False, "checkpoint-correctness: the flipped byte restored")
+    except ic.CheckpointCorruptError as e:
+        rec["explicit_step_error"] = str(e)[:200]
+    got, step = mgr.restore(device="cuda")
+    check(step == 2 and torch.equal(got["w"], small["w"])
+          and os.path.exists(path + ".corrupt")
+          and mgr.latest_step() == 2,
+          f"checkpoint-correctness: walk-back restored step {step}")
+    # (4) a bf16 leaf is refused
+    try:
+        mgr.save(4, {"w": torch.ones(2, device=dev, dtype=torch.bfloat16)})
+        check(False, "checkpoint-correctness: a bf16 leaf was accepted")
+    except ValueError as e:
+        check("/w" in str(e), f"checkpoint-correctness: bf16 error {e}")
+    mgr.close()
+    # (5) the snapshot's blocked time on BERT-base's training state (1.31
+    # GB) against a synchronous copy to the host of the same tree
+    init_fn, _ = bert.make_train_step(
+        bert.bert_base(attention_impl="dense", remat=False),
+        optimizer.Adam(learning_rate=1e-4))
+    params, ostate = init_fn(torch.Generator(device=dev).manual_seed(5))
+    state = {"params": params, "opt": ostate}
+    mgr = ic.CheckpointManager(os.path.join(root, "bert"), keep_max=1)
+    blocked = []
+    for s in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(s, state)
+        blocked.append((time.perf_counter() - t0) * 1e3)
+        mgr.wait()
+    sync_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        map_tensors(lambda t: t.cpu(), state)
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    mgr.close()
+    rec.update(bert_state_gb=sum(t.numel() * t.element_size()
+                                 for t in tensors(state)) / 1e9,
+               snapshot_blocked_ms=blocked, sync_copy_ms=sync_ms)
+    del params, ostate, state
+    # (6) save_vars / load_vars and an append_save_op program on the card:
+    # ctr_dnn_tiny after one step, round-tripped into a fresh scope
+    cfg = cd.ctr_dnn_tiny()
+    net = cd.ctr_dnn(pt, cfg)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    rng = np.random.RandomState(58)
+    feed = {"dense_input": rng.rand(cfg.batch, cfg.dense_dim)
+            .astype(np.float32), "label": rng.randint(
+                0, 2, (cfg.batch, 1)).astype(np.int64)}
+    for i in range(cfg.sparse_slots):
+        feed[f"C{i + 1}"] = rng.randint(0, cfg.sparse_feature_dim,
+                                        (cfg.batch, 1)).astype(np.int64)
+    exe.run(net["startup"], scope=scope)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    exe.run(net["main"], feed=feed, fetch_list=[net["loss"]], scope=scope)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    vdir = os.path.join(root, "vars")
+    with pt.scope_guard(scope):
+        pt.io.save_vars(exe, vdir, main_program=net["main"])
+    names = [n for n, v in net["main"].global_block().vars.items()
+             if v.persistable and scope.find_var(n) is not None]
+    fresh = pt.Scope()
+    with pt.scope_guard(fresh):
+        pt.io.load_vars(exe, vdir, main_program=net["main"])
+    bad = [n for n in names
+           if not (fresh.find_var(n).device.type == "cuda"
+                   and torch.equal(fresh.find_var(n), scope.find_var(n)))]
+    check(not bad, f"checkpoint-correctness: save_vars/load_vars differ "
+                   f"at {bad[:5]}")
+    params = [p.name for p in net["main"].global_block().all_parameters()]
+    prog = net["main"].clone()
+    pt.static.io.append_save_op(prog, params, os.path.join(vdir, "after"))
+    K.reset_launch_counts()
+    exe.run(prog, feed=feed, fetch_list=[net["loss"]], scope=scope)
+    torch.cuda.synchronize()
+    for n, c in K.launch_counts().items():
+        launches[n] = launches.get(n, 0) + c
+    fresh = pt.Scope()
+    with pt.scope_guard(fresh):
+        pt.io.load_vars(exe, vdir, vars=params, filename="after.npz")
+    bad = [n for n in params
+           if not torch.equal(fresh.find_var(n), scope.find_var(n))]
+    check(not bad, f"checkpoint-correctness: save_combine's file differs "
+                   f"at {bad[:5]}")
+    # (7) the build cache's numbers after a run: this process looked up
+    # every kernel library at phase 1 (and the native library, if a data
+    # phase ran)
+    from paddle_tpu_torch.ops.kernels import _build
+    st = pt.profiler.compilation_cache_stats()
+    check(st == compile_cache.stats()
+          and st["requests"] == st["hits"] + st["misses"]
+          and st["requests"] >= len(_build.SOURCES),
+          f"checkpoint-correctness: compilation_cache_stats {st}")
+    rec.update(cache_stats=st, vars_saved=len(names), launches=launches,
+               card=card)
+    log("checkpoint_checks " + json.dumps(rec))
+    return rec
+
+
 #: the phases after 0-2 (the builds and every kernel against its plain
 #: version, which always run, as do the kernels line and the last line)
-ALL_PHASES = frozenset(range(3, 57))
+ALL_PHASES = frozenset(range(3, 59))
 #: a selected phase also runs the phases whose results it takes
 PHASE_NEEDS = {9: {8}, 16: {15}, 22: {20}, 29: {28}, 30: {28, 29},
                32: {31}, 34: {33}, 37: {36}, 40: {39}, 43: {42}, 46: {45},
@@ -9764,7 +10428,7 @@ def selected_phases(argv):
     ap = argparse.ArgumentParser(description="Drive the port on the card.")
     ap.add_argument("--phases", default=None,
                     help="phases to run after 0-2, e.g. 54-56 or 28,51-53 "
-                         "(0-2 always run; phases 3-56; default: all)")
+                         "(0-2 always run; phases 3-58; default: all)")
     spec = ap.parse_args(argv).phases
     if spec is None:
         return ALL_PHASES
@@ -9780,12 +10444,17 @@ def selected_phases(argv):
                 todo.append(d)
     unknown = sorted(want - ALL_PHASES - {0, 1, 2})
     if unknown:
-        ap.error(f"no phase {unknown}: phases are 0-56")
+        ap.error(f"no phase {unknown}: phases are 0-58")
     return frozenset(want & ALL_PHASES)
 
 
 def main(argv=None):
-    selected = selected_phases(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ckpt-run"]:
+        # a trainer process of phase 57 (spawn_ckpt_run)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return ckpt_run(json.loads(argv[1]))
+    selected = selected_phases(argv)
     run = selected.__contains__
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -10501,7 +11170,30 @@ def main(argv=None):
             phase_data_checks(K, pt, ctr_dnn, card, ctr_root)
     finally:
         shutil.rmtree(ctr_root, ignore_errors=True)
-    log(f"phases 54-56 took {time.perf_counter() - t54:.1f} s; the selected "
+    log(f"phases 54-56 took {time.perf_counter() - t54:.1f} s; phases 0-56 "
+        f"done at {time.perf_counter() - t_start:.1f} s")
+    t57 = time.perf_counter()
+    ck_root = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        if run(57):
+            log("phase 57: BERT-base at 64x512 on the repo's own text "
+                "through FileDataLoader under auto_checkpoint, four trainer "
+                "processes: (a) checkpoints, (b) none, (c) SIGTERM after "
+                f"step {CK_KILL}, (d) resumed from (c)'s directory "
+                "(pretrain-512-preempt-resume)")
+            pre57 = phase_pretrain_preempt(K, pt, card, ck_root)
+            by_phase["pretrain-512-preempt-resume"] = pre57["launches"]
+        if run(58):
+            log("phase 58: save/mutate/restore on the card, card -> CPU, a "
+                "flipped byte, the bf16 refusal, the snapshot against a "
+                "synchronous copy, save_vars/load_vars and save_combine on "
+                "ctr_dnn_tiny, the build cache's counters "
+                "(checkpoint-correctness)")
+            ck58 = phase_checkpoint_checks(K, pt, ctr_dnn, card, ck_root)
+            by_phase["checkpoint-correctness"] = ck58["launches"]
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    log(f"phases 57-58 took {time.perf_counter() - t57:.1f} s; the selected "
         f"phases done at {time.perf_counter() - t_start:.1f} s")
     log_card("at the end")
 

@@ -116,6 +116,7 @@ from paddle_tpu_torch import amp, distributions, metrics  # noqa: E402,F401
 from paddle_tpu_torch import dygraph, parallel  # noqa: E402,F401
 from paddle_tpu_torch import profiler  # noqa: E402,F401
 from paddle_tpu_torch import incubate, recordio_writer  # noqa: E402,F401
+from paddle_tpu_torch.dataio import dataset  # noqa: E402,F401
 
 
 def in_dygraph_mode():

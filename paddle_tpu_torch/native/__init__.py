@@ -9,9 +9,11 @@ JAX package's ``recordio.cc``, ``data_pipeline.cc``, ``strings.cc``,
 cursor arithmetic and error texts, so a file or a cursor written by one
 package reads in the other. They are built on first use with ``g++
 -std=c++17 -O2 -pthread -fPIC -shared ... -lz`` into
-``paddle_tpu_torch/_build/libpt_native_<fingerprint>.so`` (the
-fingerprint covers the sources and the platform; concurrent builders each
-write a tmp file of their own and ``os.replace`` it) and bound with
+``paddle_tpu_torch/_build/libpt_native_<fingerprint>.so``, or into the
+directory of ``core.compile_cache`` when it is enabled (the fingerprint
+covers the sources and the platform; concurrent build processes each write a tmp
+file of their own and ``os.replace`` it; a library found counts as a cache
+hit, one built as a miss) and bound with
 ctypes. ``available()`` says whether the library built; the callers that
 have a pure-Python path take it only when asked to (``native=None`` or
 False), and ``native=True`` raises.
@@ -64,10 +66,15 @@ def _compile(srcs, out):
 
 
 def _build():
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"libpt_native_{_src_fingerprint()}.so")
-    if not os.path.exists(so):
+    from paddle_tpu_torch.core import compile_cache
+    d = compile_cache.build_dir(_BUILD_DIR)
+    os.makedirs(d, exist_ok=True)
+    so = os.path.join(d, f"libpt_native_{_src_fingerprint()}.so")
+    if os.path.exists(so):
+        compile_cache.record(hit=True)
+    else:
         _compile([os.path.join(_SRC_DIR, s) for s in _SOURCES], so)
+        compile_cache.record(hit=False)
     return so
 
 

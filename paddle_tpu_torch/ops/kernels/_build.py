@@ -3,10 +3,13 @@ and launch them.
 
 Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers, so a
 build takes seconds, not minutes). It is compiled for ``sm_90a`` into its
-own shared library under ``paddle_tpu_torch/_build/``, named by a
-fingerprint of its source, the headers beside it (``csrc/*.cuh``) and the
-compiler flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
-``nvcc`` for each missing library, all at once, and waits for them.
+own shared library under ``paddle_tpu_torch/_build/`` (or the directory
+of ``core.compile_cache``, ``PADDLE_TPU_CACHE_DIR``, when it is enabled),
+named by a fingerprint of its source, the headers beside it
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is; each lookup counts as a
+cache hit (found) or miss (built). :func:`build` starts one ``nvcc`` for
+each missing library, all at once, and waits for them.
 
 A missing ``nvcc`` or a failed build raises :class:`KernelBuildError` with
 the compiler's output; nothing falls back to the plain PyTorch version.
@@ -22,6 +25,7 @@ import time
 
 import torch
 
+from paddle_tpu_torch.core import compile_cache
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.ops.kernels import registry
 
@@ -78,6 +82,10 @@ def _nvcc():
         "built from source on first use and need the CUDA toolkit")
 
 
+def _build_dir():
+    return compile_cache.build_dir(_BUILD_DIR)
+
+
 def _lib_path(name):
     h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
@@ -85,7 +93,7 @@ def _lib_path(name):
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return os.path.join(_build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(names=None):
@@ -99,12 +107,13 @@ def build(names=None):
 
 
 def _build_locked(names):
-    os.makedirs(_BUILD_DIR, exist_ok=True)
+    os.makedirs(_build_dir(), exist_ok=True)
     out = {}
     procs = {}
     for name in names:
         so = _lib_path(name)
         if os.path.exists(so):
+            compile_cache.record(hit=True)
             out[name] = {"path": so, "seconds": 0.0, "log": ""}
             continue
         # per-process tmp name: concurrent build processes must not
@@ -123,6 +132,7 @@ def _build_locked(names):
                           f"{SOURCES[name]}:\n{log[-4000:]}")
             continue
         os.replace(tmp, so)
+        compile_cache.record(hit=False)
         with open(so[:-3] + ".log", "w") as f:
             f.write(log)
         out[name] = {"path": so, "seconds": secs, "log": log}

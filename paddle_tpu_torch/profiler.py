@@ -25,7 +25,7 @@ import os
 import threading
 import time
 
-from paddle_tpu_torch.core.enforce import EnforceNotMet, warn_once
+from paddle_tpu_torch.core.enforce import warn_once
 from paddle_tpu_torch.monitor import flight_recorder as _flight
 from paddle_tpu_torch.monitor.registry import _ThreadShards
 
@@ -280,11 +280,12 @@ def device_kernel_times():
 
 
 def compilation_cache_stats():
-    """Not ported yet: the persistent compile cache whose counters this
-    reads is ROADMAP queue 1 item 10 step 3. Raises."""
-    raise EnforceNotMet(
-        "compilation_cache_stats: the persistent compile cache is not "
-        "ported yet (ROADMAP queue 1 item 10, step 3)")
+    """The build cache's counters ({'hits', 'misses', 'requests'}) from
+    ``core/compile_cache.py``: a kernel or native library found under its
+    fingerprint is a hit, one built is a miss. A restarted worker with
+    hits and no misses built nothing."""
+    from paddle_tpu_torch.core import compile_cache
+    return compile_cache.stats()
 
 
 def summary(sorted_key="total", profile_path=None):
@@ -297,6 +298,12 @@ def summary(sorted_key="total", profile_path=None):
     for name, (tot, cnt) in rows:
         lines.append(f"{name:<40}{cnt:>8}{tot * 1e3:>12.3f}"
                      f"{tot / cnt * 1e3:>12.3f}")
+    from paddle_tpu_torch.core import compile_cache
+    if compile_cache.is_enabled():
+        cc = compile_cache.stats()
+        lines.append(f"compilation cache: {cc['hits']} hits / "
+                     f"{cc['misses']} misses "
+                     f"({compile_cache.cache_dir()})")
     from paddle_tpu_torch.monitor.registry import REGISTRY as _REG
     trips = _REG.get("anomaly_trips_total")
     trip_samples = trips.samples() if trips is not None else {}

@@ -90,12 +90,14 @@ runner), ``train_from_dataset`` / ``infer_from_dataset`` (steps with
 ``return_numpy=False``, the fetches read on the host only at
 ``print_period`` boundaries) and ``AsyncExecutor``. The ``load_combine``
 host op (``layers.load``) runs between the device ops, its values put on
-the executor's device; the persistables it writes need no startup.
+the executor's device; the persistables it writes need no startup. The
+``save_combine`` host op (``static.io.append_save_op``) copies its vars to
+the host and writes them when the program reaches it. The port compiles
+no XLA executables: ``PADDLE_TPU_CACHE_DIR`` points the build directories
+of its kernel and native libraries at a cache (``core/compile_cache.py``).
 
 Not ported yet, raising :class:`EnforceNotMet` naming the ROADMAP item: the
-other host ops (parameter-server send/recv, queue 1 item 9;
-``save_combine``, item 10), the persistent compile cache
-(``PADDLE_TPU_CACHE_DIR``; item 10 step 3) and mesh specs
+other host ops (parameter-server send/recv, queue 1 item 9) and mesh specs
 (``CompiledProgram.with_data_parallel`` / ``with_mesh_sharding``; item 9).
 """
 
@@ -584,7 +586,7 @@ def _handed_over(items):
 
 
 #: the host ops (``_host``) the port runs
-_HOST_OPS = frozenset({"py_func", "load_combine"})
+_HOST_OPS = frozenset({"py_func", "load_combine", "save_combine"})
 
 
 def exec_op(op, env, rng=None):

@@ -7,12 +7,14 @@ one ``params.npz`` (numpy arrays, the file boundary), the program as the
 schema'd JSON document of ``static/serialize.py`` in ``__model__``. A model
 directory written by either package loads in the other.
 
-Values load onto the executor's device. ``append_load_op`` appends the
-``load_combine`` host op (load_combine_op.cc), which reads the JAX
-package's file (an ``.npz`` keyed by the var names) when the program runs;
-the Executor puts its values on its device. ``append_save_op`` and
-``save_vars``/``load_vars`` are not ported yet: they raise naming ROADMAP
-queue 1 item 10.
+Values load onto the executor's device. The save/load ops are host ops
+of the program (save_combine_op.cc, load_combine_op.cc): ``append_save_op``
+appends ``save_combine``, which writes the named vars into one ``.npz``
+keyed by their names every time the program runs; ``append_load_op``
+appends ``load_combine``, which reads such a file, and the Executor puts
+its values on its device. ``save_vars``/``load_vars`` (io.py:108, :242)
+write and read an explicit var list or the vars a predicate picks, in the
+same ``.npz`` layout. Files written by either package load in the other.
 """
 
 import os
@@ -20,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.static.executor import global_scope
 from paddle_tpu_torch.static.program import (
@@ -141,22 +144,38 @@ def load_inference_model(dirname, executor, model_filename=None,
     return program, doc["feed_names"], doc["fetch_names"]
 
 
-def _not_ported(what):
-    raise EnforceNotMet(
-        f"{what} is not ported yet (ROADMAP queue 1 item 10: the "
-        f"save/load ops and var-list checkpoints)")
+def _npz_path(path):
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _save_op_compute(ins, attrs):
+    """The ``save_combine`` host op: the named vars into the ``.npz`` at
+    ``file_path`` (the suffix added when missing)."""
+    path = _npz_path(attrs["file_path"])
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **{n: to_numpy(v)
+                      for n, v in zip(attrs["var_names"], ins["X"])})
+    return {}
+
+
+OP_REGISTRY["save_combine"] = _save_op_compute
 
 
 def append_save_op(program, vars_, file_path):
-    """Not ported yet: raises."""
-    _not_ported("append_save_op (the save_combine op)")
+    """Append a save_combine op: every run of the program persists the
+    named vars to ``file_path`` (the save_combine_op.cc single-file form).
+    Must come after the vars' last write (e.g. after minimize)."""
+    blk = program.global_block()
+    names = [v if isinstance(v, str) else v.name for v in vars_]
+    return blk.append_op("save_combine", inputs={"X": names}, outputs={},
+                         attrs={"file_path": file_path,
+                                "var_names": names, "_host": True})
 
 
 def _load_op_compute(ins, attrs):
     """The ``load_combine`` host op: the named arrays of the ``.npz`` at
     ``file_path`` (the suffix added when missing), as CPU tensors."""
-    path = attrs["file_path"]
-    with np.load(path if path.endswith(".npz") else path + ".npz") as blob:
+    with np.load(_npz_path(attrs["file_path"])) as blob:
         return {"Out": [torch.from_numpy(np.array(blob[n]))
                         for n in attrs["var_names"]]}
 
@@ -177,11 +196,45 @@ def append_load_op(program, vars_, file_path):
 
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None):
-    """Not ported yet: raises."""
-    _not_ported("save_vars")
+    """fluid.io.save_vars (io.py:108): save an explicit var list, or every
+    var of the program ``predicate`` picks (default: the persistables),
+    into one ``.npz`` keyed by the var names."""
+    main_program = main_program or default_main_program()
+    scope = global_scope()
+    if vars is not None:
+        vals = {}
+        for v in vars:
+            n = v if isinstance(v, str) else v.name
+            val = scope.find_var(n)
+            if val is None:
+                raise EnforceNotMet(f"save_vars: var '{n}' not in scope")
+            vals[n] = to_numpy(val)
+    else:
+        vals = _collect(main_program, scope,
+                        predicate or (lambda v: v.persistable))
+    _savez(dirname, filename, vals)
 
 
 def load_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None):
-    """Not ported yet: raises."""
-    _not_ported("load_vars")
+    """fluid.io.load_vars (io.py:242): restore an explicit var list, the
+    vars of the program ``predicate`` picks, or (neither given) every var
+    in the file, onto the executor's device (the card when there is no
+    executor)."""
+    device = (executor.device if executor is not None
+              else resolve_device(None))
+    path = os.path.join(dirname, filename or PARAMS_FILE)
+    scope = global_scope()
+    want = None
+    if vars is not None:
+        want = {v if isinstance(v, str) else v.name for v in vars}
+    elif predicate is not None:
+        blk = (main_program or default_main_program()).global_block()
+        want = {n for n, v in blk.vars.items() if predicate(v)}
+    with np.load(path, allow_pickle=False) as data:
+        missing = (want or set()) - set(data.files)
+        if missing:
+            raise EnforceNotMet(f"load_vars: not in file: {sorted(missing)}")
+        for name in data.files:
+            if want is None or name in want:
+                scope.set_var(name, torch.from_numpy(data[name]).to(device))

@@ -326,17 +326,20 @@ def program_fingerprint(program, feed_names=(), fetch_names=()):
 # ---------------------------------------------------------------------------
 # tree manifests (checkpoints): npz + structural treedef, zero pickle
 # ---------------------------------------------------------------------------
-def tree_manifest(tree):
+def tree_manifest(tree, to_array=to_numpy):
     """Tree of tensors/arrays -> (manifest dict, {key: ndarray}). The
-    manifest records the structure with array leaves replaced by npz keys;
-    non-array leaves (ints, floats, strings) are stored inline."""
+    manifest records the structure with array leaves replaced by npz keys
+    (``a0``, ``a1``, ... in walk order, as the JAX package numbers them);
+    non-array leaves (ints, floats, strings) are stored inline. Each array
+    leaf goes through ``to_array`` (default: a numpy array on the host; a
+    checkpoint passes the leaves through and snapshots them itself)."""
     arrays = {}
 
     def enc(x):
         if isinstance(x, (bool, int, float, str)) or x is None:
             return {"__leaf__": x}
         key = f"a{len(arrays)}"
-        arrays[key] = to_numpy(x)
+        arrays[key] = to_array(x)
         return {"__array__": key}
 
     def rec(node):

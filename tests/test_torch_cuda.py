@@ -1476,3 +1476,54 @@ def test_memory_monitor_on_card(cuda):
     assert limit == total and ok
     del x
     memory.reset()
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: the snapshot under in-place updates, restore onto the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_save", [True, False])
+def test_checkpoint_snapshot_holds_the_saved_step_on_the_card(
+        cuda, tmp_path, async_save):
+    """save(), then every leaf updated in place at once before the writer
+    has read it (a 256 MB leaf keeps the copy busy): the restore on the
+    card equals the values at save() bitwise."""
+    from paddle_tpu_torch import io_checkpoint as ic
+    from paddle_tpu_torch.core.tree import map_tensors
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"big": torch.randn(64 << 20, generator=gen, device=cuda),
+            "h": torch.randn(33, generator=gen, device=cuda).half(),
+            "ids": torch.randint(0, 9, (7,), generator=gen, device=cuda),
+            "mask": torch.rand(5, generator=gen, device=cuda) > 0.5,
+            "step": torch.tensor(3, device=cuda), "n": 2}
+    before = map_tensors(lambda t: t.clone(), tree)
+    m = ic.CheckpointManager(str(tmp_path), async_save=async_save)
+    m.save(1, tree)
+    for t in leaves(tree):
+        if torch.is_tensor(t):
+            t.logical_not_() if t.dtype == torch.bool else t.add_(1)
+    m.wait()
+    got, _ = m.restore(device=cuda)
+    for k, want in before.items():
+        if torch.is_tensor(want):
+            assert got[k].device.type == "cuda" and got[k].dtype == want.dtype
+            assert torch.equal(got[k], want), k
+        else:
+            assert got[k] == want
+    m.close()
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card_by_default(cuda, tmp_path):
+    from paddle_tpu_torch import io_checkpoint as ic
+    w = torch.arange(12.0).reshape(3, 4)
+    m = ic.CheckpointManager(str(tmp_path), async_save=False)
+    m.save(2, {"w": w, "opt": [torch.tensor(5, dtype=torch.int32)]})
+    tree, step = m.restore()
+    assert step == 2 and tree["w"].device.type == "cuda"
+    assert torch.equal(tree["w"].cpu(), w)
+    assert tree["opt"][0].device.type == "cuda" and int(tree["opt"][0]) == 5
+    out = ic.auto_checkpoint(str(tmp_path), lambda: None, 4,
+                             lambda s, st: st)
+    assert out["w"].device.type == "cuda"
+    m.close()

@@ -69,7 +69,11 @@ def test_port_sources_import_no_jax_and_no_paddle_tpu():
                 f"dataio{os.sep}sample_exchange.py",
                 f"distributed{os.sep}wire.py", "recordio_writer.py",
                 f"incubate{os.sep}data_generator.py",
-                f"models{os.sep}ctr_dnn.py"):
+                f"models{os.sep}ctr_dnn.py", "io_checkpoint.py",
+                f"core{os.sep}compile_cache.py",
+                f"dataio{os.sep}text_corpus.py", f"dataio{os.sep}common.py",
+                f"dataio{os.sep}parsers.py", f"dataio{os.sep}dataset.py",
+                f"dataio{os.sep}image.py"):
         assert any(p.endswith(f"{os.sep}{mod}") for p in srcs), mod
     for path in srcs:
         with open(path) as f:
@@ -170,6 +174,13 @@ def test_importing_the_port_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.dataio.sample_exchange\n"
         "import paddle_tpu_torch.recordio_writer, paddle_tpu_torch.incubate\n"
         "import paddle_tpu_torch.models.ctr_dnn\n"
+        "import paddle_tpu_torch.io_checkpoint\n"
+        "import paddle_tpu_torch.core.compile_cache\n"
+        "import paddle_tpu_torch.dataio.text_corpus\n"
+        "import paddle_tpu_torch.dataio.common\n"
+        "import paddle_tpu_torch.dataio.parsers\n"
+        "import paddle_tpu_torch.dataio.dataset\n"
+        "import paddle_tpu_torch.dataio.image\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -304,3 +315,36 @@ def test_default_device_raises_without_a_card(monkeypatch):
     i, = paddle_tpu_torch.ops.while_loop(lambda i: i < 3, lambda i: [i + 1],
                                          [torch.tensor(0)])
     assert i.device == torch.device("cpu")
+
+
+def test_checkpoint_entry_points_restore_onto_the_card_by_default(
+        monkeypatch, tmp_path):
+    """The checkpoint slice: ``CheckpointManager.restore`` and
+    ``auto_checkpoint`` put restored tensors on the card unless asked for
+    the CPU; ``load_vars`` puts its values on the executor's device (the
+    card without an executor)."""
+    from paddle_tpu_torch import io_checkpoint as ic
+    d = str(tmp_path / "ck")
+    m = ic.CheckpointManager(d, async_save=False)
+    m.save(0, {"w": torch.ones(3), "step": torch.tensor(1)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        m.restore()
+    tree, _ = m.restore(device="cpu")
+    assert leaves_device(tree) == {torch.device("cpu")}
+    m.close()
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        ic.auto_checkpoint(d, lambda: {}, 2, lambda s, st: st)
+    out = ic.auto_checkpoint(d, lambda: {}, 2, lambda s, st: st,
+                             device="cpu")
+    assert leaves_device(out) == {torch.device("cpu")}
+    import numpy as np
+    np.savez(str(tmp_path / "params.npz"), w=np.ones(2, np.float32))
+    with pytest.raises(paddle_tpu_torch.NoCudaDeviceError):
+        paddle_tpu_torch.io.load_vars(None, str(tmp_path))
+    scope = paddle_tpu_torch.Scope()
+    with paddle_tpu_torch.scope_guard(scope):
+        paddle_tpu_torch.io.load_vars(
+            paddle_tpu_torch.Executor(paddle_tpu_torch.CPUPlace()),
+            str(tmp_path))
+    assert scope.find_var("w").device == torch.device("cpu")

@@ -18,7 +18,6 @@ import paddle_tpu as jpt
 from paddle_tpu.static.program import static_mode_guard
 
 import paddle_tpu_torch as tpt
-from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.monitor import trace as ttrace
 
 
@@ -130,8 +129,13 @@ def test_cuda_profiler_warns_once_and_the_cache_counters_refuse():
         warnings.simplefilter("error")
         with tpt.profiler.cuda_profiler():
             pass
-    with pytest.raises(EnforceNotMet, match="item 10, step 3"):
-        tpt.profiler.compilation_cache_stats()
+    # the build cache's counters (core/compile_cache.py): read, and shown
+    # in the summary only while the cache is enabled
+    from paddle_tpu_torch.core import compile_cache
+    stats = tpt.profiler.compilation_cache_stats()
+    assert set(stats) == {"hits", "misses", "requests"}
+    assert stats == compile_cache.stats()
+    assert not compile_cache.is_enabled()
     assert "compilation cache" not in tpt.profiler.summary()
 
 

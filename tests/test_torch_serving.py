@@ -701,8 +701,9 @@ def test_server_traces_requests_when_armed(exports):
 def test_what_is_not_ported_raises(exports):
     """The hot swap, ``watch_dir`` and the HBM-pressure shed input are
     ported (tests/test_torch_swap.py holds them against the JAX package):
-    they no longer raise. What stays with ROADMAP queue 1 item 10 raises
-    naming it: the save/load ops. The memory monitor's segment functions
+    they no longer raise. The save/load ops and ``save_vars``/``load_vars``
+    are ported too (tests/test_torch_checkpoint.py holds their files
+    against the JAX package's). The memory monitor's segment functions
     are ported: nothing is measured on the CPU, so nothing is recorded."""
     from paddle_tpu_torch.monitor import memory as tmem
     d = exports["mlp"][0]["fp32"]
@@ -717,12 +718,12 @@ def test_what_is_not_ported_raises(exports):
         assert srv.swap(d, watchdog_ms=0)["outcome"] == "ok"
     main, _, out = _build_mlp(tpt, tpt.unique_name)
     exe = tpt.Executor(tpt.CPUPlace())
-    for fn in (lambda: tpt.io.save_vars(exe, d),
-               lambda: tpt.io.load_vars(exe, d),
-               lambda: tpt.static.io.append_save_op(main, [out], "f")):
-        with pytest.raises(EnforceNotMet, match="queue 1 item 10"):
-            fn()
-    # append_load_op is ported: the load_combine host op
+    # a var not in the scope is refused by name; the save_combine and
+    # load_combine host ops are appended
+    with pytest.raises(EnforceNotMet, match="not in scope"):
+        tpt.io.save_vars(exe, d, vars=["no_such_var"])
+    op = tpt.static.io.append_save_op(main, [out], "f")
+    assert op.type == "save_combine" and op.attrs["var_names"] == [out.name]
     op = tpt.static.io.append_load_op(main, [out], "f")
     assert op.type == "load_combine" and op.attrs["var_names"] == [out.name]
     before = (tmem.memory_segments(), tmem.peak_bytes_per_step())
